@@ -5,13 +5,27 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``pretraining_llm_tpu_torch/csrc``,
-holds each against its plain PyTorch version at the serving path's shapes,
-holds a 2-layer GPT-2-width model on the card against the same model on the
-CPU, serves 16 requests through full-width gpt2-124m with
-``ServingEngine.submit/run`` (counting both kernels' launches on that run),
-times every kernel beside its plain version, a PyTorch library call and its
-bound, and prints:
+It builds the port's CUDA kernels from ``pretraining_llm_tpu_torch/csrc``
+(one ``nvcc`` per source, all started together), holds each against its
+plain PyTorch version at the serving paths' shapes, holds a 2-layer
+GPT-2-width model on the card against the same model on the CPU (the
+monolithic admission with paged decode, and the chunked suffix lane with an
+exact and an int8-kv pool), then drives three serving paths through
+full-width gpt2-124m, counting each kernel's launches on each path:
+
+  path 1  16 requests, ``ServingEngine.submit/run``, monolithic admission
+          prefill (flash kernel) and paged decode (paged kernel);
+  path 2  16 requests sharing two 384-token system prompts, chunked
+          prefill (256-token chunks) and the prefix cache: chunks and
+          prefix-cache suffixes through the ragged kernel, decode through
+          the paged kernel;
+  path 3  the same requests arriving two per scheduler step under
+          ``quantize="int8-kv"`` with the prefix cache: every attention
+          (suffix prefill and decode) through the ragged kernel on int8
+          pools, with the auto KV-split count.
+
+It times every kernel beside its plain version, a PyTorch library call and
+its bound, and prints:
 
     <the card's name and power limit, as nvidia-smi reports them>
     ...one line per phase...
@@ -42,19 +56,21 @@ import torch
 # ulps of it. A fixed bf16 limit would leave no headroom on rows of large
 # outputs and be loose on long rows, whose outputs are small.
 FP32_TOL = 1e-4
+AMLA_FP32_TOL = 2e-4  # AMLA's integer-quantized base-2 running max (the JAX bar)
 BF16_ROW_RTOL = 2.0**-6
 MODEL_TOL = 1e-3  # fp32 logits, 2-layer model, card vs CPU
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
+DEVICE = "cuda"  # the card; the phases take their tensors from here
 
 
 def log(phase: str, **fields) -> None:
     print(f"{phase}: " + json.dumps(fields, sort_keys=True), flush=True)
 
 
-def randn(shape, dtype, gen, device="cuda"):
-    return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+def randn(shape, dtype, gen):
+    return torch.randn(shape, generator=gen).to(device=DEVICE, dtype=dtype)
 
 
 def time_ms(fn, *, n=25, warmup=5, flush=None) -> float:
@@ -80,13 +96,13 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
 
 
-def tol_use(out: torch.Tensor, ref: torch.Tensor) -> float:
+def tol_use(out: torch.Tensor, ref: torch.Tensor, fp32_tol: float = FP32_TOL) -> float:
     """The largest error over its limit (the check passes at <= 1): fp32
-    against FP32_TOL, bf16 per row of the last axis against BF16_ROW_RTOL
-    times the row's largest |ref|."""
+    against ``fp32_tol``, bf16 per row of the last axis against
+    BF16_ROW_RTOL times the row's largest |ref|."""
     err = (out.float() - ref.float()).abs()
     if out.dtype == torch.float32:
-        return err.max().item() / FP32_TOL
+        return err.max().item() / fp32_tol
     limit = BF16_ROW_RTOL * ref.float().abs().amax(dim=-1, keepdim=True)
     return (err / limit.clamp_min(1e-30)).max().item()
 
@@ -195,6 +211,92 @@ def check_paged() -> float:
     return worst
 
 
+def ragged_state(rng, q_lens, seqs, n_blocks, nb, bs):
+    """Fragmented tables holding each row's pages up to seq + q_len - 1,
+    with dead (zero) tails."""
+    perm = rng.permutation(np.arange(1, n_blocks)).tolist()
+    tables = np.zeros((len(seqs), nb), np.int32)
+    for i, (s, n) in enumerate(zip(seqs, q_lens)):
+        n_pages = (s + max(n, 1) - 1) // bs + 1
+        tables[i, :n_pages] = [perm.pop() for _ in range(n_pages)]
+    as_dev = lambda x: torch.tensor(x, dtype=torch.int32, device=DEVICE)  # noqa: E731
+    return torch.from_numpy(tables).to(DEVICE), as_dev(seqs), as_dev(q_lens)
+
+
+def int8_pools(shape, scale_dtype, gen):
+    """int8 K/V pools and scale pages, quantized from N(0, 1) values as the
+    model quantizes them."""
+    from pretraining_llm_tpu_torch.models.transformer import _kv_quantize
+
+    out = []
+    for _ in range(2):
+        codes, scale = _kv_quantize(randn(shape, torch.float32, gen))
+        out += [codes, scale.to(scale_dtype)]
+    return out  # k, k_scale, v, v_scale
+
+
+RAGGED_FORMS = ("ragged", "ragged_split", "ragged_int8", "ragged_int8_amla")
+
+
+def _ragged_form(split: bool, int8: bool, amla: bool) -> str:
+    if split:
+        return "ragged_split"
+    if int8:
+        return "ragged_int8_amla" if amla else "ragged_int8"
+    return "ragged"
+
+
+def check_ragged() -> dict:
+    """The ragged kernel against ``ragged_gather_attention`` on the card:
+    classic and AMLA x kv_splits {1, 2, 3 (uneven tail), auto} x pools
+    {bf16, fp32, int8 + fp32 scales (fp32 q), int8 + bf16 scales (bf16 q)},
+    with window 0/200, G = H and GQA, Dh 64 and 128 varying across the
+    cases. Rows mix q_len 0, 1, a few and T = 256 at offsets from 0 to the
+    table's capacity. Returns the worst max-abs error per kernel form."""
+    from pretraining_llm_tpu_torch.ops import cuda_ragged
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED + 5)
+    b, t, h, bs, nb, n_blocks = 6, 256, 12, 64, 16, 120
+    q_lens = [0, 1, 5, t, 1, 100]
+    seqs = [100, 0, 500, nb * bs - t, nb * bs - 1, 37]
+    worst = dict.fromkeys(RAGGED_FORMS, 0.0)
+    i = 0
+    for amla in (False, True):
+        for splits in (1, 2, 3, None):
+            for pool in ("bf16", "fp32", "int8-f32", "int8-bf16"):
+                j, k = divmod(i, 4)  # (form x splits) index, pool index
+                window = 200 if (j + k) % 2 else 0
+                g = 4 if (j // 2 + k) % 2 else 12
+                d = 128 if (j + k) % 3 == 0 else 64
+                i += 1
+                qdt = torch.float32 if pool in ("fp32", "int8-f32") else torch.bfloat16
+                q = randn((b, t, h, d), qdt, gen)
+                shape = (n_blocks, bs, g, d)
+                kw = {}
+                if pool.startswith("int8"):
+                    kp, ks, vp, vs = int8_pools(shape, torch.float32 if pool == "int8-f32" else torch.bfloat16, gen)
+                    kw = dict(k_scale=ks, v_scale=vs)
+                else:
+                    kp, vp = randn(shape, qdt, gen), randn(shape, qdt, gen)
+                tables, seq, ql = ragged_state(rng, q_lens, seqs, n_blocks, nb, bs)
+                out = cuda_ragged.ragged_paged_attention(
+                    q, kp, vp, tables, seq, ql, window=window, kv_splits=splits, amla=amla, **kw)
+                ref = cuda_ragged.ragged_gather_attention(q, kp, vp, tables, seq, ql, window=window, **kw)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                use = tol_use(out, ref, AMLA_FP32_TOL if amla else FP32_TOL)
+                n_splits = min(splits or cuda_ragged._auto_kv_splits(nb, b), nb)
+                log("check_ragged", amla=amla, kv_splits=splits, splits_run=n_splits, pool=pool,
+                    q_dtype=str(qdt), H=h, G=g, T=t, Dh=d, window=window, q_lens=q_lens,
+                    seq_lens=seqs, max_abs_err=err, tol_use=use)
+                if not (use <= 1.0):
+                    raise AssertionError(f"ragged kernel disagrees with its plain version: {use} x its limit")
+                form = _ragged_form(n_splits > 1, pool.startswith("int8"), amla)
+                worst[form] = max(worst[form], err)
+    return worst
+
+
 def check_model_card_vs_cpu() -> None:
     """gpt2-124m widths at 2 layers, fp32: batched prefill and 4 paged
     decode steps on the card (the kernels) and on the CPU (the plain
@@ -255,6 +357,93 @@ def check_model_card_vs_cpu() -> None:
         raise AssertionError("2-layer model on the card disagrees with the CPU run")
 
 
+def check_model_chunked_card_vs_cpu() -> None:
+    """gpt2-124m widths at 2 layers, fp32, through the suffix lane: prompts
+    stream in 64-token chunks (``prefill_suffix_logits_into_pool_batched``
+    with the token axis pinned, as the engine's chunks run), then 4 paged
+    decode steps, on the card and on the CPU from the same weights. Once
+    with an exact pool (one-pass ragged kernel for the chunks, paged kernel
+    for decode), once with an int8-kv pool (int8 weights, bf16 scale pages)
+    and AMLA with 2 KV splits (every attention through the split kernel)."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation import paged
+    from pretraining_llm_tpu_torch.models import quantize, transformer
+    from pretraining_llm_tpu_torch.ops import cuda_paged, cuda_ragged
+
+    base = dataclasses.replace(
+        get_preset("gpt2-124m").model, n_layers=2, compute_dtype="float32",
+        paged_attention_impl="kernel",
+    )
+    rng = np.random.default_rng(SEED + 6)
+    lens = [17, 100, 64, 250]
+    prompts = [rng.integers(0, base.vocab_size, size=n).tolist() for n in lens]
+    bs, nb, steps, chunk = 64, 6, 4, 64
+    tables = np.zeros((len(lens), nb), np.int32)
+    ids = iter(rng.permutation(np.arange(1, 40)).tolist())
+    for i, n in enumerate(lens):
+        n_pages = paged.required_blocks(n + steps, bs)
+        tables[i, :n_pages] = [next(ids) for _ in range(n_pages)]
+
+    def run(cfg, int8, device):
+        params = transformer.init_params(cfg, SEED, device=device)
+        if int8:
+            params = quantize.quantize_params_for_serving(params, cfg)
+        pools = transformer.make_paged_kv_pool(
+            cfg, 40, bs, device=device, scale_dtype=torch.bfloat16 if int8 else None)
+        last = [None] * len(lens)
+        pos = [0] * len(lens)
+        while any(p < n for p, n in zip(pos, lens)):
+            rows = [i for i, n in enumerate(lens) if pos[i] < n]
+            chunks = [prompts[i][pos[i]:pos[i] + chunk] for i in rows]
+            logits, pools = paged.prefill_suffix_logits_into_pool_batched(
+                params, cfg, pools, chunks, tables[rows], [pos[i] for i in rows], t_bucket=chunk)
+            for j, i in enumerate(rows):
+                pos[i] += len(chunks[j])
+                if pos[i] == lens[i]:
+                    last[i] = logits[j]
+        first = torch.stack(last)
+        all_logits, toks = [first], [first.argmax(-1)]
+        tab = torch.from_numpy(tables).to(device)
+        seq = torch.tensor(lens, dtype=torch.int32, device=device)
+        for _ in range(steps):
+            logits, pools = transformer.forward(
+                params, toks[-1][:, None], cfg, kv_cache=pools,
+                paged=transformer.PagedInfo(tab, seq),
+            )
+            all_logits.append(logits[:, 0])
+            toks.append(logits[:, 0].argmax(-1))
+            seq = seq + 1
+        return [x.cpu() for x in all_logits], [x.cpu() for x in toks]
+
+    ragged = cuda_ragged.ragged_paged_attention
+    for name, int8, kw in (
+        ("exact", False, dict(ragged_kv_splits=1)),
+        ("int8-kv+amla", True, dict(kv_cache_dtype="int8", ragged_kv_splits=2, ragged_amla=True)),
+    ):
+        cfg = dataclasses.replace(base, **kw)
+        before = (ragged.launches, ragged.split_launches, cuda_paged.paged_decode_attention.launches)
+        card_logits, card_toks = run(cfg, int8, DEVICE)
+        launched = {
+            "ragged": ragged.launches - before[0],
+            "ragged_split": ragged.split_launches - before[1],
+            "paged_decode": cuda_paged.paged_decode_attention.launches - before[2],
+        }
+        cpu_logits, cpu_toks = run(cfg, int8, "cpu")
+        err = max(max_err(a, b) for a, b in zip(card_logits, cpu_logits))
+        same = all(torch.equal(a, b) for a, b in zip(card_toks, cpu_toks))
+        finite = all(bool(torch.isfinite(x).all()) for x in card_logits)
+        want = ("ragged", "paged_decode") if not int8 else ("ragged_split",)
+        log("check_model_chunked", pool=name, layers=cfg.n_layers, prompt_lens=lens, chunk=chunk,
+            decode_steps=steps, max_abs_logit_err=err, tol=MODEL_TOL, greedy_tokens_equal=same,
+            finite=finite, kernel_launches=launched)
+        if not (err <= MODEL_TOL and same and finite and all(launched[k] > 0 for k in want)):
+            raise AssertionError(f"2-layer chunked model ({name}) on the card disagrees with the CPU run")
+    if ragged.launches <= 0 or ragged.split_launches <= 0:
+        raise AssertionError("the chunked card-vs-CPU check did not launch both ragged forms")
+
+
 def run_main_path():
     """Full-width gpt2-124m, bf16, paged_attention_impl="kernel", served
     through ServingEngine.submit/run. Returns each kernel's launch count
@@ -264,28 +453,24 @@ def run_main_path():
     from pretraining_llm_tpu_torch.config import get_preset
     from pretraining_llm_tpu_torch.generation.serving import ServingEngine
     from pretraining_llm_tpu_torch.models import bridge, transformer
-    from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
 
     cfg = dataclasses.replace(get_preset("gpt2-124m").model, paged_attention_impl="kernel")
-    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device="cuda"), cfg)
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(params, cfg, max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8)
+    eng = ServingEngine(params, cfg, max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8,
+                        device=DEVICE)
     rng = np.random.default_rng(SEED + 3)
     lens = rng.integers(17, 901, size=16).tolist()
     max_new = 64
     rids = [eng.submit(rng.integers(0, cfg.vocab_size, size=n).tolist(), max_new) for n in lens]
 
-    cuda_flash.flash_attention_fwd.launches = 0
-    cuda_paged.paged_decode_attention.launches = 0
+    reset_kernel_counts()
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {
-        "flash_fwd": cuda_flash.flash_attention_fwd.launches,
-        "paged_decode": cuda_paged.paged_decode_attention.launches,
-    }
+    launches = kernel_counts()
 
     ok = sorted(out) == sorted(rids) and all(
         len(out[r]) == max_new and all(0 <= tok < cfg.vocab_size for tok in out[r]) for r in rids
@@ -303,9 +488,130 @@ def run_main_path():
         prefill_shapes=eng.prefill_shapes, launches=launches, outputs_ok=ok)
     if not ok:
         raise AssertionError("main path: a request did not finish with max_new in-vocab tokens")
-    if min(launches.values()) <= 0:
+    if launches["flash_fwd"] <= 0 or launches["paged_decode"] <= 0:
         raise AssertionError(f"main path did not run through both kernels: {launches}")
     return launches, eng.prefill_shapes
+
+
+def shared_prefix_requests(vocab_size: int):
+    """16 requests: two 384-token system prompts (8 requests each,
+    alternating) followed by each request's own 17-400 tokens."""
+    rng = np.random.default_rng(SEED + 7)
+    prefixes = [rng.integers(0, vocab_size, size=384).tolist() for _ in range(2)]
+    own = rng.integers(17, 401, size=16).tolist()
+    return [prefixes[i % 2] + rng.integers(0, vocab_size, size=n).tolist() for i, n in enumerate(own)]
+
+
+def kernel_counts() -> dict:
+    from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged, cuda_ragged
+
+    return {
+        "flash_fwd": cuda_flash.flash_attention_fwd.launches,
+        "paged_decode": cuda_paged.paged_decode_attention.launches,
+        "ragged": cuda_ragged.ragged_paged_attention.launches,
+        "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
+    }
+
+
+def reset_kernel_counts() -> None:
+    from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged, cuda_ragged
+
+    cuda_flash.flash_attention_fwd.launches = 0
+    cuda_paged.paged_decode_attention.launches = 0
+    cuda_ragged.ragged_paged_attention.launches = 0
+    cuda_ragged.ragged_paged_attention.split_launches = 0
+
+
+def serving_path(name: str, *, arrivals_per_step: int = 0, **engine_kw):
+    """Full-width gpt2-124m, bf16, random weights from the seed, serving the
+    16 shared-prefix requests (64 new tokens each) through
+    ``ServingEngine``: all submitted up front and ``run()``, or
+    ``arrivals_per_step`` submitted before each ``step()``. Returns (each
+    kernel's launches on the run, the engine)."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+
+    cfg_kw = {k: engine_kw.pop(k) for k in ("ragged_kv_splits", "ragged_amla") if k in engine_kw}
+    cfg = dataclasses.replace(get_preset("gpt2-124m").model, paged_attention_impl="kernel", **cfg_kw)
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(params, cfg, max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8,
+                        device=DEVICE, **engine_kw)
+    prompts = shared_prefix_requests(cfg.vocab_size)
+    max_new = 64
+    rids = []
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    if arrivals_per_step:
+        pending = list(prompts)
+        while pending or eng.has_work():
+            for _ in range(arrivals_per_step):
+                if pending:
+                    rids.append(eng.submit(pending.pop(0), max_new))
+            eng.step()
+        out = eng.finished
+    else:
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    ok = sorted(out) == sorted(rids) and all(
+        len(out[r]) == max_new and all(0 <= tok < cfg.vocab_size for tok in out[r]) for r in rids
+    )
+    st = eng.stats
+    decode_tokens = st["tokens"] - st["admissions"]
+    pool = eng.pool_info()
+    bf16_pool = cfg.n_layers * eng.n_blocks * eng.block_size * cfg.kv_heads * cfg.head_dim * 2 * 2
+    log(name, model="gpt2-124m", layers=cfg.n_layers, dtype=cfg.compute_dtype,
+        engine=dict(engine_kw, ragged_kv_splits=cfg.ragged_kv_splits, ragged_amla=cfg.ragged_amla,
+                    arrivals_per_step=arrivals_per_step or "all at once"),
+        requests=len(prompts), prompt_lens=[len(p) for p in prompts], max_new_tokens=max_new,
+        wall_s=wall, prefill_tokens=st["prefill_tokens"], prefill_s=st["prefill_s"],
+        prefill_tokens_per_s=st["prefill_tokens"] / st["prefill_s"],
+        decode_tokens=decode_tokens, decode_s=st["decode_s"],
+        decode_tokens_per_s=decode_tokens / st["decode_s"], decode_steps=st["steps"],
+        admissions=st["admissions"], preemptions=st["preemptions"],
+        prefill_chunks=st["prefill_chunks"],
+        prefix_cache_hits=st.get("prefix_cache_hits", 0),
+        prefix_cache_hit_tokens=st.get("prefix_cache_hit_tokens", 0),
+        pool_bytes=pool["pool_bytes"], bf16_pool_bytes_same_blocks=bf16_pool,
+        pool_capacity_ratio=bf16_pool / pool["pool_bytes"],
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+        suffix_shapes=[(len(o), t) for o, _, t in eng.suffix_shapes],
+        launches=launches, outputs_ok=ok)
+    if not ok:
+        raise AssertionError(f"{name}: a request did not finish with {max_new} in-vocab tokens")
+    return launches, eng
+
+
+def run_path2():
+    """Chunked prefill (256-token chunks) and the prefix cache, exact bf16
+    pools, one-pass ragged kernel."""
+    launches, eng = serving_path(
+        "path2", prefill_chunk_tokens=256, prefix_cache=True, ragged_kv_splits=1)
+    if eng.stats["prefix_cache_hit_tokens"] <= 0:
+        raise AssertionError("path2: no prompt token came from the prefix cache")
+    if launches["ragged"] <= 0 or launches["paged_decode"] <= 0:
+        raise AssertionError(f"path2 did not run through the ragged and paged kernels: {launches}")
+    return launches, eng
+
+
+def run_path3():
+    """int8-kv serving with the prefix cache, no chunking, auto KV splits,
+    two arrivals per scheduler step: every attention through the ragged
+    kernel, never the paged kernel."""
+    launches, eng = serving_path(
+        "path3", arrivals_per_step=2, quantize="int8-kv", prefix_cache=True, ragged_kv_splits=0)
+    if launches["ragged"] <= 0 or launches["ragged_split"] <= 0:
+        raise AssertionError(f"path3 did not run both ragged forms: {launches}")
+    if launches["paged_decode"] != 0:
+        raise AssertionError(f"path3 launched the paged kernel on int8 pools: {launches}")
+    return launches, eng
 
 
 def time_kernels(launches, prefill_shapes, errs):
@@ -374,6 +680,107 @@ def time_kernels(launches, prefill_shapes, errs):
     return kernels
 
 
+def time_ragged(paths, eng2, errs):
+    """The ragged kernel's four entries: exact bf16 at path 2's largest
+    chunk launch (one pass, and at the auto split count), and int8 pools
+    with bf16 scales at a path 3 decode step (8 rows, q_len 1), classic and
+    AMLA. ``launches`` counts the entry's kernel (one-pass or split) on the
+    serving paths; AMLA is a form of the one-pass kernel that no serving
+    path switches on (``ragged_amla`` is off by default, as in the JAX
+    package), so its entry reports the one-pass launches of path 3."""
+    from pretraining_llm_tpu_torch.ops import cuda_ragged
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l2_buf = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+
+    def flush():
+        l2_buf.zero_()
+
+    gen = torch.Generator().manual_seed(SEED + 8)
+    rng = np.random.default_rng(SEED + 8)
+    h, g, d, bs, nb, n_blocks = 12, 12, 64, 64, eng2.max_blocks, 256
+    dt = torch.bfloat16
+    f = cuda_ragged.ragged_paged_attention
+    kernels = []
+
+    def library_ms(q, kp, vp, tables, seq, ql, t, ks=None, vs=None):
+        """SDPA over the pre-gathered (and dequantized) K/V with a boolean
+        mask; the gather and the dequant are not timed."""
+        b = q.shape[0]
+        kv_len = nb * bs
+        rows = tables.long()
+
+        def gathered(pool, scale):
+            x = pool[rows].reshape(b, kv_len, g, d)
+            if scale is not None:
+                x = x.float() * (scale[rows].reshape(b, kv_len, g, 1).float() * (1.0 / 127.0))
+            return x.to(dt).permute(0, 2, 1, 3)
+
+        kg, vg = gathered(kp, ks), gathered(vp, vs)
+        lin = torch.arange(kv_len, device=DEVICE)
+        pos = seq.long()[:, None] + torch.arange(t, device=DEVICE)[None, :]
+        mask = (lin[None, None, :] <= pos[:, :, None]) & (
+            torch.arange(t, device=DEVICE)[None, :, None] < ql.long()[:, None, None])
+        qh = q.permute(0, 2, 1, 3)
+        return time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask[:, None]), flush=flush)
+
+    def entry(name, shape, q, kp, vp, tables, seq, ql, t, launches, splits, amla=False, ks=None,
+              vs=None, **extra):
+        kw = dict(k_scale=ks, v_scale=vs) if ks is not None else {}
+        k_ms = time_ms(lambda: f(q, kp, vp, tables, seq, ql, kv_splits=splits, amla=amla, **kw), flush=flush)
+        p_ms = time_ms(lambda: cuda_ragged.ragged_gather_attention(q, kp, vp, tables, seq, ql, **kw),
+                       flush=flush)
+        l_ms = library_ms(q, kp, vp, tables, seq, ql, t, ks, vs)
+        seq_h, ql_h = seq.tolist(), ql.tolist()
+        live_pages = sum((s + n - 1) // bs + 1 for s, n in zip(seq_h, ql_h) if n > 0)
+        pairs = sum(s + i + 1 for s, n in zip(seq_h, ql_h) for i in range(n))
+        elem = kp.element_size()
+        scale_bytes = ks.element_size() if ks is not None else 0
+        flops = 4.0 * h * pairs * d
+        nbytes = (live_pages * bs * g * (d * elem + scale_bytes) * 2 + 2 * q.numel() * q.element_size()
+                  + tables.numel() * 4 + 2 * seq.numel() * 4)
+        kernels.append(dict(
+            name=name, route="cuda", source="pretraining_llm_tpu_torch/csrc/ragged_paged.cu",
+            replaces=("pretraining_llm_tpu/ops/pallas_ragged.py:287" if name == "ragged_split"
+                      else "pretraining_llm_tpu/ops/pallas_ragged.py:228"),
+            shape=shape, kv_splits=splits, launches=launches, flops=flops, bytes=nbytes,
+            **_bound(flops, nbytes), max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+            library_note="SDPA over the pre-gathered (dequantized) KV with a boolean mask "
+                         "(gather and dequant not timed)", **extra,
+        ))
+
+    # Path 2's largest chunk launch: its rows' offsets and chunk lengths, T
+    # pinned to the chunk size, fresh pages per row.
+    offsets, lens, t = max(eng2.suffix_shapes, key=lambda s: (sum(s[1]), len(s[1])))
+    b = len(lens)
+    tables, seq, ql = ragged_state(rng, lens, offsets, n_blocks, nb, bs)
+    q = randn((b, t, h, d), dt, gen)
+    kp, vp = randn((n_blocks, bs, g, d), dt, gen), randn((n_blocks, bs, g, d), dt, gen)
+    shape = f"B={b} T={t} H={h} G={g} Dh={d} bs={bs} nb={nb} bf16 seq_lens={offsets} q_lens={lens}"
+    p1, p2, p3 = paths
+    entry("ragged", shape, q, kp, vp, tables, seq, ql, t, p2["ragged"], 1,
+          launches_by_path={"path2": p2["ragged"], "path3": p3["ragged"]})
+    auto = cuda_ragged._auto_kv_splits(nb, b)
+    entry("ragged_split", shape, q, kp, vp, tables, seq, ql, t, p2["ragged_split"] + p3["ragged_split"],
+          auto, launches_by_path={"path2": p2["ragged_split"], "path3": p3["ragged_split"]})
+
+    # A path 3 decode step: 8 rows, q_len 1, lengths drawn like path 3's
+    # (prompts 401-784 plus up to 63 generated), int8 pools, bf16 scales.
+    b, t = 8, 1
+    seqs = rng.integers(401, 848, size=b).tolist()
+    tables, seq, ql = ragged_state(rng, [1] * b, seqs, n_blocks, nb, bs)
+    q = randn((b, t, h, d), dt, gen)
+    kp, ks, vp, vs = int8_pools((n_blocks, bs, g, d), torch.bfloat16, gen)
+    shape = f"B={b} T=1 H={h} G={g} Dh={d} bs={bs} nb={nb} int8 pools, bf16 scales, bf16 q seq_lens={seqs}"
+    entry("ragged_int8", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, ks=ks, vs=vs)
+    entry("ragged_int8_amla", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, amla=True,
+          ks=ks, vs=vs, launches_note="one-pass launches on path 3, which runs the classic form")
+    for kern in kernels:
+        kern["kernel_ms"] = kern["ms"]
+        kern["max_err"] = kern["max_abs_err"]
+    return kernels
+
+
 def _bound(flops: float, nbytes: float) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -397,10 +804,14 @@ def main() -> int:
 
     phase_card()
     phase_build()
-    errs = {"flash_fwd": check_flash(), "paged_decode": check_paged()}
+    errs = {"flash_fwd": check_flash(), "paged_decode": check_paged(), **check_ragged()}
     check_model_card_vs_cpu()
-    launches, prefill_shapes = run_main_path()
-    kernels = time_kernels(launches, prefill_shapes, errs)
+    check_model_chunked_card_vs_cpu()
+    launches1, prefill_shapes = run_main_path()
+    launches2, eng2 = run_path2()
+    launches3, _ = run_path3()
+    kernels = time_kernels(launches1, prefill_shapes, errs)
+    kernels += time_ragged((launches1, launches2, launches3), eng2, errs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

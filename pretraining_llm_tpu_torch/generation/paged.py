@@ -1,16 +1,19 @@
 """Paged KV cache for continuous-batching serving: the block allocator,
-batched admission prefill, and paged decode steps.
+batched admission prefill, suffix (chunk) prefill, and paged decode steps.
 
 Counterpart of ``pretraining_llm_tpu/generation/paged.py``. K/V live in a
 shared pool of fixed-size blocks per layer; each live request owns an
 ordered list of block ids (a row of ``block_tables``) and a logical length
 (``seq_lens``). Admission prefills the padded prompts into a dense cache,
 scatters each row's pages into the pools and samples the first tokens;
+suffix prefill runs a multi-token paged forward over each row's uncached
+suffix or next prompt chunk, on top of the pages already in its table;
 decode steps write one token per row and attend over the row's pages.
 
 PyTorch has no compile cache to protect, so prompts pad only to the batch's
-longest page count (the JAX package buckets rows and pages to powers of
-two); the logits of every real token are the same either way.
+longest page count and suffixes to the longest suffix (the JAX package
+buckets rows and lengths to powers of two); the logits of every real token
+are the same either way.
 """
 
 from __future__ import annotations
@@ -134,11 +137,11 @@ def prefill_logits_into_pool_batched(
     rows = torch.tensor([i for i, np_i in enumerate(pages) for _ in range(np_i)], device=device)
     cols = torch.tensor([j for np_i in pages for j in range(np_i)], device=device)
     ids = torch.tensor([b for row_ids in rows_block_ids for b in row_ids], device=device)
-    g, dh = cfg.kv_heads, cfg.head_dim
     for layer, pool in enumerate(pools["layers"]):
-        for name, pool_name in (("k", "k_pool"), ("v", "v_pool")):
-            staged = cache[name][layer].reshape(n, n_pages, bs, g, dh)
-            pool[pool_name][ids] = staged[rows, cols].to(pool[pool_name].dtype)
+        for name, buf in cache.items():  # k, v (+ k_scale, v_scale)
+            staged = buf[layer].reshape((n, n_pages, bs) + tuple(buf.shape[-2:]))
+            target = pool[name + "_pool"]
+            target[ids] = staged[rows, cols].to(target.dtype)
     return last, pools
 
 
@@ -162,6 +165,88 @@ def prefill_into_pool_batched(
     toks = sample_logits(
         last, generator, temperature=temperature, top_k=top_k, top_p=top_p,
         min_p=min_p,
+    )
+    return toks, pools
+
+
+def prefill_suffix_logits_into_pool_batched(
+    params: transformer.Params,
+    cfg: ModelConfig,
+    pools: transformer.KVCache,
+    suffixes: Sequence[Sequence[int]],
+    tables_rows: np.ndarray,  # (N, max_blocks) int: the rows' block tables
+    cached_lens: Sequence[int],
+    *,
+    t_bucket: Optional[int] = None,
+) -> Tuple[torch.Tensor, transformer.KVCache]:
+    """Prefill N rows' suffixes in ONE multi-token paged forward. Token j of
+    row i writes its K/V at slot cached_lens[i] + j through the row's table
+    and attends over every page below it (the shared prefix pages read
+    only). ``t_bucket`` pins the token axis (chunked prefill: every chunk
+    group runs at the chunk size); else rows pad to the longest suffix.
+    The forward carries ``q_lens`` = the suffix lengths, so the kernel lane
+    takes the ragged kernel. Pad tokens write slots above each row's
+    frontier (overwritten before any mask exposes them) or, past the table,
+    the scratch block. Returns (each row's last-real-token logits (N, V)
+    fp32, pools updated in place)."""
+    n = len(suffixes)
+    if n == 0:
+        raise ValueError("no suffixes")
+    if len(cached_lens) != n:
+        raise ValueError(f"{n} suffixes but {len(cached_lens)} cached_lens")
+    for i, suffix in enumerate(suffixes):
+        if len(suffix) == 0:
+            raise ValueError(f"suffix {i} is empty (hit must be capped)")
+    tables_np = np.asarray(tables_rows, np.int32)
+    if tables_np.ndim != 2 or tables_np.shape[0] != n:
+        raise ValueError(f"tables_rows must be (n={n}, max_blocks); got {tables_np.shape}")
+    max_t = max(len(suffix) for suffix in suffixes)
+    if t_bucket is None:
+        t_bucket = max_t
+    elif t_bucket < max_t:
+        raise ValueError(f"t_bucket={t_bucket} cannot hold a {max_t}-token suffix")
+    suf = np.zeros((n, t_bucket), np.int64)
+    lens = np.zeros((n,), np.int32)
+    for i, suffix in enumerate(suffixes):
+        suf[i, : len(suffix)] = suffix
+        lens[i] = len(suffix)
+    device = pools["layers"][0]["k_pool"].device
+    lens_dev = torch.from_numpy(lens).to(device)
+    info = PagedInfo(
+        torch.from_numpy(tables_np).to(device),
+        torch.tensor(np.asarray(cached_lens, np.int32), device=device),
+        q_lens=lens_dev,
+    )
+    logits, pools = transformer.forward(
+        params, torch.from_numpy(suf).to(device), cfg, kv_cache=pools, paged=info
+    )
+    last = logits[torch.arange(n, device=device), lens_dev.long() - 1]
+    return last, pools
+
+
+def prefill_suffix_into_pool_batched(
+    params: transformer.Params,
+    cfg: ModelConfig,
+    pools: transformer.KVCache,
+    suffixes: Sequence[Sequence[int]],
+    tables_rows: np.ndarray,
+    cached_lens: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    *,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    min_p: Optional[float] = None,
+    t_bucket: Optional[int] = None,
+) -> Tuple[torch.Tensor, transformer.KVCache]:
+    """``prefill_suffix_logits_into_pool_batched``, then sample each row's
+    first token from its last suffix position. Returns (tokens (N,) int32 on
+    the pools' device, pools)."""
+    last, pools = prefill_suffix_logits_into_pool_batched(
+        params, cfg, pools, suffixes, tables_rows, cached_lens, t_bucket=t_bucket
+    )
+    toks = sample_logits(
+        last, generator, temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p
     )
     return toks, pools
 

@@ -3,7 +3,10 @@
 ``params_from_numpy`` takes the JAX package's parameter tree with numpy
 leaves (``jax.tree.map(np.asarray, params)``) and returns the port's tree
 of tensors: the same names and layouts, checked leaf for leaf against
-``transformer.param_shapes``. ``params_to_numpy`` goes back.
+``transformer.param_shapes``. A tree quantized for serving
+(``quantize_params_for_serving`` in either package) carries int8 leaves and
+their ``{name}_scale`` fp32 siblings, checked the same way.
+``params_to_numpy`` goes back.
 ``cast_params_for_inference`` is the counterpart of
 ``pretraining_llm_tpu/generation/generate.py::cast_params_for_inference``.
 """
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from pretraining_llm_tpu_torch.config import ModelConfig
+from pretraining_llm_tpu_torch.models import quantize
 from pretraining_llm_tpu_torch.models.transformer import Params, param_shapes, torch_dtype
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -51,7 +55,12 @@ def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, device: DeviceL
             out[name] = _to_tensor(sub[name], dev)
         return out
 
-    return convert(tree, param_shapes(cfg), ())
+    shapes = param_shapes(cfg)
+    if quantize.is_quantized(tree):
+        for sub in (shapes["blocks"]["attn"], shapes["blocks"]["mlp"]):
+            for name in quantize.REDUCE_AXES.keys() & sub.keys():
+                sub[name + "_scale"] = quantize.scale_shape(name, sub[name])
+    return convert(tree, shapes, ())
 
 
 def params_to_numpy(params: Mapping[str, Any]) -> dict:
@@ -66,8 +75,9 @@ def params_to_numpy(params: Mapping[str, Any]) -> dict:
 def cast_params_for_inference(params: Params, cfg: ModelConfig) -> Params:
     """One-time cast of the matmul weights to ``compute_dtype``. The leaves
     the forward consumes in fp32 keep their dtype: norm scales and biases
-    (names starting with ``ln`` or containing ``norm``) and the lm_head
-    bias. Results are identical: the forward casts at every use site."""
+    (names starting with ``ln`` or containing ``norm``), the lm_head bias,
+    and the ``_scale`` leaves of int8 weights. Results are identical: the
+    forward casts at every use site."""
     cdt = torch_dtype(cfg.compute_dtype)
 
     def cast(tree: Params, path: Tuple[str, ...]) -> Params:
@@ -80,6 +90,7 @@ def cast_params_for_inference(params: Params, cfg: ModelConfig) -> Params:
                 not leaf.is_floating_point()
                 or any(n.startswith("ln") or "norm" in n for n in where)
                 or where[-2:] == ("lm_head", "bias")
+                or name.endswith("_scale")
             ):
                 out[name] = leaf
             else:

@@ -8,12 +8,18 @@ Dh)) — so ``models.bridge`` maps one tree onto the other leaf for leaf.
 ``forward`` covers three cases:
   - no cache (T tokens of self-attention);
   - a dense cache at index 0: the admission prefill, which writes K/V
-    into the cache and attends causally over the block's own q/k/v
-    (``attention_impl="flash"`` goes to the flash kernel);
-  - paged decode: each row writes its T query tokens' K/V into its pool
-    pages at slots seq..seq+T-1, then attends over its pages —
-    ``paged_attention_impl="kernel"`` through the paged kernel, "gather"
-    through the plain gather path.
+    into the cache (int8 codes + fp32 scales under
+    ``kv_cache_dtype="int8"``) and attends causally over the block's own
+    q/k/v (``attention_impl="flash"`` goes to the flash kernel);
+  - paged: each row writes its T query tokens' K/V into its pool pages at
+    slots seq..seq+T-1 (quantized for int8 pools), then attends over its
+    pages. ``paged_attention_impl="kernel"`` routes as the JAX package
+    does: int8 pools and ragged calls (``PagedInfo.q_lens``, T > 1: chunked
+    prefill and prefix-cache suffixes) through the ragged kernel, the rest
+    through the paged kernel; "gather" through the plain gather path.
+
+int8 serving weights (``models/quantize.py``) are dequantized at each use
+site (``_weight``).
 
 Matmuls run in ``compute_dtype`` and round their result to it, as the JAX
 einsums with fp32 accumulation then ``astype(cdt)`` do; norms run in fp32;
@@ -31,10 +37,8 @@ import torch
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.models import layers
 from pretraining_llm_tpu_torch.ops.attention import naive_attention
-from pretraining_llm_tpu_torch.ops.cuda_paged import (
-    paged_decode_attention,
-    paged_decode_attention_reference,
-)
+from pretraining_llm_tpu_torch.ops.cuda_paged import paged_decode_attention, paged_kv_mask
+from pretraining_llm_tpu_torch.ops.cuda_ragged import ragged_paged_attention
 from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -60,7 +64,11 @@ class PagedInfo(NamedTuple):
 
     block_tables: torch.Tensor  # (B, max_blocks) int32 — pool block ids per row
     seq_lens: torch.Tensor  # (B,) int32 — tokens already in the cache per row
-    q_lens: Optional[torch.Tensor] = None  # ragged multi-token calls: not ported
+    # (B,) int32 true query counts of a ragged multi-token call (chunked
+    # prefill, prefix-cache suffixes); queries past a row's count are
+    # padding. Only the kernel lane reads it: real queries' outputs are
+    # the same with or without it.
+    q_lens: Optional[torch.Tensor] = None
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -71,8 +79,6 @@ def check_ported(cfg: ModelConfig) -> None:
         unported.append("n_experts (mixture of experts)")
     if cfg.attention_impl in ("ring", "ulysses"):
         unported.append(f"attention_impl={cfg.attention_impl!r}")
-    if cfg.kv_cache_dtype != "compute":
-        unported.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
     if cfg.doc_mask_token >= 0:
         unported.append("doc_mask_token (document masking)")
     if cfg.pipeline_stages > 1:
@@ -190,45 +196,90 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
+def _kv_fields(cfg: ModelConfig, shape: Tuple[int, ...], names: Tuple[str, ...],
+               dtype: Any, scale_dtype: Any, what: str) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """{name: (shape, dtype)} of a cache's K/V fields, plus per-(slot, head)
+    scale fields when ``kv_cache_dtype='int8'``."""
+    k, v, ks, vs = names
+    if cfg.kv_cache_dtype == "int8":
+        if dtype is not None:
+            raise ValueError(f"{what}(dtype={dtype!r}) conflicts with kv_cache_dtype='int8'")
+        sdt = torch_dtype(scale_dtype) if isinstance(scale_dtype, str) else (scale_dtype or torch.float32)
+        if sdt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"int8 scale_dtype must be float32 or bfloat16, got {sdt}")
+        sshape = shape[:-1] + (1,)
+        return {k: (shape, torch.int8), v: (shape, torch.int8), ks: (sshape, sdt), vs: (sshape, sdt)}
+    if scale_dtype is not None:
+        raise ValueError(
+            f"{what}(scale_dtype={scale_dtype!r}) needs kv_cache_dtype='int8' "
+            "(exact pools carry no scale pages)"
+        )
+    dt = dtype or torch_dtype(cfg.compute_dtype)
+    return {k: (shape, dt), v: (shape, dt)}
+
+
 def make_kv_cache(
     cfg: ModelConfig, batch_size: int, max_length: int, dtype: Any = None, *,
     device: DeviceLike = None,
 ) -> KVCache:
-    """Dense prefill cache {'k', 'v'}: (L, B, Tmax, kv_heads, Dh)."""
+    """Dense prefill cache {'k', 'v'}: (L, B, Tmax, kv_heads, Dh), plus
+    {'k_scale', 'v_scale'} (L, B, Tmax, kv_heads, 1) fp32 when
+    ``kv_cache_dtype='int8'`` (then k/v hold int8 codes)."""
     if max_length > cfg.context_length:
         raise ValueError(
             f"kv cache max_length={max_length} exceeds context_length={cfg.context_length}"
         )
-    dt = dtype or torch_dtype(cfg.compute_dtype)
     shape = (cfg.n_layers, batch_size, max_length, cfg.kv_heads, cfg.head_dim)
+    fields = _kv_fields(cfg, shape, ("k", "v", "k_scale", "v_scale"), dtype, None, "make_kv_cache")
     dev = resolve_device(device)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    return {name: torch.zeros(s, dtype=dt, device=dev) for name, (s, dt) in fields.items()}
 
 
 def make_paged_kv_pool(
     cfg: ModelConfig, n_blocks: int, block_size: int, dtype: Any = None, *,
-    device: DeviceLike = None,
+    scale_dtype: Any = None, device: DeviceLike = None,
 ) -> KVCache:
     """Block pools for paged serving: {'layers': [{'k_pool', 'v_pool'}, ...]}
     with one (n_blocks, block_size, kv_heads, Dh) pool per layer, updated in
     place. Block 0 is reserved as the scratch target of idle rows and
-    overshoot writes; allocators hand out ids from 1."""
+    overshoot writes; allocators hand out ids from 1.
+
+    With ``kv_cache_dtype='int8'`` the pools hold int8 codes and each layer
+    also has {'k_scale_pool', 'v_scale_pool'} (n_blocks, block_size,
+    kv_heads, 1) of ``scale_dtype``: fp32 by default, bf16 for
+    ``quantize='int8-kv'`` serving, where a slot takes Dh + 2 bytes per
+    head against 2 * Dh for bf16 (about 1.94x the blocks at Dh 64)."""
     if n_blocks < 2:
         raise ValueError("need n_blocks >= 2 (block 0 is the idle scratch)")
     if block_size % 8:
         raise ValueError(f"block_size must be a multiple of 8, got {block_size}")
     check_ported(cfg)
-    dt = dtype or torch_dtype(cfg.compute_dtype)
-    dev = resolve_device(device)
     shape = (n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    fields = _kv_fields(
+        cfg, shape, ("k_pool", "v_pool", "k_scale_pool", "v_scale_pool"), dtype, scale_dtype,
+        "make_paged_kv_pool",
+    )
+    dev = resolve_device(device)
     return {
         "layers": [
-            {"k_pool": torch.zeros(shape, dtype=dt, device=dev),
-             "v_pool": torch.zeros(shape, dtype=dt, device=dev)}
+            {name: torch.zeros(s, dtype=dt, device=dev) for name, (s, dt) in fields.items()}
             for _ in range(cfg.n_layers)
         ]
     }
+
+
+def _kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (token, head) over the channel dim: (codes, fp32
+    amax scale)."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    return torch.round(x32 / scale * 127.0).to(torch.int8), scale
+
+
+def _kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """codes * (f32(scale) / 127) in fp32, then ``dtype``. The scale is
+    upcast first, so bf16 scale pages multiply in fp32 too."""
+    return (q.float() * (scale.float() * (1.0 / 127.0))).to(dtype)
 
 
 def _is_pool_cache(kv_cache: Optional[KVCache]) -> bool:
@@ -240,10 +291,20 @@ def _is_pool_cache(kv_cache: Optional[KVCache]) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _weight(sub: Params, name: str, cdt: torch.dtype) -> torch.Tensor:
+    """A matmul weight in compute dtype: the single dequant point of int8
+    serving weights (an int8 leaf and its ``{name}_scale`` fp32 sibling),
+    one fp32 multiply, then the same cast the float path takes."""
+    w = sub[name]
+    if w.dtype == torch.int8:
+        return (w.float() * sub[name + "_scale"]).to(cdt)
+    return w.to(cdt)
+
+
 def _mm(x: torch.Tensor, w: torch.Tensor, cdt: torch.dtype) -> torch.Tensor:
     """x (..., K) @ w (K, ...) in compute dtype; w's trailing dims flatten."""
     k = w.shape[0]
-    out = x.to(cdt) @ w.to(cdt).reshape(k, -1)
+    out = x.to(cdt) @ w.reshape(k, -1)
     return out.reshape(x.shape[:-1] + w.shape[1:])
 
 
@@ -267,13 +328,13 @@ def _attention_block(
     h = layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps)
     attn = blk["attn"]
     if "wqkv" in attn:
-        qkv = _mm(h, attn["wqkv"], cdt)  # (B, T, 3, H, Dh)
+        qkv = _mm(h, _weight(attn, "wqkv", cdt), cdt)  # (B, T, 3, H, Dh)
         if "bqkv" in attn:
             qkv = qkv + attn["bqkv"].to(cdt)
         q, k, v = qkv.unbind(2)
     else:
-        q = _mm(h, attn["wq"], cdt)  # (B, T, H, Dh)
-        kvp = _mm(h, attn["wkv"], cdt)  # (B, T, 2, G, Dh)
+        q = _mm(h, _weight(attn, "wq", cdt), cdt)  # (B, T, H, Dh)
+        kvp = _mm(h, _weight(attn, "wkv", cdt), cdt)  # (B, T, 2, G, Dh)
         if "bq" in attn:
             q = q + attn["bq"].to(cdt)
             kvp = kvp + attn["bkv"].to(cdt)
@@ -292,18 +353,29 @@ def _attention_block(
     if kv is not None and "k_pool" in kv:
         out = _paged_attention(q, k, v, kv, paged, cfg, cdt)
     elif kv is not None:
-        # Admission prefill at cache index 0: write the block's K/V, then
-        # attend causally over this block's own q/k/v — exactly attention
-        # over the written cache prefix [0, T).
-        kv["k"][:, :t] = k
-        kv["v"][:, :t] = v
+        # Admission prefill at cache index 0: write the block's K/V (int8
+        # codes + scales for an int8 cache), then attend causally over this
+        # block's own q/k/v: exactly attention over the written cache prefix
+        # [0, T), and the unquantized local k/v as in the JAX package.
+        quantized = "k_scale" in kv
+        if quantized:
+            for name, val in (("k", k), ("v", v)):
+                kv[name][:, :t], kv[name + "_scale"][:, :t] = _kv_quantize(val)
+        else:
+            kv["k"][:, :t] = k
+            kv["v"][:, :t] = v
         if t > 1 and cfg.attention_impl == "flash":
             out = flash_attention(q, k, v, window=window)
         else:
             tmax = kv["k"].shape[1]
             kv_pos = torch.arange(tmax, device=x.device)
+            if quantized:
+                ck = _kv_dequantize(kv["k"], kv["k_scale"], cdt)
+                cv = _kv_dequantize(kv["v"], kv["v_scale"], cdt)
+            else:
+                ck, cv = kv["k"].to(cdt), kv["v"].to(cdt)
             out = naive_attention(
-                q, kv["k"].to(cdt), kv["v"].to(cdt), q_positions=positions,
+                q, ck, cv, q_positions=positions,
                 kv_positions=kv_pos, kv_mask=(kv_pos < t)[None, :].expand(b, tmax),
                 window=window,
             )
@@ -313,7 +385,7 @@ def _attention_block(
         out = naive_attention(q, k, v, causal=True, window=window)
 
     if cfg.use_output_proj:
-        out = _mm(out.reshape(b, t, -1), attn["wo"].reshape(-1, cfg.d_model), cdt)
+        out = _mm(out.reshape(b, t, -1), _weight(attn, "wo", cdt).reshape(-1, cfg.d_model), cdt)
         out = out + attn["bo"].to(cdt)
     else:
         out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
@@ -325,15 +397,19 @@ def _paged_attention(
     paged: Optional[PagedInfo], cfg: ModelConfig, cdt: torch.dtype,
 ) -> torch.Tensor:
     """Write token i of each row at its logical slot seq + i through the
-    row's block table, then attend over the row's pages."""
+    row's block table (int8 pools: quantized codes and scales), then attend
+    over the row's pages, routed as ``pretraining_llm_tpu/models/
+    transformer.py`` routes it:
+      - "kernel", int8 pools: the ragged kernel for every query shape
+        (q_lens = T unless a ragged call passes its own);
+      - "kernel", exact pools, T > 1 with ``q_lens``: the ragged kernel;
+      - "kernel", otherwise: the paged kernel;
+      - "gather": gather the pages (dequantized after the gather), masked
+        attention; ``q_lens`` is ignored, pad queries are computed and
+        discarded."""
     if paged is None:
         raise ValueError("a paged kv pool requires forward(..., paged=PagedInfo)")
     b, t = q.shape[:2]
-    if paged.q_lens is not None and t > 1:
-        raise NotImplementedError(
-            "PagedInfo.q_lens (ragged multi-token paged attention: chunked "
-            "prefill, prefix-cache suffixes) is not ported to PyTorch yet"
-        )
     k_pool, v_pool = kv["k_pool"], kv["v_pool"]
     block_size = k_pool.shape[1]
     tables, seq = paged.block_tables, paged.seq_lens
@@ -347,19 +423,54 @@ def _paged_attention(
     page = tables.long().gather(1, pos_c // block_size)
     blk_ids = torch.where(in_range, page, torch.zeros_like(page))
     slots = torch.where(in_range, pos_c % block_size, torch.zeros_like(pos_c))
-    k_pool[blk_ids, slots] = k.to(k_pool.dtype)
-    v_pool[blk_ids, slots] = v.to(v_pool.dtype)
+    quantized = "k_scale_pool" in kv
+    if quantized:
+        ks_pool, vs_pool = kv["k_scale_pool"], kv["v_scale_pool"]
+        k_q, k_sc = _kv_quantize(k)
+        v_q, v_sc = _kv_quantize(v)
+        k_pool[blk_ids, slots] = k_q
+        v_pool[blk_ids, slots] = v_q
+        ks_pool[blk_ids, slots] = k_sc.to(ks_pool.dtype)
+        vs_pool[blk_ids, slots] = v_sc.to(vs_pool.dtype)
+    else:
+        k_pool[blk_ids, slots] = k.to(k_pool.dtype)
+        v_pool[blk_ids, slots] = v.to(v_pool.dtype)
 
-    qin = q[:, 0] if t == 1 else q
-    attend = (
-        paged_decode_attention if cfg.paged_attention_impl == "kernel"
-        else paged_decode_attention_reference
+    window = cfg.sliding_window
+    qc = q.to(cdt).contiguous()
+    ragged_kw = dict(window=window, kv_splits=cfg.ragged_kv_splits or None, amla=cfg.ragged_amla)
+    if cfg.paged_attention_impl == "kernel" and quantized:
+        q_lens = paged.q_lens
+        if t == 1 or q_lens is None:
+            q_lens = torch.full((b,), t, dtype=torch.int32, device=q.device)
+        return ragged_paged_attention(
+            qc, k_pool, v_pool, tables, seq, q_lens, k_scale=ks_pool, v_scale=vs_pool,
+            **ragged_kw,
+        )
+    if cfg.paged_attention_impl == "kernel":
+        if t > 1 and paged.q_lens is not None:
+            return ragged_paged_attention(
+                qc, k_pool.to(cdt), v_pool.to(cdt), tables, seq, paged.q_lens, **ragged_kw
+            )
+        out = paged_decode_attention(
+            qc[:, 0] if t == 1 else qc, k_pool.to(cdt), v_pool.to(cdt), tables, seq,
+            window=window,
+        )
+        return out[:, None] if t == 1 else out
+    kv_len = tables.shape[1] * block_size
+    rows = tables.long()
+
+    def gather(pool: torch.Tensor) -> torch.Tensor:
+        return pool[rows].reshape((b, kv_len) + tuple(pool.shape[2:]))
+
+    if quantized:
+        ck = _kv_dequantize(gather(k_pool), gather(ks_pool), cdt)
+        cv = _kv_dequantize(gather(v_pool), gather(vs_pool), cdt)
+    else:
+        ck, cv = gather(k_pool).to(cdt), gather(v_pool).to(cdt)
+    return naive_attention(
+        q, ck, cv, causal=False, kv_mask=paged_kv_mask(seq, t, kv_len, window)
     )
-    out = attend(
-        qin.to(cdt).contiguous(), k_pool.to(cdt), v_pool.to(cdt), tables, seq,
-        window=cfg.sliding_window,
-    )
-    return out[:, None] if t == 1 else out
 
 
 def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -368,16 +479,16 @@ def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = layers.apply_norm(cfg.norm, blk["ln2"], x, cfg.norm_eps).to(cdt)
     mlp = blk["mlp"]
     if cfg.activation == "swiglu":
-        gates = _mm(h, mlp["w1"], cdt)  # (B, T, 2, f)
+        gates = _mm(h, _weight(mlp, "w1", cdt), cdt)  # (B, T, 2, f)
         if "b1" in mlp:
             gates = gates + mlp["b1"].to(cdt)
         hidden = torch.nn.functional.silu(gates[..., 0, :]) * gates[..., 1, :]
     else:
-        hidden = _mm(h, mlp["w1"], cdt)
+        hidden = _mm(h, _weight(mlp, "w1", cdt), cdt)
         if "b1" in mlp:
             hidden = hidden + mlp["b1"].to(cdt)
         hidden = layers.activation_fn(cfg.activation, hidden)
-    out = _mm(hidden, mlp["w2"], cdt)
+    out = _mm(hidden, _weight(mlp, "w2", cdt), cdt)
     if "b2" in mlp:
         out = out + mlp["b2"].to(cdt)
     return x + out.to(x.dtype)
@@ -402,8 +513,9 @@ def forward(
 
     ``kv_cache`` from ``make_kv_cache`` with ``cache_index=0`` is the
     admission prefill; a pool from ``make_paged_kv_pool`` with ``paged``
-    is paged decode (T uniform query tokens per row). Caches are updated
-    in place and returned."""
+    is paged attention: T query tokens per row at slots seq..seq+T-1, of
+    which ``paged.q_lens`` (when given) are real. Caches are updated in
+    place and returned."""
     check_ported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     b, t = tokens.shape
@@ -438,7 +550,7 @@ def forward(
         if paged is not None:
             layer_kv = kv_cache["layers"][i]
         elif kv_cache is not None:
-            layer_kv = {"k": kv_cache["k"][i], "v": kv_cache["v"][i]}
+            layer_kv = {name: buf[i] for name, buf in kv_cache.items()}
         x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged)
         x = _mlp_block(blk, x, cfg)
 

@@ -35,7 +35,7 @@ def smem_bytes(rows: int, d: int, bs: int) -> int:
     return 4 * (rows * d + bs * (d + 1) + bs * d + rows * bs + rows * d + 3 * rows)
 
 
-def _paged_kv_mask(seq_lens: torch.Tensor, t: int, kv_len: int, window: int) -> torch.Tensor:
+def paged_kv_mask(seq_lens: torch.Tensor, t: int, kv_len: int, window: int) -> torch.Tensor:
     """(B, T, kv_len) visibility: query t of row b sees linear slots
     <= seq_b + t (its own just-written slot included), and with a window
     only slots > seq_b + t - window."""
@@ -65,7 +65,7 @@ def paged_decode_attention_reference(
 
     out = naive_attention(
         q4, gather(k_pool), gather(v_pool), causal=False,
-        kv_mask=_paged_kv_mask(seq_lens, t, kv_len, window),
+        kv_mask=paged_kv_mask(seq_lens, t, kv_len, window),
     )
     return out if multi else out[:, 0]
 

@@ -5,6 +5,7 @@
 - Entry points run on the GPU unless the caller passes ``device="cpu"``:
   with no GPU they raise instead of falling back to the CPU.
 - Options the port does not implement yet raise ``NotImplementedError``.
+- Every kernel family has its CUDA source, built by ``ops/_build.py``.
 """
 
 import ast
@@ -49,8 +50,12 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_port_has_kernel_sources_for_both_kernels():
+    """One source per ported kernel family, each built by ``ops/_build.py``."""
+    from pretraining_llm_tpu_torch.ops import _build
+
     names = sorted(p.name for p in (ROOT / "pretraining_llm_tpu_torch" / "csrc").glob("*.cu"))
-    assert names == ["flash_fwd.cu", "paged_decode.cu"]
+    assert names == ["flash_fwd.cu", "paged_decode.cu", "ragged_paged.cu"]
+    assert sorted(_build.SOURCES) == [n[:-3] for n in names]
 
 
 @pytest.fixture
@@ -79,7 +84,6 @@ def test_engine_refuses_params_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(quantize="int8"), dict(prefix_cache=True), dict(prefill_chunk_tokens=16),
     dict(spec_k=2), dict(mesh=object()), dict(pipeline_depth=2), dict(admit_batch=4),
     dict(fused_sampling=False), dict(kv_checksum=True),
 ])
@@ -93,7 +97,6 @@ def test_unported_engine_options_raise(kw):
     (dict(n_experts=4), "n_experts"),
     (dict(attention_impl="ring"), "ring"),
     (dict(attention_impl="ulysses"), "ulysses"),
-    (dict(kv_cache_dtype="int8"), "kv_cache_dtype"),
     (dict(doc_mask_token=3), "doc_mask_token"),
 ])
 def test_unported_model_options_raise(kw, name):
@@ -110,11 +113,6 @@ def test_unported_forward_paths_raise():
     with pytest.raises(NotImplementedError, match="cache_index"):
         transformer.forward(params, torch.zeros(1, 4, dtype=torch.long), TINY,
                             kv_cache=cache, cache_index=4)
-    pools = transformer.make_paged_kv_pool(TINY, 4, 8, device="cpu")
-    info = transformer.PagedInfo(torch.zeros(1, 2, dtype=torch.int32), torch.zeros(1, dtype=torch.int32),
-                                 q_lens=torch.ones(1, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="q_lens"):
-        transformer.forward(params, torch.zeros(1, 3, dtype=torch.long), TINY, kv_cache=pools, paged=info)
 
 
 def test_presets_and_config_validation():
