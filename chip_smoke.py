@@ -7,14 +7,17 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
 It builds the port's CUDA kernels from ``pretraining_llm_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), holds each against its
-plain PyTorch version at the serving paths' shapes, holds a 2-layer
-GPT-2-width model on the card against the same model on the CPU (the
-monolithic admission with paged decode, and the chunked suffix lane with an
-exact and an int8-kv pool), then drives three serving paths through
-full-width gpt2-124m, counting each kernel's launches on each path:
+plain PyTorch version at the serving and training paths' shapes (the
+flash backward kernels also through ``FlashAttention`` gradients), holds
+2-layer models on the card against the same models on the CPU (the
+monolithic admission with paged decode; the chunked suffix lane with an
+exact and an int8-kv pool; three AdamW steps of a gpt2-width and a GQA
+model), then drives three serving paths and three training runs, counting
+each kernel's launches on each:
 
-  path 1  16 requests, ``ServingEngine.submit/run``, monolithic admission
-          prefill (flash kernel) and paged decode (paged kernel);
+  path 1  16 requests, ``ServingEngine.submit/run`` on full-width
+          gpt2-124m, monolithic admission prefill (flash kernel) and paged
+          decode (paged kernel);
   path 2  16 requests sharing two 384-token system prompts, chunked
           prefill (256-token chunks) and the prefix cache: chunks and
           prefix-cache suffixes through the ragged kernel, decode through
@@ -22,7 +25,19 @@ full-width gpt2-124m, counting each kernel's launches on each path:
   path 3  the same requests arriving two per scheduler step under
           ``quantize="int8-kv"`` with the prefix cache: every attention
           (suffix prefill and decode) through the ragged kernel on int8
-          pools, with the auto KV-split count.
+          pools, with the auto KV-split count;
+  T1      ``Trainer.train`` on gpt2-124m at full width and depth (batch
+          12, T 1024, bf16 compute) for 30 steps on ``data/parity``
+          bytes: flash forward and the one-pass backward kernel; held
+          against a naive-attention run, then a checkpoint round trip that
+          must restore every state leaf and the data RNG, and the next
+          step's loss, bit for bit;
+  T2      ``Trainer.train`` on llama3-1b-gqa cut to 4 layers (T 2048, Dh
+          128, 4 KV heads) for 10 steps on synthetic data: flash forward
+          and the dQ + dK/dV kernels; held against a naive-attention run;
+  parity  the repo's golden run (``data/parity``: init weights, corpus
+          and the JAX package's recorded 1500-step curve and eval loss)
+          trained on the card at fp32 through the flash kernels.
 
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
@@ -39,10 +54,13 @@ line. With no CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,6 +81,21 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
 DEVICE = "cuda"  # the card; the phases take their tensors from here
+ROOT = Path(__file__).resolve().parent
+PARITY_DIR = ROOT / "data" / "parity"
+SCRATCH = ROOT / "build" / "chip_smoke"  # git-ignored; the train paths' checkpoints, removed at the end
+
+# Training bars. Card vs CPU at fp32 (TF32 off): losses within 1e-4
+# relative, first-step gradients within 1e-3 of each leaf's largest |g|
+# (summation order, and the one-pass kernel's atomic dQ sum). Flash-kernel
+# runs vs naive-attention runs on the card at bf16 compute: every compared
+# step's loss within 0.05. The parity run vs the JAX package's recorded
+# curve: 0.02 at every logged step, 0.01 on the final eval loss.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+NAIVE_LOSS_TOL = 0.05
+PARITY_LOSS_TOL = 0.02
+PARITY_EVAL_TOL = 0.01
 
 
 def log(phase: str, **fields) -> None:
@@ -145,6 +178,7 @@ def check_flash() -> float:
         (2, 12, 12, 1024, 64, 256, torch.bfloat16),  # sliding window
         (1, 4, 2, 200, 64, 0, torch.float32),  # T not a multiple of the 64-row tile
         (1, 16, 4, 300, 128, 0, torch.bfloat16), (1, 16, 4, 300, 128, 0, torch.float32),  # Dh 128
+        (4, 8, 8, 256, 32, 0, torch.float32), (4, 8, 8, 256, 32, 0, torch.bfloat16),  # Dh 32 (parity)
     ]
     worst = 0.0
     for b, h, g, t, d, window, dtype in cases:
@@ -162,6 +196,94 @@ def check_flash() -> float:
             raise AssertionError(f"flash kernel disagrees with its plain version: {use} x its limit")
         worst = max(worst, err)
     return worst
+
+
+def row_tol_use(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
+    """The largest error over its limit (passes at <= 1), per row of the
+    last axis: ``rtol`` times the row's largest |ref|, floored at 2^-8 of
+    the whole output's largest |ref| (rows that cancel to ~0, such as the
+    first query's dQ, are held at that floor)."""
+    ref = ref.float()
+    err = (out.float() - ref).abs()
+    row = ref.abs().amax(dim=-1, keepdim=True).clamp_min(2.0**-8 * ref.abs().max().item())
+    return (err / (rtol * row).clamp_min(1e-30)).max().item()
+
+
+# Backward limits: fp32 1e-4 of each output row's largest |reference|
+# (summation order, and the one-pass kernel's atomic dQ sum); bf16 2^-6 of
+# it (both round dS and P to bf16 at the same points; a sum in another
+# order flips a rounding: 1 to 4 ulps of the row's largest value).
+BWD_FP32_RTOL = 1e-4
+GRAD_TOL = 1e-4  # FlashAttention vs autograd through naive attention, fp32 max-abs
+BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv)
+    (2, 12, 12, 1024, 64, 0, torch.bfloat16, 0, 0),     # gpt2-124m: one pass
+    (1, 12, 12, 1024, 64, 0, torch.float32, 0, 0),
+    (1, 8, 4, 512, 64, 0, torch.bfloat16, 0, 0),        # GQA n_rep 2, one pass
+    (1, 8, 4, 512, 64, 0, torch.float32, 128, 128),     # GQA n_rep 2, split
+    (1, 16, 4, 2048, 128, 0, torch.bfloat16, 0, 0),     # llama3-1b-gqa: n_rep 4, split
+    (1, 16, 4, 2048, 128, 0, torch.float32, 0, 0),
+    (1, 12, 12, 1024, 64, 256, torch.bfloat16, 0, 0),   # window, one pass
+    (1, 8, 2, 1024, 64, 200, torch.float32, 256, 256),  # window, n_rep 4, split
+    (2, 8, 8, 256, 32, 0, torch.float32, 0, 0),         # Dh 32 (the parity model)
+    (2, 8, 8, 256, 32, 0, torch.bfloat16, 64, 64),      # Dh 32, split
+    (1, 8, 8, 300, 128, 0, torch.bfloat16, 0, 0),       # T not a multiple of 64, one pass
+    (1, 4, 2, 200, 64, 0, torch.float32, 100, 100),     # ... split
+]
+
+
+def check_flash_bwd() -> None:
+    """The three backward kernels against ``flash_attention_bwd_reference``
+    on the card (dq, dk, dv), with K1 giving the residuals; then
+    ``FlashAttention`` gradients in fp32 against autograd through the
+    port's ``naive_attention``. The kernels line reports each kernel's
+    error at its training path's shape (``time_train_kernels``)."""
+    from pretraining_llm_tpu_torch.ops import cuda_flash
+    from pretraining_llm_tpu_torch.ops.attention import naive_attention
+    from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
+
+    gen = torch.Generator().manual_seed(SEED + 9)
+    counters = (cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq, cuda_flash.flash_bwd_dkv)
+    for b, h, g, t, d, window, dtype, bq, bk in BWD_CASES:
+        q, do = randn((b * h, t, d), dtype, gen), randn((b * h, t, d), dtype, gen)
+        k, v = randn((b * g, t, d), dtype, gen), randn((b * g, t, d), dtype, gen)
+        o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window)
+        before = [f.launches for f in counters]
+        got = cuda_flash.flash_attention_bwd(q, k, v, o, lse, do, h, g, window=window, block_q=bq,
+                                             block_kv=bk)
+        ran = tuple(f.launches - n for f, n in zip(counters, before))
+        ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window)
+        torch.cuda.synchronize()
+        rtol = BWD_FP32_RTOL if dtype == torch.float32 else BF16_ROW_RTOL
+        uses = {n: row_tol_use(x, y, rtol) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
+        errs = {n: max_err(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
+        one_pass = cuda_flash.backward_is_one_pass(t, bq, bk)
+        log("check_flash_bwd", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
+            block_q=bq, block_kv=bk, kernels="one pass" if one_pass else "dq + dkv",
+            max_abs_err=errs, tol_use=uses, rtol=rtol)
+        if ran != ((1, 0, 0) if one_pass else (0, 1, 1)):
+            raise AssertionError(f"backward launched {ran} (fused, dq, dkv) for one_pass={one_pass}")
+        if not all(u <= 1.0 for u in uses.values()):
+            raise AssertionError(f"flash backward disagrees with its plain version: {uses}")
+
+    # Gradients of the autograd Function (fp32) against autograd through the
+    # plain masked attention, one pass and split: max-abs within GRAD_TOL
+    # (gradients of N(0, 1) inputs are O(1) to O(10); the two differ in
+    # summation order and in D = rowsum(dO*O) against the softmax VJP's
+    # rowsum(P*dP)).
+    for b, t, h, g, d, window, blocks in ((2, 256, 8, 4, 64, 0, 0), (1, 512, 8, 2, 32, 100, 128)):
+        q, k, v = (randn((b, t, n, d), torch.float32, gen).requires_grad_(True) for n in (h, g, g))
+        do = randn((b, t, h, d), torch.float32, gen)
+        flash_attention(q, k, v, window=window, block_q=blocks, block_kv=blocks).backward(do)
+        got = [x.grad.clone() for x in (q, k, v)]
+        for x in (q, k, v):
+            x.grad = None
+        naive_attention(q, k, v, causal=True, window=window).backward(do)
+        errs = {n: max_err(x, y.grad) for n, x, y in zip(("dq", "dk", "dv"), got, (q, k, v))}
+        uses = {n: e / GRAD_TOL for n, e in errs.items()}
+        log("check_flash_grad", B=b, T=t, H=h, G=g, Dh=d, window=window, blocks=blocks,
+            max_abs_err=errs, tol=GRAD_TOL, tol_use=uses)
+        if not all(u <= 1.0 for u in uses.values()):
+            raise AssertionError(f"FlashAttention gradients disagree with autograd through naive: {uses}")
 
 
 def paged_state(rng, b, n_blocks, nb, bs, t, lo=0, hi=None):
@@ -507,6 +629,9 @@ def kernel_counts() -> dict:
 
     return {
         "flash_fwd": cuda_flash.flash_attention_fwd.launches,
+        "flash_bwd_fused": cuda_flash.flash_bwd_fused.launches,
+        "flash_bwd_dq": cuda_flash.flash_bwd_dq.launches,
+        "flash_bwd_dkv": cuda_flash.flash_bwd_dkv.launches,
         "paged_decode": cuda_paged.paged_decode_attention.launches,
         "ragged": cuda_ragged.ragged_paged_attention.launches,
         "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
@@ -516,9 +641,10 @@ def kernel_counts() -> dict:
 def reset_kernel_counts() -> None:
     from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged, cuda_ragged
 
-    cuda_flash.flash_attention_fwd.launches = 0
-    cuda_paged.paged_decode_attention.launches = 0
-    cuda_ragged.ragged_paged_attention.launches = 0
+    for counted in (cuda_flash.flash_attention_fwd, cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq,
+                    cuda_flash.flash_bwd_dkv, cuda_paged.paged_decode_attention,
+                    cuda_ragged.ragged_paged_attention):
+        counted.launches = 0
     cuda_ragged.ragged_paged_attention.split_launches = 0
 
 
@@ -612,6 +738,321 @@ def run_path3():
     if launches["paged_decode"] != 0:
         raise AssertionError(f"path3 launched the paged kernel on int8 pools: {launches}")
     return launches, eng
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+
+def check_train_card_vs_cpu() -> None:
+    """Three AdamW steps of 2-layer models at fp32 on the card (the
+    kernels) and on the CPU (their plain versions), from the same init and
+    batches: gpt2-124m widths at T 256 (one-pass backward), and a small GQA
+    llama flavour (n_rep 4, Dh 32, RoPE, SwiGLU, untied head) with 128-row
+    flash blocks (dQ + dK/dV kernels)."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import Config, ModelConfig, TrainConfig, get_preset
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    gpt2 = dataclasses.replace(get_preset("gpt2-124m").model, n_layers=2, context_length=256,
+                               compute_dtype="float32")
+    llama = ModelConfig(
+        vocab_size=4096, context_length=256, d_model=256, n_heads=8, n_kv_heads=2, n_layers=2,
+        activation="swiglu", norm="rmsnorm", pos_embed="rope", tie_embeddings=False,
+        qkv_bias=False, mlp_bias=False, compute_dtype="float32", attention_impl="flash",
+        flash_block_q=128, flash_block_kv=128,
+    )
+    train = TrainConfig(batch_size=2, train_steps=3, lr=6e-4)
+    rng = np.random.default_rng(SEED + 10)
+    for name, model, want in (("gpt2", gpt2, ("flash_fwd", "flash_bwd_fused")),
+                              ("llama_gqa", llama, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
+        cfg = Config(model=model, train=train)
+        batches = [rng.integers(0, model.vocab_size, (train.batch_size, model.context_length + 1))
+                   for _ in range(3)]
+
+        def run(device):
+            state = ts.init_train_state(cfg, SEED, device=device)
+            step = ts.build_train_step(cfg)
+            grads, losses = None, []
+            for i, toks in enumerate(batches):
+                t = torch.from_numpy(toks).to(device)
+                batch = (t[:, :-1], t[:, 1:])
+                if i == 0:
+                    _, grads = ts.compute_grads(state, batch, cfg)
+                    grads = opt.tree_map(lambda g: g.cpu(), grads)
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            return losses, grads
+
+        reset_kernel_counts()
+        card_losses, card_grads = run(DEVICE)
+        launched = kernel_counts()
+        cpu_losses, cpu_grads = run("cpu")
+        loss_use = max(abs(a - b) / (TRAIN_LOSS_RTOL * abs(b)) for a, b in zip(card_losses, cpu_losses))
+        grad_use = {
+            "/".join(path): max_err(a, b) / (TRAIN_GRAD_RTOL * max(b.abs().max().item(), 1e-30))
+            for (path, a), (_, b) in zip(opt.tree_leaves(card_grads), opt.tree_leaves(cpu_grads))
+        }
+        worst_leaf = max(grad_use, key=grad_use.get)
+        log("check_train", model=name, layers=model.n_layers, d=model.d_model, H=model.n_heads,
+            G=model.kv_heads, T=model.context_length, batch=train.batch_size, card_losses=card_losses,
+            cpu_losses=cpu_losses, loss_rtol=TRAIN_LOSS_RTOL, loss_tol_use=loss_use,
+            grad_rtol=TRAIN_GRAD_RTOL, grad_tol_use=grad_use[worst_leaf], worst_leaf=worst_leaf,
+            kernel_launches={k: launched[k] for k in want})
+        if not (loss_use <= 1.0 and grad_use[worst_leaf] <= 1.0):
+            raise AssertionError(f"training {name} on the card disagrees with the CPU run")
+        if not all(launched[k] > 0 for k in want):
+            raise AssertionError(f"training {name} on the card did not launch {want}: {launched}")
+
+
+def train_config(preset: str, overrides: dict):
+    """``preset`` with no eval, checkpoint or final save unless
+    ``overrides`` ask, a log line (and so a loss) every step, checkpoints
+    under SCRATCH."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    base = {"train.eval_interval": 0, "train.checkpoint_interval": 0, "train.save_final": False,
+            "train.log_interval": 1, "train.checkpoint_dir": str(SCRATCH / preset)}
+    return get_preset(preset).with_overrides({**base, **overrides})
+
+
+def train_run(cfg, steps: int, **trainer_kw):
+    """``Trainer(cfg, ...).train(steps)`` on the card with every kernel
+    count set to 0 just before and read just after. Returns (trainer, the
+    per-step log records, launches, wall seconds, peak bytes)."""
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    class Records(MetricsLogger):
+        def __init__(self):
+            super().__init__("", stream=sys.stderr)
+            self.records = []
+
+        def log(self, record):
+            self.records.append(dict(record))
+            super().log(record)
+
+    logger = Records()
+    trainer = Trainer(cfg, logger=logger, device=DEVICE, **trainer_kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    trainer.train(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    steps_logged = [r for r in logger.records if "loss" in r]
+    return trainer, steps_logged, launches, wall, torch.cuda.max_memory_allocated()
+
+
+def _rates(records) -> dict:
+    """Medians over the steps after the first two (the first window holds
+    the first step's start-up; the second settles the allocator)."""
+    timed = [r for r in records if r["step"] > 2 and "step_ms" in r]
+    out = {k: statistics.median(r[k] for r in timed) for k in ("step_ms", "tokens_per_sec") if timed}
+    if timed and "mfu" in timed[0]:
+        out["mfu"] = statistics.median(r["mfu"] for r in timed)
+    return out
+
+
+def _free_card() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_path1() -> dict:
+    """T1, this slice's main path: ``Trainer.train`` on gpt2-124m at full
+    width and depth (batch 12, T 1024, bf16 compute, fp32 params, flash
+    attention, init from seed 0) for 30 steps on ``data/parity`` bytes,
+    checkpointing at step 30. Then: 10 steps of the same run with
+    ``attention_impl="naive"`` (every compared loss within NAIVE_LOSS_TOL),
+    and the checkpoint round trip: a fresh ``Trainer`` that resumed the
+    step-30 checkpoint holds every leaf of the state (params, AdamW mu, nu
+    and count, step) and the data RNG bit for bit as the run left them, and
+    its step 31 gives the uninterrupted run's loss bit for bit. The params
+    after step 31 are reported, not held equal: the one-pass kernel adds
+    dQ by atomics, in an order that varies between runs."""
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    steps = 30
+    cfg = train_config("gpt2-124m", {
+        "train.train_steps": steps, "train.checkpoint_interval": steps,
+        "data.train_path": str(PARITY_DIR / "train.bin"), "data.val_path": str(PARITY_DIR / "val.bin"),
+    })
+    trainer, recs, launches, wall, peak = train_run(cfg, steps, resume=False)
+    losses = [r["loss"] for r in recs]
+    rates = _rates(recs)
+
+    # Checkpoint round trip: the step-30 state, step 31 uninterrupted, then
+    # the same from a fresh Trainer resumed from the step-30 checkpoint.
+    saved = [(path, x.detach().clone()) for path, x in tree_leaves(trainer.state)]
+    saved_rng = trainer.train_iterator.state()
+    uninterrupted = trainer.train(steps + 1)["loss"]
+    after = {path: x.detach().clone() for path, x in tree_leaves(trainer.state["params"])}
+    del trainer
+    _free_card()
+    resumed_trainer = Trainer(cfg, device=DEVICE, resume=True, logger=MetricsLogger("", stream=sys.stderr))
+    resumed_from = resumed_trainer.start_step
+    leaves = dict(tree_leaves(resumed_trainer.state))
+    state_differs = [".".join(path) for path, x in saved
+                     if path not in leaves or leaves[path].dtype != x.dtype or not torch.equal(leaves[path], x)]
+    state_differs += [".".join(path) for path in leaves.keys() - {path for path, _ in saved}]
+    rng_equal = resumed_trainer.train_iterator.state() == saved_rng
+    del saved, leaves
+    resumed = resumed_trainer.train(steps + 1)["loss"]
+    param_diff = max(max_err(x, after[path]) for path, x in tree_leaves(resumed_trainer.state["params"]))
+    del resumed_trainer, after
+    _free_card()
+
+    naive_cfg = cfg.with_overrides({"model.attention_impl": "naive", "train.checkpoint_interval": 0})
+    n_steps = 10
+    naive, naive_recs, naive_launches, _, naive_peak = train_run(naive_cfg, n_steps, resume=False)
+    del naive
+    _free_card()
+    naive_losses = [r["loss"] for r in naive_recs]
+    diffs = [abs(a - b) for a, b in zip(losses, naive_losses)]
+    model = cfg.model
+    log("train_path1", model="gpt2-124m", layers=model.n_layers, d=model.d_model, T=model.context_length,
+        batch=cfg.train.batch_size, dtype=model.compute_dtype, data=str(PARITY_DIR / "train.bin"),
+        steps=steps, lr=cfg.train.lr, wall_s=wall, **rates, max_memory_allocated_bytes=peak,
+        losses=losses, launches=launches, naive_losses=naive_losses, naive_max_abs_diff=max(diffs),
+        naive_tol=NAIVE_LOSS_TOL, naive_launches=naive_launches, naive_max_memory_allocated_bytes=naive_peak,
+        checkpoint={"resumed_from": resumed_from, "state_leaves_differing": state_differs,
+                    "data_rng_equal": rng_equal, "step": steps + 1, "loss_uninterrupted": uninterrupted,
+                    "loss_resumed": resumed, "bit_identical": uninterrupted == resumed,
+                    "params_max_abs_diff_after_step": param_diff})
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"T1: expected {steps} finite losses, got {losses}")
+    if statistics.mean(losses[-5:]) > losses[0] - 1.0:
+        raise AssertionError(f"T1: the last 5 losses do not average 1.0 below step 1's: {losses}")
+    if launches["flash_fwd"] <= 0 or launches["flash_bwd_fused"] <= 0:
+        raise AssertionError(f"T1 did not run the flash forward and one-pass backward kernels: {launches}")
+    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        raise AssertionError(f"T1 launched the split backward kernels: {launches}")
+    if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
+        raise AssertionError(f"T1: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
+    if resumed_from != steps or state_differs or not rng_equal:
+        raise AssertionError(f"T1: resume from step {resumed_from} restored a different state: leaves "
+                             f"{state_differs}, data RNG equal {rng_equal}")
+    if uninterrupted != resumed:
+        raise AssertionError(f"T1: resumed step {steps + 1} gave loss {resumed}, uninterrupted {uninterrupted}")
+    return launches
+
+
+def run_train_path2() -> dict:
+    """T2: ``Trainer.train`` on llama3-1b-gqa at full width cut to 4 of its
+    22 layers (T 2048, 16 heads, 4 KV heads, Dh 128) for 10 steps at batch
+    2 on synthetic data: the flash forward and the dQ + dK/dV kernels.
+    Then 5 steps with ``attention_impl="naive"`` (losses within
+    NAIVE_LOSS_TOL)."""
+    steps, n_steps = 10, 5
+    cfg = train_config("llama3-1b-gqa", {
+        "model.n_layers": 4, "train.batch_size": 2, "train.train_steps": steps,
+    })
+    trainer, recs, launches, wall, peak = train_run(cfg, steps, synthetic_data=True, resume=False)
+    del trainer
+    _free_card()
+    naive_cfg = cfg.with_overrides({"model.attention_impl": "naive"})
+    naive, naive_recs, _, _, _ = train_run(naive_cfg, n_steps, synthetic_data=True, resume=False)
+    del naive
+    _free_card()
+    losses = [r["loss"] for r in recs]
+    naive_losses = [r["loss"] for r in naive_recs]
+    diffs = [abs(a - b) for a, b in zip(losses, naive_losses)]
+    model = cfg.model
+    log("train_path2", model="llama3-1b-gqa", layers=model.n_layers, layers_full=22, d=model.d_model,
+        H=model.n_heads, G=model.kv_heads, T=model.context_length, batch=cfg.train.batch_size,
+        dtype=model.compute_dtype, data="synthetic", steps=steps, wall_s=wall, **_rates(recs),
+        max_memory_allocated_bytes=peak, losses=losses, launches=launches, naive_losses=naive_losses,
+        naive_max_abs_diff=max(diffs), naive_tol=NAIVE_LOSS_TOL)
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"T2: expected {steps} finite losses, got {losses}")
+    if launches["flash_bwd_dq"] <= 0 or launches["flash_bwd_dkv"] <= 0 or launches["flash_fwd"] <= 0:
+        raise AssertionError(f"T2 did not run the flash forward and dQ + dK/dV kernels: {launches}")
+    if launches["flash_bwd_fused"]:
+        raise AssertionError(f"T2 launched the one-pass backward kernel: {launches}")
+    if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
+        raise AssertionError(f"T2: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
+    return launches
+
+
+# The parity run's TrainConfig: scripts/parity_experiment.py:60-66 and
+# :136-146, copied.
+PARITY_TRAIN = dict(batch_size=16, lr=3e-4, lr_schedule="warmup_constant", warmup_frac=0.05,
+                    grad_clip=1.0, weight_decay=0.1, adam_b1=0.9, adam_b2=0.95, adam_eps=1e-8,
+                    checkpoint_interval=0, eval_interval=0, train_steps=1500)
+PARITY_DATA_SEED, PARITY_EVAL_SEED, PARITY_EVAL_ITERS = 1234, 4321, 50
+
+
+def run_parity() -> dict:
+    """The golden run on the card: the ``__model_kw__`` model of
+    ``data/parity/init.npz`` (4 layers, d 256, 8 heads, T 256, V 256, fp32)
+    with ``attention_impl="flash"``, from those weights, 1500 AdamW steps on
+    ``train.bin`` (batch 16, seed 1234), then 50 eval batches of
+    ``val.bin`` (seed 4321); TF32 is off. Held against the JAX package's
+    recorded curve and eval loss (``results.json["jax"]``)."""
+    from pretraining_llm_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from pretraining_llm_tpu_torch.data import loader
+    from pretraining_llm_tpu_torch.models import bridge
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    raw = dict(np.load(PARITY_DIR / "init.npz"))
+    model_kw = json.loads(bytes(raw.pop("__model_kw__")).decode())
+    tree: dict = {}
+    for key, arr in raw.items():
+        *parents, leaf = key.split("__")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    recorded = json.loads((PARITY_DIR / "results.json").read_text())["jax"]
+    want = {p["step"]: p["loss"] for p in recorded["curve"]}
+    cfg = Config(model=ModelConfig(**dict(model_kw, attention_impl="flash")),
+                 train=TrainConfig(**PARITY_TRAIN), name="parity")
+    params = bridge.params_from_numpy(tree, cfg.model, device=DEVICE)
+    state = {"params": params, "opt": opt.adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+    step = ts.build_train_step(cfg)
+    batches = loader.get_batch_iterator(str(PARITY_DIR / "train.bin"), cfg.train.batch_size,
+                                        cfg.model.context_length, seed=PARITY_DATA_SEED)
+    dev = lambda a: torch.from_numpy(a).to(DEVICE)  # noqa: E731
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    got = {}
+    for s in range(1, cfg.train.train_steps + 1):
+        x, y = next(batches)
+        state, metrics = step(state, (dev(x), dev(y)))
+        if s in want:
+            got[s] = float(metrics["loss"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ev = loader.get_batch_iterator(str(PARITY_DIR / "val.bin"), cfg.train.batch_size,
+                                   cfg.model.context_length, seed=PARITY_EVAL_SEED)
+    xs, ys = zip(*(next(ev) for _ in range(PARITY_EVAL_ITERS)))
+    eval_loss = float(ts.build_eval_loop(cfg)(state, (dev(np.stack(xs)), dev(np.stack(ys)))))
+    launches = kernel_counts()
+    worst = max(abs(got[s] - want[s]) for s in want)
+    log("parity", model=model_kw, steps=cfg.train.train_steps, train_s=train_s,
+        step_ms=train_s / cfg.train.train_steps * 1e3,
+        curve=[{"step": s, "loss": got[s], "jax": want[s], "diff": got[s] - want[s]} for s in sorted(want)],
+        max_abs_diff=worst, tol=PARITY_LOSS_TOL, eval_loss=eval_loss, jax_eval_loss=recorded["eval_loss"],
+        eval_diff=eval_loss - recorded["eval_loss"], eval_tol=PARITY_EVAL_TOL, launches=launches)
+    if worst > PARITY_LOSS_TOL or abs(eval_loss - recorded["eval_loss"]) > PARITY_EVAL_TOL:
+        raise AssertionError("parity run on the card left the recorded JAX curve")
+    if launches["flash_fwd"] <= 0 or launches["flash_bwd_fused"] <= 0:
+        raise AssertionError(f"parity run did not go through the flash kernels: {launches}")
+    return launches
 
 
 def time_kernels(launches, prefill_shapes, errs):
@@ -781,6 +1222,125 @@ def time_ragged(paths, eng2, errs):
     return kernels
 
 
+def time_train_kernels(paths):
+    """``paths``: {"T1" | "T2" | "parity": that run's launches}. The
+    training entries: K1 and the one-pass backward at T1's shape
+    (B*H = 144, T 1024, Dh 64, bf16, causal), the dQ and dK/dV kernels at
+    T2's (B 2, H 16, G 4, T 2048, Dh 128, bf16). Each wrapper's outputs are
+    first held against its plain version on the same inputs (K1's o and lse
+    by ``tol_use``, the backward's dq, dk, dv per row at BF16_ROW_RTOL),
+    failing above 1.0; the entry reports that error. Each wrapper is timed as
+    the path calls it (the one-pass wrapper's zeroed fp32 dQ buffer and
+    final cast included); D = rowsum(dO*O) is computed outside. The plain
+    backward computes dq, dk and dv together, and so does the library
+    yardstick, ``scaled_dot_product_attention(is_causal=True)``'s backward
+    alone (``torch.autograd.grad`` on a retained graph), with GQA through
+    K/V repeated to H heads before the timed call (the group sum of dK/dV
+    is not timed). Bound FLOPs: 2*Dh per visible (query, key) pair per
+    product, 2 products forward, 5 one pass, 3 dQ, 4 dK/dV."""
+    from pretraining_llm_tpu_torch.ops import cuda_flash
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    l2_buf = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+
+    def flush():
+        l2_buf.zero_()
+
+    def sdpa_bwd_ms(q, k, v, do, b, h, g, t, d):
+        qs = q.view(b, h, t, d).detach().requires_grad_(True)
+        ks, vs = (x.view(b, g, t, d).repeat_interleave(h // g, dim=1).detach().requires_grad_(True)
+                  for x in (k, v))
+        out = sdpa(qs, ks, vs, is_causal=True)
+        dout = do.view(b, h, t, d)
+        return time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True), flush=flush)
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    dt = torch.bfloat16
+    kernels = []
+
+    def inputs(b, h, g, t, d):
+        q, do = randn((b * h, t, d), dt, gen), randn((b * h, t, d), dt, gen)
+        k, v = randn((b * g, t, d), dt, gen), randn((b * g, t, d), dt, gen)
+        o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g)
+        delta = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, o, lse, delta
+
+    def compare(name, shape, outs, got, ref, use):
+        """Max-abs error and tol_use of ``got`` against ``ref``, worst over
+        the outputs named ``outs``."""
+        errs = {n: max_err(x, y) for n, x, y in zip(outs, got, ref)}
+        uses = {n: use(x, y) for n, x, y in zip(outs, got, ref)}
+        log("check_train_kernel", name=name, shape=shape, max_abs_err=errs, tol_use=uses)
+        if not all(u <= 1.0 for u in uses.values()):
+            raise AssertionError(f"{name} disagrees with its plain version at {shape}: {uses}")
+        return max(errs.values()), max(uses.values())
+
+    def bwd_use(x, y):
+        return row_tol_use(x, y, BF16_ROW_RTOL)
+
+    def entry(name, *, source, line, main, shape, products, pairs, d, nbytes, ms, plain_ms, library_ms, err,
+              key=None, **notes):
+        key = key or name  # the kernel's name in the launch counts
+        flops = products * 2.0 * d * pairs
+        kernels.append(dict(
+            name=name, route="cuda", source=f"pretraining_llm_tpu_torch/csrc/{source}",
+            replaces=f"pretraining_llm_tpu/ops/pallas_flash.py:{line}", shape=shape,
+            launches=paths[main][key], launches_by_path={p: n[key] for p, n in paths.items()},
+            flops=flops, bytes=nbytes, **_bound(flops, nbytes), max_abs_err=err[0], tol_use=err[1], ms=ms,
+            plain_ms=plain_ms, library_ms=library_ms, kernel_ms=ms, max_err=err[0], **notes,
+        ))
+
+    # T1's shape: K1 and the one-pass kernel.
+    b, h, g, t, d = 12, 12, 12, 1024, 64
+    q, k, v, do, o, lse, delta = inputs(b, h, g, t, d)
+    common = dict(main="T1", shape=f"B*H={b * h} T={t} Dh={d} bf16 causal", pairs=b * h * t * (t + 1) // 2, d=d)
+    act, rows = q.numel() * 2, lse.numel() * 4  # one (B*H, T, Dh) bf16 tensor; one (B*H, T) fp32 row vector
+    q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+    fwd_err = compare("flash_fwd_train", common["shape"], ("o", "lse"),
+                      cuda_flash.flash_attention_fwd(q, k, v, h, g),
+                      cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), tol_use)
+    bwd_err = compare("flash_bwd_fused", common["shape"], ("dq", "dk", "dv"),
+                      cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g),
+                      cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g), bwd_use)
+    entry("flash_fwd_train", key="flash_fwd", source="flash_fwd.cu", line=104, products=2, nbytes=4 * act + rows,
+          err=fwd_err,
+          ms=time_ms(lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g), flush=flush),
+          plain_ms=time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), flush=flush),
+          library_ms=time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), flush=flush),
+          library_note="SDPA forward, is_causal=True", **common)
+    entry("flash_bwd_fused", source="flash_bwd.cu", line=348, products=5, nbytes=7 * act + 2 * rows, err=bwd_err,
+          ms=time_ms(lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g), flush=flush),
+          plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
+                           flush=flush),
+          library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d),
+          library_note="SDPA backward alone (dq, dk, dv), is_causal=True", **common)
+    del q, k, v, do, o, lse, delta, q4, k4, v4
+
+    # T2's shape: the dQ and dK/dV kernels. q, dO (B*H) and k, v (B*G) in.
+    b, h, g, t, d = 2, 16, 4, 2048, 128
+    q, k, v, do, o, lse, delta = inputs(b, h, g, t, d)
+    common = dict(main="T2", shape=f"B={b} H={h} G={g} T={t} Dh={d} bf16 causal", pairs=b * h * t * (t + 1) // 2,
+                  d=d, plain_note="the plain backward computes dq, dk and dv together",
+                  library_note="SDPA backward alone (dq, dk, dv), is_causal=True, K/V repeated to 16 heads "
+                               "before the call (not timed; the group sum of dK/dV not timed)")
+    bwd_in = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * lse.numel() * 4
+    ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g)
+    dq_err = compare("flash_bwd_dq", common["shape"], ("dq",),
+                     (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g),), ref[:1], bwd_use)
+    dkv_err = compare("flash_bwd_dkv", common["shape"], ("dk", "dv"),
+                      cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), ref[1:], bwd_use)
+    del ref
+    common["plain_ms"] = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
+                                 flush=flush)
+    common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d)
+    entry("flash_bwd_dq", source="flash_bwd.cu", line=236, products=3, nbytes=bwd_in + q.numel() * 2, err=dq_err,
+          ms=time_ms(lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g), flush=flush), **common)
+    entry("flash_bwd_dkv", source="flash_bwd.cu", line=291, products=4, nbytes=bwd_in + 2 * k.numel() * 2,
+          err=dkv_err,
+          ms=time_ms(lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), flush=flush), **common)
+    return kernels
+
+
 def _bound(flops: float, nbytes: float) -> dict:
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -805,13 +1365,19 @@ def main() -> int:
     phase_card()
     phase_build()
     errs = {"flash_fwd": check_flash(), "paged_decode": check_paged(), **check_ragged()}
+    check_flash_bwd()
     check_model_card_vs_cpu()
     check_model_chunked_card_vs_cpu()
+    check_train_card_vs_cpu()
     launches1, prefill_shapes = run_main_path()
     launches2, eng2 = run_path2()
     launches3, _ = run_path3()
+    train_paths = {"T1": run_train_path1(), "T2": run_train_path2(), "parity": run_parity()}
+    shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs)
+    del eng2
+    kernels += time_train_kernels(train_paths)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

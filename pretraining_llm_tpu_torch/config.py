@@ -1,22 +1,33 @@
-"""Model configuration for the PyTorch port.
+"""Configuration for the PyTorch port.
 
-A copy of the JAX package's ``ModelConfig`` (same field names, defaults and
-validation), so that one kwargs dict builds the config of either package,
-plus the model presets the port serves. The port keeps its own copy rather
-than importing the JAX package's module.
+Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
+``TrainConfig`` (same field names, defaults and validation), so that one
+kwargs dict builds the config of either package, and ``Config`` with the
+model, data and train sections and ``with_overrides``, plus the presets the
+port runs (with the JAX presets' train settings). The port keeps its own
+copy rather than importing the JAX package's module.
 
-Several fields are tuning knobs of the XLA/TPU program (``flash_block_q``,
-``flash_block_kv``, ``flash_heads_major``, ``remat``, ``scan_unroll``,
-``decode_unroll_layers``, ``decode_cache_layout``, ``decode_loop_max_tokens``,
-``ragged_kv_splits``, ``ragged_amla``, ``ce_impl``): they change no result,
-and the port accepts and ignores them. Options that change what the model
-computes but are not ported yet are refused where they would be used
-(``models.transformer.check_ported``).
+Several model fields are tuning knobs of the XLA/TPU program
+(``flash_heads_major``, ``remat``, ``scan_unroll``, ``decode_unroll_layers``,
+``decode_cache_layout``, ``decode_loop_max_tokens``): they change no result,
+and the port accepts and ignores them. ``flash_block_q``/``flash_block_kv``
+choose the flash backward's algorithm as they do in JAX (one block each:
+the one-pass kernel; otherwise the dQ and dK/dV kernels); the CUDA kernels
+tile T themselves. ``ragged_kv_splits``, ``ragged_amla`` and ``ce_impl``
+("chunked" or "dense") choose between forms that compute the same result.
+``data.prefetch`` and ``data.use_native_batcher`` are accepted and ignored:
+the port's trainer feeds batches synchronously from the numpy sampler,
+which draws the same batches as the JAX package's numpy sampler. Options
+that change what is computed but are not ported yet are refused where they
+would be used (``models.transformer.check_ported``, ``ce_impl="fused"``,
+the optimizer, and the trainer's ``checkpoint_async``, ``profile_dir`` and
+``debug_nans``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
 _ACTIVATIONS = ("relu", "gelu", "swiglu")
@@ -265,15 +276,159 @@ class ModelConfig:
             n += d * v + (v if self.lm_head_bias else 0)
         return n
 
+    def flops_per_token(self) -> int:
+        """Forward+backward training FLOPs per token, the JAX package's MFU
+        count: 6 x params plus the causal attention term 12 * L * (n_heads
+        * d_head) * T / 2. (JAX counts MoE's active params; the port
+        refuses MoE, so all params are active.)"""
+        d_attn = self.n_heads * self.head_dim
+        return 6 * self.num_params() + 12 * self.n_layers * d_attn * self.context_length // 2
+
+
+# ---------------------------------------------------------------------------
+# Data
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    """Data pipeline config: flat uint16 token memmaps (the JAX package's
+    ``DataConfig``)."""
+
+    train_path: str = "data/train.bin"
+    val_path: str = "data/val.bin"
+    dataset_name: str = "openwebtext"
+    tokenizer_name: str = "gpt2"
+    val_fraction: float = 0.0005
+    split_seed: int = 42
+    sample_seed: int = 1337
+    prefetch: int = 2  # accepted and ignored: the port feeds synchronously
+    use_native_batcher: bool = True  # accepted and ignored: numpy sampler
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+_LR_SCHEDULES = ("warmup_constant", "warmup_cosine", "warmup_stable_decay")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training config (the JAX package's ``TrainConfig``; see it for the
+    meaning of every field). The port runs ``optimizer="adamw"``; the
+    others, ``checkpoint_async``, ``profile_dir`` and ``debug_nans`` are
+    refused where they would be used."""
+
+    batch_size: int = 32
+    microbatches: int = 1
+    train_steps: int = 200_000
+    eval_interval: int = 1000
+    eval_iters: int = 250
+    lr: float = 3e-4
+    lr_schedule: str = "warmup_cosine"
+    optimizer: str = "adamw"
+    muon_momentum: float = 0.95
+    warmup_frac: float = 0.1
+    min_lr_frac: float = 0.1
+    decay_frac: float = 0.1
+    weight_decay: float = 0.1
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    adam_eps: float = 1e-8
+    grad_clip: float = 1.0  # 0 disables
+    grad_dtype: str = "float32"  # float32 | bfloat16
+    ema_decay: float = 0.0
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    checkpoint_interval: int = 1000
+    keep_checkpoints: int = 3
+    checkpoint_async: bool = False
+    save_final: bool = True
+    log_interval: int = 10
+    metrics_path: str = ""
+    debug_nans: bool = False
+    profile_dir: str = ""
+    profile_start: int = 10
+    profile_steps: int = 5
+
+    def __post_init__(self) -> None:
+        if self.lr_schedule not in _LR_SCHEDULES:
+            raise ValueError(f"lr_schedule must be one of {_LR_SCHEDULES}")
+        if self.optimizer not in ("adamw", "adafactor", "muon"):
+            raise ValueError(
+                "optimizer must be 'adamw', 'adafactor', or 'muon', "
+                f"got {self.optimizer!r}"
+            )
+        if not 0.0 < self.decay_frac <= 1.0:
+            raise ValueError(
+                f"decay_frac must be in (0, 1], got {self.decay_frac}"
+            )
+        if not 0.0 <= self.ema_decay < 1.0:
+            raise ValueError(
+                f"ema_decay must be in [0, 1), got {self.ema_decay}"
+            )
+        if self.batch_size % self.microbatches != 0:
+            raise ValueError(
+                f"batch_size={self.batch_size} not divisible by microbatches={self.microbatches}"
+            )
+        if self.grad_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"grad_dtype must be 'float32' or 'bfloat16', got "
+                f"{self.grad_dtype!r}"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Top-level
+# ---------------------------------------------------------------------------
+
+# Sections of the JAX package's Config that the port does not have yet.
+_UNPORTED_SECTIONS = ("mesh", "resilience", "obs", "serving", "frontend")
+
 
 @dataclass(frozen=True)
 class Config:
-    """A named model configuration. The JAX package's ``Config`` also
-    carries mesh, data and training settings; the port's serving slice
-    needs only the model."""
+    """A named configuration: model, data and train sections. The JAX
+    package's ``Config`` also carries mesh, resilience, observability,
+    serving and frontend sections, which are not ported."""
 
-    model: ModelConfig
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     name: str = "custom"
+
+    def with_overrides(self, overrides: Dict[str, Any]) -> "Config":
+        """Apply dotted-path overrides, e.g. {"model.n_layers": 4}. Unknown
+        keys raise ``KeyError``; a section of the JAX package's config that
+        the port lacks raises ``NotImplementedError``."""
+        sections: Dict[str, Dict[str, Any]] = {}
+        top: Dict[str, Any] = {}
+        for key, value in overrides.items():
+            if "." in key:
+                section, fname = key.split(".", 1)
+                if section in _UNPORTED_SECTIONS:
+                    raise NotImplementedError(
+                        f"config section {section!r} (override {key!r}) is not ported to PyTorch yet"
+                    )
+                if section not in ("model", "data", "train"):
+                    raise KeyError(f"unknown config section {section!r} in override {key!r}")
+                sections.setdefault(section, {})[fname] = value
+            else:
+                if key != "name":
+                    raise KeyError(f"unknown top-level config key {key!r}")
+                top[key] = value
+        new = self
+        for section, kw in sections.items():
+            old = getattr(new, section)
+            valid = {f.name for f in dataclasses.fields(old)}
+            for k in kw:
+                if k not in valid:
+                    raise KeyError(f"unknown config key {section}.{k}")
+            new = dataclasses.replace(new, **{section: dataclasses.replace(old, **kw)})
+        if top:
+            new = dataclasses.replace(new, **top)
+        return new
 
 
 def _gpt2_model(**kw: Any) -> ModelConfig:
@@ -309,17 +464,18 @@ def _llama_model(**kw: Any) -> ModelConfig:
 _PRESETS: Dict[str, Config] = {}
 
 
-def _register(name: str, model: ModelConfig) -> None:
-    _PRESETS[name] = Config(model=model, name=name)
+def _register(name: str, model: ModelConfig, **sections: Any) -> None:
+    _PRESETS[name] = Config(model=model, name=name, **sections)
 
 
-# GPT-2 124M: the model the serving slice runs at full width.
+# GPT-2 124M: the model the serving and training slices run at full width.
 _register(
     "gpt2-124m",
     _gpt2_model(
         context_length=1024, d_model=768, n_heads=12, n_layers=12,
         attention_impl="flash",
     ),
+    train=TrainConfig(batch_size=12, train_steps=5000, lr=6e-4, eval_interval=250, eval_iters=20),
 )
 
 # Llama-3-style 1B with grouped-query attention (4 KV heads for 16 query
@@ -337,12 +493,15 @@ _register(
         attention_impl="flash",
         remat="dots_saveable",
     ),
+    train=TrainConfig(batch_size=32, lr=3e-4, weight_decay=0.1),
 )
 
-# Tiny config for tests and smoke runs.
+# Tiny config for tests and smoke runs (byte-level vocabulary).
 _register(
     "tiny",
     _gpt2_model(vocab_size=256, context_length=64, d_model=32, n_heads=4, n_layers=2),
+    data=DataConfig(tokenizer_name="byte"),
+    train=TrainConfig(batch_size=8, train_steps=50, eval_interval=20, eval_iters=2, lr=1e-3),
 )
 
 

@@ -2,8 +2,8 @@
 //
 // Replaces: pretraining_llm_tpu/ops/pallas_flash.py::_fwd and its kernel
 // _fwd_kernel (causal and sliding-window masks; GQA by KV head h / n_rep).
-// Always causal, as every caller is. Document segments and the backward
-// kernels belong to the training slice.
+// Always causal, as every caller is. Document segments are not ported;
+// the backward kernels are in flash_bwd.cu. Head dims 32, 64 and 128.
 //
 // What bounds it on the H100: causal attention does ~2*B*H*T^2*Dh FLOPs
 // against ~4*B*H*T*Dh*2 bytes of bf16 q/k/v/o, i.e. ~T/4 FLOPs per byte.
@@ -186,13 +186,17 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }  // namespace
 
 // q: (B*H, T, D); k, v: (B*G, T, D); o like q; lse: (B*H, T) fp32.
-// dtype: 0 = float32, 1 = bfloat16. D must be 64 or 128.
+// dtype: 0 = float32, 1 = bfloat16. D must be 32, 64 or 128.
 extern "C" int pllm_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int G,
                               int T_len, int D, int window, float scale,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T_len <= 0 || G <= 0 || H % G != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && D == 32)
+    return launch<float, 32>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+  if (dtype == 1 && D == 32)
+    return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 0 && D == 64)
     return launch<float, 64>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 0 && D == 128)

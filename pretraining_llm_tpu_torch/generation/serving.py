@@ -336,10 +336,13 @@ class ServingEngine:
     def step(self) -> None:
         """One scheduling round: admit -> prefill chunks (chunked mode) ->
         grow/preempt -> a decode window -> reap. A no-op when nothing is
-        running or waiting."""
-        self._admit()
-        chunked = self._dispatch_prefill_chunks()
-        decoded = self._step_decode() if self._n_decode_rows() else False
+        running or waiting. Forwards run under ``torch.inference_mode()``:
+        params fresh from training (leaves that require grad) record no
+        graph."""
+        with torch.inference_mode():
+            self._admit()
+            chunked = self._dispatch_prefill_chunks()
+            decoded = self._step_decode() if self._n_decode_rows() else False
         if chunked:
             key = "chunk_windows_interleaved" if decoded else "chunk_windows_dedicated"
             self.stats[key] += 1

@@ -1,7 +1,8 @@
 """Decoder-only transformer: init/forward over a dict of parameter tensors.
 
-Counterpart of ``pretraining_llm_tpu/models/transformer.py`` for serving.
-Parameters keep the JAX tree's names and layouts — block parameters are
+Counterpart of ``pretraining_llm_tpu/models/transformer.py`` for serving
+and training (``loss_fn`` with the chunked and dense CE heads). Parameters
+keep the JAX tree's names and layouts — block parameters are
 stacked with a leading n_layers dim (``blocks.attn.wqkv`` is (L, d, 3, H,
 Dh)) — so ``models.bridge`` maps one tree onto the other leaf for leaf.
 
@@ -30,6 +31,7 @@ are updated in place and returned.
 
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -365,7 +367,8 @@ def _attention_block(
             kv["k"][:, :t] = k
             kv["v"][:, :t] = v
         if t > 1 and cfg.attention_impl == "flash":
-            out = flash_attention(q, k, v, window=window)
+            out = flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
+                                  block_kv=cfg.flash_block_kv)
         else:
             tmax = kv["k"].shape[1]
             kv_pos = torch.arange(tmax, device=x.device)
@@ -380,7 +383,8 @@ def _attention_block(
                 window=window,
             )
     elif cfg.attention_impl == "flash":
-        out = flash_attention(q, k, v, window=window)
+        out = flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
+                              block_kv=cfg.flash_block_kv)
     else:
         out = naive_attention(q, k, v, causal=True, window=window)
 
@@ -508,8 +512,13 @@ def forward(
     kv_cache: Optional[KVCache] = None,
     cache_index: Optional[int] = None,
     paged: Optional[PagedInfo] = None,
+    return_pre_logits: bool = False,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache).
+
+    ``return_pre_logits=True`` returns the final-norm hidden states (B, T,
+    D) in place of the logits: the loss path's CE head computes logits
+    itself (``loss_fn``).
 
     ``kv_cache`` from ``make_kv_cache`` with ``cache_index=0`` is the
     admission prefill; a pool from ``make_paged_kv_pool`` with ``paged``
@@ -555,12 +564,186 @@ def forward(
         x = _mlp_block(blk, x, cfg)
 
     x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
+    if return_pre_logits:
+        return x, kv_cache
+    w_out, bias = _lm_head_weights(params, cfg)
+    return _head_logits32(x, w_out.to(cdt), bias, cdt), kv_cache
+
+
+def _lm_head_weights(params: Params, cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(w_out (D, V), bias (V,) or None): the one definition of the output
+    head, shared by ``forward`` and ``loss_fn``."""
     if cfg.tie_embeddings:
-        w_out, bias = params["tok_embed"]["embedding"].T, None
-    else:
-        w_out, bias = params["lm_head"]["kernel"], params["lm_head"].get("bias")
-    # Compute-dtype operands, fp32 accumulation and fp32 logits.
-    logits = x.to(cdt).float() @ w_out.to(cdt).float()
+        return params["tok_embed"]["embedding"].T, None
+    head = params["lm_head"]
+    return head["kernel"], head.get("bias")
+
+
+# ---------------------------------------------------------------------------
+# Loss: the chunked and dense cross-entropy heads
+# ---------------------------------------------------------------------------
+
+
+def _head_logits32(
+    xc: torch.Tensor, wc: torch.Tensor, bias: Optional[torch.Tensor], cdt: torch.dtype,
+) -> torch.Tensor:
+    """Head logits, the one formula of both CE heads and ``forward``:
+    compute-dtype operands, fp32 products (the values of JAX's
+    ``preferred_element_type=f32`` einsum), fp32 bias add. ``wc`` is
+    already in the compute dtype."""
+    logits = xc.to(cdt).float() @ wc.float()
     if bias is not None:
         logits = logits + bias.float()
-    return logits, kv_cache
+    return logits
+
+
+def _subtract_onehot(p: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """p - onehot(targets) in the iota-compare form (no scatter), as the
+    JAX package writes it. Targets must lie in [0, V): an out-of-range id is
+    a no-op here, so ignored positions need a loss mask, never a sentinel."""
+    cols = torch.arange(p.shape[1], device=p.device)
+    return p - (cols[None, :] == targets[:, None]).to(p.dtype)
+
+
+class _LseSavedCE(torch.autograd.Function):
+    """Sum of per-token CE over token chunks (the JAX ``_lse_saved_ce``
+    custom VJP): the forward keeps each chunk's logits only transiently and
+    saves the (S,) logsumexp; the backward recomputes a chunk's logits and
+    forms softmax = exp(logits - lse) in one pass. z-loss adds z * lse^2
+    per token (its gradient scales p by 1 + 2 z lse)."""
+
+    @staticmethod
+    def forward(ctx, xs, w_out, bias, ts_, cdt, z):
+        wc = w_out.to(cdt)
+        total = torch.zeros((), dtype=torch.float32, device=xs.device)
+        lses = []
+        for xc, tc in zip(xs, ts_):
+            logits = _head_logits32(xc, wc, bias, cdt)
+            lse = torch.logsumexp(logits, dim=-1)
+            label = logits.gather(1, tc[:, None])[:, 0]
+            chunk = (lse - label).sum()
+            if z:
+                chunk = chunk + z * lse.square().sum()
+            total = total + chunk
+            lses.append(lse)
+        ctx.save_for_backward(xs, w_out, bias, ts_, torch.stack(lses))
+        ctx.cdt, ctx.z = cdt, z
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, w_out, bias, ts_, lses = ctx.saved_tensors
+        cdt, z = ctx.cdt, ctx.z
+        wc = w_out.to(cdt)
+        w32 = wc.float()
+        dw = torch.zeros(w_out.shape, dtype=torch.float32, device=xs.device)
+        db = None if bias is None else torch.zeros(bias.shape, dtype=torch.float32, device=xs.device)
+        dxs = []
+        for xc, tc, lse in zip(xs, ts_, lses):
+            logits = _head_logits32(xc, wc, bias, cdt)
+            p = torch.exp(logits - lse[:, None])
+            if z:
+                p = p * (1.0 + 2.0 * z * lse[:, None])
+            dlogits = _subtract_onehot(p, tc) * g
+            dxs.append((dlogits @ w32.T).to(xs.dtype))
+            dw = dw + xc.to(cdt).float().T @ dlogits
+            if db is not None:
+                db = db + dlogits.sum(0)
+        return (
+            torch.stack(dxs), dw.to(w_out.dtype),
+            None if bias is None else db.to(bias.dtype), None, None, None,
+        )
+
+
+class _DenseLseCE(torch.autograd.Function):
+    """Sum of per-token CE with the compute-dtype logits saved (the JAX
+    ``_dense_lse_ce`` custom VJP): the backward recomputes no logits."""
+
+    @staticmethod
+    def forward(ctx, x, w_out, bias, ts_, cdt, z):
+        logits = _head_logits32(x, w_out.to(cdt), bias, cdt)
+        lse = torch.logsumexp(logits, dim=-1)
+        label = logits.gather(1, ts_[:, None])[:, 0]
+        total = (lse - label).sum()
+        if z:
+            total = total + z * lse.square().sum()
+        ctx.save_for_backward(x, w_out, bias, ts_, logits.to(cdt), lse)
+        ctx.cdt, ctx.z = cdt, z
+        return total
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_out, bias, ts_, logits_c, lse = ctx.saved_tensors
+        cdt, z = ctx.cdt, ctx.z
+        p = torch.exp(logits_c.float() - lse[:, None])
+        if z:
+            p = p * (1.0 + 2.0 * z * lse[:, None])
+        dlogits = _subtract_onehot(p, ts_) * g
+        dx = dlogits @ w_out.to(cdt).float().T
+        dw = x.to(cdt).float().T @ dlogits
+        db = None if bias is None else dlogits.sum(0).to(bias.dtype)
+        return dx.to(x.dtype), dw.to(w_out.dtype), db, None, None, None
+
+
+_CE_CHUNK_BYTES = 512 * 1024 * 1024  # target fp32 logits per chunk
+
+
+def _ce_chunks(s: int, vocab_size: int) -> int:
+    """The JAX package's chunk count: chunk only when the (S, V) fp32
+    logits pass 512 MB; then the smallest divisor of S at least the wanted
+    count with chunks of >= 512 tokens, else the largest such divisor (with
+    a warning when that leaves chunks above the target)."""
+    logits_bytes = s * vocab_size * 4
+    want = max(1, -(-logits_bytes // _CE_CHUNK_BYTES))
+    if want == 1:
+        return 1
+    divisors = [c for c in range(2, s // 512 + 1) if s % c == 0]
+    at_least = [c for c in divisors if c >= want]
+    n_chunks = min(at_least) if at_least else (max(divisors) if divisors else 1)
+    if n_chunks < want:
+        warnings.warn(
+            f"chunked CE head: batch*seq={s} has no divisor >= {want} with "
+            f"chunk >= 512; using {n_chunks} chunks — logits memory "
+            f"{logits_bytes / n_chunks / 2**20:.0f} MB/chunk exceeds the "
+            "512 MB target. Prefer power-of-two batch*context products.",
+            stacklevel=3,
+        )
+    return n_chunks
+
+
+def _chunked_ce(
+    hidden: torch.Tensor, w_out: torch.Tensor, bias: Optional[torch.Tensor],
+    targets: torch.Tensor, cfg: ModelConfig, z: float = 0.0,
+) -> torch.Tensor:
+    """Mean cross-entropy over (B, T) targets through the configured head:
+    ``ce_impl="chunked"`` (lse saved, logits recomputed per chunk) or
+    "dense" (compute-dtype logits saved)."""
+    if cfg.ce_impl == "fused":
+        raise NotImplementedError(
+            "ce_impl='fused' (the fused CE kernels B9-B11, ops/pallas_ce.py) is not "
+            "ported to PyTorch yet; use 'chunked' or 'dense'"
+        )
+    cdt = torch_dtype(cfg.compute_dtype)
+    b, t, d = hidden.shape
+    s = b * t
+    if cfg.ce_impl == "dense":
+        return _DenseLseCE.apply(hidden.reshape(s, d), w_out, bias, targets.reshape(s), cdt, z) / s
+    n_chunks = _ce_chunks(s, cfg.vocab_size)
+    xs = hidden.reshape(n_chunks, s // n_chunks, d)
+    ts_ = targets.reshape(n_chunks, s // n_chunks)
+    return _LseSavedCE.apply(xs, w_out, bias, ts_, cdt, z) / s
+
+
+def loss_fn(
+    params: Params, tokens: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig, *,
+    include_aux: bool = True,
+) -> torch.Tensor:
+    """Mean next-token cross-entropy in fp32 through the chunked (or dense)
+    head. z-loss (``cfg.z_loss_coef``) is part of the training objective
+    only: ``include_aux=False`` (eval) reports pure cross-entropy."""
+    hidden, _ = forward(params, tokens, cfg, return_pre_logits=True)
+    w_out, bias = _lm_head_weights(params, cfg)
+    return _chunked_ce(
+        hidden, w_out, bias, targets.long(), cfg,
+        z=cfg.z_loss_coef if include_aux else 0.0,
+    )

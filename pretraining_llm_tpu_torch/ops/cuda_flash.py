@@ -1,11 +1,15 @@
-"""Flash-attention forward: the CUDA kernel ``csrc/flash_fwd.cu`` (K1) and its
-plain PyTorch version.
+"""Flash attention: the CUDA forward ``csrc/flash_fwd.cu`` (K1), the CUDA
+backward ``csrc/flash_bwd.cu`` (one-pass, dQ and dK/dV kernels), their
+plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
-Counterpart of ``pretraining_llm_tpu/ops/pallas_flash.py::_fwd``: O and the
-per-row logsumexp of causal (optionally sliding-window) attention over the
-heads-first folds q (B*H, T, Dh) and k/v (B*G, T, Dh); query head h reads
-KV head h // (H/G). ``flash_attention_fwd`` launches the kernel for CUDA
-tensors and runs ``flash_attention_fwd_reference`` only for CPU tensors.
+Counterpart of ``pretraining_llm_tpu/ops/pallas_flash.py``: causal
+(optionally sliding-window) attention over the heads-first folds q (B*H,
+T, Dh) and k/v (B*G, T, Dh); query head h reads KV head h // (H/G).
+``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels for
+CUDA tensors and run the plain versions only for CPU tensors. The backward
+picks its algorithm with the JAX package's rule (``_block_sizes``): one q
+block and one kv block run the one-pass kernel, anything else the dQ +
+dK/dV pair, so both packages take the same path for every shape.
 """
 
 from __future__ import annotations
@@ -19,12 +23,39 @@ from pretraining_llm_tpu_torch.ops import _build
 
 NEG_INF = -1e30  # finite, as in the Pallas kernel: exp/max edge cases
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 _ARGTYPES = tuple(
     [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+# (q, k, v, dout, lse, delta, <n outputs>, B, H, G, T, D, window, scale, dtype, stream)
+_BWD_ARGTYPES = {
+    n_out: tuple(
+        [ctypes.c_void_p] * (6 + n_out)
+        + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    for n_out in (1, 2, 3)
+}
+
+
+def _block_sizes(t: int, block_q: int, block_kv: int) -> Tuple[int, int]:
+    """The JAX package's block rule (``pallas_flash._block_sizes``), copied
+    unchanged: it decides the backward's algorithm here, as it does there."""
+    bq = min(block_q or 1024, t)
+    bk = min(block_kv or 1024, t)
+    while t % bq:
+        bq //= 2
+    while t % bk:
+        bk //= 2
+    return max(bq, 1), max(bk, 1)
+
+
+def backward_is_one_pass(t: int, block_q: int = 0, block_kv: int = 0) -> bool:
+    """True when ``_bwd`` would take ``_bwd_fused_kernel`` (nq == nk == 1)."""
+    bq, bk = _block_sizes(t, block_q, block_kv)
+    return t // bq == 1 and t // bk == 1
 
 
 def _valid_mask(t: int, window: int, device: torch.device) -> torch.Tensor:
@@ -34,6 +65,28 @@ def _valid_mask(t: int, window: int, device: torch.device) -> torch.Tensor:
     if window:
         ok = ok & (qpos - kpos < window)
     return ok
+
+
+def _check_folds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, g: int) -> None:
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
+        raise ValueError(f"expected q (B*H,T,Dh), k/v (B*G,T,Dh); got {q.shape}, {k.shape}, {v.shape}")
+    bh, t, d = q.shape
+    if h % g or bh % h or k.shape != (bh // h * g, t, d):
+        raise ValueError(f"q {tuple(q.shape)} / kv {tuple(k.shape)} do not fold H={h}, G={g}")
+
+
+def _check_cuda(what: str, tensors: Tuple[torch.Tensor, ...], same_dtype: Tuple[torch.Tensor, ...]) -> None:
+    """The kernels' contract: one CUDA device, fp32 or bf16 operands of one
+    dtype, Dh in _HEAD_DIMS, contiguous."""
+    q = tensors[0]
+    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
+        raise ValueError(f"{what}: tensors on {[str(x.device) for x in tensors]}")
+    if q.dtype not in _DTYPE_CODES or any(x.dtype != q.dtype for x in same_dtype):
+        raise TypeError(f"{what} takes float32 or bfloat16, got {[x.dtype for x in same_dtype]}")
+    if q.shape[-1] not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {q.shape[-1]} not in {_HEAD_DIMS}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
 
 
 def flash_attention_fwd_reference(
@@ -67,23 +120,13 @@ def flash_attention_fwd(
     """K1 for CUDA tensors, the plain version for CPU tensors.
 
     q: (B*H, T, Dh); k, v: (B*G, T, Dh), contiguous, one dtype (fp32 or
-    bf16), Dh in {64, 128}. Returns (o like q, lse (B*H, T) fp32).
+    bf16), Dh in {32, 64, 128}. Returns (o like q, lse (B*H, T) fp32).
     ``flash_attention_fwd.launches`` counts kernel launches."""
-    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
-        raise ValueError(f"expected q (B*H,T,Dh), k/v (B*G,T,Dh); got {q.shape}, {k.shape}, {v.shape}")
+    _check_folds(q, k, v, h, g)
     bh, t, d = q.shape
-    if h % g or bh % h or k.shape != (bh // h * g, t, d):
-        raise ValueError(f"q {tuple(q.shape)} / kv {tuple(k.shape)} do not fold H={h}, G={g}")
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, h, g, window=window)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention_fwd: tensors on {q.device}, {k.device}, {v.device}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_fwd takes float32 or bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head dim {d} not in {_HEAD_DIMS}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention_fwd: q, k, v must be contiguous")
+    _check_cuda("flash_attention_fwd", (q, k, v), (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_fwd", "pllm_flash_fwd", _ARGTYPES)
@@ -98,3 +141,140 @@ def flash_attention_fwd(
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, h: int, g: int, *, window: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``pallas_flash._bwd`` (either algorithm: they differ
+    only in summation order). D = rowsum(dO*O) in fp32; p = exp(s - lse)
+    zeroed by the mask; every product in fp32 on compute-dtype operands,
+    with dS rounded to K's (Q's) dtype before dS.K (dS^T.Q) and P to dO's
+    before P^T.dO; the GQA group's heads sum into dK and dV. Returns (dq
+    like q, dk like k, dv like v)."""
+    bh, t, d = q.shape
+    b = bh // h
+    r = h // g
+    scale = 1.0 / d**0.5
+    qf = q.reshape(b, g, r, t, d).float()
+    kf = k.reshape(b, g, t, d).float()
+    vf = v.reshape(b, g, t, d).float()
+    dof = do.reshape(b, g, r, t, d).float()
+    delta = (do.float() * o.float()).sum(-1).reshape(b, g, r, t, 1)
+    s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf) * scale
+    ok = _valid_mask(t, window, q.device)
+    p = torch.where(ok, torch.exp(s - lse.reshape(b, g, r, t, 1)), torch.zeros_like(s))
+    dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bgrqk,bgkd->bgrqd", ds.to(k.dtype).float(), kf)
+    dk = torch.einsum("bgrqk,bgrqd->bgkd", ds.to(q.dtype).float(), qf)
+    dv = torch.einsum("bgrqk,bgrqd->bgkd", p.to(do.dtype).float(), dof)
+    return (
+        dq.reshape(bh, t, d).to(q.dtype),
+        dk.reshape(b * g, t, d).to(k.dtype),
+        dv.reshape(b * g, t, d).to(v.dtype),
+    )
+
+
+def _bwd_call(symbol: str, n_out: int, what: str, q, k, v, do, lse, delta, outs, h, g, window) -> None:
+    bh, t, d = q.shape
+    fn = _build.load("flash_bwd", symbol, _BWD_ARGTYPES[n_out])
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        *(x.data_ptr() for x in outs), bh // h, h, g, t, d, int(window), 1.0 / d**0.5,
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(rc, what)
+
+
+def flash_bwd_fused(q, k, v, do, lse, delta, h, g, *, window=0):
+    """The one-pass kernel (``_bwd_fused_kernel``): (dq, dk, dv), dq summed
+    in fp32 with atomics and cast to q's dtype. CUDA tensors only, as
+    validated by ``flash_attention_bwd``; ``.launches`` counts launches."""
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_call("pllm_flash_bwd_fused", 3, "flash_bwd_fused", q, k, v, do, lse, delta,
+              (dq_acc, dk, dv), h, g, window)
+    flash_bwd_fused.launches += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, h, g, *, window=0):
+    """The dQ kernel (``_bwd_dq_kernel``); ``.launches`` counts launches."""
+    dq = torch.empty_like(q)
+    _bwd_call("pllm_flash_bwd_dq", 1, "flash_bwd_dq", q, k, v, do, lse, delta, (dq,), h, g, window)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, h, g, *, window=0):
+    """The dK/dV kernel (``_bwd_dkv_kernel``); ``.launches`` counts launches."""
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_call("pllm_flash_bwd_dkv", 2, "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), h, g, window)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_fused.launches = 0
+flash_bwd_dq.launches = 0
+flash_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, h: int, g: int, *, window: int = 0,
+    block_q: int = 0, block_kv: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels for CUDA tensors, the plain version for CPU
+    tensors.
+
+    q, o, do: (B*H, T, Dh); k, v: (B*G, T, Dh); lse: (B*H, T) fp32 from the
+    forward. ``block_q``/``block_kv`` (0 = auto) choose the algorithm as
+    ``_bwd`` does: one block each runs the one-pass kernel
+    (``flash_bwd_fused``), otherwise the dQ kernel and the dK/dV kernel
+    (``flash_bwd_dq``, ``flash_bwd_dkv``). The kernels tile T themselves
+    (64 x 64 tiles), whatever the blocks. Returns (dq, dk, dv)."""
+    _check_folds(q, k, v, h, g)
+    bh, t, d = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, t):
+        raise ValueError(
+            f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
+            f"{tuple(lse.shape)} do not match q {tuple(q.shape)}"
+        )
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window)
+    _check_cuda("flash_attention_bwd", (q, k, v, o, lse, do), (q, k, v, o, do))
+    if lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: lse must be float32, got {lse.dtype}")
+    delta = (do.float() * o.float()).sum(-1)  # D = rowsum(dO * O), fp32 (XLA in JAX)
+    if backward_is_one_pass(t, block_q, block_kv):
+        return flash_bwd_fused(q, k, v, do, lse, delta, h, g, window=window)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, h, g, window=window)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over the heads-first folds, the
+    counterpart of the ``_flash`` custom VJP: the forward runs K1 (or its
+    plain version on the CPU) and saves (q, k, v, o, lse); the backward runs
+    ``flash_attention_bwd``. ``apply(q, k, v, h, g, window, block_q,
+    block_kv)``; the integer arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, h, g, window, block_q, block_kv):
+        o, lse = flash_attention_fwd(q, k, v, h, g, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.meta = (h, g, window, block_q, block_kv)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        h, g, window, block_q, block_kv = ctx.meta
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), h, g, window=window,
+            block_q=block_q, block_kv=block_kv,
+        )
+        return dq, dk, dv, None, None, None, None, None

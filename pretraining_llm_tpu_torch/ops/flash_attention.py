@@ -2,22 +2,26 @@
 
 Counterpart of ``pretraining_llm_tpu/ops/flash_attention.py::flash_attention``
 without the TPU mesh branches: q (B, T, H, Dh) and k/v (B, T, G, Dh) are
-folded heads-first and handed to ``cuda_flash.flash_attention_fwd``, which
-launches the CUDA kernel for a CUDA tensor and runs the plain version for a
-CPU tensor. Nothing falls back from one to the other.
+folded heads-first and handed to ``cuda_flash.FlashAttention``, whose
+forward launches the CUDA forward kernel and whose backward launches the
+CUDA backward kernels for CUDA tensors, and which runs the plain versions
+for CPU tensors. Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pretraining_llm_tpu_torch.ops.cuda_flash import flash_attention_fwd
+from pretraining_llm_tpu_torch.ops.cuda_flash import FlashAttention
 
 
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, window: int = 0,
+    block_q: int = 0, block_kv: int = 0,
 ) -> torch.Tensor:
-    """Causal attention, (B, T, H, Dh) x (B, T, G, Dh) -> (B, T, H, Dh), G | H."""
+    """Causal attention, (B, T, H, Dh) x (B, T, G, Dh) -> (B, T, H, Dh), G | H.
+    ``block_q``/``block_kv`` (0 = auto) choose the backward's algorithm as
+    the JAX package's blocks do (``cuda_flash.backward_is_one_pass``)."""
     b, t, h, d = q.shape
     g = k.shape[2]
     if h % g:
@@ -26,5 +30,8 @@ def flash_attention(
     def heads_first(x: torch.Tensor) -> torch.Tensor:
         return x.permute(0, 2, 1, 3).reshape(b * x.shape[2], t, d).contiguous()
 
-    o, _ = flash_attention_fwd(heads_first(q), heads_first(k), heads_first(v), h, g, window=window)
+    o = FlashAttention.apply(
+        heads_first(q), heads_first(k), heads_first(v), h, g, int(window),
+        int(block_q), int(block_kv),
+    )
     return o.reshape(b, h, t, d).permute(0, 2, 1, 3)

@@ -1,15 +1,19 @@
-"""Where the serving path's time goes on the card: a ``torch.profiler``
-breakdown of one admission prefill and one decode window.
+"""Where the time goes on the card: a ``torch.profiler`` breakdown of one
+admission prefill and one decode window of the serving path, and of one
+training step.
 
 Run from the repository root on a machine with a GPU::
 
     python -m pretraining_llm_tpu_torch.utils.profiling
 
-It serves gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
-weights from seed 0) with the engine settings ``chip_smoke.py`` uses, and
-prints one JSON line per phase: the host wall time (which ends when the
-sampled tokens reach the host), the summed device kernel time, their ratio
-(the device's busy share), and the kernels that took the most device time.
+Serving: gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
+weights from seed 0) with the engine settings ``chip_smoke.py`` uses.
+Training: one ``build_train_step`` step of the gpt2-124m preset (batch 12,
+T 1024, bf16 compute, fp32 params and AdamW, the flash kernels) after two
+warm-up steps, on random tokens. One JSON line per phase: the host wall
+time (which ends when the loss or the sampled tokens reach the host), the
+summed device kernel time, their ratio (the device's busy share), and the
+kernels that took the most device time.
 """
 
 from __future__ import annotations
@@ -87,11 +91,35 @@ def profile_serving() -> Dict[str, Dict[str, object]]:
     return out
 
 
+def profile_train() -> Dict[str, Dict[str, object]]:
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    cfg = get_preset("gpt2-124m")
+    state = {"state": ts.init_train_state(cfg, SEED, device="cuda")}
+    step = ts.build_train_step(cfg)
+    rng = np.random.default_rng(SEED + 12)
+    toks = rng.integers(0, cfg.model.vocab_size, (cfg.train.batch_size, cfg.model.context_length + 1))
+    toks = torch.from_numpy(toks).cuda()
+    batch = (toks[:, :-1], toks[:, 1:])
+
+    def one() -> None:
+        state["state"], metrics = step(state["state"], batch)
+        float(metrics["loss"])  # the step ends when its loss reaches the host
+
+    for _ in range(2):
+        one()
+    out = {"train_step": _profile(one)}
+    out["train_step"]["tokens"] = cfg.train.batch_size * cfg.model.context_length
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    for phase, rec in profile_serving().items():
-        print(json.dumps({"phase": phase, "device": torch.cuda.get_device_name(0), **rec}), flush=True)
+    for profile_phases in (profile_serving, profile_train):
+        for phase, rec in profile_phases().items():
+            print(json.dumps({"phase": phase, "device": torch.cuda.get_device_name(0), **rec}), flush=True)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,11 @@ import torch
 
 from pretraining_llm_tpu_torch.config import ModelConfig, get_preset, list_presets
 from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+from pretraining_llm_tpu_torch import train as train_cli
 from pretraining_llm_tpu_torch.models import bridge, transformer
+from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
+from pretraining_llm_tpu_torch.training import train_step
+from pretraining_llm_tpu_torch.training.trainer import Trainer
 
 ROOT = Path(__file__).resolve().parent.parent
 TINY = dataclasses.replace(get_preset("tiny").model, compute_dtype="float32")
@@ -54,7 +58,7 @@ def test_port_has_kernel_sources_for_both_kernels():
     from pretraining_llm_tpu_torch.ops import _build
 
     names = sorted(p.name for p in (ROOT / "pretraining_llm_tpu_torch" / "csrc").glob("*.cu"))
-    assert names == ["flash_fwd.cu", "paged_decode.cu", "ragged_paged.cu"]
+    assert names == ["flash_bwd.cu", "flash_fwd.cu", "paged_decode.cu", "ragged_paged.cu"]
     assert sorted(_build.SOURCES) == [n[:-3] for n in names]
 
 
@@ -74,6 +78,35 @@ def test_entry_points_raise_without_gpu(no_gpu):
     params = transformer.init_params(TINY, 0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(params, TINY, n_blocks=4, block_size=8)
+
+
+@pytest.mark.parametrize("entry", ["init_train_state", "Trainer", "cli"])
+def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path, entry):
+    cfg = get_preset("tiny").with_overrides({"train.checkpoint_dir": str(tmp_path)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        if entry == "init_train_state":
+            train_step.init_train_state(cfg)
+        elif entry == "Trainer":
+            Trainer(cfg, synthetic_data=True, resume=False)
+        else:
+            train_cli.main(["--preset", "tiny", "--data", "synthetic", "--no-resume",
+                            "--override", f"train.checkpoint_dir={tmp_path}"])
+
+
+def test_flash_output_carries_the_function_grad_fn():
+    """The flash path's output is the ``FlashAttention`` node, so a backward
+    reaches the backward kernels (CUDA) or their plain version (CPU), never
+    autograd through the plain forward."""
+    q = torch.randn(1, 8, 4, 32, requires_grad=True)
+    k = torch.randn(1, 8, 2, 32, requires_grad=True)
+    v = torch.randn(1, 8, 2, 32, requires_grad=True)
+    out = flash_attention(q, k, v)
+    node = out.grad_fn
+    while node is not None and "FlashAttention" not in type(node).__name__:
+        node = node.next_functions[0][0]  # through the heads-last permute/reshape
+    assert node is not None and type(node).__name__ == "FlashAttentionBackward"
+    out.sum().backward()
+    assert all(x.grad is not None and x.grad.abs().sum() > 0 for x in (q, k, v))
 
 
 def test_engine_refuses_params_on_another_device():
@@ -105,6 +138,19 @@ def test_unported_model_options_raise(kw, name):
         transformer.init_params(cfg, 0, device="cpu")
     with pytest.raises(NotImplementedError, match=name):
         transformer.forward({}, torch.zeros(1, 2, dtype=torch.long), cfg)
+
+
+@pytest.mark.parametrize("key,value,name", [
+    ("train.optimizer", "adafactor", "adafactor"),
+    ("train.optimizer", "muon", "muon"),
+    ("model.ce_impl", "fused", "B9-B11"),
+])
+def test_unported_training_options_raise(key, value, name):
+    cfg = get_preset("tiny").with_overrides({key: value, "model.compute_dtype": "float32"})
+    with pytest.raises(NotImplementedError, match=name):
+        state = train_step.init_train_state(cfg, device="cpu")
+        x = torch.zeros(2, cfg.model.context_length, dtype=torch.long)
+        train_step.build_train_step(cfg)(state, (x, x))
 
 
 def test_unported_forward_paths_raise():
