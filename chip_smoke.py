@@ -8,12 +8,15 @@ Run from the repository root on a machine with one NVIDIA GPU::
 It builds the port's CUDA kernels from ``pretraining_llm_tpu_torch/csrc``
 (one ``nvcc`` per source, all started together), holds each against its
 plain PyTorch version at the serving and training paths' shapes (the
-flash backward kernels also through ``FlashAttention`` gradients), holds
-2-layer models on the card against the same models on the CPU (the
-monolithic admission with paged decode; the chunked suffix lane with an
-exact and an int8-kv pool; three AdamW steps of a gpt2-width and a GQA
-model), then drives three serving paths and three training runs, counting
-each kernel's launches on each:
+flash kernels with and without document segments, the flash backward also
+through ``FlashAttention`` gradients, the fused CE kernels also through
+``FusedCE`` gradients against a dense head), holds 2-layer models on the
+card against the same models on the CPU (the monolithic admission with
+paged decode; the chunked suffix lane with an exact and an int8-kv pool;
+three AdamW steps of a gpt2-width and a GQA model, each with the chunked
+head and again with the fused CE head and document masking), checks that
+documents stay isolated on the card, then drives three serving paths and
+four training runs, counting each kernel's launches on each:
 
   path 1  16 requests, ``ServingEngine.submit/run`` on full-width
           gpt2-124m, monolithic admission prefill (flash kernel) and paged
@@ -37,7 +40,15 @@ each kernel's launches on each:
           and the dQ + dK/dV kernels; held against a naive-attention run;
   parity  the repo's golden run (``data/parity``: init weights, corpus
           and the JAX package's recorded 1500-step curve and eval loss)
-          trained on the card at fp32 through the flash kernels.
+          trained on the card at fp32 through the flash kernels;
+  T3      ``Trainer.train`` on gpt2-124m at full width and depth (batch
+          12, T 1024, bf16 compute) with ``ce_impl="fused"`` and
+          ``doc_mask_token=10`` for 20 steps on ``data/parity`` bytes: the
+          fused CE kernels (forward, dH, dW) once each per step, flash
+          forward and one-pass backward with document segments; its
+          losses and every parameter's gradient held against its
+          all-torch-ops twin (chunked head, naive attention) on T3's own
+          states.
 
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
@@ -94,6 +105,13 @@ SCRATCH = ROOT / "build" / "chip_smoke"  # git-ignored; the train paths' checkpo
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 NAIVE_LOSS_TOL = 0.05
+# T3 on its own states: every parameter's gradient through the fused head
+# and flash attention with segments within 2% (relative to the norm) of the
+# all-torch-ops twin's, twice the largest reading over T3's first 10
+# states on an H100 (0.00995, blocks/mlp/b2; PERF.md): bf16 rounding points
+# differ between the two, so an exact bar is not possible.
+T3_GRAD_RTOL = 0.02
+ISOLATION_TOL = 1e-6  # other documents' fp32 logits when one document changes
 PARITY_LOSS_TOL = 0.02
 PARITY_EVAL_TOL = 0.01
 
@@ -140,6 +158,28 @@ def tol_use(out: torch.Tensor, ref: torch.Tensor, fp32_tol: float = FP32_TOL) ->
     return (err / limit.clamp_min(1e-30)).max().item()
 
 
+DOC_SEP = 10  # byte "\n": the document separator of the doc-masked runs (model.doc_mask_token)
+
+
+def parity_segments(b: int, t: int, seed: int) -> torch.Tensor:
+    """(B, T) int32 document ids of B windows of ``data/parity/train.bin``
+    split at DOC_SEP, as the model derives them (separators strictly
+    before each token: a separator ends its document)."""
+    data = np.memmap(PARITY_DIR / "train.bin", dtype=np.uint16, mode="r")
+    starts = np.random.default_rng(seed).integers(0, len(data) - t, size=b)
+    sep = (np.stack([data[i:i + t] for i in starts]) == DOC_SEP).astype(np.int32)
+    return torch.from_numpy(np.cumsum(sep, axis=1) - sep).to(device=DEVICE, dtype=torch.int32).contiguous()
+
+
+def segment_summary(seg) -> object:
+    """Documents per row and the shortest and longest, for the log."""
+    if seg is None:
+        return None
+    docs = [torch.unique_consecutive(row, return_counts=True)[1] for row in seg.cpu()]
+    return {"docs_per_row": [len(c) for c in docs], "min_len": min(int(c.min()) for c in docs),
+            "max_len": max(int(c.max()) for c in docs)}
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -171,27 +211,31 @@ def check_flash() -> float:
     from pretraining_llm_tpu_torch.ops import cuda_flash
 
     gen = torch.Generator().manual_seed(SEED)
-    cases = [  # (B, H, G, T, Dh, window, dtype)
-        (2, 12, 12, 512, 64, 0, torch.bfloat16), (2, 12, 12, 1024, 64, 0, torch.bfloat16),
-        (2, 12, 12, 512, 64, 0, torch.float32), (2, 12, 12, 1024, 64, 0, torch.float32),
-        (2, 16, 4, 512, 64, 0, torch.bfloat16),  # GQA
-        (2, 12, 12, 1024, 64, 256, torch.bfloat16),  # sliding window
-        (1, 4, 2, 200, 64, 0, torch.float32),  # T not a multiple of the 64-row tile
-        (1, 16, 4, 300, 128, 0, torch.bfloat16), (1, 16, 4, 300, 128, 0, torch.float32),  # Dh 128
-        (4, 8, 8, 256, 32, 0, torch.float32), (4, 8, 8, 256, 32, 0, torch.bfloat16),  # Dh 32 (parity)
+    cases = [  # (B, H, G, T, Dh, window, dtype, document segments)
+        (2, 12, 12, 512, 64, 0, torch.bfloat16, False), (2, 12, 12, 1024, 64, 0, torch.bfloat16, False),
+        (2, 12, 12, 512, 64, 0, torch.float32, False), (2, 12, 12, 1024, 64, 0, torch.float32, False),
+        (2, 16, 4, 512, 64, 0, torch.bfloat16, False),  # GQA
+        (2, 12, 12, 1024, 64, 256, torch.bfloat16, False),  # sliding window
+        (1, 4, 2, 200, 64, 0, torch.float32, False),  # T not a multiple of the 64-row tile
+        (1, 16, 4, 300, 128, 0, torch.bfloat16, False), (1, 16, 4, 300, 128, 0, torch.float32, False),  # Dh 128
+        (4, 8, 8, 256, 32, 0, torch.float32, False), (4, 8, 8, 256, 32, 0, torch.bfloat16, False),  # Dh 32
+        (2, 12, 12, 1024, 64, 0, torch.bfloat16, True), (2, 12, 12, 1024, 64, 0, torch.float32, True),
+        (2, 16, 4, 512, 64, 200, torch.bfloat16, True),  # segments, GQA, window
+        (1, 4, 2, 200, 64, 0, torch.float32, True), (1, 16, 4, 300, 128, 0, torch.bfloat16, True),
     ]
     worst = 0.0
-    for b, h, g, t, d, window, dtype in cases:
+    for b, h, g, t, d, window, dtype, seg_on in cases:
         q = randn((b * h, t, d), dtype, gen)
         k = randn((b * g, t, d), dtype, gen)
         v = randn((b * g, t, d), dtype, gen)
-        o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window)
-        o_ref, lse_ref = cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, window=window)
+        seg = parity_segments(b, t, SEED + b * t) if seg_on else None
+        o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window, segments=seg)
+        o_ref, lse_ref = cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, window=window, segments=seg)
         torch.cuda.synchronize()
         err = max(max_err(o, o_ref), max_err(lse, lse_ref))
         use = max(tol_use(o, o_ref), tol_use(lse, lse_ref))
         log("check_flash", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
-            max_abs_err=err, tol_use=use)
+            segments=segment_summary(seg), max_abs_err=err, tol_use=use)
         if not (use <= 1.0):
             raise AssertionError(f"flash kernel disagrees with its plain version: {use} x its limit")
         worst = max(worst, err)
@@ -215,19 +259,24 @@ def row_tol_use(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
 # order flips a rounding: 1 to 4 ulps of the row's largest value).
 BWD_FP32_RTOL = 1e-4
 GRAD_TOL = 1e-4  # FlashAttention vs autograd through naive attention, fp32 max-abs
-BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv)
-    (2, 12, 12, 1024, 64, 0, torch.bfloat16, 0, 0),     # gpt2-124m: one pass
-    (1, 12, 12, 1024, 64, 0, torch.float32, 0, 0),
-    (1, 8, 4, 512, 64, 0, torch.bfloat16, 0, 0),        # GQA n_rep 2, one pass
-    (1, 8, 4, 512, 64, 0, torch.float32, 128, 128),     # GQA n_rep 2, split
-    (1, 16, 4, 2048, 128, 0, torch.bfloat16, 0, 0),     # llama3-1b-gqa: n_rep 4, split
-    (1, 16, 4, 2048, 128, 0, torch.float32, 0, 0),
-    (1, 12, 12, 1024, 64, 256, torch.bfloat16, 0, 0),   # window, one pass
-    (1, 8, 2, 1024, 64, 200, torch.float32, 256, 256),  # window, n_rep 4, split
-    (2, 8, 8, 256, 32, 0, torch.float32, 0, 0),         # Dh 32 (the parity model)
-    (2, 8, 8, 256, 32, 0, torch.bfloat16, 64, 64),      # Dh 32, split
-    (1, 8, 8, 300, 128, 0, torch.bfloat16, 0, 0),       # T not a multiple of 64, one pass
-    (1, 4, 2, 200, 64, 0, torch.float32, 100, 100),     # ... split
+BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv, document segments)
+    (2, 12, 12, 1024, 64, 0, torch.bfloat16, 0, 0, False),     # gpt2-124m: one pass
+    (1, 12, 12, 1024, 64, 0, torch.float32, 0, 0, False),
+    (1, 8, 4, 512, 64, 0, torch.bfloat16, 0, 0, False),        # GQA n_rep 2, one pass
+    (1, 8, 4, 512, 64, 0, torch.float32, 128, 128, False),     # GQA n_rep 2, split
+    (1, 16, 4, 2048, 128, 0, torch.bfloat16, 0, 0, False),     # llama3-1b-gqa: n_rep 4, split
+    (1, 16, 4, 2048, 128, 0, torch.float32, 0, 0, False),
+    (1, 12, 12, 1024, 64, 256, torch.bfloat16, 0, 0, False),   # window, one pass
+    (1, 8, 2, 1024, 64, 200, torch.float32, 256, 256, False),  # window, n_rep 4, split
+    (2, 8, 8, 256, 32, 0, torch.float32, 0, 0, False),         # Dh 32 (the parity model)
+    (2, 8, 8, 256, 32, 0, torch.bfloat16, 64, 64, False),      # Dh 32, split
+    (1, 8, 8, 300, 128, 0, torch.bfloat16, 0, 0, False),       # T not a multiple of 64, one pass
+    (1, 4, 2, 200, 64, 0, torch.float32, 100, 100, False),     # ... split
+    (2, 12, 12, 1024, 64, 0, torch.bfloat16, 0, 0, True),      # segments, one pass
+    (1, 12, 12, 1024, 64, 0, torch.float32, 0, 0, True),
+    (1, 8, 4, 512, 64, 0, torch.float32, 128, 128, True),      # segments, GQA, split
+    (1, 8, 2, 1024, 64, 200, torch.bfloat16, 256, 256, True),  # segments, window, split
+    (1, 8, 8, 300, 128, 0, torch.float32, 0, 0, True),         # segments, ragged T, one pass
 ]
 
 
@@ -243,22 +292,24 @@ def check_flash_bwd() -> None:
 
     gen = torch.Generator().manual_seed(SEED + 9)
     counters = (cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq, cuda_flash.flash_bwd_dkv)
-    for b, h, g, t, d, window, dtype, bq, bk in BWD_CASES:
+    for b, h, g, t, d, window, dtype, bq, bk, seg_on in BWD_CASES:
         q, do = randn((b * h, t, d), dtype, gen), randn((b * h, t, d), dtype, gen)
         k, v = randn((b * g, t, d), dtype, gen), randn((b * g, t, d), dtype, gen)
-        o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window)
+        seg = parity_segments(b, t, SEED + 9 + b * t) if seg_on else None
+        o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window, segments=seg)
         before = [f.launches for f in counters]
         got = cuda_flash.flash_attention_bwd(q, k, v, o, lse, do, h, g, window=window, block_q=bq,
-                                             block_kv=bk)
+                                             block_kv=bk, segments=seg)
         ran = tuple(f.launches - n for f, n in zip(counters, before))
-        ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window)
+        ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window, segments=seg)
         torch.cuda.synchronize()
         rtol = BWD_FP32_RTOL if dtype == torch.float32 else BF16_ROW_RTOL
         uses = {n: row_tol_use(x, y, rtol) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
         errs = {n: max_err(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
         one_pass = cuda_flash.backward_is_one_pass(t, bq, bk)
         log("check_flash_bwd", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
-            block_q=bq, block_kv=bk, kernels="one pass" if one_pass else "dq + dkv",
+            block_q=bq, block_kv=bk, segments=segment_summary(seg),
+            kernels="one pass" if one_pass else "dq + dkv",
             max_abs_err=errs, tol_use=uses, rtol=rtol)
         if ran != ((1, 0, 0) if one_pass else (0, 1, 1)):
             raise AssertionError(f"backward launched {ran} (fused, dq, dkv) for one_pass={one_pass}")
@@ -270,20 +321,118 @@ def check_flash_bwd() -> None:
     # (gradients of N(0, 1) inputs are O(1) to O(10); the two differ in
     # summation order and in D = rowsum(dO*O) against the softmax VJP's
     # rowsum(P*dP)).
-    for b, t, h, g, d, window, blocks in ((2, 256, 8, 4, 64, 0, 0), (1, 512, 8, 2, 32, 100, 128)):
+    for b, t, h, g, d, window, blocks, seg_on in ((2, 256, 8, 4, 64, 0, 0, False), (1, 512, 8, 2, 32, 100, 128, False),
+                                                  (2, 256, 8, 4, 64, 0, 0, True), (2, 512, 8, 2, 32, 0, 128, True)):
         q, k, v = (randn((b, t, n, d), torch.float32, gen).requires_grad_(True) for n in (h, g, g))
         do = randn((b, t, h, d), torch.float32, gen)
-        flash_attention(q, k, v, window=window, block_q=blocks, block_kv=blocks).backward(do)
+        seg = parity_segments(b, t, SEED + 12 + b * t) if seg_on else None
+        flash_attention(q, k, v, window=window, block_q=blocks, block_kv=blocks, segments=seg).backward(do)
         got = [x.grad.clone() for x in (q, k, v)]
         for x in (q, k, v):
             x.grad = None
-        naive_attention(q, k, v, causal=True, window=window).backward(do)
+        naive_attention(q, k, v, causal=True, window=window, segments=seg).backward(do)
         errs = {n: max_err(x, y.grad) for n, x, y in zip(("dq", "dk", "dv"), got, (q, k, v))}
         uses = {n: e / GRAD_TOL for n, e in errs.items()}
         log("check_flash_grad", B=b, T=t, H=h, G=g, Dh=d, window=window, blocks=blocks,
-            max_abs_err=errs, tol=GRAD_TOL, tol_use=uses)
+            segments=segment_summary(seg), max_abs_err=errs, tol=GRAD_TOL, tol_use=uses)
         if not all(u <= 1.0 for u in uses.values()):
             raise AssertionError(f"FlashAttention gradients disagree with autograd through naive: {uses}")
+
+
+# Fused CE checks. Loss and lse: within CE_LOSS_TOL of max(1, |reference|)
+# (fp32 stats from the same operands; summation order only). dH and dW:
+# bf16 per output row (of the (S, D) and (V, D) outputs) at BF16_ROW_RTOL
+# with row_tol_use's floor (both round p~ to bf16 at the same point, then
+# the output; a sum in another order flips a rounding), fp32 max-abs
+# FP32_TOL. FusedCE against autograd through a dense head: fp32, each
+# gradient within CE_GRAD_RTOL of its largest |value|.
+T1_HEAD = (12 * 1024, 768, 50304)  # (S, D, V) of T1's and T3's CE head: batch 12 x 1024 tokens, gpt2-124m
+CE_LOSS_TOL = 1e-4
+CE_GRAD_RTOL = 1e-4
+CE_CASES = [  # (S, D, V, dtype): token and vocabulary tails, GPT-2's real V = 50257
+    (300, 768, 200, torch.float32), (300, 768, 200, torch.bfloat16),
+    (300, 256, 384, torch.float32), (300, 256, 384, torch.bfloat16),
+    (1000, 768, 50257, torch.float32), (1000, 768, 50257, torch.bfloat16),
+]
+
+
+def ce_inputs(s, d, v, dtype, gen):
+    """h ~ N(0, 1) (S, D), W (V, D) ~ N(0, 0.05^2), labels uniform in [0, V),
+    and a non-uniform per-token cotangent (0.5 to 2)."""
+    h = randn((s, d), dtype, gen)
+    w_vd = (torch.randn((v, d), generator=gen) * 0.05).to(device=DEVICE, dtype=dtype)
+    labels = torch.randint(0, v, (s,), generator=gen, dtype=torch.int32).to(DEVICE)
+    return h, w_vd, labels, torch.linspace(0.5, 2.0, s, device=DEVICE)
+
+
+def ce_compare(what, h, w_vd, labels, g, **extra):
+    """The three kernels against their plain versions on the same inputs
+    (the backward both from the plain forward's lse). Returns
+    {kernel: (max_abs_err, tol_use)} and fails above 1.0 of a limit."""
+    from pretraining_llm_tpu_torch.ops import ce_reference as ref
+    from pretraining_llm_tpu_torch.ops import cuda_ce
+
+    before = [f.launches for f in (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw)]
+    loss, lse = cuda_ce.fused_ce_fwd(h, w_vd, labels)
+    r_loss, r_lse = ref.fused_ce_fwd_reference(h, w_vd.t(), labels)
+    dh = cuda_ce.fused_ce_dh(h, w_vd, labels, r_lse, g)
+    dw = cuda_ce.fused_ce_dw(h, w_vd, labels, r_lse, g)
+    r_dh = ref.fused_ce_dh_reference(h, w_vd.t(), labels, r_lse, g)
+    r_dw = ref.fused_ce_dw_reference(h, w_vd.t(), labels, r_lse, g).t()
+    torch.cuda.synchronize()
+    ran = [f.launches - n for f, n in zip((cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw), before)]
+
+    def stat_use(x, y):
+        return ((x - y).abs() / (CE_LOSS_TOL * y.abs().clamp_min(1.0))).max().item()
+
+    def grad_use(x, y):
+        return row_tol_use(x, y, BF16_ROW_RTOL) if x.dtype == torch.bfloat16 else max_err(x, y) / FP32_TOL
+
+    out = {
+        "fused_ce_fwd": (max(max_err(loss, r_loss), max_err(lse, r_lse)),
+                         max(stat_use(loss, r_loss), stat_use(lse, r_lse))),
+        "fused_ce_dh": (max_err(dh, r_dh), grad_use(dh, r_dh)),
+        "fused_ce_dw": (max_err(dw, r_dw), grad_use(dw, r_dw)),
+    }
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in (loss, lse, dh, dw))
+    log(what, S=h.shape[0], D=h.shape[1], V=w_vd.shape[0], dtype=str(h.dtype), **extra,
+        max_abs_err={k: e for k, (e, _) in out.items()}, tol_use={k: u for k, (_, u) in out.items()},
+        finite=finite, launches=ran)
+    if ran != [1, 1, 1] or not finite or not all(u <= 1.0 for _, u in out.values()):
+        raise AssertionError(f"fused CE kernels disagree with their plain versions ({what}): {out}")
+    return out
+
+
+def check_ce() -> None:
+    """The fused CE kernels (B9 forward, B10 dH, B11 dW) against their plain
+    versions at CE_CASES with a non-uniform cotangent; then ``FusedCE``
+    gradients (fp32, the tied layout: W is the embedding's transpose)
+    against autograd through a plain dense head (logits, then
+    ``cross_entropy``). The T1-shape comparison is in ``time_ce_kernels``."""
+    from pretraining_llm_tpu_torch.ops.fused_ce import FusedCE
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    for s, d, v, dtype in CE_CASES:
+        ce_compare("check_ce", *ce_inputs(s, d, v, dtype, gen))
+
+    s, d, v = 512, 768, 50257
+    h, emb, labels, g = ce_inputs(s, d, v, torch.float32, gen)
+    grads = []
+    for fused in (True, False):
+        hh, ee = h.clone().requires_grad_(True), emb.clone().requires_grad_(True)
+        if fused:
+            losses = FusedCE.apply(hh, ee.T, labels)
+        else:
+            losses = torch.nn.functional.cross_entropy(hh @ ee.T, labels.long(), reduction="none")
+        (losses * g).sum().backward()
+        grads.append((losses.detach(), hh.grad, ee.grad))
+    (fl, fh, fe), (dl, dh, de) = grads
+    uses = {"loss": ((fl - dl).abs() / (CE_LOSS_TOL * dl.abs().clamp_min(1.0))).max().item(),
+            "dh": max_err(fh, dh) / (CE_GRAD_RTOL * dh.abs().max().item()),
+            "dembedding": max_err(fe, de) / (CE_GRAD_RTOL * de.abs().max().item())}
+    log("check_ce_grad", S=s, D=d, V=v, dtype="torch.float32", tol_use=uses, grad_rtol=CE_GRAD_RTOL)
+    if not all(u <= 1.0 for u in uses.values()):
+        raise AssertionError(f"FusedCE disagrees with autograd through a dense head: {uses}")
 
 
 def paged_state(rng, b, n_blocks, nb, bs, t, lo=0, hi=None):
@@ -625,9 +774,12 @@ def shared_prefix_requests(vocab_size: int):
 
 
 def kernel_counts() -> dict:
-    from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged, cuda_ragged
+    from pretraining_llm_tpu_torch.ops import cuda_ce, cuda_flash, cuda_paged, cuda_ragged
 
     return {
+        "fused_ce_fwd": cuda_ce.fused_ce_fwd.launches,
+        "fused_ce_dh": cuda_ce.fused_ce_dh.launches,
+        "fused_ce_dw": cuda_ce.fused_ce_dw.launches,
         "flash_fwd": cuda_flash.flash_attention_fwd.launches,
         "flash_bwd_fused": cuda_flash.flash_bwd_fused.launches,
         "flash_bwd_dq": cuda_flash.flash_bwd_dq.launches,
@@ -639,11 +791,12 @@ def kernel_counts() -> dict:
 
 
 def reset_kernel_counts() -> None:
-    from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged, cuda_ragged
+    from pretraining_llm_tpu_torch.ops import cuda_ce, cuda_flash, cuda_paged, cuda_ragged
 
     for counted in (cuda_flash.flash_attention_fwd, cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq,
                     cuda_flash.flash_bwd_dkv, cuda_paged.paged_decode_attention,
-                    cuda_ragged.ragged_paged_attention):
+                    cuda_ragged.ragged_paged_attention, cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh,
+                    cuda_ce.fused_ce_dw):
         counted.launches = 0
     cuda_ragged.ragged_paged_attention.split_launches = 0
 
@@ -750,7 +903,10 @@ def check_train_card_vs_cpu() -> None:
     kernels) and on the CPU (their plain versions), from the same init and
     batches: gpt2-124m widths at T 256 (one-pass backward), and a small GQA
     llama flavour (n_rep 4, Dh 32, RoPE, SwiGLU, untied head) with 128-row
-    flash blocks (dQ + dK/dV kernels)."""
+    flash blocks (dQ + dK/dV kernels). Each model runs twice: with the
+    chunked CE head, then with ``ce_impl="fused"`` (the fused CE kernels)
+    and ``doc_mask_token`` (segments in every flash kernel) on batches with
+    ~3% separators."""
     import dataclasses
 
     from pretraining_llm_tpu_torch.config import Config, ModelConfig, TrainConfig, get_preset
@@ -767,11 +923,20 @@ def check_train_card_vs_cpu() -> None:
     )
     train = TrainConfig(batch_size=2, train_steps=3, lr=6e-4)
     rng = np.random.default_rng(SEED + 10)
+    fused = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
+    runs = []
     for name, model, want in (("gpt2", gpt2, ("flash_fwd", "flash_bwd_fused")),
                               ("llama_gqa", llama, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
+        runs.append((name, model, want))
+        runs.append((name + "+fused_ce+doc_mask",
+                     dataclasses.replace(model, ce_impl="fused", doc_mask_token=DOC_SEP), want + fused))
+    for name, model, want in runs:
         cfg = Config(model=model, train=train)
         batches = [rng.integers(0, model.vocab_size, (train.batch_size, model.context_length + 1))
                    for _ in range(3)]
+        if model.doc_mask_token >= 0:
+            for toks in batches:
+                toks[rng.random(toks.shape) < 0.03] = DOC_SEP
 
         def run(device):
             state = ts.init_train_state(cfg, SEED, device=device)
@@ -801,11 +966,55 @@ def check_train_card_vs_cpu() -> None:
             G=model.kv_heads, T=model.context_length, batch=train.batch_size, card_losses=card_losses,
             cpu_losses=cpu_losses, loss_rtol=TRAIN_LOSS_RTOL, loss_tol_use=loss_use,
             grad_rtol=TRAIN_GRAD_RTOL, grad_tol_use=grad_use[worst_leaf], worst_leaf=worst_leaf,
+            ce_impl=model.ce_impl, doc_mask_token=model.doc_mask_token,
             kernel_launches={k: launched[k] for k in want})
         if not (loss_use <= 1.0 and grad_use[worst_leaf] <= 1.0):
             raise AssertionError(f"training {name} on the card disagrees with the CPU run")
         if not all(launched[k] > 0 for k in want):
             raise AssertionError(f"training {name} on the card did not launch {want}: {launched}")
+        if model.ce_impl != "fused" and any(launched[k] for k in fused):
+            raise AssertionError(f"training {name} launched the fused CE kernels: {launched}")
+
+
+def check_doc_isolation() -> None:
+    """Cross-document isolation on the card: gpt2-124m widths at 2 layers,
+    fp32, flash attention, doc_mask_token = DOC_SEP, T 512. Row 0 holds four
+    documents (separators at 100, 250 and 400); the tokens of its second
+    document are replaced. Every other document's per-token logits stay
+    within ISOLATION_TOL; without the mask the later documents move."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.models import transformer
+
+    cfg = dataclasses.replace(get_preset("gpt2-124m").model, n_layers=2, context_length=512,
+                              compute_dtype="float32", doc_mask_token=DOC_SEP)
+    params = transformer.init_params(cfg, SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED + 14)
+    a = rng.integers(DOC_SEP + 1, cfg.vocab_size, (2, cfg.context_length))
+    a[0, [100, 250, 400]] = DOC_SEP
+    a[1, [37, 300]] = DOC_SEP
+    b = a.copy()
+    b[0, 101:250] = rng.integers(DOC_SEP + 1, cfg.vocab_size, 149)
+    keep = np.ones(a.shape, bool)
+    keep[0, 101:251] = False  # the changed document, its separator included
+    keep_t = torch.from_numpy(keep).to(DEVICE)
+    reset_kernel_counts()
+    with torch.no_grad():
+        la, _ = transformer.forward(params, torch.from_numpy(a).to(DEVICE), cfg)
+        lb, _ = transformer.forward(params, torch.from_numpy(b).to(DEVICE), cfg)
+        off = dataclasses.replace(cfg, doc_mask_token=-1)
+        oa, _ = transformer.forward(params, torch.from_numpy(a).to(DEVICE), off)
+        ob, _ = transformer.forward(params, torch.from_numpy(b).to(DEVICE), off)
+    launched = kernel_counts()["flash_fwd"]
+    err = (la - lb).abs()[keep_t].max().item()
+    changed = (la - lb).abs()[~keep_t].max().item()
+    leak = (oa - ob).abs()[0, 251:].max().item()
+    log("check_doc_isolation", layers=cfg.n_layers, T=cfg.context_length, dtype=cfg.compute_dtype,
+        other_docs_max_abs_diff=err, tol=ISOLATION_TOL, changed_doc_max_abs_diff=changed,
+        unmasked_later_docs_max_abs_diff=leak, flash_fwd_launches=launched)
+    if not (err <= ISOLATION_TOL and changed > 1e-3 and leak > 1e-3 and launched == 4 * cfg.n_layers):
+        raise AssertionError("documents are not isolated on the card")
 
 
 def train_config(preset: str, overrides: dict):
@@ -982,6 +1191,64 @@ def run_train_path2() -> dict:
         raise AssertionError(f"T2 launched the one-pass backward kernel: {launches}")
     if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
         raise AssertionError(f"T2: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
+    return launches
+
+
+def run_train_path3() -> dict:
+    """T3, this slice's main path: ``Trainer.train`` on gpt2-124m at full
+    width and depth (12 layers, d 768, T 1024, V 50304, bf16 compute, fp32
+    params, init from seed 0) with ``ce_impl="fused"`` and
+    ``doc_mask_token=DOC_SEP``, batch 12, 20 AdamW steps on ``data/parity``
+    bytes (T1's lr 6e-4 and 3 warmup steps), no eval: the fused CE kernels
+    B9-B11 once each per step, K1 and the one-pass backward with segments
+    in every layer.
+
+    Then its all-torch-ops twin (``ce_impl="chunked"``,
+    ``attention_impl="naive"``), held on T3's own states: the same run
+    again for 10 steps (``utils/trajectory.py::same_state``), where before
+    each step the path's and the twin's loss and gradients of the step's
+    params and batch are taken: each loss within NAIVE_LOSS_TOL, and every
+    parameter's gradient within T3_GRAD_RTOL of the twin's (relative to
+    the twin's norm), so B10, B11 and the segmented backward are held at
+    every state, not only at init. Two independent runs are not compared:
+    on this data a grad-norm spike at step 8 comes and goes with a one-ulp
+    move of the init and carries a run 0.09-0.12 in loss from its unmoved
+    self by step 10, past NAIVE_LOSS_TOL, whatever the head and attention
+    (``python -m pretraining_llm_tpu_torch.utils.trajectory``; PERF.md)."""
+    from pretraining_llm_tpu_torch.utils import trajectory
+
+    cfg = trajectory.t3_config().with_overrides({
+        "model.ce_impl": "fused", "train.log_interval": 1, "train.checkpoint_dir": str(SCRATCH / "gpt2-124m")})
+    steps, n_steps = cfg.train.train_steps, trajectory.STEPS
+    trainer, recs, launches, wall, peak = train_run(cfg, steps, resume=False)
+    del trainer
+    _free_card()
+    losses = [r["loss"] for r in recs]
+    held = trajectory.same_state(cfg, n_steps, DEVICE, ["fused_flash"])
+    _free_card()
+    model = cfg.model
+    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps, "fused_ce_dw": steps,
+            "flash_fwd": model.n_layers * steps, "flash_bwd_fused": model.n_layers * steps,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    loss_diffs = [r["fused_flash"]["loss_diff"] for r in held]
+    grad_diffs = [r["fused_flash"]["max_rel_grad_diff"] for r in held]
+    log("train_path3", model="gpt2-124m", layers=model.n_layers, d=model.d_model, T=model.context_length,
+        V=model.vocab_size, batch=cfg.train.batch_size, dtype=model.compute_dtype, ce_impl=model.ce_impl,
+        doc_mask_token=model.doc_mask_token, data=cfg.data.train_path, steps=steps, lr=cfg.train.lr,
+        warmup_steps=cfg.train.warmup_frac * steps, wall_s=wall, **_rates(recs), max_memory_allocated_bytes=peak,
+        losses=losses, launches=launches, expected_launches=want, twin="ce_impl=chunked, attention_impl=naive",
+        same_state_twin_losses=[r["twin_loss"] for r in held], same_state_loss_diffs=loss_diffs,
+        same_state_max_rel_grad_diffs=grad_diffs, same_state_worst_leaves=[r["fused_flash"]["leaf"] for r in held],
+        loss_tol=NAIVE_LOSS_TOL, grad_rtol=T3_GRAD_RTOL)
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"T3: expected {steps} finite losses, got {losses}")
+    if statistics.mean(losses[-5:]) > losses[0] - 1.0:
+        raise AssertionError(f"T3: the last 5 losses do not average 1.0 below step 1's: {losses}")
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"T3 launched {launches}, expected {want}")
+    within = all(abs(x) <= NAIVE_LOSS_TOL for x in loss_diffs) and all(x <= T3_GRAD_RTOL for x in grad_diffs)
+    if len(held) != n_steps or not within:  # a NaN fails the comparisons
+        raise AssertionError(f"T3 and its twin disagree on the same states: {held}")
     return launches
 
 
@@ -1246,11 +1513,19 @@ def time_train_kernels(paths):
     def flush():
         l2_buf.zero_()
 
-    def sdpa_bwd_ms(q, k, v, do, b, h, g, t, d):
+    def seg_mask(seg, t):
+        """(B, 1, T, T) boolean: causal and same document."""
+        causal = torch.ones((t, t), dtype=torch.bool, device=DEVICE).tril()
+        return (causal[None] & (seg[:, :, None] == seg[:, None, :]))[:, None]
+
+    def sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg=None):
         qs = q.view(b, h, t, d).detach().requires_grad_(True)
         ks, vs = (x.view(b, g, t, d).repeat_interleave(h // g, dim=1).detach().requires_grad_(True)
                   for x in (k, v))
-        out = sdpa(qs, ks, vs, is_causal=True)
+        if seg is None:
+            out = sdpa(qs, ks, vs, is_causal=True)
+        else:
+            out = sdpa(qs, ks, vs, attn_mask=seg_mask(seg, t))
         dout = do.view(b, h, t, d)
         return time_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dout, retain_graph=True), flush=flush)
 
@@ -1280,6 +1555,8 @@ def time_train_kernels(paths):
 
     def entry(name, *, source, line, main, shape, products, pairs, d, nbytes, ms, plain_ms, library_ms, err,
               key=None, **notes):
+        """Bound FLOPs count the causal pairs: no kernel skips a tile by
+        segment, as ``_run_ok`` does not."""
         key = key or name  # the kernel's name in the launch counts
         flops = products * 2.0 * d * pairs
         kernels.append(dict(
@@ -1314,7 +1591,36 @@ def time_train_kernels(paths):
                            flush=flush),
           library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d),
           library_note="SDPA backward alone (dq, dk, dv), is_causal=True", **common)
-    del q, k, v, do, o, lse, delta, q4, k4, v4
+
+    # The same at T1's shape with T3's document segments (data/parity
+    # windows split at DOC_SEP): K1 and the one-pass kernel as T3 runs them.
+    seg = parity_segments(b, t, SEED + 15)
+    o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg)
+    delta = (do.float() * o.float()).sum(-1)
+    common.update(main="T3", shape=common["shape"] + " segments " + json.dumps(segment_summary(seg)))
+    fwd_err = compare("flash_fwd_seg", common["shape"], ("o", "lse"),
+                      cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg),
+                      cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, segments=seg), tol_use)
+    bwd_err = compare("flash_bwd_fused_seg", common["shape"], ("dq", "dk", "dv"),
+                      cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg),
+                      cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, segments=seg), bwd_use)
+    mask = seg_mask(seg, t)
+    entry("flash_fwd_seg", key="flash_fwd", source="flash_fwd.cu", line=104, products=2,
+          nbytes=4 * act + rows + seg.numel() * 4, err=fwd_err,
+          ms=time_ms(lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg), flush=flush),
+          plain_ms=time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, segments=seg),
+                           flush=flush),
+          library_ms=time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), flush=flush),
+          library_note="SDPA forward with a (B, 1, T, T) boolean causal-and-same-document mask", **common)
+    entry("flash_bwd_fused_seg", key="flash_bwd_fused", source="flash_bwd.cu", line=348, products=5,
+          nbytes=7 * act + 2 * rows + seg.numel() * 4, err=bwd_err,
+          ms=time_ms(lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg), flush=flush),
+          plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g,
+                                                                            segments=seg), flush=flush),
+          library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg),
+          library_note="SDPA backward alone (dq, dk, dv) with the boolean causal-and-same-document mask",
+          **common)
+    del q, k, v, do, o, lse, delta, q4, k4, v4, seg, mask
 
     # T2's shape: the dQ and dK/dV kernels. q, dO (B*H) and k, v (B*G) in.
     b, h, g, t, d = 2, 16, 4, 2048, 128
@@ -1338,6 +1644,108 @@ def time_train_kernels(paths):
     entry("flash_bwd_dkv", source="flash_bwd.cu", line=291, products=4, nbytes=bwd_in + 2 * k.numel() * 2,
           err=dkv_err,
           ms=time_ms(lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), flush=flush), **common)
+
+    # The same kernels at T2's shape with document segments.
+    seg = parity_segments(b, t, SEED + 16)
+    o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg)
+    delta = (do.float() * o.float()).sum(-1)
+    common.update(shape=common["shape"] + " segments " + json.dumps(segment_summary(seg)),
+                  launches_note="the same kernel as the entry without segments, with its segment mask; "
+                                "T2 runs it without segments",
+                  library_note="SDPA backward alone (dq, dk, dv) with a (B, 1, T, T) boolean causal-and-same-"
+                               "document mask, K/V repeated to 16 heads before the call (not timed)")
+    ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, segments=seg)
+    dq_err = compare("flash_bwd_dq_seg", common["shape"], ("dq",),
+                     (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, segments=seg),), ref[:1], bwd_use)
+    dkv_err = compare("flash_bwd_dkv_seg", common["shape"], ("dk", "dv"),
+                      cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, segments=seg), ref[1:], bwd_use)
+    del ref
+    common["plain_ms"] = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g,
+                                                                                  segments=seg), flush=flush)
+    common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg)
+    entry("flash_bwd_dq_seg", key="flash_bwd_dq", source="flash_bwd.cu", line=236, products=3,
+          nbytes=bwd_in + q.numel() * 2 + seg.numel() * 4, err=dq_err,
+          ms=time_ms(lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, segments=seg), flush=flush),
+          **common)
+    entry("flash_bwd_dkv_seg", key="flash_bwd_dkv", source="flash_bwd.cu", line=291, products=4,
+          nbytes=bwd_in + 2 * k.numel() * 2 + seg.numel() * 4, err=dkv_err,
+          ms=time_ms(lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, segments=seg), flush=flush),
+          **common)
+    return kernels
+
+
+def time_ce_kernels(paths):
+    """The fused CE kernels at T1's (and T3's) head shape: S = 12 x 1024
+    tokens, D 768, V 50304, bf16, W ~ N(0, 0.02^2) (the model's init), the
+    mean's uniform cotangent 1/S. Each is first held against its plain
+    version on the same inputs (``ce_compare``), then timed: the kernel, the
+    plain version (fewer runs: it walks 393 vocabulary tiles) and the
+    library yardstick, a composite of cuBLAS and torch ops doing the same
+    work (B9: the (S, V) logits as one bf16 GEMM with fp32 output, then
+    logsumexp and a gather; B10 and B11: the same GEMM, p~ elementwise and
+    cast to bf16, then the one product). Bound FLOPs: 2*S*D*V per product
+    (B9 one, B10 and B11 two: the recompute and their own); bytes: h, W,
+    labels (and lse, g) read once, the outputs written once."""
+    from pretraining_llm_tpu_torch.ops import ce_reference as ref
+    from pretraining_llm_tpu_torch.ops import cuda_ce
+
+    l2_buf = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+
+    def flush():
+        l2_buf.zero_()
+
+    (s, d, v), dt = T1_HEAD, torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED + 17)
+    h = randn((s, d), dt, gen)
+    w_vd = (torch.randn((v, d), generator=gen) * 0.02).to(device=DEVICE, dtype=dt)
+    labels = torch.randint(0, v, (s,), generator=gen, dtype=torch.int32).to(DEVICE)
+    g = torch.full((s,), 1.0 / s, device=DEVICE)
+    errs = ce_compare("check_ce_t1_shape", h, w_vd, labels, g)
+    _, lse = cuda_ce.fused_ce_fwd(h, w_vd, labels)
+
+    def logits32():
+        return torch.mm(h, w_vd.t(), out_dtype=torch.float32)  # bf16 operands, fp32 output (cuBLAS)
+
+    rows = torch.arange(s, device=DEVICE)
+
+    def lib_fwd():
+        z = logits32()
+        lse_ = torch.logsumexp(z, dim=1)
+        return lse_ - z.gather(1, labels.long()[:, None])[:, 0], lse_
+
+    def lib_p():
+        p = torch.exp_(logits32().sub_(lse[:, None]))
+        p[rows, labels.long()] -= 1.0
+        return p.mul_(g[:, None]).to(dt)
+
+    mm_name = "torch.mm(out_dtype=float32)"
+    operand_bytes = s * d * 2 + v * d * 2 + s * 4
+    flops = 2.0 * s * d * v
+    shape = f"S={s} D={d} V={v} bf16"
+    kernels = []
+    for name, line, fn, plain, lib, products, nbytes, note in (
+        ("fused_ce_fwd", 80, lambda: cuda_ce.fused_ce_fwd(h, w_vd, labels),
+         lambda: ref.fused_ce_fwd_reference(h, w_vd.t(), labels), lib_fwd, 1, operand_bytes + 2 * s * 4,
+         f"composite: {mm_name} (S, V) logits, logsumexp, gather"),
+        ("fused_ce_dh", 122, lambda: cuda_ce.fused_ce_dh(h, w_vd, labels, lse, g),
+         lambda: ref.fused_ce_dh_reference(h, w_vd.t(), labels, lse, g), lambda: torch.mm(lib_p(), w_vd), 2,
+         operand_bytes + 2 * s * 4 + s * d * 2, f"composite: {mm_name} logits, p~ elementwise to bf16, p~ @ W"),
+        ("fused_ce_dw", 148, lambda: cuda_ce.fused_ce_dw(h, w_vd, labels, lse, g),
+         lambda: ref.fused_ce_dw_reference(h, w_vd.t(), labels, lse, g), lambda: torch.mm(lib_p().t(), h), 2,
+         operand_bytes + 2 * s * 4 + v * d * 2, f"composite: {mm_name} logits, p~ elementwise to bf16, p~^T @ h"),
+    ):
+        f = flops * products
+        kernels.append(dict(
+            name=name, route="cuda", source="pretraining_llm_tpu_torch/csrc/fused_ce.cu",
+            replaces=f"pretraining_llm_tpu/ops/pallas_ce.py:{line}", shape=shape,
+            launches=paths["T3"][name], launches_by_path={p: n[name] for p, n in paths.items()},
+            flops=f, bytes=nbytes, **_bound(f, nbytes), max_abs_err=errs[name][0], tol_use=errs[name][1],
+            ms=time_ms(fn, n=10, warmup=2, flush=flush), plain_ms=time_ms(plain, n=3, warmup=1, flush=flush),
+            library_ms=time_ms(lib, n=10, warmup=2, flush=flush), library_note=note,
+            plain_note="walks the JAX tiles: 393 vocabulary tiles of 128 (pallas_ce._tiles)",
+        ))
+        kernels[-1]["kernel_ms"], kernels[-1]["max_err"] = kernels[-1]["ms"], kernels[-1]["max_abs_err"]
+        _free_card()
     return kernels
 
 
@@ -1366,18 +1774,22 @@ def main() -> int:
     phase_build()
     errs = {"flash_fwd": check_flash(), "paged_decode": check_paged(), **check_ragged()}
     check_flash_bwd()
+    check_ce()
     check_model_card_vs_cpu()
     check_model_chunked_card_vs_cpu()
     check_train_card_vs_cpu()
+    check_doc_isolation()
     launches1, prefill_shapes = run_main_path()
     launches2, eng2 = run_path2()
     launches3, _ = run_path3()
-    train_paths = {"T1": run_train_path1(), "T2": run_train_path2(), "parity": run_parity()}
+    train_paths = {"T1": run_train_path1(), "T2": run_train_path2(), "parity": run_parity(),
+                   "T3": run_train_path3()}
     shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs)
     del eng2
     kernels += time_train_kernels(train_paths)
+    kernels += time_ce_kernels(train_paths)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,14 +14,14 @@ and the port accepts and ignores them. ``flash_block_q``/``flash_block_kv``
 choose the flash backward's algorithm as they do in JAX (one block each:
 the one-pass kernel; otherwise the dQ and dK/dV kernels); the CUDA kernels
 tile T themselves. ``ragged_kv_splits``, ``ragged_amla`` and ``ce_impl``
-("chunked" or "dense") choose between forms that compute the same result.
+("chunked", "dense" or "fused") choose between forms that compute the same
+result.
 ``data.prefetch`` and ``data.use_native_batcher`` are accepted and ignored:
 the port's trainer feeds batches synchronously from the numpy sampler,
 which draws the same batches as the JAX package's numpy sampler. Options
 that change what is computed but are not ported yet are refused where they
-would be used (``models.transformer.check_ported``, ``ce_impl="fused"``,
-the optimizer, and the trainer's ``checkpoint_async``, ``profile_dir`` and
-``debug_nans``).
+would be used (``models.transformer.check_ported``, the optimizer, and
+the trainer's ``checkpoint_async``, ``profile_dir`` and ``debug_nans``).
 """
 
 from __future__ import annotations

@@ -9,10 +9,12 @@
 // one-pass kernel and the dQ + dK/dV pair with the TPU dispatch rule
 // (_block_sizes: one q block and one kv block -> one pass), so both
 // packages run the same algorithm for every shape. Always causal, with an
-// optional sliding window; document segments are not part of this port.
+// optional sliding window and optional document segments ((B, T) int32
+// ids, or null): the mask is _mask_ok's, q >= k, q - k < window and
+// seg[q] == seg[k]; tiles are skipped by _run_ok's causal/window rule.
 //
 // Math (per query row i, key j, scale = 1/sqrt(Dh)):
-//   p  = exp(q.k * scale - lse_i), zeroed where the causal/window mask fails
+//   p  = exp(q.k * scale - lse_i), zeroed where the causal/window/segment mask fails
 //   dp = dO_i . v_j;  ds = p * (dp - D_i) * scale,  D_i = rowsum(dO_i * O_i)
 //   dQ_i = sum_j ds.k_j;  dK_j = sum_i ds.q_i;  dV_j = sum_i p.dO_i
 // D (delta) and lse come from the wrapper and the forward (K1), in fp32.
@@ -52,8 +54,9 @@
 //     tolerances hold either way.
 //   - Tiles that no (query, key) pair can reach are never started
 //     (_run_ok); the mask is _mask_ok's predicate, q >= k and, with a
-//     window, q - k < window; the ragged edge (T not a multiple of 64) is
-//     masked in the kernel.
+//     window, q - k < window and, with segments, seg[q] == seg[k]; the
+//     ragged edge (T not a multiple of 64) is masked in the kernel. P is
+//     zeroed by the mask itself, never by exp underflow.
 //   - Runs on the caller's stream; allocates nothing.
 
 #include <cuda_bf16.h>
@@ -108,7 +111,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int H, int G, int T_len, int window, float scale) {
+                    const int* __restrict__ seg, T* __restrict__ dq, int H, int G, int T_len,
+                    int window, float scale) {
   constexpr int LD = D + 1;
   constexpr int PLD = BK + 1;
   constexpr int DC = D / 4;
@@ -119,6 +123,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sK = sDO + 64 * LD;
   float* sV = sK + 64 * LD;
   float* sDS = sV + 64 * LD;  // BQ x PLD
+  __shared__ int sSegK[BK];   // document ids of the staged keys
 
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // longest kv walks first
@@ -138,6 +143,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage<T, D>(sDO, dop, q0, T_len);
   const float lse_r = qi < T_len ? lse[(size_t)bh * T_len + qi] : 0.f;
   const float delta_r = qi < T_len ? delta[(size_t)bh * T_len + qi] : 0.f;
+  const int* segp = seg != nullptr ? seg + (size_t)b * T_len : nullptr;
+  const int seg_q = (segp != nullptr && qi < T_len) ? segp[qi] : 0;
 
   float acc[DC];
 #pragma unroll
@@ -151,6 +158,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // every reader of the previous tile is done
     stage<T, D>(sK, kp, j0, T_len);
     stage<T, D>(sV, vp, j0, T_len);
+    if (segp != nullptr && tid < BK) sSegK[tid] = (j0 + tid < T_len) ? segp[j0 + tid] : -1;
     __syncthreads();
 
     float s[SC], dp[SC];
@@ -169,7 +177,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int jj = 0; jj < SC; ++jj) {
       const int kj = j0 + jj * 4 + c;
-      const float p = visible(qi, kj, T_len, window) ? expf(s[jj] * scale - lse_r) : 0.f;
+      const bool ok = visible(qi, kj, T_len, window) && (segp == nullptr || sSegK[jj * 4 + c] == seg_q);
+      const float p = ok ? expf(s[jj] * scale - lse_r) : 0.f;
       sDS[r * PLD + jj * 4 + c] = rnd<T>(p * (dp[jj] - delta_r) * scale);  // dS in K's dtype
     }
     __syncwarp();  // row r's dS is written and read by the same four lanes
@@ -198,8 +207,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv,
-                     int H, int G, int T_len, int window, float scale) {
+                     const int* __restrict__ seg, float* __restrict__ dq_acc, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int G, int T_len, int window, float scale) {
   constexpr int LD = D + 1;
   constexpr int PLD = BQ + 1;
   constexpr int DC = D / 4;
@@ -213,6 +222,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sDS = sP + BK * PLD;  // BK x PLD
   float* sL = sDS + BK * PLD;  // BQ lse of the staged q tile
   float* sD = sL + BQ;         // BQ delta
+  __shared__ int sSegQ[BQ];    // document ids of the staged q tile
 
   const int bg = blockIdx.y;
   const int k0 = blockIdx.x * BK;  // k0 = 0 walks the most q tiles: first
@@ -225,6 +235,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 2;  // key row of the tile (query row in the dQ phase)
   const int c = tid & 3;
   const int kj = k0 + r;
+  const int* segp = seg != nullptr ? seg + (size_t)b * T_len : nullptr;
+  const int seg_k = (segp != nullptr && kj < T_len) ? segp[kj] : 0;
 
   stage<T, D>(sK, kp, k0, T_len);
   stage<T, D>(sV, vp, k0, T_len);
@@ -250,6 +262,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool in = q0 + tid < T_len;
         sL[tid] = in ? lse[(size_t)bh * T_len + q0 + tid] : 0.f;
         sD[tid] = in ? delta[(size_t)bh * T_len + q0 + tid] : 0.f;
+        if (segp != nullptr) sSegQ[tid] = in ? segp[q0 + tid] : -1;
       }
       __syncthreads();
 
@@ -269,7 +282,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < SC; ++jj) {
         const int qq = jj * 4 + c;
-        const float p = visible(q0 + qq, kj, T_len, window) ? expf(s[jj] * scale - sL[qq]) : 0.f;
+        const bool ok = visible(q0 + qq, kj, T_len, window) && (segp == nullptr || sSegQ[qq] == seg_k);
+        const float p = ok ? expf(s[jj] * scale - sL[qq]) : 0.f;
         sP[r * PLD + qq] = rnd<T>(p);                                 // P in dO's dtype
         sDS[r * PLD + qq] = rnd<T>(p * (dp[jj] - sD[qq]) * scale);    // dS in Q's dtype
       }
@@ -325,8 +339,8 @@ int set_smem(K kern, size_t bytes) {
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int H, int G, int T_len, int window,
-              float scale, cudaStream_t stream) {
+              const void* delta, const void* seg, void* dq, int B, int H, int G, int T_len,
+              int window, float scale, cudaStream_t stream) {
   auto kern = flash_bwd_dq_kernel<T, D>;
   const size_t smem = dq_smem(D);
   if (int err = set_smem(kern, smem)) return err;
@@ -334,14 +348,15 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), H, G, T_len, window, scale);
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<T*>(dq), H, G,
+      T_len, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D, bool FUSED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dq_acc, void* dk, void* dv, int B, int H, int G,
-               int T_len, int window, float scale, cudaStream_t stream) {
+               const void* delta, const void* seg, void* dq_acc, void* dk, void* dv, int B, int H,
+               int G, int T_len, int window, float scale, cudaStream_t stream) {
   auto kern = flash_bwd_dkv_kernel<T, D, FUSED>;
   const size_t smem = dkv_smem(D);
   if (int err = set_smem(kern, smem)) return err;
@@ -349,7 +364,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq_acc), static_cast<T*>(dk),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dq_acc),
+      static_cast<T*>(dk),
       static_cast<T*>(dv), H, G, T_len, window, scale);
   return (int)cudaGetLastError();
 }
@@ -360,8 +376,9 @@ bool bad_shape(int B, int H, int G, int T_len) {
 
 }  // namespace
 
-// q, dout: (B*H, T, D); k, v: (B*G, T, D); lse, delta: (B*H, T) fp32.
-// dtype: 0 = float32, 1 = bfloat16. D must be 32, 64 or 128.
+// q, dout: (B*H, T, D); k, v: (B*G, T, D); lse, delta: (B*H, T) fp32; seg:
+// (B, T) int32 document ids or null. dtype: 0 = float32, 1 = bfloat16. D
+// must be 32, 64 or 128.
 #define PLLM_DISPATCH(CALL)                                                 \
   if (dtype == 0 && D == 32) return CALL(float, 32);                        \
   if (dtype == 0 && D == 64) return CALL(float, 64);                        \
@@ -374,11 +391,11 @@ bool bad_shape(int B, int H, int G, int T_len) {
 // dq like q.
 extern "C" int pllm_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
-                                 void* dq, int B, int H, int G, int T_len, int D,
+                                 const void* seg, void* dq, int B, int H, int G, int T_len, int D,
                                  int window, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, G, T_len)) return (int)cudaErrorInvalidValue;
-#define CALL(T, DD) launch_dq<T, DD>(q, k, v, dout, lse, delta, dq, B, H, G, T_len, window, scale, s)
+#define CALL(T, DD) launch_dq<T, DD>(q, k, v, dout, lse, delta, seg, dq, B, H, G, T_len, window, scale, s)
   PLLM_DISPATCH(CALL)
 #undef CALL
 }
@@ -386,11 +403,12 @@ extern "C" int pllm_flash_bwd_dq(const void* q, const void* k, const void* v,
 // dk, dv like k, v.
 extern "C" int pllm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
-                                  void* dk, void* dv, int B, int H, int G, int T_len, int D,
+                                  const void* seg, void* dk, void* dv, int B, int H, int G, int T_len,
+                                  int D,
                                   int window, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, G, T_len)) return (int)cudaErrorInvalidValue;
-#define CALL(T, DD) launch_dkv<T, DD, false>(q, k, v, dout, lse, delta, nullptr, dk, dv, B, H, G, \
+#define CALL(T, DD) launch_dkv<T, DD, false>(q, k, v, dout, lse, delta, seg, nullptr, dk, dv, B, H, G, \
                                              T_len, window, scale, s)
   PLLM_DISPATCH(CALL)
 #undef CALL
@@ -399,12 +417,12 @@ extern "C" int pllm_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // dq_acc: (B*H, T, D) fp32, zeroed by the caller; dq = dq_acc in q's dtype.
 extern "C" int pllm_flash_bwd_fused(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
-                                    void* dq_acc, void* dk, void* dv, int B, int H, int G,
+                                    const void* seg, void* dq_acc, void* dk, void* dv, int B, int H, int G,
                                     int T_len, int D, int window, float scale, int dtype,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, G, T_len)) return (int)cudaErrorInvalidValue;
-#define CALL(T, DD) launch_dkv<T, DD, true>(q, k, v, dout, lse, delta, dq_acc, dk, dv, B, H, G, \
+#define CALL(T, DD) launch_dkv<T, DD, true>(q, k, v, dout, lse, delta, seg, dq_acc, dk, dv, B, H, G, \
                                             T_len, window, scale, s)
   PLLM_DISPATCH(CALL)
 #undef CALL

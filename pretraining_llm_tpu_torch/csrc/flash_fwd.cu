@@ -1,9 +1,12 @@
 // Flash-attention forward (FlashAttention-2 schedule) for Hopper, sm_90a.
 //
 // Replaces: pretraining_llm_tpu/ops/pallas_flash.py::_fwd and its kernel
-// _fwd_kernel (causal and sliding-window masks; GQA by KV head h / n_rep).
-// Always causal, as every caller is. Document segments are not ported;
-// the backward kernels are in flash_bwd.cu. Head dims 32, 64 and 128.
+// _fwd_kernel (causal and sliding-window masks, document segments; GQA by
+// KV head h / n_rep). Always causal, as every caller is. With a segments
+// array ((B, T) int32 document ids, or null) a query sees only keys of its
+// own document: seg[q] == seg[k] is ANDed into the mask, as _mask_ok does;
+// tiles are skipped by the causal/window rule alone (_run_ok). The
+// backward kernels are in flash_bwd.cu. Head dims 32, 64 and 128.
 //
 // What bounds it on the H100: causal attention does ~2*B*H*T^2*Dh FLOPs
 // against ~4*B*H*T*Dh*2 bytes of bf16 q/k/v/o, i.e. ~T/4 FLOPs per byte.
@@ -26,7 +29,10 @@
 //     with warp shuffles, so the running (m, l) stats live in registers.
 //   - Masked entries get p = 0 explicitly; P is rounded to V's dtype
 //     before the PV product, and a row with l == 0 gives zeros (safe_l),
-//     exactly as the Pallas kernel does.
+//     exactly as the Pallas kernel does. The finite NEG_INF makes this
+//     load-bearing: in a tile where every entry of a row is masked (by
+//     window or by document) the row's running max can still be NEG_INF,
+//     and exp(s - m) would be 1, not 0.
 //   - The ragged edge (T not a multiple of 64) is masked in the kernel.
 //   - Runs on the caller's stream; allocates nothing. The Python wrapper
 //     (ops/cuda_flash.py::flash_attention_fwd) counts its launches.
@@ -57,9 +63,9 @@ constexpr size_t smem_bytes(int d) {
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int G, int T_len, int window,
-                 float scale) {
+                 const T* __restrict__ v, const int* __restrict__ seg,
+                 T* __restrict__ o, float* __restrict__ lse, int H, int G,
+                 int T_len, int window, float scale) {
   constexpr int LD = D + 1;
   constexpr int PLD = BK + 1;
   constexpr int DC = D / 4;   // output columns per thread: dd * 4 + c
@@ -69,6 +75,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sK = sQ + BQ * LD;   // BK x LD
   float* sV = sK + BK * LD;   // BK x D
   float* sP = sV + BK * D;    // BQ x PLD
+  __shared__ int sSegK[BK];   // document ids of the staged keys
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -82,6 +89,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = tid >> 2;
   const int c = tid & 3;
   const int qi = q0 + r;
+  const int* segp = seg != nullptr ? seg + (size_t)b * T_len : nullptr;
+  const int seg_q = (segp != nullptr && qi < T_len) ? segp[qi] : 0;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int rr = i / D, dd = i - rr * D;
@@ -107,6 +116,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sK[kk * LD + dd] = in ? to_f(kp[off]) : 0.f;
       sV[kk * D + dd] = in ? to_f(vp[off]) : 0.f;
     }
+    if (segp != nullptr && tid < BK) sSegK[tid] = (j0 + tid < T_len) ? segp[j0 + tid] : -1;
     __syncthreads();
 
     float s[SC];
@@ -126,6 +136,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = j0 + jj * 4 + c;
       bool ok = kj < T_len && kj <= qi;
       if (window > 0) ok = ok && (qi - kj < window);
+      if (segp != nullptr) ok = ok && (sSegK[jj * 4 + c] == seg_q);
       s[jj] = ok ? s[jj] * scale : NEG_INF;
       ok_bits |= (ok ? 1u : 0u) << jj;
       mx = fmaxf(mx, s[jj]);
@@ -167,8 +178,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int G, int T_len, int window, float scale,
+int launch(const void* q, const void* k, const void* v, const void* seg, void* o,
+           void* lse, int B, int H, int G, int T_len, int window, float scale,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   auto kern = flash_fwd_kernel<T, D>;
@@ -178,32 +189,33 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
   dim3 grid((T_len + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, G, T_len, window, scale);
+      static_cast<const T*>(v), static_cast<const int*>(seg), static_cast<T*>(o),
+      static_cast<float*>(lse), H, G, T_len, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q: (B*H, T, D); k, v: (B*G, T, D); o like q; lse: (B*H, T) fp32.
-// dtype: 0 = float32, 1 = bfloat16. D must be 32, 64 or 128.
+// q: (B*H, T, D); k, v: (B*G, T, D); seg: (B, T) int32 or null; o like q;
+// lse: (B*H, T) fp32. dtype: 0 = float32, 1 = bfloat16. D must be 32, 64
+// or 128.
 extern "C" int pllm_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, int B, int H, int G,
+                              const void* seg, void* o, void* lse, int B, int H, int G,
                               int T_len, int D, int window, float scale,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T_len <= 0 || G <= 0 || H % G != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 32)
-    return launch<float, 32>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+    return launch<float, 32>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 1 && D == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+    return launch<__nv_bfloat16, 32>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+    return launch<float, 64>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+    return launch<float, 128>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+    return launch<__nv_bfloat16, 64>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, H, G, T_len, window, scale, s);
+    return launch<__nv_bfloat16, 128>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -149,6 +149,10 @@ class ServingEngine:
             )
         if cfg.n_experts:
             raise NotImplementedError("paged serving of MoE models is not ported to PyTorch yet")
+        if cfg.doc_mask_token >= 0:
+            # A decode session is one document; forward() refuses document
+            # masking with a cache (the JAX engine sanitizes it the same way).
+            cfg = dataclasses.replace(cfg, doc_mask_token=-1)
         transformer.check_ported(cfg)
         if logprobs_k < 0:
             raise ValueError(f"logprobs_k must be >= 0, got {logprobs_k}")

@@ -1,7 +1,8 @@
 """Decoder-only transformer: init/forward over a dict of parameter tensors.
 
 Counterpart of ``pretraining_llm_tpu/models/transformer.py`` for serving
-and training (``loss_fn`` with the chunked and dense CE heads). Parameters
+and training (``loss_fn`` with the chunked, dense and fused CE heads;
+document segments from ``doc_mask_token``). Parameters
 keep the JAX tree's names and layouts — block parameters are
 stacked with a leading n_layers dim (``blocks.attn.wqkv`` is (L, d, 3, H,
 Dh)) — so ``models.bridge`` maps one tree onto the other leaf for leaf.
@@ -42,6 +43,7 @@ from pretraining_llm_tpu_torch.ops.attention import naive_attention
 from pretraining_llm_tpu_torch.ops.cuda_paged import paged_decode_attention, paged_kv_mask
 from pretraining_llm_tpu_torch.ops.cuda_ragged import ragged_paged_attention
 from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
+from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -81,8 +83,6 @@ def check_ported(cfg: ModelConfig) -> None:
         unported.append("n_experts (mixture of experts)")
     if cfg.attention_impl in ("ring", "ulysses"):
         unported.append(f"attention_impl={cfg.attention_impl!r}")
-    if cfg.doc_mask_token >= 0:
-        unported.append("doc_mask_token (document masking)")
     if cfg.pipeline_stages > 1:
         unported.append("pipeline_stages > 1")
     if cfg.sequence_parallel:
@@ -322,9 +322,11 @@ def _attention_block(
     blk: Params, x: torch.Tensor, cfg: ModelConfig,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]], positions: torch.Tensor,
     kv: Optional[Params], paged: Optional[PagedInfo],
+    segments: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pre-LN attention sub-block: x + attn(ln1(x)). ``kv`` (one layer's
-    dense cache or pools) is written in place."""
+    dense cache or pools) is written in place. ``segments`` (B, T) int32
+    document ids confine the uncached self-attention to each document."""
     cdt = torch_dtype(cfg.compute_dtype)
     b, t, _ = x.shape
     h = layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps)
@@ -384,9 +386,9 @@ def _attention_block(
             )
     elif cfg.attention_impl == "flash":
         out = flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
-                              block_kv=cfg.flash_block_kv)
+                              block_kv=cfg.flash_block_kv, segments=segments)
     else:
-        out = naive_attention(q, k, v, causal=True, window=window)
+        out = naive_attention(q, k, v, causal=True, window=window, segments=segments)
 
     if cfg.use_output_proj:
         out = _mm(out.reshape(b, t, -1), _weight(attn, "wo", cdt).reshape(-1, cfg.d_model), cdt)
@@ -541,6 +543,20 @@ def forward(
     if positions is None:
         positions = torch.arange(t, device=device)
 
+    # Packed-document masking, as the JAX package derives it in-model: token
+    # i belongs to document #(separators strictly before i), so a separator
+    # is the last token of its document (an exclusive cumsum). Training and
+    # eval only: a cached forward refuses it.
+    segments = None
+    if cfg.doc_mask_token >= 0:
+        if kv_cache is not None:
+            raise ValueError(
+                "doc_mask_token is a training/eval feature; cached decode "
+                "must run with doc masking disabled"
+            )
+        is_sep = (tokens == cfg.doc_mask_token).to(torch.int32)
+        segments = (torch.cumsum(is_sep, dim=1, dtype=torch.int32) - is_sep).contiguous()
+
     x = params["tok_embed"]["embedding"][tokens].to(cdt)
     rope = None
     if cfg.pos_embed == "learned":
@@ -560,7 +576,7 @@ def forward(
             layer_kv = kv_cache["layers"][i]
         elif kv_cache is not None:
             layer_kv = {name: buf[i] for name, buf in kv_cache.items()}
-        x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged)
+        x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged, segments)
         x = _mlp_block(blk, x, cfg)
 
     x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
@@ -716,16 +732,24 @@ def _chunked_ce(
     targets: torch.Tensor, cfg: ModelConfig, z: float = 0.0,
 ) -> torch.Tensor:
     """Mean cross-entropy over (B, T) targets through the configured head:
-    ``ce_impl="chunked"`` (lse saved, logits recomputed per chunk) or
-    "dense" (compute-dtype logits saved)."""
-    if cfg.ce_impl == "fused":
-        raise NotImplementedError(
-            "ce_impl='fused' (the fused CE kernels B9-B11, ops/pallas_ce.py) is not "
-            "ported to PyTorch yet; use 'chunked' or 'dense'"
-        )
+    ``ce_impl="chunked"`` (lse saved, logits recomputed per chunk), "dense"
+    (compute-dtype logits saved) or "fused" (the fused CE kernels, no
+    logits; ``ops/fused_ce.py``). A biased head asked for "fused" warns and
+    takes the chunked head, as the JAX package does."""
     cdt = torch_dtype(cfg.compute_dtype)
     b, t, d = hidden.shape
     s = b * t
+    if cfg.ce_impl == "fused":
+        if bias is None:
+            losses = fused_cross_entropy(
+                hidden.to(cdt).reshape(s, d).contiguous(), w_out.to(cdt), targets.reshape(s)
+            )
+            return losses.mean()
+        warnings.warn(
+            "ce_impl='fused' degraded to chunked CE: the lm_head has a bias. "
+            "Drop lm_head_bias to get the fused kernel.",
+            stacklevel=3,
+        )
     if cfg.ce_impl == "dense":
         return _DenseLseCE.apply(hidden.reshape(s, d), w_out, bias, targets.reshape(s), cdt, z) / s
     n_chunks = _ce_chunks(s, cfg.vocab_size)
@@ -738,8 +762,8 @@ def loss_fn(
     params: Params, tokens: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig, *,
     include_aux: bool = True,
 ) -> torch.Tensor:
-    """Mean next-token cross-entropy in fp32 through the chunked (or dense)
-    head. z-loss (``cfg.z_loss_coef``) is part of the training objective
+    """Mean next-token cross-entropy in fp32 through the configured CE head
+    (``_chunked_ce``). z-loss (``cfg.z_loss_coef``) is part of the training objective
     only: ``include_aux=False`` (eval) reports pure cross-entropy."""
     hidden, _ = forward(params, tokens, cfg, return_pre_logits=True)
     w_out, bias = _lm_head_weights(params, cfg)

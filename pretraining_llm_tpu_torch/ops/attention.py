@@ -4,9 +4,9 @@ paged gather lane.
 Counterpart of ``pretraining_llm_tpu/ops/attention.py::naive_attention``:
 scores and softmax in fp32, GQA native (each group of H/G query heads
 attends its shared KV head; K/V are never repeated), causal masking by
-position arithmetic, an optional sliding window, and a ``kv_mask`` of
-(B, Tk) or per query (B, Tq, Tk). Rows whose every key is masked give
-zeros, not NaN.
+position arithmetic, an optional sliding window, a ``kv_mask`` of
+(B, Tk) or per query (B, Tq, Tk), and document ``segments``. Rows whose
+every key is masked by ``kv_mask`` give zeros, not NaN.
 """
 
 from __future__ import annotations
@@ -26,8 +26,12 @@ def naive_attention(
     kv_mask: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: int = 0,
+    segments: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """q: (B, Tq, H, Dh); k, v: (B, Tk, G, Dh) with G | H -> (B, Tq, H, Dh)."""
+    """q: (B, Tq, H, Dh); k, v: (B, Tk, G, Dh) with G | H -> (B, Tq, H, Dh).
+
+    ``segments`` (B, T) int document ids (self-attention, Tq == Tk): a query
+    attends only keys of its own document (packed-sequence training)."""
     b, tq, h, dh = q.shape
     tk, g = k.shape[1], k.shape[2]
     if h % g:
@@ -51,6 +55,11 @@ def naive_attention(
     if kv_mask is not None:
         kv_mask_q = kv_mask if kv_mask.ndim == 3 else kv_mask[:, None, :]
         scores = scores.masked_fill(~kv_mask_q[:, None, None], float("-inf"))
+    if segments is not None:
+        if tq != tk:
+            raise ValueError("segments requires self-attention (Tq == Tk)")
+        seg_ok = segments[:, :, None] == segments[:, None, :]  # (B, Tq, Tk)
+        scores = scores.masked_fill(~seg_ok[:, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     if kv_mask_q is not None:
         # A query whose every key is masked softmaxes to NaN (0/0): zero

@@ -1,0 +1,125 @@
+"""Fused cross-entropy: the CUDA kernels ``csrc/fused_ce.cu`` (forward,
+dH and dW) and their dispatch.
+
+Counterpart of the three kernels of ``pretraining_llm_tpu/ops/pallas_ce.py``.
+Each wrapper launches its kernel for CUDA tensors and runs the plain version
+(``ops/ce_reference.py``) for CPU tensors; nothing falls back from one to
+the other. W is taken as (V, D) row-major, as the kernels read it: for the
+tied head that is the embedding itself, with no copy. ``.launches`` on
+each wrapper counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from pretraining_llm_tpu_torch.ops import _build
+from pretraining_llm_tpu_torch.ops.ce_reference import (
+    fused_ce_dh_reference,
+    fused_ce_dw_reference,
+    fused_ce_fwd_reference,
+)
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Widths the kernels are built for (csrc/fused_ce.cu, ``dispatch``): a
+# block keeps 32 rows and a whole walked tile of D columns in shared memory.
+HIDDEN_DIMS = {torch.bfloat16: (64, 128, 256, 512, 768, 1024), torch.float32: (64, 128, 256, 512, 768)}
+# (h, w, labels, <lse, g,> <outputs>, S, V, D, dtype, stream)
+_FWD_ARGTYPES = tuple([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_BWD_ARGTYPES = tuple([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def _check(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, *rows: torch.Tensor) -> None:
+    if h.ndim != 2 or w_vd.ndim != 2 or h.shape[1] != w_vd.shape[1] or labels.shape != (h.shape[0],):
+        raise ValueError(f"{what}: expected h (S, D), w (V, D), labels (S,); got "
+                         f"{tuple(h.shape)}, {tuple(w_vd.shape)}, {tuple(labels.shape)}")
+    if any(r.shape != (h.shape[0],) for r in rows):
+        raise ValueError(f"{what}: lse and g must be (S,), got {[tuple(r.shape) for r in rows]}")
+
+
+def _check_cuda(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, *rows: torch.Tensor) -> None:
+    """The kernels' contract: one CUDA device; h and w of one dtype (fp32 or
+    bf16), D in HIDDEN_DIMS, 16-byte aligned rows; int32 labels and fp32
+    lse/g; all contiguous."""
+    tensors = (h, w_vd, labels) + rows
+    if h.device.type != "cuda" or any(x.device != h.device for x in tensors):
+        raise ValueError(f"{what}: tensors on {[str(x.device) for x in tensors]}")
+    if h.dtype not in _DTYPE_CODES or w_vd.dtype != h.dtype:
+        raise TypeError(f"{what} takes float32 or bfloat16 h and w of one dtype, got {h.dtype}, {w_vd.dtype}")
+    if labels.dtype != torch.int32 or any(r.dtype != torch.float32 for r in rows):
+        raise TypeError(f"{what}: labels must be int32 and lse/g float32")
+    if h.shape[1] not in HIDDEN_DIMS[h.dtype]:
+        raise ValueError(f"{what}: hidden dim {h.shape[1]} not in {HIDDEN_DIMS[h.dtype]} for {h.dtype}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    if h.data_ptr() % 16 or w_vd.data_ptr() % 16:
+        raise ValueError(f"{what}: h and w must start on a 16-byte boundary")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def fused_ce_fwd(
+    h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward kernel (``pallas_ce._fwd_kernel``): h (S, D), w_vd (V, D),
+    labels (S,) -> (loss (S,) fp32, lse (S,) fp32)."""
+    _check("fused_ce_fwd", h, w_vd, labels)
+    if h.device.type == "cpu":
+        return fused_ce_fwd_reference(h, w_vd.t(), labels)
+    _check_cuda("fused_ce_fwd", h, w_vd, labels)
+    s, d = h.shape
+    loss = torch.empty((s,), dtype=torch.float32, device=h.device)
+    lse = torch.empty((s,), dtype=torch.float32, device=h.device)
+    fn = _build.load("fused_ce", "pllm_ce_fwd", _FWD_ARGTYPES)
+    rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+            s, w_vd.shape[0], d, _DTYPE_CODES[h.dtype], _stream(h))
+    _build.check(rc, "fused_ce_fwd")
+    fused_ce_fwd.launches += 1
+    return loss, lse
+
+
+def _bwd(symbol: str, what: str, h, w_vd, labels, lse, g, out) -> None:
+    s, d = h.shape
+    fn = _build.load("fused_ce", symbol, _BWD_ARGTYPES)
+    rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
+            s, w_vd.shape[0], d, _DTYPE_CODES[h.dtype], _stream(h))
+    _build.check(rc, what)
+
+
+def fused_ce_dh(
+    h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+) -> torch.Tensor:
+    """dH kernel (``pallas_ce._bwd_dh_kernel``): (S, D) in h's dtype, for the
+    per-token cotangent g (S,) and the forward's lse."""
+    _check("fused_ce_dh", h, w_vd, labels, lse, g)
+    if h.device.type == "cpu":
+        return fused_ce_dh_reference(h, w_vd.t(), labels, lse, g)
+    _check_cuda("fused_ce_dh", h, w_vd, labels, lse, g)
+    dh = torch.empty_like(h)
+    _bwd("pllm_ce_dh", "fused_ce_dh", h, w_vd, labels, lse, g, dh)
+    fused_ce_dh.launches += 1
+    return dh
+
+
+def fused_ce_dw(
+    h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+) -> torch.Tensor:
+    """dW kernel (``pallas_ce._bwd_dw_kernel``): (V, D) in w's dtype."""
+    _check("fused_ce_dw", h, w_vd, labels, lse, g)
+    if h.device.type == "cpu":
+        return fused_ce_dw_reference(h, w_vd.t(), labels, lse, g).t()
+    _check_cuda("fused_ce_dw", h, w_vd, labels, lse, g)
+    dw = torch.empty_like(w_vd)
+    _bwd("pllm_ce_dw", "fused_ce_dw", h, w_vd, labels, lse, g, dw)
+    fused_ce_dw.launches += 1
+    return dw
+
+
+fused_ce_fwd.launches = 0
+fused_ce_dh.launches = 0
+fused_ce_dw.launches = 0

@@ -4,7 +4,11 @@ plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
 
 Counterpart of ``pretraining_llm_tpu/ops/pallas_flash.py``: causal
 (optionally sliding-window) attention over the heads-first folds q (B*H,
-T, Dh) and k/v (B*G, T, Dh); query head h reads KV head h // (H/G).
+T, Dh) and k/v (B*G, T, Dh); query head h reads KV head h // (H/G). With
+``segments`` ((B, T) int32 document ids) a query sees only keys of its own
+document: the mask ANDs ``seg[q] == seg[k]`` into the causal/window mask
+(the Pallas ``_mask_ok``); block skipping stays causal/window only, as
+``_run_ok`` is.
 ``flash_attention_fwd`` and ``flash_attention_bwd`` launch the kernels for
 CUDA tensors and run the plain versions only for CPU tensors. The backward
 picks its algorithm with the JAX package's rule (``_block_sizes``): one q
@@ -15,7 +19,7 @@ dK/dV pair, so both packages take the same path for every shape.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,15 +28,16 @@ from pretraining_llm_tpu_torch.ops import _build
 NEG_INF = -1e30  # finite, as in the Pallas kernel: exp/max edge cases
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+# (q, k, v, segments, o, lse, B, H, G, T, D, window, scale, dtype, stream)
 _ARGTYPES = tuple(
-    [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
-# (q, k, v, dout, lse, delta, <n outputs>, B, H, G, T, D, window, scale, dtype, stream)
+# (q, k, v, dout, lse, delta, segments, <n outputs>, B, H, G, T, D, window, scale, dtype, stream)
 _BWD_ARGTYPES = {
     n_out: tuple(
-        [ctypes.c_void_p] * (6 + n_out)
+        [ctypes.c_void_p] * (7 + n_out)
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -58,13 +63,31 @@ def backward_is_one_pass(t: int, block_q: int = 0, block_kv: int = 0) -> bool:
     return t // bq == 1 and t // bk == 1
 
 
-def _valid_mask(t: int, window: int, device: torch.device) -> torch.Tensor:
+def _valid_mask(t: int, window: int, device: torch.device,
+                segments: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernels' mask (``_mask_ok``): (T, T) causal and window, or
+    (B, 1, 1, T, T) with the same-document condition ANDed in."""
     qpos = torch.arange(t, device=device)[:, None]
     kpos = torch.arange(t, device=device)[None, :]
     ok = qpos >= kpos
     if window:
         ok = ok & (qpos - kpos < window)
+    if segments is not None:
+        ok = ok & (segments[:, :, None] == segments[:, None, :])[:, None, None]
     return ok
+
+
+def _seg_ptr(segments: Optional[torch.Tensor], q: torch.Tensor, b: int, t: int) -> Optional[int]:
+    """The kernels' segment pointer (None: no document mask), after checking
+    the (B, T) int32 contiguous contract on q's device."""
+    if segments is None:
+        return None
+    if segments.shape != (b, t) or segments.dtype != torch.int32 or not segments.is_contiguous():
+        raise ValueError(f"segments must be a contiguous (B, T) = ({b}, {t}) int32 tensor, got "
+                         f"{tuple(segments.shape)} {segments.dtype}")
+    if segments.device != q.device:
+        raise ValueError(f"segments on {segments.device}, q on {q.device}")
+    return segments.data_ptr()
 
 
 def _check_folds(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, g: int) -> None:
@@ -91,9 +114,9 @@ def _check_cuda(what: str, tensors: Tuple[torch.Tensor, ...], same_dtype: Tuple[
 
 def flash_attention_fwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, g: int, *,
-    window: int = 0,
+    window: int = 0, segments: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: same causal and window masks, fp32 softmax with
+    """Plain version of K1: same causal, window and segment masks, fp32 softmax with
     finite NEG_INF, masked p zeroed, P cast to V's dtype before PV, zeros
     for a row with no visible key. Returns (o like q, lse (B*H, T) fp32)."""
     bh, t, d = q.shape
@@ -102,7 +125,7 @@ def flash_attention_fwd_reference(
     kf = k.reshape(b, g, t, d).float()
     vf = v.reshape(b, g, t, d)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf) * (1.0 / d**0.5)
-    ok = _valid_mask(t, window, q.device)
+    ok = _valid_mask(t, window, q.device, segments)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(s - m), torch.zeros_like(s))
@@ -115,23 +138,25 @@ def flash_attention_fwd_reference(
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int, g: int, *,
-    window: int = 0,
+    window: int = 0, segments: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 for CUDA tensors, the plain version for CPU tensors.
 
     q: (B*H, T, Dh); k, v: (B*G, T, Dh), contiguous, one dtype (fp32 or
-    bf16), Dh in {32, 64, 128}. Returns (o like q, lse (B*H, T) fp32).
+    bf16), Dh in {32, 64, 128}; segments: None or (B, T) int32 document ids.
+    Returns (o like q, lse (B*H, T) fp32).
     ``flash_attention_fwd.launches`` counts kernel launches."""
     _check_folds(q, k, v, h, g)
     bh, t, d = q.shape
+    seg = _seg_ptr(segments, q, bh // h, t)
     if q.device.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, h, g, window=window)
+        return flash_attention_fwd_reference(q, k, v, h, g, window=window, segments=segments)
     _check_cuda("flash_attention_fwd", (q, k, v), (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     fn = _build.load("flash_fwd", "pllm_flash_fwd", _ARGTYPES)
     rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, o.data_ptr(), lse.data_ptr(),
         bh // h, h, g, t, d, int(window), 1.0 / d**0.5,
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -146,6 +171,7 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, h: int, g: int, *, window: int = 0,
+    segments: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of ``pallas_flash._bwd`` (either algorithm: they differ
     only in summation order). D = rowsum(dO*O) in fp32; p = exp(s - lse)
@@ -163,7 +189,7 @@ def flash_attention_bwd_reference(
     dof = do.reshape(b, g, r, t, d).float()
     delta = (do.float() * o.float()).sum(-1).reshape(b, g, r, t, 1)
     s = torch.einsum("bgrqd,bgkd->bgrqk", qf, kf) * scale
-    ok = _valid_mask(t, window, q.device)
+    ok = _valid_mask(t, window, q.device, segments)
     p = torch.where(ok, torch.exp(s - lse.reshape(b, g, r, t, 1)), torch.zeros_like(s))
     dp = torch.einsum("bgrqd,bgkd->bgrqk", dof, vf)
     ds = p * (dp - delta) * scale
@@ -177,41 +203,45 @@ def flash_attention_bwd_reference(
     )
 
 
-def _bwd_call(symbol: str, n_out: int, what: str, q, k, v, do, lse, delta, outs, h, g, window) -> None:
+def _bwd_call(symbol: str, n_out: int, what: str, q, k, v, do, lse, delta, outs, h, g, window,
+              segments) -> None:
     bh, t, d = q.shape
+    seg = _seg_ptr(segments, q, bh // h, t)
     fn = _build.load("flash_bwd", symbol, _BWD_ARGTYPES[n_out])
     rc = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), seg,
         *(x.data_ptr() for x in outs), bh // h, h, g, t, d, int(window), 1.0 / d**0.5,
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, what)
 
 
-def flash_bwd_fused(q, k, v, do, lse, delta, h, g, *, window=0):
+def flash_bwd_fused(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
     """The one-pass kernel (``_bwd_fused_kernel``): (dq, dk, dv), dq summed
     in fp32 with atomics and cast to q's dtype. CUDA tensors only, as
     validated by ``flash_attention_bwd``; ``.launches`` counts launches."""
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _bwd_call("pllm_flash_bwd_fused", 3, "flash_bwd_fused", q, k, v, do, lse, delta,
-              (dq_acc, dk, dv), h, g, window)
+              (dq_acc, dk, dv), h, g, window, segments)
     flash_bwd_fused.launches += 1
     return dq_acc.to(q.dtype), dk, dv
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, h, g, *, window=0):
+def flash_bwd_dq(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
     """The dQ kernel (``_bwd_dq_kernel``); ``.launches`` counts launches."""
     dq = torch.empty_like(q)
-    _bwd_call("pllm_flash_bwd_dq", 1, "flash_bwd_dq", q, k, v, do, lse, delta, (dq,), h, g, window)
+    _bwd_call("pllm_flash_bwd_dq", 1, "flash_bwd_dq", q, k, v, do, lse, delta, (dq,), h, g, window,
+              segments)
     flash_bwd_dq.launches += 1
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, h, g, *, window=0):
+def flash_bwd_dkv(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
     """The dK/dV kernel (``_bwd_dkv_kernel``); ``.launches`` counts launches."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_call("pllm_flash_bwd_dkv", 2, "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), h, g, window)
+    _bwd_call("pllm_flash_bwd_dkv", 2, "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), h, g, window,
+              segments)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -224,7 +254,7 @@ flash_bwd_dkv.launches = 0
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, h: int, g: int, *, window: int = 0,
-    block_q: int = 0, block_kv: int = 0,
+    block_q: int = 0, block_kv: int = 0, segments: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernels for CUDA tensors, the plain version for CPU
     tensors.
@@ -234,7 +264,8 @@ def flash_attention_bwd(
     ``_bwd`` does: one block each runs the one-pass kernel
     (``flash_bwd_fused``), otherwise the dQ kernel and the dK/dV kernel
     (``flash_bwd_dq``, ``flash_bwd_dkv``). The kernels tile T themselves
-    (64 x 64 tiles), whatever the blocks. Returns (dq, dk, dv)."""
+    (64 x 64 tiles), whatever the blocks. ``segments`` as in the forward.
+    Returns (dq, dk, dv)."""
     _check_folds(q, k, v, h, g)
     bh, t, d = q.shape
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (bh, t):
@@ -242,16 +273,17 @@ def flash_attention_bwd(
             f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)}, lse "
             f"{tuple(lse.shape)} do not match q {tuple(q.shape)}"
         )
+    _seg_ptr(segments, q, bh // h, t)  # the segments contract, checked on either device
     if q.device.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window)
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window, segments=segments)
     _check_cuda("flash_attention_bwd", (q, k, v, o, lse, do), (q, k, v, o, do))
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: lse must be float32, got {lse.dtype}")
     delta = (do.float() * o.float()).sum(-1)  # D = rowsum(dO * O), fp32 (XLA in JAX)
     if backward_is_one_pass(t, block_q, block_kv):
-        return flash_bwd_fused(q, k, v, do, lse, delta, h, g, window=window)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, h, g, window=window)
-    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window)
+        return flash_bwd_fused(q, k, v, do, lse, delta, h, g, window=window, segments=segments)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, h, g, window=window, segments=segments)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window, segments=segments)
     return dq, dk, dv
 
 
@@ -260,21 +292,22 @@ class FlashAttention(torch.autograd.Function):
     counterpart of the ``_flash`` custom VJP: the forward runs K1 (or its
     plain version on the CPU) and saves (q, k, v, o, lse); the backward runs
     ``flash_attention_bwd``. ``apply(q, k, v, h, g, window, block_q,
-    block_kv)``; the integer arguments get no gradient."""
+    block_kv, segments)``; the integer arguments and the (B, T) int32
+    document ids ``segments`` (or None) get no gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, h, g, window, block_q, block_kv):
-        o, lse = flash_attention_fwd(q, k, v, h, g, window=window)
-        ctx.save_for_backward(q, k, v, o, lse)
+    def forward(ctx, q, k, v, h, g, window, block_q, block_kv, segments=None):
+        o, lse = flash_attention_fwd(q, k, v, h, g, window=window, segments=segments)
+        ctx.save_for_backward(q, k, v, o, lse, segments)
         ctx.meta = (h, g, window, block_q, block_kv)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, segments = ctx.saved_tensors
         h, g, window, block_q, block_kv = ctx.meta
         dq, dk, dv = flash_attention_bwd(
             q, k, v, o, lse, do.contiguous(), h, g, window=window,
-            block_q=block_q, block_kv=block_kv,
+            block_q=block_q, block_kv=block_kv, segments=segments,
         )
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None

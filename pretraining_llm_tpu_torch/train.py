@@ -11,6 +11,9 @@ Examples::
         --override train.train_steps=100
     python -m pretraining_llm_tpu_torch.train --preset gpt2-124m \\
         --override data.train_path=data/train.bin data.val_path=data/val.bin
+    python -m pretraining_llm_tpu_torch.train --preset gpt2-124m --no-resume \\
+        --override model.ce_impl=fused model.doc_mask_token=10 \\
+        data.train_path=data/parity/train.bin data.val_path=data/parity/val.bin
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ Serving: gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
 weights from seed 0) with the engine settings ``chip_smoke.py`` uses.
 Training: one ``build_train_step`` step of the gpt2-124m preset (batch 12,
 T 1024, bf16 compute, fp32 params and AdamW, the flash kernels) after two
-warm-up steps, on random tokens. One JSON line per phase: the host wall
+warm-up steps, on random tokens; then the same with the fused CE head and
+document masking (``ce_impl="fused"``, ``doc_mask_token=10``, separators
+at chip_smoke T3's density of one per 67 tokens, the median spacing of
+``data/parity``). One JSON line per phase: the host wall
 time (which ends when the loss or the sampled tokens reach the host), the
 summed device kernel time, their ratio (the device's busy share), and the
 kernels that took the most device time.
@@ -91,26 +94,39 @@ def profile_serving() -> Dict[str, Dict[str, object]]:
     return out
 
 
+DOC_SEP = 10  # the separator of the doc-masked phase (byte "\n")
+DOC_SPACING = 67  # tokens per document in that phase
+
+
 def profile_train() -> Dict[str, Dict[str, object]]:
     from pretraining_llm_tpu_torch.config import get_preset
     from pretraining_llm_tpu_torch.training import train_step as ts
 
-    cfg = get_preset("gpt2-124m")
-    state = {"state": ts.init_train_state(cfg, SEED, device="cuda")}
-    step = ts.build_train_step(cfg)
-    rng = np.random.default_rng(SEED + 12)
-    toks = rng.integers(0, cfg.model.vocab_size, (cfg.train.batch_size, cfg.model.context_length + 1))
-    toks = torch.from_numpy(toks).cuda()
-    batch = (toks[:, :-1], toks[:, 1:])
+    out = {}
+    for phase, overrides in (
+        ("train_step", {}),
+        ("train_step_fused_ce_doc_mask", {"model.ce_impl": "fused", "model.doc_mask_token": DOC_SEP}),
+    ):
+        cfg = get_preset("gpt2-124m").with_overrides(overrides)
+        state = {"state": ts.init_train_state(cfg, SEED, device="cuda")}
+        step = ts.build_train_step(cfg)
+        rng = np.random.default_rng(SEED + 12)
+        toks = rng.integers(0, cfg.model.vocab_size, (cfg.train.batch_size, cfg.model.context_length + 1))
+        if cfg.model.doc_mask_token >= 0:
+            toks[rng.random(toks.shape) < 1.0 / DOC_SPACING] = DOC_SEP
+        toks = torch.from_numpy(toks).cuda()
+        batch = (toks[:, :-1], toks[:, 1:])
 
-    def one() -> None:
-        state["state"], metrics = step(state["state"], batch)
-        float(metrics["loss"])  # the step ends when its loss reaches the host
+        def one() -> None:
+            state["state"], metrics = step(state["state"], batch)
+            float(metrics["loss"])  # the step ends when its loss reaches the host
 
-    for _ in range(2):
-        one()
-    out = {"train_step": _profile(one)}
-    out["train_step"]["tokens"] = cfg.train.batch_size * cfg.model.context_length
+        for _ in range(2):
+            one()
+        out[phase] = _profile(one)
+        out[phase]["tokens"] = cfg.train.batch_size * cfg.model.context_length
+        del state, step
+        torch.cuda.empty_cache()
     return out
 
 

@@ -1,0 +1,148 @@
+"""Where two training runs of one model part, and why: the fused CE head
+and flash attention with document segments against the all-torch-ops twin
+(chunked head, naive attention), one component at a time.
+
+Run from the repository root on a machine with a GPU::
+
+    python -m pretraining_llm_tpu_torch.utils.trajectory
+
+The run is ``chip_smoke.py``'s T3: gpt2-124m at full width and depth
+(batch 12, T 1024, bf16 compute, fp32 params) with ``doc_mask_token=10``
+on ``data/parity`` bytes, lr 6e-4 with 3 warm-up steps of a 20-step
+schedule, no eval. Two parts, one JSON line each, with the card's name and
+power limit as ``nvidia-smi`` gives them:
+
+``runs``        each setting of SETTINGS trained STEPS steps from the
+                same init on the same batches; its loss and grad norm per
+                step, and its largest loss difference from the twin's.
+                The ``*_ulp`` settings start from the init with every
+                parameter moved by about one fp32 ulp (x (1 + 2^-23 z)),
+                a perturbation the size of one rounding difference: they
+                show how far rounding alone carries a run by each step.
+``same_state``  on the ``fused_flash`` run's own states, before each step,
+                every setting's gradient of the step's params and batch,
+                against the twin's: per setting, the largest relative
+                difference ||g - g_twin|| / ||g_twin|| over the parameter
+                leaves, with the leaf, and the loss difference.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import torch
+
+from pretraining_llm_tpu_torch.config import Config, get_preset
+
+STEPS = 10  # the steps chip_smoke.py holds T3 against its twin
+TWIN = "chunked_naive"
+ULP = 2.0**-23  # relative size of the init perturbation of the *_ulp settings
+SETTINGS: Dict[str, Dict[str, object]] = {
+    "fused_flash": {"model.ce_impl": "fused", "model.attention_impl": "flash"},
+    "fused_naive": {"model.ce_impl": "fused", "model.attention_impl": "naive"},
+    "chunked_flash": {"model.ce_impl": "chunked", "model.attention_impl": "flash"},
+    TWIN: {"model.ce_impl": "chunked", "model.attention_impl": "naive"},
+    "fused_flash_ulp": {"model.ce_impl": "fused", "model.attention_impl": "flash"},
+    TWIN + "_ulp": {"model.ce_impl": "chunked", "model.attention_impl": "naive"},
+}
+PARITY = Path(__file__).resolve().parents[2] / "data" / "parity"
+
+
+def t3_config() -> Config:
+    """chip_smoke.py's T3 run but for the CE head: no eval, checkpoint or
+    final save."""
+    return get_preset("gpt2-124m").with_overrides({
+        "train.eval_interval": 0, "train.checkpoint_interval": 0, "train.save_final": False,
+        "train.train_steps": 20, "train.warmup_frac": 3 / 20, "model.doc_mask_token": 10,
+        "data.train_path": str(PARITY / "train.bin"), "data.val_path": str(PARITY / "val.bin"),
+    })
+
+
+def _trainer(cfg: Config, device: str):
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    return Trainer(cfg, device=device, resume=False, logger=MetricsLogger("", stream=sys.stderr))
+
+
+def run(cfg: Config, steps: int, device: str, perturb: float = 0.0) -> List[Dict[str, float]]:
+    """``steps`` steps of ``Trainer.train``, the init first moved by
+    ``perturb`` (relative, seeded). Returns each step's loss and grad norm."""
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    trainer = _trainer(cfg, device)
+    if perturb:
+        gen = torch.Generator().manual_seed(1)
+        with torch.no_grad():
+            for _, p in opt.tree_leaves(trainer.state["params"]):
+                p.mul_(1 + perturb * torch.randn(p.shape, generator=gen).to(p.device))
+    step_fn, out = trainer.step_fn, []
+
+    def step(state, batch):
+        state, metrics = step_fn(state, batch)
+        out.append({"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])})
+        return state, metrics
+
+    trainer.step_fn = step
+    trainer.train(steps)
+    return out
+
+
+def same_state(cfg: Config, steps: int, device: str, settings: Optional[List[str]] = None) -> List[dict]:
+    """Before each of ``steps`` steps of the ``fused_flash`` run, each
+    setting's loss and per-leaf gradients of the step's params and batch,
+    against the twin's. Returns one record per step."""
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    names = [n for n in (settings or SETTINGS) if n != TWIN and not n.endswith("_ulp")]
+    trainer = _trainer(cfg.with_overrides(SETTINGS["fused_flash"]), device)
+    step_fn, out = trainer.step_fn, []
+
+    def step(state, batch):
+        twin_loss, twin = ts.loss_and_grads(state["params"], *batch, cfg.with_overrides(SETTINGS[TWIN]))
+        rec = {"step": len(out) + 1, "twin_loss": float(twin_loss)}
+        for name in names:
+            loss, grads = ts.loss_and_grads(state["params"], *batch, cfg.with_overrides(SETTINGS[name]))
+            rel = {"/".join(k): float((g.float() - t.float()).norm() / t.float().norm())
+                   for (k, g), (_, t) in zip(opt.tree_leaves(grads), opt.tree_leaves(twin))}
+            rel = {k: x if math.isfinite(x) else math.inf for k, x in rel.items()}  # NaN reads as inf
+            leaf = max(rel, key=rel.get)
+            rec[name] = {"loss_diff": float(loss) - float(twin_loss), "max_rel_grad_diff": rel[leaf], "leaf": leaf}
+            del grads
+        del twin
+        out.append(rec)
+        return step_fn(state, batch)
+
+    trainer.step_fn = step
+    trainer.train(steps)
+    return out
+
+
+def study(cfg: Config, steps: int, device: str) -> Dict[str, object]:
+    runs = {name: run(cfg.with_overrides(over), steps, device, perturb=ULP if name.endswith("_ulp") else 0.0)
+            for name, over in SETTINGS.items()}
+    twin = [r["loss"] for r in runs[TWIN]]
+    diffs = {name: max(abs(r["loss"] - t) for r, t in zip(recs, twin)) for name, recs in runs.items()}
+    return {"runs": runs, "max_loss_diff_vs_twin": diffs, "same_state": same_state(cfg, steps, device)}
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("trajectory needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = study(t3_config(), STEPS, "cuda")
+    device = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[:1]
+    print(json.dumps({"part": "runs", "device": device, "runs": res["runs"],
+                      "max_loss_diff_vs_twin": res["max_loss_diff_vs_twin"]}), flush=True)
+    print(json.dumps({"part": "same_state", "device": device, "steps": res["same_state"]}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

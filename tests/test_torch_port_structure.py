@@ -21,6 +21,7 @@ from pretraining_llm_tpu_torch.generation.serving import ServingEngine
 from pretraining_llm_tpu_torch import train as train_cli
 from pretraining_llm_tpu_torch.models import bridge, transformer
 from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
+from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
 from pretraining_llm_tpu_torch.training import train_step
 from pretraining_llm_tpu_torch.training.trainer import Trainer
 
@@ -58,7 +59,7 @@ def test_port_has_kernel_sources_for_both_kernels():
     from pretraining_llm_tpu_torch.ops import _build
 
     names = sorted(p.name for p in (ROOT / "pretraining_llm_tpu_torch" / "csrc").glob("*.cu"))
-    assert names == ["flash_bwd.cu", "flash_fwd.cu", "paged_decode.cu", "ragged_paged.cu"]
+    assert names == ["flash_bwd.cu", "flash_fwd.cu", "fused_ce.cu", "paged_decode.cu", "ragged_paged.cu"]
     assert sorted(_build.SOURCES) == [n[:-3] for n in names]
 
 
@@ -109,6 +110,18 @@ def test_flash_output_carries_the_function_grad_fn():
     assert all(x.grad is not None and x.grad.abs().sum() > 0 for x in (q, k, v))
 
 
+def test_fused_ce_output_carries_the_function_grad_fn():
+    """The fused head's per-token losses are the ``FusedCE`` node, so a
+    backward reaches the dH and dW kernels (CUDA) or their plain versions
+    (CPU), never autograd through a plain forward."""
+    h = torch.randn(16, 8, requires_grad=True)
+    w = torch.randn(8, 40, requires_grad=True)
+    loss = fused_cross_entropy(h, w, torch.randint(0, 40, (16,)))
+    assert type(loss.grad_fn).__name__ == "FusedCEBackward"
+    loss.mean().backward()
+    assert all(x.grad is not None and x.grad.abs().sum() > 0 for x in (h, w))
+
+
 def test_engine_refuses_params_on_another_device():
     params = transformer.init_params(TINY, 0, device="cpu")
     params = dict(params, tok_embed={"embedding": params["tok_embed"]["embedding"].to("meta")})
@@ -130,7 +143,6 @@ def test_unported_engine_options_raise(kw):
     (dict(n_experts=4), "n_experts"),
     (dict(attention_impl="ring"), "ring"),
     (dict(attention_impl="ulysses"), "ulysses"),
-    (dict(doc_mask_token=3), "doc_mask_token"),
 ])
 def test_unported_model_options_raise(kw, name):
     cfg = dataclasses.replace(TINY, **kw)
@@ -143,7 +155,6 @@ def test_unported_model_options_raise(kw, name):
 @pytest.mark.parametrize("key,value,name", [
     ("train.optimizer", "adafactor", "adafactor"),
     ("train.optimizer", "muon", "muon"),
-    ("model.ce_impl", "fused", "B9-B11"),
 ])
 def test_unported_training_options_raise(key, value, name):
     cfg = get_preset("tiny").with_overrides({key: value, "model.compute_dtype": "float32"})

@@ -194,15 +194,6 @@ def test_ce_chunk_count_rule():
         assert ttf._ce_chunks(1021, 1_000_000) == 1  # prime S below 1024: one chunk
 
 
-def test_fused_ce_is_refused():
-    kw = dict(GPT2, ce_impl="fused")
-    tc = tcfg.ModelConfig(**kw)
-    params = bridge.params_from_numpy(_tree(GPT2), tc, device="cpu")
-    x, y = _batch(kw, 1, seed=2)
-    with pytest.raises(NotImplementedError, match="B9-B11"):
-        ttf.loss_fn(params, torch.from_numpy(x), torch.from_numpy(y), tc)
-
-
 def test_forward_pre_logits_feed_the_head():
     tc = tcfg.ModelConfig(**GPT2)
     params = bridge.params_from_numpy(_tree(GPT2), tc, device="cpu")
