@@ -50,6 +50,14 @@ four training runs, counting each kernel's launches on each:
           all-torch-ops twin (chunked head, naive attention) on T3's own
           states.
 
+The flash forward (K1) and the dK/dV kernel have two routes: bf16 runs
+the tensor-core kernels (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``:
+wgmma fed by TMA), fp32 the CUDA-core ones. Each path's launch counts
+name the route it took (``flash_fwd_tc``, ``flash_fwd_fp32``,
+``flash_bwd_dkv_tc``, ``flash_bwd_dkv_fp32``), and the script asserts them:
+path 1, T1, T2 and T3 run the tensor-core K1, T2 the tensor-core dK/dV,
+the parity run (fp32) the CUDA-core kernels.
+
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
 
@@ -109,8 +117,17 @@ NAIVE_LOSS_TOL = 0.05
 # and flash attention with segments within 2% (relative to the norm) of the
 # all-torch-ops twin's, twice the largest reading over T3's first 10
 # states on an H100 (0.00995, blocks/mlp/b2; PERF.md): bf16 rounding points
-# differ between the two, so an exact bar is not possible.
+# differ between the two, so an exact bar is not possible. One exception,
+# for a leaf over that bar only: where the twin's own bf16 gradient lies at
+# least T3_TWIN_OFF from the same model's fp32 gradient (relative to the
+# fp32 norm), the leaf is held to the fp32 gradient instead, no farther from
+# it than the twin (``utils/trajectory.py::held_by``). T3_TWIN_OFF is
+# above the twin's distance at every ordinary state on an H100 (at most
+# 0.029), so there the 2% bar holds alone. At the states after a bf16
+# gradient spike the twin has been found 2.5x to 2800x the bar from fp32,
+# and the flash path about half as far (PERF.md).
 T3_GRAD_RTOL = 0.02
+T3_TWIN_OFF = 2 * T3_GRAD_RTOL
 ISOLATION_TOL = 1e-6  # other documents' fp32 logits when one document changes
 PARITY_LOSS_TOL = 0.02
 PARITY_EVAL_TOL = 0.01
@@ -124,9 +141,13 @@ def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen).to(device=DEVICE, dtype=dtype)
 
 
-def time_ms(fn, *, n=25, warmup=5, flush=None) -> float:
+def time_ms(fn, *, n=25, warmup=5, flush=None, device_only=False) -> float:
     """Median of ``n`` launches, each between two CUDA events, after a
-    warm-up; ``flush`` (outside the events) evicts the L2 cache first."""
+    warm-up; ``flush`` (outside the events) evicts the L2 cache first. The
+    events also hold whatever host time the wrapper spends before its launch
+    reaches the card; ``device_only`` first queues a ~1 ms spin on the card,
+    so that the launch is queued before the start event fires and only
+    device time is counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -134,6 +155,8 @@ def time_ms(fn, *, n=25, warmup=5, flush=None) -> float:
     for _ in range(n):
         if flush is not None:
             flush()
+        if device_only:
+            torch.cuda._sleep(2_000_000)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -222,20 +245,33 @@ def check_flash() -> float:
         (2, 12, 12, 1024, 64, 0, torch.bfloat16, True), (2, 12, 12, 1024, 64, 0, torch.float32, True),
         (2, 16, 4, 512, 64, 200, torch.bfloat16, True),  # segments, GQA, window
         (1, 4, 2, 200, 64, 0, torch.float32, True), (1, 16, 4, 300, 128, 0, torch.bfloat16, True),
+        # The tensor-core kernel's tile edges (64-row tiles, 64-key tiles): T of
+        # 832 (serving's), 200 and 1000, Dh 32/64/128, n_rep 4, windows of 200
+        # and 256 with and without segments.
+        (1, 12, 12, 832, 64, 0, torch.bfloat16, False), (1, 4, 2, 200, 64, 0, torch.bfloat16, False),
+        (1, 16, 4, 1000, 128, 0, torch.bfloat16, False), (2, 8, 8, 200, 32, 0, torch.bfloat16, False),
+        (2, 8, 2, 1000, 64, 200, torch.bfloat16, False), (2, 8, 2, 1000, 64, 200, torch.bfloat16, True),
+        (1, 16, 4, 832, 128, 256, torch.bfloat16, False), (1, 16, 4, 832, 128, 256, torch.bfloat16, True),
+        (2, 8, 2, 1000, 32, 256, torch.bfloat16, True), (1, 16, 4, 200, 128, 200, torch.bfloat16, True),
     ]
     worst = 0.0
+    fwd = cuda_flash.flash_attention_fwd
     for b, h, g, t, d, window, dtype, seg_on in cases:
         q = randn((b * h, t, d), dtype, gen)
         k = randn((b * g, t, d), dtype, gen)
         v = randn((b * g, t, d), dtype, gen)
         seg = parity_segments(b, t, SEED + b * t) if seg_on else None
+        before = (fwd.launches_tc, fwd.launches_fp32)
         o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window, segments=seg)
+        ran = (fwd.launches_tc - before[0], fwd.launches_fp32 - before[1])
+        if ran != ((1, 0) if dtype == torch.bfloat16 else (0, 1)):
+            raise AssertionError(f"flash forward at {dtype} ran (tensor-core, fp32) = {ran}")
         o_ref, lse_ref = cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, window=window, segments=seg)
         torch.cuda.synchronize()
         err = max(max_err(o, o_ref), max_err(lse, lse_ref))
         use = max(tol_use(o, o_ref), tol_use(lse, lse_ref))
         log("check_flash", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
-            segments=segment_summary(seg), max_abs_err=err, tol_use=use)
+            route=cuda_flash.kernel_route(dtype, d), segments=segment_summary(seg), max_abs_err=err, tol_use=use)
         if not (use <= 1.0):
             raise AssertionError(f"flash kernel disagrees with its plain version: {use} x its limit")
         worst = max(worst, err)
@@ -277,6 +313,15 @@ BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv, document seg
     (1, 8, 4, 512, 64, 0, torch.float32, 128, 128, True),      # segments, GQA, split
     (1, 8, 2, 1024, 64, 200, torch.bfloat16, 256, 256, True),  # segments, window, split
     (1, 8, 8, 300, 128, 0, torch.float32, 0, 0, True),         # segments, ragged T, one pass
+    # The tensor-core dK/dV kernel's tile edges (split: blocks below T).
+    (1, 12, 12, 832, 64, 0, torch.bfloat16, 64, 64, False),    # serving's T
+    (1, 4, 2, 200, 64, 0, torch.bfloat16, 100, 100, False),    # T 200
+    (1, 16, 4, 1000, 128, 0, torch.bfloat16, 200, 200, False),  # T 1000, Dh 128, n_rep 4
+    (1, 8, 2, 1000, 32, 200, torch.bfloat16, 200, 200, False),  # Dh 32, window 200, n_rep 4
+    (1, 8, 2, 1000, 64, 200, torch.bfloat16, 200, 200, True),   # window 200 + segments
+    (1, 16, 4, 832, 128, 256, torch.bfloat16, 64, 64, False),   # window 256
+    (1, 16, 4, 832, 128, 256, torch.bfloat16, 64, 64, True),    # window 256 + segments
+    (2, 8, 8, 200, 32, 0, torch.bfloat16, 100, 100, True),      # Dh 32, T 200, segments
 ]
 
 
@@ -291,16 +336,18 @@ def check_flash_bwd() -> None:
     from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
 
     gen = torch.Generator().manual_seed(SEED + 9)
-    counters = (cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq, cuda_flash.flash_bwd_dkv)
+    dkv = cuda_flash.flash_bwd_dkv
+    counters = (cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq, dkv)
     for b, h, g, t, d, window, dtype, bq, bk, seg_on in BWD_CASES:
         q, do = randn((b * h, t, d), dtype, gen), randn((b * h, t, d), dtype, gen)
         k, v = randn((b * g, t, d), dtype, gen), randn((b * g, t, d), dtype, gen)
         seg = parity_segments(b, t, SEED + 9 + b * t) if seg_on else None
         o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window, segments=seg)
-        before = [f.launches for f in counters]
+        before = [f.launches for f in counters] + [dkv.launches_tc]
         got = cuda_flash.flash_attention_bwd(q, k, v, o, lse, do, h, g, window=window, block_q=bq,
                                              block_kv=bk, segments=seg)
         ran = tuple(f.launches - n for f, n in zip(counters, before))
+        ran_tc = dkv.launches_tc - before[3]
         ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window, segments=seg)
         torch.cuda.synchronize()
         rtol = BWD_FP32_RTOL if dtype == torch.float32 else BF16_ROW_RTOL
@@ -313,8 +360,15 @@ def check_flash_bwd() -> None:
             max_abs_err=errs, tol_use=uses, rtol=rtol)
         if ran != ((1, 0, 0) if one_pass else (0, 1, 1)):
             raise AssertionError(f"backward launched {ran} (fused, dq, dkv) for one_pass={one_pass}")
+        if ran_tc != (ran[2] if dtype == torch.bfloat16 else 0):
+            raise AssertionError(f"dK/dV at {dtype} ran the tensor-core kernel {ran_tc} times of {ran[2]}")
         if not all(u <= 1.0 for u in uses.values()):
             raise AssertionError(f"flash backward disagrees with its plain version: {uses}")
+        if not one_pass:  # no atomics: a second launch on the same inputs gives the same bits
+            delta = (do.float() * o.float()).sum(-1)
+            again = cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window, segments=seg)
+            if not all(torch.equal(x, y) for x, y in zip(again, got[1:])):
+                raise AssertionError(f"dK/dV differs between two launches on the same inputs ({dtype}, T {t})")
 
     # Gradients of the autograd Function (fp32) against autograd through the
     # plain masked attention, one pass and split: max-abs within GRAD_TOL
@@ -761,6 +815,8 @@ def run_main_path():
         raise AssertionError("main path: a request did not finish with max_new in-vocab tokens")
     if launches["flash_fwd"] <= 0 or launches["paged_decode"] <= 0:
         raise AssertionError(f"main path did not run through both kernels: {launches}")
+    if launches["flash_fwd_tc"] != launches["flash_fwd"]:
+        raise AssertionError(f"main path (bf16) ran the flash forward off the tensor-core route: {launches}")
     return launches, eng.prefill_shapes
 
 
@@ -781,9 +837,13 @@ def kernel_counts() -> dict:
         "fused_ce_dh": cuda_ce.fused_ce_dh.launches,
         "fused_ce_dw": cuda_ce.fused_ce_dw.launches,
         "flash_fwd": cuda_flash.flash_attention_fwd.launches,
+        "flash_fwd_tc": cuda_flash.flash_attention_fwd.launches_tc,
+        "flash_fwd_fp32": cuda_flash.flash_attention_fwd.launches_fp32,
         "flash_bwd_fused": cuda_flash.flash_bwd_fused.launches,
         "flash_bwd_dq": cuda_flash.flash_bwd_dq.launches,
         "flash_bwd_dkv": cuda_flash.flash_bwd_dkv.launches,
+        "flash_bwd_dkv_tc": cuda_flash.flash_bwd_dkv.launches_tc,
+        "flash_bwd_dkv_fp32": cuda_flash.flash_bwd_dkv.launches_fp32,
         "paged_decode": cuda_paged.paged_decode_attention.launches,
         "ragged": cuda_ragged.ragged_paged_attention.launches,
         "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
@@ -798,6 +858,8 @@ def reset_kernel_counts() -> None:
                     cuda_ragged.ragged_paged_attention, cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh,
                     cuda_ce.fused_ce_dw):
         counted.launches = 0
+    for routed in (cuda_flash.flash_attention_fwd, cuda_flash.flash_bwd_dkv):
+        routed.launches_tc = routed.launches_fp32 = 0
     cuda_ragged.ragged_paged_attention.split_launches = 0
 
 
@@ -1147,6 +1209,8 @@ def run_train_path1() -> dict:
         raise AssertionError(f"T1 did not run the flash forward and one-pass backward kernels: {launches}")
     if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
         raise AssertionError(f"T1 launched the split backward kernels: {launches}")
+    if launches["flash_fwd_tc"] != launches["flash_fwd"]:
+        raise AssertionError(f"T1 (bf16) ran the flash forward off the tensor-core route: {launches}")
     if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
         raise AssertionError(f"T1: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
     if resumed_from != steps or state_differs or not rng_equal:
@@ -1189,6 +1253,8 @@ def run_train_path2() -> dict:
         raise AssertionError(f"T2 did not run the flash forward and dQ + dK/dV kernels: {launches}")
     if launches["flash_bwd_fused"]:
         raise AssertionError(f"T2 launched the one-pass backward kernel: {launches}")
+    if launches["flash_fwd_tc"] != launches["flash_fwd"] or launches["flash_bwd_dkv_tc"] != launches["flash_bwd_dkv"]:
+        raise AssertionError(f"T2 (bf16) ran the flash forward or dK/dV off the tensor-core route: {launches}")
     if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
         raise AssertionError(f"T2: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
     return launches
@@ -1210,7 +1276,9 @@ def run_train_path3() -> dict:
     params and batch are taken: each loss within NAIVE_LOSS_TOL, and every
     parameter's gradient within T3_GRAD_RTOL of the twin's (relative to
     the twin's norm), so B10, B11 and the segmented backward are held at
-    every state, not only at init. Two independent runs are not compared:
+    every state, not only at init. A leaf over that bar passes only where
+    the twin is at least T3_TWIN_OFF from the fp32 gradient and the path
+    no farther from it than the twin. Two independent runs are not compared:
     on this data a grad-norm spike at step 8 comes and goes with a one-ulp
     move of the init and carries a run 0.09-0.12 in loss from its unmoved
     self by step 10, past NAIVE_LOSS_TOL, whatever the head and attention
@@ -1228,10 +1296,14 @@ def run_train_path3() -> dict:
     _free_card()
     model = cfg.model
     want = {"fused_ce_fwd": steps, "fused_ce_dh": steps, "fused_ce_dw": steps,
-            "flash_fwd": model.n_layers * steps, "flash_bwd_fused": model.n_layers * steps,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_fwd": model.n_layers * steps, "flash_fwd_tc": model.n_layers * steps, "flash_fwd_fp32": 0,
+            "flash_bwd_fused": model.n_layers * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     loss_diffs = [r["fused_flash"]["loss_diff"] for r in held]
     grad_diffs = [r["fused_flash"]["max_rel_grad_diff"] for r in held]
+    verdicts = {(r["step"], k): trajectory.held_by(u, T3_GRAD_RTOL, T3_TWIN_OFF)
+                for r in held for k, u in r["fused_flash"]["leaves"].items()}
+    off_twin = {f"{s}:{k}": dict(held[s - 1]["fused_flash"]["leaves"][k], held_by=v)
+                for (s, k), v in verdicts.items() if v != "twin"}
     log("train_path3", model="gpt2-124m", layers=model.n_layers, d=model.d_model, T=model.context_length,
         V=model.vocab_size, batch=cfg.train.batch_size, dtype=model.compute_dtype, ce_impl=model.ce_impl,
         doc_mask_token=model.doc_mask_token, data=cfg.data.train_path, steps=steps, lr=cfg.train.lr,
@@ -1239,16 +1311,16 @@ def run_train_path3() -> dict:
         losses=losses, launches=launches, expected_launches=want, twin="ce_impl=chunked, attention_impl=naive",
         same_state_twin_losses=[r["twin_loss"] for r in held], same_state_loss_diffs=loss_diffs,
         same_state_max_rel_grad_diffs=grad_diffs, same_state_worst_leaves=[r["fused_flash"]["leaf"] for r in held],
-        loss_tol=NAIVE_LOSS_TOL, grad_rtol=T3_GRAD_RTOL)
+        same_state_off_twin=off_twin, loss_tol=NAIVE_LOSS_TOL, grad_rtol=T3_GRAD_RTOL, twin_off=T3_TWIN_OFF)
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"T3: expected {steps} finite losses, got {losses}")
     if statistics.mean(losses[-5:]) > losses[0] - 1.0:
         raise AssertionError(f"T3: the last 5 losses do not average 1.0 below step 1's: {losses}")
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"T3 launched {launches}, expected {want}")
-    within = all(abs(x) <= NAIVE_LOSS_TOL for x in loss_diffs) and all(x <= T3_GRAD_RTOL for x in grad_diffs)
+    within = all(abs(x) <= NAIVE_LOSS_TOL for x in loss_diffs) and None not in verdicts.values()
     if len(held) != n_steps or not within:  # a NaN fails the comparisons
-        raise AssertionError(f"T3 and its twin disagree on the same states: {held}")
+        raise AssertionError(f"T3 and its twin disagree on the same states: {loss_diffs}, {off_twin}")
     return launches
 
 
@@ -1319,6 +1391,8 @@ def run_parity() -> dict:
         raise AssertionError("parity run on the card left the recorded JAX curve")
     if launches["flash_fwd"] <= 0 or launches["flash_bwd_fused"] <= 0:
         raise AssertionError(f"parity run did not go through the flash kernels: {launches}")
+    if launches["flash_fwd_fp32"] != launches["flash_fwd"] or launches["flash_fwd_tc"] or launches["flash_bwd_dkv_tc"]:
+        raise AssertionError(f"parity run (fp32) left the CUDA-core flash kernels: {launches}")
     return launches
 
 
@@ -1340,17 +1414,18 @@ def time_kernels(launches, prefill_shapes, errs):
     h, d, dt = 12, 64, torch.bfloat16
     q, k, v = (randn((b * h, t, d), dt, gen) for _ in range(3))
     k_ms = time_ms(lambda: cuda_flash.flash_attention_fwd(q, k, v, h, h), flush=flush)
+    k_dev = time_ms(lambda: cuda_flash.flash_attention_fwd(q, k, v, h, h), flush=flush, device_only=True)
     p_ms = time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, h), flush=flush)
     q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
     l_ms = time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), flush=flush)
     flops = 2.0 * b * h * t * t * d  # QK^T and PV over the causal half
     nbytes = 4 * b * h * t * d * 2 + b * h * t * 4  # q, k, v, o in bf16 + lse fp32
     kernels.append(dict(
-        name="flash_fwd", route="cuda", source="pretraining_llm_tpu_torch/csrc/flash_fwd.cu",
+        name="flash_fwd", route="cuda", mma="wgmma", source="pretraining_llm_tpu_torch/csrc/flash_fwd_tc.cu",
         replaces="pretraining_llm_tpu/ops/pallas_flash.py:104",
-        shape=f"B*H={b * h} T={t} Dh={d} bf16 causal", launches=launches["flash_fwd"],
+        shape=f"B*H={b * h} T={t} Dh={d} bf16 causal", launches=launches["flash_fwd_tc"],
         flops=flops, bytes=nbytes, **_bound(flops, nbytes), max_abs_err=errs["flash_fwd"],
-        ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+        ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
     ))
 
     # K2 at a decode step of the main path: 8 rows, 12 heads, Dh 64, one
@@ -1375,7 +1450,7 @@ def time_kernels(launches, prefill_shapes, errs):
     flops = 4.0 * h * live_slots * d  # QK and PV over each row's visible slots
     nbytes = live_pages * bs * g * d * 2 * 2 + 2 * b * h * d * 2 + b * nb * 4 + b * 4
     kernels.append(dict(
-        name="paged_decode", route="cuda", source="pretraining_llm_tpu_torch/csrc/paged_decode.cu",
+        name="paged_decode", route="cuda", mma="none (fp32 CUDA cores)", source="pretraining_llm_tpu_torch/csrc/paged_decode.cu",
         replaces="pretraining_llm_tpu/ops/pallas_paged.py:48",
         shape=f"B={b} H={h} G={g} T=1 Dh={d} bs={bs} nb={nb} bf16 seq_lens={seq.tolist()}",
         launches=launches["paged_decode"], flops=flops, bytes=nbytes, **_bound(flops, nbytes),
@@ -1448,7 +1523,7 @@ def time_ragged(paths, eng2, errs):
         nbytes = (live_pages * bs * g * (d * elem + scale_bytes) * 2 + 2 * q.numel() * q.element_size()
                   + tables.numel() * 4 + 2 * seq.numel() * 4)
         kernels.append(dict(
-            name=name, route="cuda", source="pretraining_llm_tpu_torch/csrc/ragged_paged.cu",
+            name=name, route="cuda", mma="none (fp32 CUDA cores)", source="pretraining_llm_tpu_torch/csrc/ragged_paged.cu",
             replaces=("pretraining_llm_tpu/ops/pallas_ragged.py:287" if name == "ragged_split"
                       else "pretraining_llm_tpu/ops/pallas_ragged.py:228"),
             shape=shape, kv_splits=splits, launches=launches, flops=flops, bytes=nbytes,
@@ -1504,7 +1579,10 @@ def time_train_kernels(paths):
     alone (``torch.autograd.grad`` on a retained graph), with GQA through
     K/V repeated to H heads before the timed call (the group sum of dK/dV
     is not timed). Bound FLOPs: 2*Dh per visible (query, key) pair per
-    product, 2 products forward, 5 one pass, 3 dQ, 4 dK/dV."""
+    product, 2 products forward, 5 one pass, 3 dQ, 4 dK/dV. Each entry
+    also gives ``device_ms``, the kernel's time without the wrapper's host
+    work (``time_ms(device_only=True)``). At T2's shape dK/dV is also
+    launched twice on the same inputs and must give the same bits."""
     from pretraining_llm_tpu_torch.ops import cuda_flash
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1553,18 +1631,22 @@ def time_train_kernels(paths):
     def bwd_use(x, y):
         return row_tol_use(x, y, BF16_ROW_RTOL)
 
-    def entry(name, *, source, line, main, shape, products, pairs, d, nbytes, ms, plain_ms, library_ms, err,
+    def entry(name, *, source, line, main, shape, products, pairs, d, nbytes, fn, plain_ms, library_ms, err,
               key=None, **notes):
         """Bound FLOPs count the causal pairs: no kernel skips a tile by
-        segment, as ``_run_ok`` does not."""
-        key = key or name  # the kernel's name in the launch counts
+        segment, as ``_run_ok`` does not. ``key``: the kernel's name in the
+        launch counts (the tensor-core route's count for K1 and dK/dV)."""
+        key = key or name
         flops = products * 2.0 * d * pairs
+        ms = time_ms(fn, flush=flush)
         kernels.append(dict(
-            name=name, route="cuda", source=f"pretraining_llm_tpu_torch/csrc/{source}",
+            name=name, route="cuda", mma="wgmma" if source.endswith("_tc.cu") else "none (fp32 CUDA cores)",
+            source=f"pretraining_llm_tpu_torch/csrc/{source}",
             replaces=f"pretraining_llm_tpu/ops/pallas_flash.py:{line}", shape=shape,
             launches=paths[main][key], launches_by_path={p: n[key] for p, n in paths.items()},
             flops=flops, bytes=nbytes, **_bound(flops, nbytes), max_abs_err=err[0], tol_use=err[1], ms=ms,
-            plain_ms=plain_ms, library_ms=library_ms, kernel_ms=ms, max_err=err[0], **notes,
+            device_ms=time_ms(fn, flush=flush, device_only=True), plain_ms=plain_ms, library_ms=library_ms,
+            kernel_ms=ms, max_err=err[0], **notes,
         ))
 
     # T1's shape: K1 and the one-pass kernel.
@@ -1579,14 +1661,13 @@ def time_train_kernels(paths):
     bwd_err = compare("flash_bwd_fused", common["shape"], ("dq", "dk", "dv"),
                       cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g),
                       cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g), bwd_use)
-    entry("flash_fwd_train", key="flash_fwd", source="flash_fwd.cu", line=104, products=2, nbytes=4 * act + rows,
-          err=fwd_err,
-          ms=time_ms(lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g), flush=flush),
+    entry("flash_fwd_train", key="flash_fwd_tc", source="flash_fwd_tc.cu", line=104, products=2,
+          nbytes=4 * act + rows, err=fwd_err, fn=lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g),
           plain_ms=time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), flush=flush),
           library_ms=time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), flush=flush),
           library_note="SDPA forward, is_causal=True", **common)
     entry("flash_bwd_fused", source="flash_bwd.cu", line=348, products=5, nbytes=7 * act + 2 * rows, err=bwd_err,
-          ms=time_ms(lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g), flush=flush),
+          fn=lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g),
           plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
                            flush=flush),
           library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d),
@@ -1605,16 +1686,16 @@ def time_train_kernels(paths):
                       cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg),
                       cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, segments=seg), bwd_use)
     mask = seg_mask(seg, t)
-    entry("flash_fwd_seg", key="flash_fwd", source="flash_fwd.cu", line=104, products=2,
+    entry("flash_fwd_seg", key="flash_fwd_tc", source="flash_fwd_tc.cu", line=104, products=2,
           nbytes=4 * act + rows + seg.numel() * 4, err=fwd_err,
-          ms=time_ms(lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg), flush=flush),
+          fn=lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg),
           plain_ms=time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, segments=seg),
                            flush=flush),
           library_ms=time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), flush=flush),
           library_note="SDPA forward with a (B, 1, T, T) boolean causal-and-same-document mask", **common)
     entry("flash_bwd_fused_seg", key="flash_bwd_fused", source="flash_bwd.cu", line=348, products=5,
           nbytes=7 * act + 2 * rows + seg.numel() * 4, err=bwd_err,
-          ms=time_ms(lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg), flush=flush),
+          fn=lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg),
           plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g,
                                                                             segments=seg), flush=flush),
           library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg),
@@ -1633,17 +1714,22 @@ def time_train_kernels(paths):
     ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g)
     dq_err = compare("flash_bwd_dq", common["shape"], ("dq",),
                      (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g),), ref[:1], bwd_use)
-    dkv_err = compare("flash_bwd_dkv", common["shape"], ("dk", "dv"),
-                      cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), ref[1:], bwd_use)
-    del ref
+    dkv_out = cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g)
+    dkv_err = compare("flash_bwd_dkv", common["shape"], ("dk", "dv"), dkv_out, ref[1:], bwd_use)
+    again = cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g)
+    same = all(torch.equal(x, y) for x, y in zip(dkv_out, again))
+    log("check_dkv_repeat", shape=common["shape"], bit_identical=same)
+    if not same:
+        raise AssertionError(f"dK/dV differs between two launches on the same inputs at {common['shape']}")
+    del ref, dkv_out, again
     common["plain_ms"] = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
                                  flush=flush)
     common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d)
     entry("flash_bwd_dq", source="flash_bwd.cu", line=236, products=3, nbytes=bwd_in + q.numel() * 2, err=dq_err,
-          ms=time_ms(lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g), flush=flush), **common)
-    entry("flash_bwd_dkv", source="flash_bwd.cu", line=291, products=4, nbytes=bwd_in + 2 * k.numel() * 2,
-          err=dkv_err,
-          ms=time_ms(lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), flush=flush), **common)
+          fn=lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g), **common)
+    entry("flash_bwd_dkv", key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,
+          nbytes=bwd_in + 2 * k.numel() * 2, err=dkv_err,
+          fn=lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), **common)
 
     # The same kernels at T2's shape with document segments.
     seg = parity_segments(b, t, SEED + 16)
@@ -1665,12 +1751,10 @@ def time_train_kernels(paths):
     common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg)
     entry("flash_bwd_dq_seg", key="flash_bwd_dq", source="flash_bwd.cu", line=236, products=3,
           nbytes=bwd_in + q.numel() * 2 + seg.numel() * 4, err=dq_err,
-          ms=time_ms(lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, segments=seg), flush=flush),
-          **common)
-    entry("flash_bwd_dkv_seg", key="flash_bwd_dkv", source="flash_bwd.cu", line=291, products=4,
+          fn=lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, segments=seg), **common)
+    entry("flash_bwd_dkv_seg", key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,
           nbytes=bwd_in + 2 * k.numel() * 2 + seg.numel() * 4, err=dkv_err,
-          ms=time_ms(lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, segments=seg), flush=flush),
-          **common)
+          fn=lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, segments=seg), **common)
     return kernels
 
 
@@ -1736,7 +1820,7 @@ def time_ce_kernels(paths):
     ):
         f = flops * products
         kernels.append(dict(
-            name=name, route="cuda", source="pretraining_llm_tpu_torch/csrc/fused_ce.cu",
+            name=name, route="cuda", mma="mma.sync", source="pretraining_llm_tpu_torch/csrc/fused_ce.cu",
             replaces=f"pretraining_llm_tpu/ops/pallas_ce.py:{line}", shape=shape,
             launches=paths["T3"][name], launches_by_path={p: n[name] for p, n in paths.items()},
             flops=f, bytes=nbytes, **_bound(f, nbytes), max_abs_err=errs[name][0], tol_use=errs[name][1],

@@ -3,7 +3,8 @@
 //
 // Replaces, in pretraining_llm_tpu/ops/pallas_flash.py::_bwd:
 //   _bwd_dq_kernel    -> flash_bwd_dq_kernel    (pllm_flash_bwd_dq)
-//   _bwd_dkv_kernel   -> flash_bwd_dkv_kernel   (pllm_flash_bwd_dkv)
+//   _bwd_dkv_kernel   -> flash_bwd_dkv_kernel   (pllm_flash_bwd_dkv, fp32 only:
+//                        bf16 runs the tensor-core kernel of flash_bwd_tc.cu)
 //   _bwd_fused_kernel -> flash_bwd_fused_kernel (pllm_flash_bwd_fused)
 // The wrapper (ops/cuda_flash.py::flash_attention_bwd) picks between the
 // one-pass kernel and the dQ + dK/dV pair with the TPU dispatch rule
@@ -400,18 +401,21 @@ extern "C" int pllm_flash_bwd_dq(const void* q, const void* k, const void* v,
 #undef CALL
 }
 
-// dk, dv like k, v.
+// dk, dv like k, v. dtype must be 0 (float32).
 extern "C" int pllm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   const void* seg, void* dk, void* dv, int B, int H, int G, int T_len,
                                   int D,
                                   int window, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, H, G, T_len)) return (int)cudaErrorInvalidValue;
-#define CALL(T, DD) launch_dkv<T, DD, false>(q, k, v, dout, lse, delta, seg, nullptr, dk, dv, B, H, G, \
-                                             T_len, window, scale, s)
-  PLLM_DISPATCH(CALL)
-#undef CALL
+  if (bad_shape(B, H, G, T_len) || dtype != 0) return (int)cudaErrorInvalidValue;
+  if (D == 32) return launch_dkv<float, 32, false>(q, k, v, dout, lse, delta, seg, nullptr, dk, dv, B, H, G,
+                                                   T_len, window, scale, s);
+  if (D == 64) return launch_dkv<float, 64, false>(q, k, v, dout, lse, delta, seg, nullptr, dk, dv, B, H, G,
+                                                   T_len, window, scale, s);
+  if (D == 128) return launch_dkv<float, 128, false>(q, k, v, dout, lse, delta, seg, nullptr, dk, dv, B, H, G,
+                                                     T_len, window, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // dq_acc: (B*H, T, D) fp32, zeroed by the caller; dq = dq_acc in q's dtype.

@@ -1,4 +1,6 @@
-// Flash-attention forward (FlashAttention-2 schedule) for Hopper, sm_90a.
+// Flash-attention forward (FlashAttention-2 schedule) for Hopper, sm_90a:
+// the fp32 route, on the CUDA cores. bf16 calls run the tensor-core kernel
+// of flash_fwd_tc.cu (TF32 products would miss the fp32 bars).
 //
 // Replaces: pretraining_llm_tpu/ops/pallas_flash.py::_fwd and its kernel
 // _fwd_kernel (causal and sliding-window masks, document segments; GQA by
@@ -13,9 +15,9 @@
 // At the serving prefill's T = 1024 that is ~254, just under the card's
 // ~295 FLOP/byte ridge (bytes bound it, by a hair); longer prompts are
 // bound by operations. This kernel runs its products on the CUDA cores in
-// fp32, far below either bound: tensor cores are the first speed lever.
+// fp32 (67 TFLOP/s at most), far below either bound.
 //
-// Design (simple first; tensor cores are later work):
+// Design (simple first):
 //   - One block of 256 threads per (b*h, 64-row query tile). A loop inside
 //     the block walks the 64-key KV tiles, taking the place of the TPU
 //     kernel's sequential kv grid axis. Tiles past the causal frontier or
@@ -37,7 +39,6 @@
 //   - Runs on the caller's stream; allocates nothing. The Python wrapper
 //     (ops/cuda_flash.py::flash_attention_fwd) counts its launches.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -48,13 +49,9 @@ constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 constexpr size_t smem_bytes(int d) {
   return sizeof(float) * (size_t)(BQ * (d + 1) + BK * (d + 1) + BK * d + BQ * (BK + 1));
@@ -197,25 +194,16 @@ int launch(const void* q, const void* k, const void* v, const void* seg, void* o
 }  // namespace
 
 // q: (B*H, T, D); k, v: (B*G, T, D); seg: (B, T) int32 or null; o like q;
-// lse: (B*H, T) fp32. dtype: 0 = float32, 1 = bfloat16. D must be 32, 64
-// or 128.
+// lse: (B*H, T) fp32. dtype must be 0 (float32); D must be 32, 64 or 128.
 extern "C" int pllm_flash_fwd(const void* q, const void* k, const void* v,
                               const void* seg, void* o, void* lse, int B, int H, int G,
                               int T_len, int D, int window, float scale,
                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T_len <= 0 || G <= 0 || H % G != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32)
-    return launch<float, 32>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
-  if (dtype == 1 && D == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  if (D == 32) return launch<float, 32>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
+  if (D == 64) return launch<float, 64>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
+  if (D == 128) return launch<float, 128>(q, k, v, seg, o, lse, B, H, G, T_len, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

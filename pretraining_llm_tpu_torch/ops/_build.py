@@ -2,10 +2,13 @@
 
 Each source is compiled by ``nvcc`` on its own into a shared library with a
 plain C interface (``-gencode arch=compute_90a,code=sm_90a``: Hopper, with
-the ``a`` features) and loaded with ``ctypes``. Sources are built in
-parallel, one ``nvcc`` process each. A library's file name carries a hash
-of its source and flags, so an edited source rebuilds and an unchanged one
-is reused. The build directory is ``build/kernels`` beside the package
+the ``a`` features: ``wgmma``) and loaded with ``ctypes``. Sources are built
+in parallel, one ``nvcc`` process each. A library's file name carries a hash
+of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. The
+tensor-core kernels build TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, reached through the runtime's driver entry point
+(``cudaGetDriverEntryPoint``), so no library links ``-lcuda``. The build directory is ``build/kernels`` beside the package
 (git ignores it).
 
 Every pointer argument is declared ``c_void_p`` (a bare Python int would
@@ -29,7 +32,7 @@ from typing import Dict, Iterable, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_bwd", "fused_ce", "paged_decode", "ragged_paged")
+SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "paged_decode", "ragged_paged")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,7 +55,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

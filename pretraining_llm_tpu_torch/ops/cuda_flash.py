@@ -1,6 +1,14 @@
-"""Flash attention: the CUDA forward ``csrc/flash_fwd.cu`` (K1), the CUDA
-backward ``csrc/flash_bwd.cu`` (one-pass, dQ and dK/dV kernels), their
-plain PyTorch versions, and the ``torch.autograd.Function`` that joins them.
+"""Flash attention: the CUDA forward (K1), the CUDA backward (one-pass, dQ
+and dK/dV kernels), their plain PyTorch versions, and the
+``torch.autograd.Function`` that joins them.
+
+Two routes, chosen by dtype (``kernel_route``): bf16 calls of K1 and of the
+dK/dV kernel run on the tensor cores (``wgmma`` fed by TMA:
+``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``); fp32 calls run the
+CUDA-core kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), because
+TF32 products would miss the fp32 bars. The dQ and one-pass kernels run
+``csrc/flash_bwd.cu`` for both dtypes. K1's and dK/dV's launch counters are
+kept per route (``launches_tc``, ``launches_fp32``) beside the total.
 
 Counterpart of ``pretraining_llm_tpu/ops/pallas_flash.py``: causal
 (optionally sliding-window) attention over the heads-first folds q (B*H,
@@ -43,6 +51,28 @@ _BWD_ARGTYPES = {
     )
     for n_out in (1, 2, 3)
 }
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that a CUDA call of K1 or dK/dV takes: ``"wgmma"`` (the
+    tensor-core kernels) for bfloat16, ``"fp32"`` (the CUDA-core kernels)
+    for float32. Raises for any other dtype or a head dim outside
+    _HEAD_DIMS."""
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not in {_HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fp32"
+    raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
+
+
+def _check_tma(what: str, tensors: Tuple[torch.Tensor, ...]) -> None:
+    """The tensor-core route's extra contract: TMA reads each operand from a
+    16-byte aligned address (row strides are 64, 128 or 256 bytes)."""
+    if any(x.data_ptr() % 16 for x in tensors):
+        raise ValueError(f"{what}: the bf16 kernels need 16-byte aligned operands, got data pointers "
+                         f"{[x.data_ptr() % 16 for x in tensors]} mod 16")
 
 
 def _block_sizes(t: int, block_q: int, block_kv: int) -> Tuple[int, int]:
@@ -145,27 +175,39 @@ def flash_attention_fwd(
     q: (B*H, T, Dh); k, v: (B*G, T, Dh), contiguous, one dtype (fp32 or
     bf16), Dh in {32, 64, 128}; segments: None or (B, T) int32 document ids.
     Returns (o like q, lse (B*H, T) fp32).
-    ``flash_attention_fwd.launches`` counts kernel launches."""
+    bf16 runs the tensor-core kernel, fp32 the CUDA-core one
+    (``kernel_route``). ``flash_attention_fwd.launches`` counts kernel
+    launches, ``.launches_tc`` and ``.launches_fp32`` those of each route."""
     _check_folds(q, k, v, h, g)
     bh, t, d = q.shape
     seg = _seg_ptr(segments, q, bh // h, t)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, h, g, window=window, segments=segments)
     _check_cuda("flash_attention_fwd", (q, k, v), (q, k, v))
+    route = kernel_route(q.dtype, d)
+    if route == "wgmma":
+        _check_tma("flash_attention_fwd", (q, k, v))
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
-    fn = _build.load("flash_fwd", "pllm_flash_fwd", _ARGTYPES)
+    lib = "flash_fwd_tc" if route == "wgmma" else "flash_fwd"
+    fn = _build.load(lib, f"pllm_{lib}", _ARGTYPES)
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg, o.data_ptr(), lse.data_ptr(),
         bh // h, h, g, t, d, int(window), 1.0 / d**0.5,
         _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "flash_fwd")
+    _build.check(rc, lib)
     flash_attention_fwd.launches += 1
+    if route == "wgmma":
+        flash_attention_fwd.launches_tc += 1
+    else:
+        flash_attention_fwd.launches_fp32 += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_tc = 0
+flash_attention_fwd.launches_fp32 = 0
 
 
 def flash_attention_bwd_reference(
@@ -204,10 +246,10 @@ def flash_attention_bwd_reference(
 
 
 def _bwd_call(symbol: str, n_out: int, what: str, q, k, v, do, lse, delta, outs, h, g, window,
-              segments) -> None:
+              segments, lib: str = "flash_bwd") -> None:
     bh, t, d = q.shape
     seg = _seg_ptr(segments, q, bh // h, t)
-    fn = _build.load("flash_bwd", symbol, _BWD_ARGTYPES[n_out])
+    fn = _build.load(lib, symbol, _BWD_ARGTYPES[n_out])
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), seg,
         *(x.data_ptr() for x in outs), bh // h, h, g, t, d, int(window), 1.0 / d**0.5,
@@ -238,10 +280,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
-    """The dK/dV kernel (``_bwd_dkv_kernel``); ``.launches`` counts launches."""
+    """The dK/dV kernel (``_bwd_dkv_kernel``): bf16 on the tensor cores,
+    fp32 on the CUDA cores (``kernel_route``). ``.launches`` counts
+    launches, ``.launches_tc`` and ``.launches_fp32`` those of each route."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_call("pllm_flash_bwd_dkv", 2, "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), h, g, window,
-              segments)
+    if kernel_route(q.dtype, q.shape[-1]) == "wgmma":
+        _check_tma("flash_bwd_dkv", (q, k, v, do))
+        _bwd_call("pllm_flash_bwd_dkv_tc", 2, "flash_bwd_dkv_tc", q, k, v, do, lse, delta, (dk, dv), h, g,
+                  window, segments, lib="flash_bwd_tc")
+        flash_bwd_dkv.launches_tc += 1
+    else:
+        _bwd_call("pllm_flash_bwd_dkv", 2, "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), h, g, window,
+                  segments)
+        flash_bwd_dkv.launches_fp32 += 1
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -249,6 +300,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
 flash_bwd_fused.launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_tc = 0
+flash_bwd_dkv.launches_fp32 = 0
 
 
 def flash_attention_bwd(

@@ -23,7 +23,9 @@ power limit as ``nvidia-smi`` gives them:
                 every setting's gradient of the step's params and batch,
                 against the twin's: per setting, the largest relative
                 difference ||g - g_twin|| / ||g_twin|| over the parameter
-                leaves, with the leaf, and the loss difference.
+                leaves, with the leaf, and the loss difference; and per
+                leaf, the setting's and the twin's distances from the same
+                model's fp32 gradient.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ SETTINGS: Dict[str, Dict[str, object]] = {
     "fused_flash_ulp": {"model.ce_impl": "fused", "model.attention_impl": "flash"},
     TWIN + "_ulp": {"model.ce_impl": "chunked", "model.attention_impl": "naive"},
 }
+# The twin's model at fp32 compute: the gradient that the bf16 settings round.
+FP32_REFERENCE = dict(SETTINGS[TWIN], **{"model.compute_dtype": "float32"})
 PARITY = Path(__file__).resolve().parents[2] / "data" / "parity"
 
 
@@ -96,7 +100,13 @@ def run(cfg: Config, steps: int, device: str, perturb: float = 0.0) -> List[Dict
 def same_state(cfg: Config, steps: int, device: str, settings: Optional[List[str]] = None) -> List[dict]:
     """Before each of ``steps`` steps of the ``fused_flash`` run, each
     setting's loss and per-leaf gradients of the step's params and batch,
-    against the twin's. Returns one record per step."""
+    against the twin's and against the twin's model at fp32 compute
+    (``FP32_REFERENCE``: the gradient that the bf16 settings round).
+    Returns one record per step; per setting ``max_rel_grad_diff`` is the
+    largest ||g - g_twin|| / ||g_twin|| over the leaves, at ``leaf``, and
+    ``leaves`` holds each leaf's ``rel`` (that distance), ``twin_err`` and
+    ``path_err`` (the twin's and the setting's distances from the fp32
+    gradient, relative to its norm)."""
     from pretraining_llm_tpu_torch.training import optimizer as opt
     from pretraining_llm_tpu_torch.training import train_step as ts
 
@@ -104,24 +114,46 @@ def same_state(cfg: Config, steps: int, device: str, settings: Optional[List[str
     trainer = _trainer(cfg.with_overrides(SETTINGS["fused_flash"]), device)
     step_fn, out = trainer.step_fn, []
 
+    def leaves(tree):
+        return {"/".join(k): g.float() for k, g in opt.tree_leaves(tree)}
+
+    def rel(x, y):
+        r = float((x - y).norm() / y.norm())
+        return r if math.isfinite(r) else math.inf  # NaN reads as inf
+
     def step(state, batch):
         twin_loss, twin = ts.loss_and_grads(state["params"], *batch, cfg.with_overrides(SETTINGS[TWIN]))
+        _, ref = ts.loss_and_grads(state["params"], *batch, cfg.with_overrides(FP32_REFERENCE))
+        twin, ref = leaves(twin), leaves(ref)
         rec = {"step": len(out) + 1, "twin_loss": float(twin_loss)}
         for name in names:
             loss, grads = ts.loss_and_grads(state["params"], *batch, cfg.with_overrides(SETTINGS[name]))
-            rel = {"/".join(k): float((g.float() - t.float()).norm() / t.float().norm())
-                   for (k, g), (_, t) in zip(opt.tree_leaves(grads), opt.tree_leaves(twin))}
-            rel = {k: x if math.isfinite(x) else math.inf for k, x in rel.items()}  # NaN reads as inf
-            leaf = max(rel, key=rel.get)
-            rec[name] = {"loss_diff": float(loss) - float(twin_loss), "max_rel_grad_diff": rel[leaf], "leaf": leaf}
+            per = {k: {"rel": rel(g, twin[k]), "twin_err": rel(twin[k], ref[k]), "path_err": rel(g, ref[k])}
+                   for k, g in leaves(grads).items()}
+            leaf = max(per, key=lambda k: per[k]["rel"])
+            rec[name] = {"loss_diff": float(loss) - float(twin_loss), "max_rel_grad_diff": per[leaf]["rel"],
+                         "leaf": leaf, "leaves": per}
             del grads
-        del twin
+        del twin, ref
         out.append(rec)
         return step_fn(state, batch)
 
     trainer.step_fn = step
     trainer.train(steps)
     return out
+
+
+def held_by(leaf: Dict[str, float], rtol: float, twin_off: float) -> Optional[str]:
+    """What one leaf record of ``same_state`` is held to: ``"twin"`` where
+    the setting's gradient is within ``rtol`` of the twin's; else
+    ``"fp32"`` where the twin is at least ``twin_off`` from the fp32
+    gradient (so it is no reference at ``rtol`` there) and the setting is
+    no farther from it than the twin; else None, a failure."""
+    if leaf["rel"] <= rtol:
+        return "twin"
+    if twin_off <= leaf["twin_err"] < math.inf and leaf["path_err"] <= leaf["twin_err"]:
+        return "fp32"
+    return None
 
 
 def study(cfg: Config, steps: int, device: str) -> Dict[str, object]:

@@ -102,6 +102,40 @@ def test_bwd_plain_version_and_function_match_pallas(g, window, t, d, block_q, b
     assert _err(want_dv, vt.grad) <= FP32_TOL
 
 
+@functools.partial(jax.jit, static_argnames=("window", "block"))
+def _jax_vjp_seg(q, k, v, seg, do, *, window, block):
+    def f(q, k, v):
+        return pallas_flash.pallas_flash_attention(
+            q, k, v, causal=True, block_q=block, block_kv=block, window=window, segments=seg, interpret=True)
+
+    out, vjp = jax.vjp(f, q, k, v)
+    return vjp(do)
+
+
+@pytest.mark.parametrize("t,d,window,seg,block", [(200, 128, 0, False, 40), (264, 32, 200, True, 24)])
+def test_bwd_plain_version_matches_pallas_at_tile_edges(t, d, window, seg, block):
+    """The tensor-core dK/dV kernel's edges, scaled down, on the split
+    backward (blocks below T): T not a multiple of 64 (200, 264), Dh 128
+    and 32, n_rep 4, a window of 200 with document segments. dq, dk, dv of
+    the plain version against ``jax.vjp`` of the Pallas kernel in interpret
+    mode."""
+    b, h, g = 1, 4, 1
+    q, k, v, do = _inputs(t + d, b, t, h, g, d)
+    rng = np.random.default_rng(t)
+    segments = np.cumsum(rng.random((b, t)) < 0.05, axis=1).astype(np.int32) if seg else None
+    assert not cuda_flash.backward_is_one_pass(t, block, block)
+    want = _jax_vjp_seg(*(jnp.asarray(x) for x in (q, k, v)),
+                        None if segments is None else jnp.asarray(segments), jnp.asarray(do),
+                        window=window, block=block)
+    qf, kf, vf, dof = (torch.from_numpy(_fold(x)) for x in (q, k, v, do))
+    tseg = None if segments is None else torch.from_numpy(segments)
+    o, lse = cuda_flash.flash_attention_fwd(qf, kf, vf, h, g, window=window, segments=tseg)
+    got = cuda_flash.flash_attention_bwd(qf, kf, vf, o, lse, dof, h, g, window=window, block_q=block,
+                                         block_kv=block, segments=tseg)
+    for w, x in zip(want, got):
+        assert _err(_fold(np.asarray(w)), x) <= FP32_TOL
+
+
 @pytest.mark.parametrize("g,window,block", [(2, 0, 0), (1, 24, 16)])
 def test_bwd_bf16_within_stated_bound(g, window, block):
     b, h, t, d = 2, 4, 64, 32

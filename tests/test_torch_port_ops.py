@@ -64,6 +64,65 @@ def test_flash_plain_version_matches_pallas(g, window, t):
     assert _err(np.asarray(want_lse)[..., 0], lse) <= TOL
 
 
+@pytest.mark.parametrize(
+    "t,d,g,window,seg", [(200, 128, 1, 0, False), (264, 32, 1, 200, True), (136, 64, 2, 100, True)]
+)
+def test_flash_plain_version_matches_pallas_at_tile_edges(t, d, g, window, seg):
+    """The tensor-core kernel's edges, scaled down: T not a multiple of its
+    64-row tiles (200, 264, 136), Dh 128 and 32, n_rep 4, a window that
+    cuts, with and without document segments. O and the logsumexp against
+    ``pallas_flash._fwd`` in interpret mode."""
+    rng = np.random.default_rng(t + d + window)
+    b, h = 2, 4
+    q = rng.normal(size=(b, t, h, d)).astype(np.float32)
+    k = rng.normal(size=(b, t, g, d)).astype(np.float32)
+    v = rng.normal(size=(b, t, g, d)).astype(np.float32)
+    segments = None
+    if seg:  # documents of 1 to 60 tokens, as the exclusive cumsum of separators
+        segments = np.cumsum(rng.random((b, t)) < 0.05, axis=1).astype(np.int32)
+
+    def fold(x):
+        return x.transpose(0, 2, 1, 3).reshape(-1, t, d)
+
+    blocks = {200: 40, 264: 24, 136: 34}[t]
+    want_o, want_lse = pallas_flash._fwd(
+        jnp.asarray(fold(q)), jnp.asarray(fold(k)), jnp.asarray(fold(v)), h, g, causal=True,
+        block_q=blocks, block_kv=blocks, interpret=True, window=window,
+        segments=None if segments is None else jnp.asarray(segments),
+    )
+    o, lse = cuda_flash.flash_attention_fwd(
+        torch.from_numpy(fold(q)), torch.from_numpy(fold(k)), torch.from_numpy(fold(v)), h, g,
+        window=window, segments=None if segments is None else torch.from_numpy(segments),
+    )
+    assert _err(want_o, o) <= TOL
+    assert _err(np.asarray(want_lse)[..., 0], lse) <= TOL
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_kernel_route_by_dtype(d):
+    """A CUDA call of K1 or dK/dV runs the tensor-core kernels for bf16 and
+    the CUDA-core kernels for fp32, at every head dim the kernels take;
+    any other dtype or head dim raises."""
+    assert cuda_flash.kernel_route(torch.bfloat16, d) == "wgmma"
+    assert cuda_flash.kernel_route(torch.float32, d) == "fp32"
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        cuda_flash.kernel_route(torch.float16, d)
+    with pytest.raises(ValueError, match="head dim"):
+        cuda_flash.kernel_route(torch.bfloat16, d + 16)
+
+
+def test_tensor_core_route_needs_16_byte_aligned_operands():
+    """TMA reads each operand from a 16-byte aligned address: a contiguous
+    view that starts 2 bytes into its storage is refused before launch."""
+    base = torch.zeros(1 + 4 * 64 * 32, dtype=torch.bfloat16)
+    aligned = base[: 4 * 64 * 32].view(4, 64, 32)
+    shifted = base[1:].view(4, 64, 32)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    cuda_flash._check_tma("flash_attention_fwd", (aligned, aligned, aligned))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_flash._check_tma("flash_attention_fwd", (aligned, shifted, aligned))
+
+
 def test_flash_wrapper_validates_shapes():
     q = torch.zeros(8, 16, 16)
     with pytest.raises(ValueError, match="fold"):

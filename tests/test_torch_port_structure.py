@@ -59,8 +59,23 @@ def test_port_has_kernel_sources_for_both_kernels():
     from pretraining_llm_tpu_torch.ops import _build
 
     names = sorted(p.name for p in (ROOT / "pretraining_llm_tpu_torch" / "csrc").glob("*.cu"))
-    assert names == ["flash_bwd.cu", "flash_fwd.cu", "fused_ce.cu", "paged_decode.cu", "ragged_paged.cu"]
+    assert names == ["flash_bwd.cu", "flash_bwd_tc.cu", "flash_fwd.cu", "flash_fwd_tc.cu", "fused_ce.cu",
+                     "paged_decode.cu", "ragged_paged.cu"]
     assert sorted(_build.SOURCES) == [n[:-3] for n in names]
+
+
+def test_build_hash_covers_shared_headers(tmp_path, monkeypatch):
+    """A library is rebuilt when a header it may include (``csrc/*.cuh``)
+    changes, not only its own source."""
+    from pretraining_llm_tpu_torch.ops import _build
+
+    for name in ("flash_fwd_tc.cu", "hopper.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("flash_fwd_tc")
+    with open(tmp_path / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    assert _build.library_path("flash_fwd_tc") != before
 
 
 @pytest.fixture

@@ -8,6 +8,8 @@ three steps, the ulp-moved ones included.
 
 import math
 
+import pytest
+
 from pretraining_llm_tpu_torch.config import get_preset
 from pretraining_llm_tpu_torch.utils import trajectory as tj
 
@@ -42,3 +44,32 @@ def test_t3_config_is_chip_smokes_t3_run():
                                                                                         "bfloat16")
     assert (m.doc_mask_token, t.batch_size, t.lr, t.train_steps, t.eval_interval) == (10, 12, 6e-4, 20, 0)
     assert t.warmup_frac * t.train_steps == 3
+
+
+def test_same_state_measures_every_leaf_against_fp32(tmp_path):
+    """At fp32 compute the twin is the fp32 reference itself: every leaf's
+    twin_err is 0 and path_err is rel within rounding. At bf16 compute
+    every leaf carries finite distances, the twin's from fp32 nonzero."""
+    cfg = _tiny(tmp_path)
+    for rec in tj.same_state(cfg, 2, "cpu", ["chunked_flash"]):
+        per = rec["chunked_flash"]["leaves"]
+        assert rec["chunked_flash"]["max_rel_grad_diff"] == max(u["rel"] for u in per.values()) < 1e-5
+        for u in per.values():
+            assert u["twin_err"] == 0.0 and u["path_err"] < 1e-5
+    rec = tj.same_state(cfg.with_overrides({"model.compute_dtype": "bfloat16"}), 1, "cpu",
+                        ["chunked_flash"])[0]["chunked_flash"]
+    assert rec["leaf"] in rec["leaves"]
+    for u in rec["leaves"].values():
+        assert u["twin_err"] > 0.0 and all(math.isfinite(x) for x in u.values())
+
+
+@pytest.mark.parametrize("leaf, want", [
+    ({"rel": 0.02, "twin_err": 0.0, "path_err": 0.5}, "twin"),  # within the bar: held to the twin alone
+    ({"rel": 0.021, "twin_err": 0.039, "path_err": 0.0}, None),  # over it, twin not far enough from fp32
+    ({"rel": 0.5, "twin_err": 0.04, "path_err": 0.04}, "fp32"),  # twin off fp32, path no farther
+    ({"rel": 0.5, "twin_err": 1.0, "path_err": 1.0001}, None),  # path farther from fp32 than the twin
+    ({"rel": math.inf, "twin_err": 1.0, "path_err": math.inf}, None),  # a NaN path
+    ({"rel": 0.5, "twin_err": math.inf, "path_err": 1.0}, None),  # a NaN twin is no excuse
+])
+def test_held_by(leaf, want):
+    assert tj.held_by(leaf, 0.02, 0.04) == want
