@@ -50,13 +50,15 @@ four training runs, counting each kernel's launches on each:
           all-torch-ops twin (chunked head, naive attention) on T3's own
           states.
 
-The flash forward (K1) and the dK/dV kernel have two routes: bf16 runs
-the tensor-core kernels (``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``:
-wgmma fed by TMA), fp32 the CUDA-core ones. Each path's launch counts
-name the route it took (``flash_fwd_tc``, ``flash_fwd_fp32``,
-``flash_bwd_dkv_tc``, ``flash_bwd_dkv_fp32``), and the script asserts them:
-path 1, T1, T2 and T3 run the tensor-core K1, T2 the tensor-core dK/dV,
-the parity run (fp32) the CUDA-core kernels.
+The flash forward (K1) and the three backward kernels (one pass, dQ,
+dK/dV) have two routes: bf16 runs the tensor-core kernels
+(``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``: wgmma fed by TMA),
+fp32 the CUDA-core ones. Each path's launch counts name the route it took
+(``<kernel>_tc``, ``<kernel>_fp32``), and the script asserts them: path 1,
+T1, T2 and T3 run the tensor-core K1, T1 and T3 the tensor-core one pass,
+T2 the tensor-core dQ and dK/dV, the parity run (fp32) the CUDA-core
+kernels only. Every bf16 backward kernel must give the same bits on a
+repeat launch (the tensor-core one pass sums dQ in a fixed order).
 
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
@@ -106,7 +108,7 @@ SCRATCH = ROOT / "build" / "chip_smoke"  # git-ignored; the train paths' checkpo
 
 # Training bars. Card vs CPU at fp32 (TF32 off): losses within 1e-4
 # relative, first-step gradients within 1e-3 of each leaf's largest |g|
-# (summation order, and the one-pass kernel's atomic dQ sum). Flash-kernel
+# (summation order, and the fp32 one-pass kernel's atomic dQ sum). Flash-kernel
 # runs vs naive-attention runs on the card at bf16 compute: every compared
 # step's loss within 0.05. The parity run vs the JAX package's recorded
 # curve: 0.02 at every logged step, 0.01 on the final eval loss.
@@ -290,9 +292,9 @@ def row_tol_use(out: torch.Tensor, ref: torch.Tensor, rtol: float) -> float:
 
 
 # Backward limits: fp32 1e-4 of each output row's largest |reference|
-# (summation order, and the one-pass kernel's atomic dQ sum); bf16 2^-6 of
-# it (both round dS and P to bf16 at the same points; a sum in another
-# order flips a rounding: 1 to 4 ulps of the row's largest value).
+# (summation order, and the fp32 one-pass kernel's atomic dQ sum); bf16
+# 2^-6 of it (both round dS and P to bf16 at the same points; a sum in
+# another order flips a rounding: 1 to 4 ulps of the row's largest value).
 BWD_FP32_RTOL = 1e-4
 GRAD_TOL = 1e-4  # FlashAttention vs autograd through naive attention, fp32 max-abs
 BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv, document segments)
@@ -322,12 +324,22 @@ BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv, document seg
     (1, 16, 4, 832, 128, 256, torch.bfloat16, 64, 64, False),   # window 256
     (1, 16, 4, 832, 128, 256, torch.bfloat16, 64, 64, True),    # window 256 + segments
     (2, 8, 8, 200, 32, 0, torch.bfloat16, 100, 100, True),      # Dh 32, T 200, segments
+    # The tensor-core one pass's edges (one block: T within 1024): T not a
+    # multiple of 64, Dh 128 with n_rep 2 and 4, Dh 32 with a window of 200
+    # and n_rep 4, serving's T with segments, a window of 256 with segments.
+    (1, 8, 4, 300, 128, 0, torch.bfloat16, 0, 0, True),         # T 300, Dh 128, n_rep 2, segments
+    (1, 16, 4, 1000, 128, 0, torch.bfloat16, 0, 0, False),      # T 1000, Dh 128, n_rep 4
+    (1, 8, 2, 1000, 32, 200, torch.bfloat16, 0, 0, False),      # Dh 32, window 200, n_rep 4
+    (1, 12, 12, 832, 64, 0, torch.bfloat16, 0, 0, True),        # T 832, segments
+    (1, 16, 4, 832, 128, 256, torch.bfloat16, 0, 0, True),      # window 256 + segments, n_rep 4
 ]
 
 
 def check_flash_bwd() -> None:
     """The three backward kernels against ``flash_attention_bwd_reference``
-    on the card (dq, dk, dv), with K1 giving the residuals; then
+    on the card (dq, dk, dv), with K1 giving the residuals; every bf16 case
+    must run the tensor-core kernels and every fp32 case the CUDA-core ones,
+    and every bf16 case must give the same bits on a repeat launch. Then
     ``FlashAttention`` gradients in fp32 against autograd through the
     port's ``naive_attention``. The kernels line reports each kernel's
     error at its training path's shape (``time_train_kernels``)."""
@@ -336,39 +348,46 @@ def check_flash_bwd() -> None:
     from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
 
     gen = torch.Generator().manual_seed(SEED + 9)
-    dkv = cuda_flash.flash_bwd_dkv
-    counters = (cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq, dkv)
+    counters = (cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq, cuda_flash.flash_bwd_dkv)
     for b, h, g, t, d, window, dtype, bq, bk, seg_on in BWD_CASES:
         q, do = randn((b * h, t, d), dtype, gen), randn((b * h, t, d), dtype, gen)
         k, v = randn((b * g, t, d), dtype, gen), randn((b * g, t, d), dtype, gen)
         seg = parity_segments(b, t, SEED + 9 + b * t) if seg_on else None
         o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g, window=window, segments=seg)
-        before = [f.launches for f in counters] + [dkv.launches_tc]
+        before = [(f.launches, f.launches_tc, f.launches_fp32) for f in counters]
         got = cuda_flash.flash_attention_bwd(q, k, v, o, lse, do, h, g, window=window, block_q=bq,
                                              block_kv=bk, segments=seg)
-        ran = tuple(f.launches - n for f, n in zip(counters, before))
-        ran_tc = dkv.launches_tc - before[3]
+        ran = [tuple(x - y for x, y in zip((f.launches, f.launches_tc, f.launches_fp32), n))
+               for f, n in zip(counters, before)]
         ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, window=window, segments=seg)
         torch.cuda.synchronize()
         rtol = BWD_FP32_RTOL if dtype == torch.float32 else BF16_ROW_RTOL
         uses = {n: row_tol_use(x, y, rtol) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
         errs = {n: max_err(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
         one_pass = cuda_flash.backward_is_one_pass(t, bq, bk)
+        same = None
+        if dtype == torch.bfloat16:  # no unordered sums: a second launch gives the same bits
+            delta = (do.float() * o.float()).sum(-1)
+            if one_pass:
+                again = cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, window=window, segments=seg)
+            else:
+                again = (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, window=window, segments=seg),
+                         *cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window, segments=seg))
+            same = all(torch.equal(x, y) for x, y in zip(again, got))
         log("check_flash_bwd", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
             block_q=bq, block_kv=bk, segments=segment_summary(seg),
-            kernels="one pass" if one_pass else "dq + dkv",
-            max_abs_err=errs, tol_use=uses, rtol=rtol)
-        if ran != ((1, 0, 0) if one_pass else (0, 1, 1)):
-            raise AssertionError(f"backward launched {ran} (fused, dq, dkv) for one_pass={one_pass}")
-        if ran_tc != (ran[2] if dtype == torch.bfloat16 else 0):
-            raise AssertionError(f"dK/dV at {dtype} ran the tensor-core kernel {ran_tc} times of {ran[2]}")
+            kernels="one pass" if one_pass else "dq + dkv", route=cuda_flash.kernel_route(dtype, d),
+            max_abs_err=errs, tol_use=uses, rtol=rtol, repeat_bit_identical=same)
+        launched = [r[0] for r in ran]
+        if launched != ([1, 0, 0] if one_pass else [0, 1, 1]):
+            raise AssertionError(f"backward launched {launched} (fused, dq, dkv) for one_pass={one_pass}")
+        want_route = [(n, n, 0) if dtype == torch.bfloat16 else (n, 0, n) for n in launched]
+        if ran != want_route:
+            raise AssertionError(f"backward at {dtype} ran (all, tensor-core, fp32) = {ran} per kernel")
         if not all(u <= 1.0 for u in uses.values()):
             raise AssertionError(f"flash backward disagrees with its plain version: {uses}")
-        if not one_pass:  # no atomics: a second launch on the same inputs gives the same bits
-            delta = (do.float() * o.float()).sum(-1)
-            again = cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window, segments=seg)
-            if not all(torch.equal(x, y) for x, y in zip(again, got[1:])):
-                raise AssertionError(f"dK/dV differs between two launches on the same inputs ({dtype}, T {t})")
+        if same is False:
+            raise AssertionError(f"bf16 backward differs between two launches on the same inputs (T {t}, Dh {d})")
 
     # Gradients of the autograd Function (fp32) against autograd through the
     # plain masked attention, one pass and split: max-abs within GRAD_TOL
@@ -839,11 +858,8 @@ def kernel_counts() -> dict:
         "flash_fwd": cuda_flash.flash_attention_fwd.launches,
         "flash_fwd_tc": cuda_flash.flash_attention_fwd.launches_tc,
         "flash_fwd_fp32": cuda_flash.flash_attention_fwd.launches_fp32,
-        "flash_bwd_fused": cuda_flash.flash_bwd_fused.launches,
-        "flash_bwd_dq": cuda_flash.flash_bwd_dq.launches,
-        "flash_bwd_dkv": cuda_flash.flash_bwd_dkv.launches,
-        "flash_bwd_dkv_tc": cuda_flash.flash_bwd_dkv.launches_tc,
-        "flash_bwd_dkv_fp32": cuda_flash.flash_bwd_dkv.launches_fp32,
+        **{f"flash_bwd_{name}{route}": getattr(getattr(cuda_flash, f"flash_bwd_{name}"), f"launches{route}")
+           for name in ("fused", "dq", "dkv") for route in ("", "_tc", "_fp32")},
         "paged_decode": cuda_paged.paged_decode_attention.launches,
         "ragged": cuda_ragged.ragged_paged_attention.launches,
         "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
@@ -858,7 +874,8 @@ def reset_kernel_counts() -> None:
                     cuda_ragged.ragged_paged_attention, cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh,
                     cuda_ce.fused_ce_dw):
         counted.launches = 0
-    for routed in (cuda_flash.flash_attention_fwd, cuda_flash.flash_bwd_dkv):
+    for routed in (cuda_flash.flash_attention_fwd, cuda_flash.flash_bwd_fused, cuda_flash.flash_bwd_dq,
+                   cuda_flash.flash_bwd_dkv):
         routed.launches_tc = routed.launches_fp32 = 0
     cuda_ragged.ragged_paged_attention.split_launches = 0
 
@@ -1146,9 +1163,8 @@ def run_train_path1() -> dict:
     and the checkpoint round trip: a fresh ``Trainer`` that resumed the
     step-30 checkpoint holds every leaf of the state (params, AdamW mu, nu
     and count, step) and the data RNG bit for bit as the run left them, and
-    its step 31 gives the uninterrupted run's loss bit for bit. The params
-    after step 31 are reported, not held equal: the one-pass kernel adds
-    dQ by atomics, in an order that varies between runs."""
+    its step 31 gives the uninterrupted run's loss and params bit for bit
+    (every kernel of the bf16 path sums in a fixed order)."""
     from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
     from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
     from pretraining_llm_tpu_torch.training.trainer import Trainer
@@ -1209,15 +1225,16 @@ def run_train_path1() -> dict:
         raise AssertionError(f"T1 did not run the flash forward and one-pass backward kernels: {launches}")
     if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
         raise AssertionError(f"T1 launched the split backward kernels: {launches}")
-    if launches["flash_fwd_tc"] != launches["flash_fwd"]:
-        raise AssertionError(f"T1 (bf16) ran the flash forward off the tensor-core route: {launches}")
+    if launches["flash_fwd_tc"] != launches["flash_fwd"] or launches["flash_bwd_fused_tc"] != launches["flash_bwd_fused"]:
+        raise AssertionError(f"T1 (bf16) ran the flash forward or one pass off the tensor-core route: {launches}")
     if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
         raise AssertionError(f"T1: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
     if resumed_from != steps or state_differs or not rng_equal:
         raise AssertionError(f"T1: resume from step {resumed_from} restored a different state: leaves "
                              f"{state_differs}, data RNG equal {rng_equal}")
-    if uninterrupted != resumed:
-        raise AssertionError(f"T1: resumed step {steps + 1} gave loss {resumed}, uninterrupted {uninterrupted}")
+    if uninterrupted != resumed or param_diff != 0.0:
+        raise AssertionError(f"T1: resumed step {steps + 1} gave loss {resumed} (uninterrupted {uninterrupted}), "
+                             f"params {param_diff} apart")
     return launches
 
 
@@ -1253,8 +1270,8 @@ def run_train_path2() -> dict:
         raise AssertionError(f"T2 did not run the flash forward and dQ + dK/dV kernels: {launches}")
     if launches["flash_bwd_fused"]:
         raise AssertionError(f"T2 launched the one-pass backward kernel: {launches}")
-    if launches["flash_fwd_tc"] != launches["flash_fwd"] or launches["flash_bwd_dkv_tc"] != launches["flash_bwd_dkv"]:
-        raise AssertionError(f"T2 (bf16) ran the flash forward or dK/dV off the tensor-core route: {launches}")
+    if any(launches[f"{k}_tc"] != launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        raise AssertionError(f"T2 (bf16) ran the flash forward, dQ or dK/dV off the tensor-core route: {launches}")
     if len(naive_losses) != n_steps or max(diffs) > NAIVE_LOSS_TOL:
         raise AssertionError(f"T2: flash run and naive run disagree: {losses[:n_steps]} vs {naive_losses}")
     return launches
@@ -1297,7 +1314,8 @@ def run_train_path3() -> dict:
     model = cfg.model
     want = {"fused_ce_fwd": steps, "fused_ce_dh": steps, "fused_ce_dw": steps,
             "flash_fwd": model.n_layers * steps, "flash_fwd_tc": model.n_layers * steps, "flash_fwd_fp32": 0,
-            "flash_bwd_fused": model.n_layers * steps, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_bwd_fused": model.n_layers * steps, "flash_bwd_fused_tc": model.n_layers * steps,
+            "flash_bwd_fused_fp32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     loss_diffs = [r["fused_flash"]["loss_diff"] for r in held]
     grad_diffs = [r["fused_flash"]["max_rel_grad_diff"] for r in held]
     verdicts = {(r["step"], k): trajectory.held_by(u, T3_GRAD_RTOL, T3_TWIN_OFF)
@@ -1391,7 +1409,8 @@ def run_parity() -> dict:
         raise AssertionError("parity run on the card left the recorded JAX curve")
     if launches["flash_fwd"] <= 0 or launches["flash_bwd_fused"] <= 0:
         raise AssertionError(f"parity run did not go through the flash kernels: {launches}")
-    if launches["flash_fwd_fp32"] != launches["flash_fwd"] or launches["flash_fwd_tc"] or launches["flash_bwd_dkv_tc"]:
+    flash = ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")
+    if any(launches[f"{k}_fp32"] != launches[k] or launches[f"{k}_tc"] for k in flash):
         raise AssertionError(f"parity run (fp32) left the CUDA-core flash kernels: {launches}")
     return launches
 
@@ -1572,17 +1591,18 @@ def time_train_kernels(paths):
     first held against its plain version on the same inputs (K1's o and lse
     by ``tol_use``, the backward's dq, dk, dv per row at BF16_ROW_RTOL),
     failing above 1.0; the entry reports that error. Each wrapper is timed as
-    the path calls it (the one-pass wrapper's zeroed fp32 dQ buffer and
-    final cast included); D = rowsum(dO*O) is computed outside. The plain
+    the path calls it (the one-pass wrapper's fp32 buffer and zeroed turn
+    counters included); D = rowsum(dO*O) is computed outside. The plain
     backward computes dq, dk and dv together, and so does the library
     yardstick, ``scaled_dot_product_attention(is_causal=True)``'s backward
     alone (``torch.autograd.grad`` on a retained graph), with GQA through
     K/V repeated to H heads before the timed call (the group sum of dK/dV
     is not timed). Bound FLOPs: 2*Dh per visible (query, key) pair per
-    product, 2 products forward, 5 one pass, 3 dQ, 4 dK/dV. Each entry
-    also gives ``device_ms``, the kernel's time without the wrapper's host
-    work (``time_ms(device_only=True)``). At T2's shape dK/dV is also
-    launched twice on the same inputs and must give the same bits."""
+    product, 2 products forward, 5 one pass, 3 dQ, 4 dK/dV, 7 for the
+    informational split pair at T1's shape. Each entry also gives
+    ``device_ms``, the kernel's time without the wrapper's host work
+    (``time_ms(device_only=True)``). Every backward kernel is also launched
+    twice on the same inputs and must give the same bits."""
     from pretraining_llm_tpu_torch.ops import cuda_flash
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1649,29 +1669,53 @@ def time_train_kernels(paths):
             kernel_ms=ms, max_err=err[0], **notes,
         ))
 
+    def repeat_check(name, shape, fn, first):
+        """A second launch of ``fn`` on the same inputs must give the bits
+        of ``first``: no kernel of the bf16 route sums in an unordered way."""
+        again = fn()
+        same = all(torch.equal(x, y) for x, y in zip(again, first))
+        log("check_repeat", name=name, shape=shape, bit_identical=same)
+        if not same:
+            raise AssertionError(f"{name} differs between two launches on the same inputs at {shape}")
+
     # T1's shape: K1 and the one-pass kernel.
     b, h, g, t, d = 12, 12, 12, 1024, 64
     q, k, v, do, o, lse, delta = inputs(b, h, g, t, d)
     common = dict(main="T1", shape=f"B*H={b * h} T={t} Dh={d} bf16 causal", pairs=b * h * t * (t + 1) // 2, d=d)
     act, rows = q.numel() * 2, lse.numel() * 4  # one (B*H, T, Dh) bf16 tensor; one (B*H, T) fp32 row vector
     q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+    ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g)
     fwd_err = compare("flash_fwd_train", common["shape"], ("o", "lse"),
                       cuda_flash.flash_attention_fwd(q, k, v, h, g),
                       cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), tol_use)
-    bwd_err = compare("flash_bwd_fused", common["shape"], ("dq", "dk", "dv"),
-                      cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g),
-                      cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g), bwd_use)
+    fused = lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g)  # noqa: E731
+    out = fused()
+    bwd_err = compare("flash_bwd_fused", common["shape"], ("dq", "dk", "dv"), out, ref, bwd_use)
+    repeat_check("flash_bwd_fused", common["shape"], fused, out)
+    split = lambda: (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g),  # noqa: E731
+                     *cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g))
+    out = split()
+    split_err = compare("flash_bwd_split_t1", common["shape"], ("dq", "dk", "dv"), out, ref, bwd_use)
+    repeat_check("flash_bwd_split_t1", common["shape"], split, out)
+    del ref, out
+    bwd_plain = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g), flush=flush)
+    bwd_lib = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d)
     entry("flash_fwd_train", key="flash_fwd_tc", source="flash_fwd_tc.cu", line=104, products=2,
           nbytes=4 * act + rows, err=fwd_err, fn=lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g),
           plain_ms=time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), flush=flush),
           library_ms=time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), flush=flush),
           library_note="SDPA forward, is_causal=True", **common)
-    entry("flash_bwd_fused", source="flash_bwd.cu", line=348, products=5, nbytes=7 * act + 2 * rows, err=bwd_err,
-          fn=lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g),
-          plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
-                           flush=flush),
-          library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d),
+    entry("flash_bwd_fused", key="flash_bwd_fused_tc", source="flash_bwd_tc.cu", line=348, products=5,
+          nbytes=7 * act + 2 * rows, err=bwd_err, fn=fused, plain_ms=bwd_plain, library_ms=bwd_lib,
           library_note="SDPA backward alone (dq, dk, dv), is_causal=True", **common)
+    # Informational: the split pair (dQ, then dK/dV) on the one pass's work,
+    # to weigh the one pass's ordered dQ sum against a second walk. T1 runs
+    # the one pass (the JAX block rule), so its launches there are 0.
+    entry("flash_bwd_split_t1", key="flash_bwd_dq_tc", source="flash_bwd_tc.cu", line=236, products=7,
+          nbytes=8 * act + 4 * rows, err=split_err, fn=split, plain_ms=bwd_plain, library_ms=bwd_lib,
+          library_note="SDPA backward alone (dq, dk, dv), is_causal=True",
+          launches_note="dQ (pallas_flash.py:236) then dK/dV (:291) at T1's shape; not on any path at this shape",
+          **common)
 
     # The same at T1's shape with T3's document segments (data/parity
     # windows split at DOC_SEP): K1 and the one-pass kernel as T3 runs them.
@@ -1682,9 +1726,12 @@ def time_train_kernels(paths):
     fwd_err = compare("flash_fwd_seg", common["shape"], ("o", "lse"),
                       cuda_flash.flash_attention_fwd(q, k, v, h, g, segments=seg),
                       cuda_flash.flash_attention_fwd_reference(q, k, v, h, g, segments=seg), tol_use)
-    bwd_err = compare("flash_bwd_fused_seg", common["shape"], ("dq", "dk", "dv"),
-                      cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg),
+    fused = lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg)  # noqa: E731
+    out = fused()
+    bwd_err = compare("flash_bwd_fused_seg", common["shape"], ("dq", "dk", "dv"), out,
                       cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g, segments=seg), bwd_use)
+    repeat_check("flash_bwd_fused_seg", common["shape"], fused, out)
+    del out
     mask = seg_mask(seg, t)
     entry("flash_fwd_seg", key="flash_fwd_tc", source="flash_fwd_tc.cu", line=104, products=2,
           nbytes=4 * act + rows + seg.numel() * 4, err=fwd_err,
@@ -1693,15 +1740,14 @@ def time_train_kernels(paths):
                            flush=flush),
           library_ms=time_ms(lambda: sdpa(q4, k4, v4, attn_mask=mask), flush=flush),
           library_note="SDPA forward with a (B, 1, T, T) boolean causal-and-same-document mask", **common)
-    entry("flash_bwd_fused_seg", key="flash_bwd_fused", source="flash_bwd.cu", line=348, products=5,
-          nbytes=7 * act + 2 * rows + seg.numel() * 4, err=bwd_err,
-          fn=lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, segments=seg),
+    entry("flash_bwd_fused_seg", key="flash_bwd_fused_tc", source="flash_bwd_tc.cu", line=348, products=5,
+          nbytes=7 * act + 2 * rows + seg.numel() * 4, err=bwd_err, fn=fused,
           plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g,
                                                                             segments=seg), flush=flush),
           library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg),
           library_note="SDPA backward alone (dq, dk, dv) with the boolean causal-and-same-document mask",
           **common)
-    del q, k, v, do, o, lse, delta, q4, k4, v4, seg, mask
+    del q, k, v, do, o, lse, delta, q4, k4, v4, seg, mask, fused, split
 
     # T2's shape: the dQ and dK/dV kernels. q, dO (B*H) and k, v (B*G) in.
     b, h, g, t, d = 2, 16, 4, 2048, 128
@@ -1712,24 +1758,21 @@ def time_train_kernels(paths):
                                "before the call (not timed; the group sum of dK/dV not timed)")
     bwd_in = 2 * q.numel() * 2 + 2 * k.numel() * 2 + 2 * lse.numel() * 4
     ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g)
-    dq_err = compare("flash_bwd_dq", common["shape"], ("dq",),
-                     (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g),), ref[:1], bwd_use)
-    dkv_out = cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g)
+    dq_fn = lambda: (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g),)  # noqa: E731
+    dkv_fn = lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g)  # noqa: E731
+    dq_out, dkv_out = dq_fn(), dkv_fn()
+    dq_err = compare("flash_bwd_dq", common["shape"], ("dq",), dq_out, ref[:1], bwd_use)
     dkv_err = compare("flash_bwd_dkv", common["shape"], ("dk", "dv"), dkv_out, ref[1:], bwd_use)
-    again = cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g)
-    same = all(torch.equal(x, y) for x, y in zip(dkv_out, again))
-    log("check_dkv_repeat", shape=common["shape"], bit_identical=same)
-    if not same:
-        raise AssertionError(f"dK/dV differs between two launches on the same inputs at {common['shape']}")
-    del ref, dkv_out, again
+    repeat_check("flash_bwd_dq", common["shape"], dq_fn, dq_out)
+    repeat_check("flash_bwd_dkv", common["shape"], dkv_fn, dkv_out)
+    del ref, dq_out, dkv_out
     common["plain_ms"] = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
                                  flush=flush)
     common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d)
-    entry("flash_bwd_dq", source="flash_bwd.cu", line=236, products=3, nbytes=bwd_in + q.numel() * 2, err=dq_err,
-          fn=lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g), **common)
+    entry("flash_bwd_dq", key="flash_bwd_dq_tc", source="flash_bwd_tc.cu", line=236, products=3,
+          nbytes=bwd_in + q.numel() * 2, err=dq_err, fn=dq_fn, **common)
     entry("flash_bwd_dkv", key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,
-          nbytes=bwd_in + 2 * k.numel() * 2, err=dkv_err,
-          fn=lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g), **common)
+          nbytes=bwd_in + 2 * k.numel() * 2, err=dkv_err, fn=dkv_fn, **common)
 
     # The same kernels at T2's shape with document segments.
     seg = parity_segments(b, t, SEED + 16)
@@ -1749,7 +1792,7 @@ def time_train_kernels(paths):
     common["plain_ms"] = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g,
                                                                                   segments=seg), flush=flush)
     common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d, seg)
-    entry("flash_bwd_dq_seg", key="flash_bwd_dq", source="flash_bwd.cu", line=236, products=3,
+    entry("flash_bwd_dq_seg", key="flash_bwd_dq_tc", source="flash_bwd_tc.cu", line=236, products=3,
           nbytes=bwd_in + q.numel() * 2 + seg.numel() * 4, err=dq_err,
           fn=lambda: cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, segments=seg), **common)
     entry("flash_bwd_dkv_seg", key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,

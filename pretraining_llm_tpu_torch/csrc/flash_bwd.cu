@@ -1,11 +1,12 @@
 // Flash-attention backward (FlashAttention-2) for Hopper, sm_90a: three
-// kernels, dQ, dK/dV and one pass.
+// kernels, dQ, dK/dV and one pass, on the CUDA cores: the fp32 route. bf16
+// calls run the tensor-core kernels of flash_bwd_tc.cu; every C entry here
+// takes fp32 only.
 //
 // Replaces, in pretraining_llm_tpu/ops/pallas_flash.py::_bwd:
 //   _bwd_dq_kernel    -> flash_bwd_dq_kernel    (pllm_flash_bwd_dq)
-//   _bwd_dkv_kernel   -> flash_bwd_dkv_kernel   (pllm_flash_bwd_dkv, fp32 only:
-//                        bf16 runs the tensor-core kernel of flash_bwd_tc.cu)
-//   _bwd_fused_kernel -> flash_bwd_fused_kernel (pllm_flash_bwd_fused)
+//   _bwd_dkv_kernel   -> flash_bwd_dkv_kernel   (pllm_flash_bwd_dkv)
+//   _bwd_fused_kernel -> flash_bwd_dkv_kernel<..., true> (pllm_flash_bwd_fused)
 // The wrapper (ops/cuda_flash.py::flash_attention_bwd) picks between the
 // one-pass kernel and the dQ + dK/dV pair with the TPU dispatch rule
 // (_block_sizes: one q block and one kv block -> one pass), so both
@@ -29,8 +30,8 @@
 // bytes of q, k, v, dO, lse, D read once and dq, dk, dv written once. At
 // gpt2-124m's T = 1024, Dh 64, bf16, that is ~360 FLOPs per byte, above
 // the card's ~295 ridge: operations bound it. These kernels run their
-// products on the CUDA cores in fp32, far below either bound; tensor
-// cores (mma/wgmma) are the lever, in a later PR.
+// products on the CUDA cores in fp32 (67 TFLOP/s at most), which is what
+// fp32 operands need: TF32 tensor-core products would miss the fp32 bars.
 //
 // Design (simple first):
 //   - 64-row query tiles and 64-key KV tiles, 256 threads: four threads
@@ -51,8 +52,9 @@
 //             takes 7. The TPU kernel held all of T in VMEM with a (T, T)
 //             S; a Hopper block has 227 KB, so it is tiled like FA2.
 //   - The one-pass kernel's dQ sums in an order that changes from run to
-//     run (atomics); the split kernels are deterministic. The tests'
-//     tolerances hold either way.
+//     run (fp32 atomics; the tensor-core one pass sums in a fixed order);
+//     the split kernels are deterministic. The tests' tolerances hold
+//     either way.
 //   - Tiles that no (query, key) pair can reach are never started
 //     (_run_ok); the mask is _mask_ok's predicate, q >= k and, with a
 //     window, q - k < window and, with segments, seg[q] == seg[k]; the
@@ -60,7 +62,6 @@
 //     zeroed by the mask itself, never by exp underflow.
 //   - Runs on the caller's stream; allocates nothing.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,13 +71,9 @@ constexpr int BK = 64;
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and back: the compute-dtype operand of a product.
 template <typename T> __device__ __forceinline__ float rnd(float x) { return to_f(from_f<T>(x)); }
@@ -378,15 +375,12 @@ bool bad_shape(int B, int H, int G, int T_len) {
 }  // namespace
 
 // q, dout: (B*H, T, D); k, v: (B*G, T, D); lse, delta: (B*H, T) fp32; seg:
-// (B, T) int32 document ids or null. dtype: 0 = float32, 1 = bfloat16. D
-// must be 32, 64 or 128.
+// (B, T) int32 document ids or null. dtype must be 0 (float32). D must be
+// 32, 64 or 128.
 #define PLLM_DISPATCH(CALL)                                                 \
   if (dtype == 0 && D == 32) return CALL(float, 32);                        \
   if (dtype == 0 && D == 64) return CALL(float, 64);                        \
   if (dtype == 0 && D == 128) return CALL(float, 128);                      \
-  if (dtype == 1 && D == 32) return CALL(__nv_bfloat16, 32);                \
-  if (dtype == 1 && D == 64) return CALL(__nv_bfloat16, 64);                \
-  if (dtype == 1 && D == 128) return CALL(__nv_bfloat16, 128);              \
   return (int)cudaErrorInvalidValue;
 
 // dq like q.
@@ -401,7 +395,7 @@ extern "C" int pllm_flash_bwd_dq(const void* q, const void* k, const void* v,
 #undef CALL
 }
 
-// dk, dv like k, v. dtype must be 0 (float32).
+// dk, dv like k, v.
 extern "C" int pllm_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse, const void* delta,
                                   const void* seg, void* dk, void* dv, int B, int H, int G, int T_len,

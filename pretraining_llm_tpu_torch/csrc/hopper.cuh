@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_tc.cu, flash_bwd_tc.cu): TMA tensor maps and loads, mbarriers,
-// and warpgroup matrix multiplies (wgmma) with their shared-memory
-// descriptors. Inline PTX only, no CUTLASS headers, so nvcc stays fast.
+// (flash_fwd_tc.cu, flash_bwd_tc.cu): TMA tensor maps, loads, stores and
+// fp32 adds, mbarriers, warpgroup matrix multiplies (wgmma) with their
+// shared-memory descriptors, and turns taken between blocks. Inline PTX
+// only, no CUTLASS headers, so nvcc stays fast.
 //
 // Tiles. A (64, D) bf16 tile is loaded by TMA with a swizzle as wide as
 // its rows allow: 128 bytes when D >= 64, 64 bytes at D = 32. TMA moves at
@@ -163,6 +164,27 @@ static int make_tile_map(CUtensorMap* map, const void* ptr, int t, int n) {
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Tensor map over the (n, t, D) fp32 fold at `ptr`, boxes of TILE_ROWS rows
+// x 32 columns (128 bytes) with the 128-byte swizzle: the target of TMA
+// stores and adds from shared memory (F32_BOX_BYTES each). Rows past t are
+// not written.
+constexpr int F32_BOX_COLS = 32;
+constexpr int F32_BOX_BYTES = TILE_ROWS * F32_BOX_COLS * 4;
+template <int D>
+static int make_f32_tile_map(CUtensorMap* map, const void* ptr, int t, int n) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)t, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)t * D * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)F32_BOX_COLS, (cuuint32_t)TILE_ROWS, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
 // Lets `kern` take `smem` bytes of dynamic shared memory, with all of the
 // SM's 228 KB as shared memory (room for several blocks). The attributes
 // stay on the function, so they are set once per device: `done` is the
@@ -233,6 +255,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+// x, which the compiler may no longer treat as known: a tile address made
+// opaque inside a loop keeps the descriptors built from it where they are
+// used, instead of all of them hoisted into registers across the loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -249,6 +279,22 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64x32, fp32) (+)= A(64x16, smem) * B(16x32, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
+  else wgmma_ss_n64(d, da, db, scale_d);
 }
 
 // D(64x32, fp32) (+)= A(64x16, registers) * B(16x32, smem, MN-major).
@@ -287,5 +333,110 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db, scale_d);
   else wgmma_rs_n128(d, a, db, scale_d);
 }
+
+// D(64x32, fp32) (+)= A(64x16, smem, MN-major) * B(16x32, smem, MN-major).
+__device__ __forceinline__ void wgmma_ss_tt_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64x64, fp32) (+)= A(64x16, smem, MN-major) * B(16x64, smem, MN-major).
+__device__ __forceinline__ void wgmma_ss_tt_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
+  if constexpr (N == 32) wgmma_ss_tt_n32(d, da, db, scale_d);
+  else wgmma_ss_tt_n64(d, da, db, scale_d);
+}
+
+// ---------------------------------------------------------------------------
+// Shared memory written by threads, read by wgmma
+// ---------------------------------------------------------------------------
+
+// Byte offset of byte `b` of row `row` in a tile of 128-byte rows with the
+// 128-byte swizzle (each 16-byte chunk n of a row stored at chunk
+// n ^ (row % 8)): the layout TMA reads and writes and the descriptors above
+// read.
+__device__ __forceinline__ uint32_t swizzle128(int row, int b) {
+  return row * 128 + ((((b >> 4) ^ row) & 7) << 4) + (b & 15);
+}
+
+// Makes this thread's shared-memory stores visible to wgmma, which reads
+// shared memory through the async proxy.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (not 0, which __syncthreads takes) among `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Turns between blocks (a fixed order of adds into global memory)
+// ---------------------------------------------------------------------------
+
+// Waits until the int at `p` reaches `turn` (acquire: what the releasing
+// block wrote before its release is visible after). Like mbar_wait, a wait
+// that never ends traps after 2^26 tries rather than hanging the card.
+__device__ __forceinline__ void wait_turn(const int* p, int turn) {
+  uint32_t tries = 0;
+  while (true) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    if (v >= turn) break;
+    if (++tries == (1u << 26)) __trap();
+    __nanosleep(32);
+  }
+}
+
+// Adds 1 to the int at `p` after every write this thread has made or seen
+// (a barrier before it makes its block's writes seen): the release that
+// wait_turn acquires.
+__device__ __forceinline__ void pass_turn(int* p) {
+  asm volatile("fence.acq_rel.gpu;\nred.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(p), "r"(1) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA from shared to global memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Waits until every bulk copy group this thread committed is complete:
+// its shared memory reads and its global writes done.
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// A box (c0 = column, c1 = row, c2 = fold index) of shared memory stored to
+// the tensor map's global memory, or added to it element by element as fp32
+// in the L2: one add per element, so taken in the order in which the callers
+// take their turns.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+__device__ __forceinline__ void tma_add_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+// Orders this thread's generic memory accesses with its TMA (async-proxy)
+// ones, in every state space.
+__device__ __forceinline__ void fence_async() { asm volatile("fence.proxy.async;\n" ::: "memory"); }
 
 }  // namespace hopper

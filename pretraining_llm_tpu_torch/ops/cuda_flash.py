@@ -2,13 +2,15 @@
 and dK/dV kernels), their plain PyTorch versions, and the
 ``torch.autograd.Function`` that joins them.
 
-Two routes, chosen by dtype (``kernel_route``): bf16 calls of K1 and of the
-dK/dV kernel run on the tensor cores (``wgmma`` fed by TMA:
+Two routes, chosen by dtype (``kernel_route``): bf16 calls of K1 and of all
+three backward kernels run on the tensor cores (``wgmma`` fed by TMA:
 ``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``); fp32 calls run the
 CUDA-core kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), because
-TF32 products would miss the fp32 bars. The dQ and one-pass kernels run
-``csrc/flash_bwd.cu`` for both dtypes. K1's and dK/dV's launch counters are
-kept per route (``launches_tc``, ``launches_fp32``) beside the total.
+TF32 products would miss the fp32 bars. On the tensor cores the one-pass
+kernel sums dQ in a fixed order (a turn per key tile), so every bf16
+backward gives the same bits on every launch; the fp32 one-pass kernel
+still sums dQ with fp32 atomics. Each kernel's launch counter is kept per
+route (``launches_tc``, ``launches_fp32``) beside the total (``launches``).
 
 Counterpart of ``pretraining_llm_tpu/ops/pallas_flash.py``: causal
 (optionally sliding-window) attention over the heads-first folds q (B*H,
@@ -49,15 +51,15 @@ _BWD_ARGTYPES = {
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
-    for n_out in (1, 2, 3)
+    for n_out in (1, 2, 3, 5)
 }
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that a CUDA call of K1 or dK/dV takes: ``"wgmma"`` (the
-    tensor-core kernels) for bfloat16, ``"fp32"`` (the CUDA-core kernels)
-    for float32. Raises for any other dtype or a head dim outside
-    _HEAD_DIMS."""
+    """The kernel that a CUDA call of K1 or of a backward kernel (one pass,
+    dQ, dK/dV) takes: ``"wgmma"`` (the tensor-core kernels) for bfloat16,
+    ``"fp32"`` (the CUDA-core kernels) for float32. Raises for any other
+    dtype or a head dim outside _HEAD_DIMS."""
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not in {_HEAD_DIMS}")
     if dtype == torch.bfloat16:
@@ -258,24 +260,51 @@ def _bwd_call(symbol: str, n_out: int, what: str, q, k, v, do, lse, delta, outs,
     _build.check(rc, what)
 
 
+def _route_call(fn, tc: bool, q, k, v, do, lse, delta, outs, h, g, window, segments) -> None:
+    """Launches the kernel of wrapper ``fn`` on its route (``kernel_route``):
+    ``pllm_<name>_tc`` of ``csrc/flash_bwd_tc.cu`` for bf16 (``tc``; 16-byte
+    aligned operands), ``pllm_<name>`` of ``csrc/flash_bwd.cu`` for fp32,
+    and counts it."""
+    name = fn.__name__
+    if tc:
+        _check_tma(name, (q, k, v, do))
+        _bwd_call(f"pllm_{name}_tc", len(outs), f"{name}_tc", q, k, v, do, lse, delta, outs, h, g, window,
+                  segments, lib="flash_bwd_tc")
+        fn.launches_tc += 1
+    else:
+        _bwd_call(f"pllm_{name}", len(outs), name, q, k, v, do, lse, delta, outs, h, g, window, segments)
+        fn.launches_fp32 += 1
+    fn.launches += 1
+
+
 def flash_bwd_fused(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
-    """The one-pass kernel (``_bwd_fused_kernel``): (dq, dk, dv), dq summed
-    in fp32 with atomics and cast to q's dtype. CUDA tensors only, as
-    validated by ``flash_attention_bwd``; ``.launches`` counts launches."""
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    """The one-pass kernel (``_bwd_fused_kernel``): (dq, dk, dv). bf16 on
+    the tensor cores, dQ summed in fp32 in a fixed order (an fp32 scratch
+    buffer and zeroed int32 turn counters: one per (head, 64-query tile),
+    and a ticket); fp32 on the CUDA cores, dQ summed with fp32 atomics into
+    a zeroed buffer and cast to q's dtype. CUDA tensors only, as validated
+    by ``flash_attention_bwd``. ``.launches`` counts launches,
+    ``.launches_tc`` and ``.launches_fp32`` those of each route."""
+    tc = kernel_route(q.dtype, q.shape[-1]) == "wgmma"
+    bh, t, _ = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _bwd_call("pllm_flash_bwd_fused", 3, "flash_bwd_fused", q, k, v, do, lse, delta,
-              (dq_acc, dk, dv), h, g, window, segments)
-    flash_bwd_fused.launches += 1
-    return dq_acc.to(q.dtype), dk, dv
+    if tc:
+        dq = torch.empty_like(q)
+        outs = (dq, dk, dv, torch.empty(q.shape, dtype=torch.float32, device=q.device),
+                torch.zeros(bh * -(-t // 64) + 1, dtype=torch.int32, device=q.device))
+    else:
+        outs = (torch.zeros(q.shape, dtype=torch.float32, device=q.device), dk, dv)
+    _route_call(flash_bwd_fused, tc, q, k, v, do, lse, delta, outs, h, g, window, segments)
+    return (dq if tc else outs[0].to(q.dtype)), dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
-    """The dQ kernel (``_bwd_dq_kernel``); ``.launches`` counts launches."""
+    """The dQ kernel (``_bwd_dq_kernel``): bf16 on the tensor cores, fp32 on
+    the CUDA cores (``kernel_route``). ``.launches`` counts launches,
+    ``.launches_tc`` and ``.launches_fp32`` those of each route."""
     dq = torch.empty_like(q)
-    _bwd_call("pllm_flash_bwd_dq", 1, "flash_bwd_dq", q, k, v, do, lse, delta, (dq,), h, g, window,
-              segments)
-    flash_bwd_dq.launches += 1
+    _route_call(flash_bwd_dq, kernel_route(q.dtype, q.shape[-1]) == "wgmma", q, k, v, do, lse, delta, (dq,), h,
+                g, window, segments)
     return dq
 
 
@@ -284,24 +313,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
     fp32 on the CUDA cores (``kernel_route``). ``.launches`` counts
     launches, ``.launches_tc`` and ``.launches_fp32`` those of each route."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if kernel_route(q.dtype, q.shape[-1]) == "wgmma":
-        _check_tma("flash_bwd_dkv", (q, k, v, do))
-        _bwd_call("pllm_flash_bwd_dkv_tc", 2, "flash_bwd_dkv_tc", q, k, v, do, lse, delta, (dk, dv), h, g,
-                  window, segments, lib="flash_bwd_tc")
-        flash_bwd_dkv.launches_tc += 1
-    else:
-        _bwd_call("pllm_flash_bwd_dkv", 2, "flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), h, g, window,
-                  segments)
-        flash_bwd_dkv.launches_fp32 += 1
-    flash_bwd_dkv.launches += 1
+    _route_call(flash_bwd_dkv, kernel_route(q.dtype, q.shape[-1]) == "wgmma", q, k, v, do, lse, delta, (dk, dv),
+                h, g, window, segments)
     return dk, dv
 
 
-flash_bwd_fused.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dkv.launches_tc = 0
-flash_bwd_dkv.launches_fp32 = 0
+for _fn in (flash_bwd_fused, flash_bwd_dq, flash_bwd_dkv):
+    _fn.launches = _fn.launches_tc = _fn.launches_fp32 = 0
+del _fn
 
 
 def flash_attention_bwd(

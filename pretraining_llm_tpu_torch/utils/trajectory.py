@@ -4,7 +4,7 @@ and flash attention with document segments against the all-torch-ops twin
 
 Run from the repository root on a machine with a GPU::
 
-    python -m pretraining_llm_tpu_torch.utils.trajectory
+    python -m pretraining_llm_tpu_torch.utils.trajectory [--repeat]
 
 The run is ``chip_smoke.py``'s T3: gpt2-124m at full width and depth
 (batch 12, T 1024, bf16 compute, fp32 params) with ``doc_mask_token=10``
@@ -26,10 +26,16 @@ power limit as ``nvidia-smi`` gives them:
                 leaves, with the leaf, and the loss difference; and per
                 leaf, the setting's and the twin's distances from the same
                 model's fp32 gradient.
+
+``--repeat`` runs neither: it trains the ``fused_flash`` run (T3 itself) for
+all 20 of its steps twice and prints one JSON line ``repeat``: both runs'
+losses and grad norms, whether they repeat bit for bit, and the gradient
+leaves that differ between two evaluations on the same params and batch.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -156,6 +162,36 @@ def held_by(leaf: Dict[str, float], rtol: float, twin_off: float) -> Optional[st
     return None
 
 
+def repeat(cfg: Config, steps: int, device: str) -> Dict[str, object]:
+    """The ``fused_flash`` run (T3) trained ``steps`` steps twice from the
+    same init on the same batches: both runs' loss and grad norm per step,
+    whether they repeat bit for bit and the first step that does not; and,
+    on step 1's params and batch, the gradient leaves that differ between two
+    evaluations (which names the operations behind a difference)."""
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    run_cfg = cfg.with_overrides(SETTINGS["fused_flash"])
+    first, second = run(run_cfg, steps, device), run(run_cfg, steps, device)
+    differ = [i + 1 for i, (a, b) in enumerate(zip(first, second)) if a != b]
+    trainer = _trainer(run_cfg, device)
+    leaves: List[str] = []
+
+    def step(state, batch):
+        grads = [dict(opt.tree_leaves(ts.loss_and_grads(state["params"], *batch, run_cfg)[1])) for _ in range(2)]
+        leaves.extend("/".join(k) for k, g in grads[0].items() if not torch.equal(g, grads[1][k]))
+        return trainer_step(state, batch)
+
+    trainer_step, trainer.step_fn = trainer.step_fn, step
+    trainer.train(1)
+    return {"steps": [{"step": i + 1, "loss": [a["loss"], b["loss"]], "grad_norm": [a["grad_norm"], b["grad_norm"]]}
+                      for i, (a, b) in enumerate(zip(first, second))],
+            "losses_bit_identical": all(a["loss"] == b["loss"] for a, b in zip(first, second)),
+            "grad_norms_bit_identical": all(a["grad_norm"] == b["grad_norm"] for a, b in zip(first, second)),
+            "first_differing_step": differ[0] if differ else None,
+            "step1_grad_leaves_differing": leaves}
+
+
 def study(cfg: Config, steps: int, device: str) -> Dict[str, object]:
     runs = {name: run(cfg.with_overrides(over), steps, device, perturb=ULP if name.endswith("_ulp") else 0.0)
             for name, over in SETTINGS.items()}
@@ -165,12 +201,21 @@ def study(cfg: Config, steps: int, device: str) -> Dict[str, object]:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--repeat", action="store_true",
+                        help="instead of the study: train T3 twice (all its steps) and compare the runs bit for bit")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("trajectory needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    res = study(t3_config(), STEPS, "cuda")
     device = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                             capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[:1]
+    if args.repeat:
+        cfg = t3_config()
+        print(json.dumps({"part": "repeat", "device": device, **repeat(cfg, cfg.train.train_steps, "cuda")}),
+              flush=True)
+        return
+    res = study(t3_config(), STEPS, "cuda")
     print(json.dumps({"part": "runs", "device": device, "runs": res["runs"],
                       "max_loss_diff_vs_twin": res["max_loss_diff_vs_twin"]}), flush=True)
     print(json.dumps({"part": "same_state", "device": device, "steps": res["same_state"]}), flush=True)

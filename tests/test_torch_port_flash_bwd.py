@@ -136,6 +136,64 @@ def test_bwd_plain_version_matches_pallas_at_tile_edges(t, d, window, seg, block
         assert _err(_fold(np.asarray(w)), x) <= FP32_TOL
 
 
+@pytest.mark.parametrize("t,d,g,window,seg", [(200, 64, 2, 0, False), (136, 128, 1, 0, False),
+                                             (264, 32, 1, 200, True)])
+def test_one_pass_plain_version_matches_pallas_at_tile_edges(t, d, g, window, seg):
+    """The tensor-core one-pass kernel's edges, scaled down, on the one pass
+    (``block_q = block_kv = T``): T not a multiple of 64 (200, 136, 264),
+    Dh 128 with n_rep 4, Dh 32 with a window of 200 and document segments.
+    dq, dk, dv of the plain version against ``jax.vjp`` of the Pallas kernel
+    in interpret mode."""
+    b, h = 1, 4
+    q, k, v, do = _inputs(2 * t + d, b, t, h, g, d)
+    rng = np.random.default_rng(2 * t)
+    segments = np.cumsum(rng.random((b, t)) < 0.05, axis=1).astype(np.int32) if seg else None
+    assert cuda_flash.backward_is_one_pass(t, t, t)
+    want = _jax_vjp_seg(*(jnp.asarray(x) for x in (q, k, v)),
+                        None if segments is None else jnp.asarray(segments), jnp.asarray(do),
+                        window=window, block=t)
+    qf, kf, vf, dof = (torch.from_numpy(_fold(x)) for x in (q, k, v, do))
+    tseg = None if segments is None else torch.from_numpy(segments)
+    o, lse = cuda_flash.flash_attention_fwd(qf, kf, vf, h, g, window=window, segments=tseg)
+    got = cuda_flash.flash_attention_bwd(qf, kf, vf, o, lse, dof, h, g, window=window, block_q=t, block_kv=t,
+                                         segments=tseg)
+    for w, x in zip(want, got):
+        assert _err(_fold(np.asarray(w)), x) <= FP32_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_backward_wrappers_route_by_dtype(monkeypatch, kernel, dtype):
+    """Each backward wrapper launches the tensor-core kernel
+    (``csrc/flash_bwd_tc.cu``) for bf16 and the CUDA-core one
+    (``csrc/flash_bwd.cu``) for fp32, counting the launch on its route; the
+    tensor-core one pass gets an fp32 dQ buffer and zeroed int32 turn
+    counters, one per (head, 64-query tile) and the ticket. The launch
+    itself is replaced by a recorder: no card here."""
+    calls = []
+
+    def record(symbol, n_out, what, q, k, v, do, lse, delta, outs, h, g, window, segments, lib="flash_bwd"):
+        calls.append((symbol, lib, [(tuple(x.shape), x.dtype, x.count_nonzero().item()) for x in outs]))
+
+    monkeypatch.setattr(cuda_flash, "_bwd_call", record)
+    fn = getattr(cuda_flash, kernel)
+    bh, t, d, h, g = 8, 200, 64, 4, 2
+    q, do = torch.zeros(bh, t, d, dtype=dtype), torch.zeros(bh, t, d, dtype=dtype)
+    k, v = torch.zeros(bh // 2, t, d, dtype=dtype), torch.zeros(bh // 2, t, d, dtype=dtype)
+    lse = delta = torch.zeros(bh, t)
+    before = (fn.launches, fn.launches_tc, fn.launches_fp32)
+    fn(q, k, v, do, lse, delta, h, g)
+    tc = dtype == torch.bfloat16
+    assert (fn.launches, fn.launches_tc, fn.launches_fp32) == (
+        before[0] + 1, before[1] + tc, before[2] + (not tc))
+    (symbol, lib, outs), = calls
+    assert lib == ("flash_bwd_tc" if tc else "flash_bwd")
+    assert symbol == f"pllm_{kernel}" + ("_tc" if tc else "")
+    if kernel == "flash_bwd_fused" and tc:
+        assert outs[3][:2] == ((bh, t, d), torch.float32)
+        assert outs[4] == ((bh * -(-t // 64) + 1,), torch.int32, 0)
+
+
 @pytest.mark.parametrize("g,window,block", [(2, 0, 0), (1, 24, 16)])
 def test_bwd_bf16_within_stated_bound(g, window, block):
     b, h, t, d = 2, 4, 64, 32

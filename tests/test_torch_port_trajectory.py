@@ -73,3 +73,14 @@ def test_same_state_measures_every_leaf_against_fp32(tmp_path):
 ])
 def test_held_by(leaf, want):
     assert tj.held_by(leaf, 0.02, 0.04) == want
+
+
+def test_repeat_compares_two_runs_bit_for_bit(tmp_path):
+    """``repeat`` (the ``--repeat`` mode) trains the run twice and compares
+    losses and grad norms bit for bit, and step 1's gradient leaves on the
+    same params and batch. On the CPU every operation repeats exactly."""
+    res = tj.repeat(_tiny(tmp_path), 2, "cpu")
+    assert [r["step"] for r in res["steps"]] == [1, 2]
+    assert all(r["loss"][0] == r["loss"][1] and r["grad_norm"][0] == r["grad_norm"][1] for r in res["steps"])
+    assert res["losses_bit_identical"] and res["grad_norms_bit_identical"]
+    assert res["first_differing_step"] is None and res["step1_grad_leaves_differing"] == []
