@@ -60,6 +60,16 @@ T2 the tensor-core dQ and dK/dV, the parity run (fp32) the CUDA-core
 kernels only. Every bf16 backward kernel must give the same bits on a
 repeat launch (the tensor-core one pass sums dQ in a fixed order).
 
+The ragged kernel has two routes too, chosen by ``ragged_route``: bf16
+queries run ``csrc/ragged_paged_tc.cu`` (wgmma fed by a TMA ring of
+pages), fp32 queries ``csrc/ragged_paged.cu``. ``check_ragged`` logs each
+case's route and asserts it, and every bf16 case must give the same bits
+on a repeat launch; paths 2 and 3 must run the tensor-core kernel only
+(``ragged_wgmma`` / ``ragged_fp32`` in their launch counts). The ragged
+entries of the kernels line give the CUDA-core kernel's time on the same
+inputs after "was", and a ``ragged_split_sweep`` line per timed shape
+holds one pass against 2 and 4 partitions in alternated launches.
+
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
 
@@ -590,15 +600,70 @@ def _ragged_form(split: bool, int8: bool, amla: bool) -> str:
     return "ragged"
 
 
+def _ragged_case(worst, *, b, t, h, g, d, bs, nb, n_blocks, q_lens, seqs, pool, window, splits, amla, gen, rng,
+                 case="grid", edit=None):
+    """One ragged kernel case against ``ragged_gather_attention`` on the
+    card: the route it must take by ``ragged_route`` (bf16 q: the
+    tensor-core kernel; fp32 q: the CUDA-core kernel), the launch that
+    route counted, the bar, and for bf16 a repeat launch with the same bits.
+    ``edit(q, kp, vp, tables)`` may shape the inputs in place."""
+    from pretraining_llm_tpu_torch.ops import cuda_ragged
+
+    f = cuda_ragged.ragged_paged_attention
+    pool, _, q_name = pool.partition(":")  # "int8-f32:bf16": fp32 scale pages under bf16 queries
+    qdt = torch.float32 if pool in ("fp32", "int8-f32") and q_name != "bf16" else torch.bfloat16
+    q = randn((b, t, h, d), qdt, gen)
+    shape = (n_blocks, bs, g, d)
+    kw = {}
+    if pool.startswith("int8"):
+        kp, ks, vp, vs = int8_pools(shape, torch.float32 if pool == "int8-f32" else torch.bfloat16, gen)
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = randn(shape, qdt, gen), randn(shape, qdt, gen)
+    tables, seq, ql = ragged_state(rng, q_lens, seqs, n_blocks, nb, bs)
+    if edit is not None:
+        edit(q, kp, vp, tables)
+    route = cuda_ragged.ragged_route(qdt, kp.dtype, d, bs, h // g)
+    want_route = "wgmma" if qdt == torch.bfloat16 else "fp32"
+    before = dict(f.launches_by_route)
+    out = f(q, kp, vp, tables, seq, ql, window=window, kv_splits=splits, amla=amla, **kw)
+    repeat_same = None
+    if qdt == torch.bfloat16:
+        again = f(q, kp, vp, tables, seq, ql, window=window, kv_splits=splits, amla=amla, **kw)
+        repeat_same = bool(torch.equal(out, again))
+    ran = {r: f.launches_by_route[r] - before[r] for r in before}
+    ref = cuda_ragged.ragged_gather_attention(q, kp, vp, tables, seq, ql, window=window, **kw)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    use = tol_use(out, ref, AMLA_FP32_TOL if amla else FP32_TOL)
+    n_splits = min(splits or cuda_ragged._auto_kv_splits(nb, b), nb)
+    log("check_ragged", case=case, route=route, amla=amla, kv_splits=splits, splits_run=n_splits, pool=pool,
+        q_dtype=str(qdt), B=b, H=h, G=g, T=t, Dh=d, bs=bs, window=window, q_lens=q_lens, seq_lens=seqs,
+        max_abs_err=err, tol_use=use, repeat_same_bits=repeat_same)
+    if route != want_route or ran[want_route] != (2 if repeat_same is not None else 1):
+        raise AssertionError(f"ragged case {case} ran {ran} by route {route}, not the {want_route} kernel")
+    if not (use <= 1.0):
+        raise AssertionError(f"ragged kernel disagrees with its plain version: {use} x its limit")
+    if repeat_same is False:
+        raise AssertionError(f"ragged case {case}: a repeat launch gave other bits")
+    form = _ragged_form(n_splits > 1, pool.startswith("int8"), amla)
+    worst[form] = max(worst[form], err)
+
+
 def check_ragged() -> dict:
-    """The ragged kernel against ``ragged_gather_attention`` on the card:
+    """The ragged kernels against ``ragged_gather_attention`` on the card:
     classic and AMLA x kv_splits {1, 2, 3 (uneven tail), auto} x pools
     {bf16, fp32, int8 + fp32 scales (fp32 q), int8 + bf16 scales (bf16 q)},
     with window 0/200, G = H and GQA, Dh 64 and 128 varying across the
     cases. Rows mix q_len 0, 1, a few and T = 256 at offsets from 0 to the
-    table's capacity. Returns the worst max-abs error per kernel form."""
-    from pretraining_llm_tpu_torch.ops import cuda_ragged
-
+    table's capacity. Then bf16 edge cases of the tensor-core kernel: GQA
+    n_rep 4 at Dh 128, a decode batch, live pages ending inside a query
+    tile, a window skipping whole pages, empty split partitions, an AMLA
+    score jump of more than 126 between pages, int8 with fp32 and with bf16
+    scales, and block sizes 32, 96 and 128. Every bf16 case must run the
+    tensor-core kernel and give the same bits on a repeat launch, every
+    fp32 case the CUDA-core kernel. Returns the worst max-abs error per
+    kernel form."""
     gen = torch.Generator().manual_seed(SEED + 5)
     rng = np.random.default_rng(SEED + 5)
     b, t, h, bs, nb, n_blocks = 6, 256, 12, 64, 16, 120
@@ -614,30 +679,42 @@ def check_ragged() -> dict:
                 g = 4 if (j // 2 + k) % 2 else 12
                 d = 128 if (j + k) % 3 == 0 else 64
                 i += 1
-                qdt = torch.float32 if pool in ("fp32", "int8-f32") else torch.bfloat16
-                q = randn((b, t, h, d), qdt, gen)
-                shape = (n_blocks, bs, g, d)
-                kw = {}
-                if pool.startswith("int8"):
-                    kp, ks, vp, vs = int8_pools(shape, torch.float32 if pool == "int8-f32" else torch.bfloat16, gen)
-                    kw = dict(k_scale=ks, v_scale=vs)
-                else:
-                    kp, vp = randn(shape, qdt, gen), randn(shape, qdt, gen)
-                tables, seq, ql = ragged_state(rng, q_lens, seqs, n_blocks, nb, bs)
-                out = cuda_ragged.ragged_paged_attention(
-                    q, kp, vp, tables, seq, ql, window=window, kv_splits=splits, amla=amla, **kw)
-                ref = cuda_ragged.ragged_gather_attention(q, kp, vp, tables, seq, ql, window=window, **kw)
-                torch.cuda.synchronize()
-                err = max_err(out, ref)
-                use = tol_use(out, ref, AMLA_FP32_TOL if amla else FP32_TOL)
-                n_splits = min(splits or cuda_ragged._auto_kv_splits(nb, b), nb)
-                log("check_ragged", amla=amla, kv_splits=splits, splits_run=n_splits, pool=pool,
-                    q_dtype=str(qdt), H=h, G=g, T=t, Dh=d, window=window, q_lens=q_lens,
-                    seq_lens=seqs, max_abs_err=err, tol_use=use)
-                if not (use <= 1.0):
-                    raise AssertionError(f"ragged kernel disagrees with its plain version: {use} x its limit")
-                form = _ragged_form(n_splits > 1, pool.startswith("int8"), amla)
-                worst[form] = max(worst[form], err)
+                _ragged_case(worst, b=b, t=t, h=h, g=g, d=d, bs=bs, nb=nb, n_blocks=n_blocks, q_lens=q_lens,
+                             seqs=seqs, pool=pool, window=window, splits=splits, amla=amla, gen=gen, rng=rng)
+
+    def score_jump(q, kp, vp, tables):
+        # Query rows of 4s against K pages of 4s on the odd pages of row 0:
+        # their scores sit 184 (log2 units) above the even pages' ~N(0, 6).
+        q.fill_(4.0)
+        for j in range(1, nb, 2):
+            kp[int(tables[0, j])] = 4.0
+
+    edge = [  # (case, T, H, G, Dh, bs, nb, q_lens, seqs, pool, window, splits, amla, edit)
+        ("gqa_nrep4_dh128", 256, 16, 4, 128, 64, 16, [256, 200, 0], [0, 300, 64], "bf16", 0, 1, False, None),
+        ("gqa_nrep4_dh128_split", 256, 16, 4, 128, 64, 16, [256, 200, 0], [0, 300, 64], "bf16", 0, 2, True,
+         None),
+        ("decode_batch", 1, 12, 12, 64, 64, 16, [1] * 8, [401, 847, 0, 63, 64, 500, 1000, 777], "bf16", 0, 1,
+         False, None),
+        ("decode_batch_int8", 1, 12, 12, 64, 64, 16, [1] * 8, [401, 847, 0, 63, 64, 500, 1000, 777],
+         "int8-bf16", 0, None, False, None),
+        ("pages_end_inside_tile", 256, 12, 12, 64, 64, 16, [70, 130, 200], [10, 197, 5], "bf16", 0, 1, False,
+         None),
+        ("window_skips_pages", 64, 12, 4, 64, 64, 16, [64, 33], [700, 900], "bf16", 200, 1, False, None),
+        ("empty_partitions", 16, 12, 12, 64, 64, 16, [1, 16, 0], [0, 10, 300], "bf16", 0, 4, False, None),
+        ("amla_score_jump", 64, 12, 12, 64, 64, 16, [64, 1], [600, 900], "bf16", 0, 1, True, score_jump),
+        ("amla_score_jump_split", 64, 12, 12, 64, 64, 16, [64, 1], [600, 900], "bf16", 0, 2, True, score_jump),
+        ("int8_f32_scales", 256, 12, 12, 64, 64, 16, [256, 1, 40], [0, 700, 300], "int8-f32:bf16", 0, 1, False,
+         None),
+        ("int8_bf16_scales", 256, 12, 12, 64, 64, 16, [256, 1, 40], [0, 700, 300], "int8-bf16", 0, 1, True,
+         None),
+        ("bs32_dh128", 64, 12, 4, 128, 32, 32, [64, 1], [100, 900], "bf16", 0, 1, True, None),
+        ("bs96_dh128_int8", 64, 12, 12, 128, 96, 10, [64, 3], [100, 800], "int8-bf16", 200, 2, False, None),
+        ("bs128_dh64", 200, 12, 12, 64, 128, 8, [200, 1], [37, 700], "bf16", 0, 1, False, None),
+    ]
+    for case, t, h, g, d, bs, nb, q_lens, seqs, pool, window, splits, amla, edit in edge:
+        _ragged_case(worst, b=len(q_lens), t=t, h=h, g=g, d=d, bs=bs, nb=nb, n_blocks=n_blocks, q_lens=q_lens,
+                     seqs=seqs, pool=pool, window=window, splits=splits, amla=amla, gen=gen, rng=rng, case=case,
+                     edit=edit)
     return worst
 
 
@@ -863,6 +940,7 @@ def kernel_counts() -> dict:
         "paged_decode": cuda_paged.paged_decode_attention.launches,
         "ragged": cuda_ragged.ragged_paged_attention.launches,
         "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
+        **{f"ragged_{route}": n for route, n in cuda_ragged.ragged_paged_attention.launches_by_route.items()},
     }
 
 
@@ -878,6 +956,7 @@ def reset_kernel_counts() -> None:
                    cuda_flash.flash_bwd_dkv):
         routed.launches_tc = routed.launches_fp32 = 0
     cuda_ragged.ragged_paged_attention.split_launches = 0
+    cuda_ragged.ragged_paged_attention.launches_by_route = dict.fromkeys(cuda_ragged.ROUTES, 0)
 
 
 def serving_path(name: str, *, arrivals_per_step: int = 0, **engine_kw):
@@ -956,7 +1035,15 @@ def run_path2():
         raise AssertionError("path2: no prompt token came from the prefix cache")
     if launches["ragged"] <= 0 or launches["paged_decode"] <= 0:
         raise AssertionError(f"path2 did not run through the ragged and paged kernels: {launches}")
+    _assert_ragged_tensor_cores("path2", launches)
     return launches, eng
+
+
+def _assert_ragged_tensor_cores(name: str, launches: dict) -> None:
+    """Every ragged launch of a bf16 serving path took the tensor-core
+    kernel."""
+    if launches["ragged_fp32"] != 0 or launches["ragged_wgmma"] != launches["ragged"] + launches["ragged_split"]:
+        raise AssertionError(f"{name}: a ragged launch did not run the tensor-core kernel: {launches}")
 
 
 def run_path3():
@@ -969,6 +1056,7 @@ def run_path3():
         raise AssertionError(f"path3 did not run both ragged forms: {launches}")
     if launches["paged_decode"] != 0:
         raise AssertionError(f"path3 launched the paged kernel on int8 pools: {launches}")
+    _assert_ragged_tensor_cores("path3", launches)
     return launches, eng
 
 
@@ -1482,14 +1570,36 @@ def time_kernels(launches, prefill_shapes, errs):
     return kernels
 
 
+class _cuda_core_route:
+    """Within the block, every ragged call takes the CUDA-core kernel
+    (``csrc/ragged_paged.cu``, the kernel bf16 calls ran before the
+    tensor-core route): the "was" times of ``time_ragged``, measured in the
+    same run."""
+
+    def __enter__(self):
+        from pretraining_llm_tpu_torch.ops import cuda_ragged
+
+        self._route = cuda_ragged.ragged_route
+        cuda_ragged.ragged_route = lambda *args, **kw: "fp32"
+
+    def __exit__(self, *exc):
+        from pretraining_llm_tpu_torch.ops import cuda_ragged
+
+        cuda_ragged.ragged_route = self._route
+
+
 def time_ragged(paths, eng2, errs):
-    """The ragged kernel's four entries: exact bf16 at path 2's largest
+    """The ragged kernels' four entries: exact bf16 at path 2's largest
     chunk launch (one pass, and at the auto split count), and int8 pools
     with bf16 scales at a path 3 decode step (8 rows, q_len 1), classic and
-    AMLA. ``launches`` counts the entry's kernel (one-pass or split) on the
-    serving paths; AMLA is a form of the one-pass kernel that no serving
-    path switches on (``ragged_amla`` is off by default, as in the JAX
-    package), so its entry reports the one-pass launches of path 3."""
+    AMLA, all bf16 queries: the tensor-core kernel, with the CUDA-core
+    kernel's time at the same inputs after "was". ``launches`` counts the
+    entry's form (one-pass or split) on the serving paths; AMLA is a form of
+    the one-pass kernel that no serving path switches on (``ragged_amla`` is
+    off by default, as in the JAX package), so its entry reports the
+    one-pass launches of path 3. Then the split-count sweep: one pass
+    against 2 and 4 partitions at the chunk and the decode step, in
+    alternated launches."""
     from pretraining_llm_tpu_torch.ops import cuda_ragged
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1504,6 +1614,7 @@ def time_ragged(paths, eng2, errs):
     dt = torch.bfloat16
     f = cuda_ragged.ragged_paged_attention
     kernels = []
+    p1, p2, p3 = paths
 
     def library_ms(q, kp, vp, tables, seq, ql, t, ks=None, vs=None):
         """SDPA over the pre-gathered (and dequantized) K/V with a boolean
@@ -1526,10 +1637,17 @@ def time_ragged(paths, eng2, errs):
         qh = q.permute(0, 2, 1, 3)
         return time_ms(lambda: sdpa(qh, kg, vg, attn_mask=mask[:, None]), flush=flush)
 
-    def entry(name, shape, q, kp, vp, tables, seq, ql, t, launches, splits, amla=False, ks=None,
+    def entry(name, shape, q, kp, vp, tables, seq, ql, t, launches, splits, by_path, amla=False, ks=None,
               vs=None, **extra):
         kw = dict(k_scale=ks, v_scale=vs) if ks is not None else {}
-        k_ms = time_ms(lambda: f(q, kp, vp, tables, seq, ql, kv_splits=splits, amla=amla, **kw), flush=flush)
+        call = lambda: f(q, kp, vp, tables, seq, ql, kv_splits=splits, amla=amla, **kw)  # noqa: E731
+        if cuda_ragged.ragged_route(q.dtype, kp.dtype, d, bs, h // g) != "wgmma":
+            raise AssertionError(f"{name}: the timed shape does not take the tensor-core kernel")
+        k_ms = time_ms(call, flush=flush)
+        k_dev = time_ms(call, flush=flush, device_only=True)
+        with _cuda_core_route():
+            was_ms = time_ms(call, flush=flush)
+            was_dev = time_ms(call, flush=flush, device_only=True)
         p_ms = time_ms(lambda: cuda_ragged.ragged_gather_attention(q, kp, vp, tables, seq, ql, **kw),
                        flush=flush)
         l_ms = library_ms(q, kp, vp, tables, seq, ql, t, ks, vs)
@@ -1542,14 +1660,41 @@ def time_ragged(paths, eng2, errs):
         nbytes = (live_pages * bs * g * (d * elem + scale_bytes) * 2 + 2 * q.numel() * q.element_size()
                   + tables.numel() * 4 + 2 * seq.numel() * 4)
         kernels.append(dict(
-            name=name, route="cuda", mma="none (fp32 CUDA cores)", source="pretraining_llm_tpu_torch/csrc/ragged_paged.cu",
+            name=name, route="cuda", mma="wgmma", source="pretraining_llm_tpu_torch/csrc/ragged_paged_tc.cu",
             replaces=("pretraining_llm_tpu/ops/pallas_ragged.py:287" if name == "ragged_split"
                       else "pretraining_llm_tpu/ops/pallas_ragged.py:228"),
-            shape=shape, kv_splits=splits, launches=launches, flops=flops, bytes=nbytes,
-            **_bound(flops, nbytes), max_abs_err=errs[name], ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+            shape=shape, kv_splits=splits, launches=launches, launches_by_path=by_path, flops=flops,
+            bytes=nbytes, **_bound(flops, nbytes), max_abs_err=errs[name], ms=k_ms, device_ms=k_dev,
+            plain_ms=p_ms, library_ms=l_ms, was_ms=was_ms, was_device_ms=was_dev,
+            was_source="pretraining_llm_tpu_torch/csrc/ragged_paged.cu (CUDA cores, same inputs, this run)",
             library_note="SDPA over the pre-gathered (dequantized) KV with a boolean mask "
                          "(gather and dequant not timed)", **extra,
         ))
+
+    def sweep(shape_name, call):
+        """One pass against 2 and 4 partitions, 12 rounds of alternated
+        launches (1, 2, 4, 4, 2, 1), L2 flushed before each: the median
+        and range of each count, host work included and device only."""
+        order = (1, 2, 4, 4, 2, 1)
+        times = {n: {"ms": [], "device_ms": []} for n in order}
+        for n in order:
+            call(n)
+        torch.cuda.synchronize()
+        for _ in range(12):
+            for n in order:
+                for key in ("ms", "device_ms"):
+                    flush()
+                    if key == "device_ms":
+                        torch.cuda._sleep(2_000_000)
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    call(n)
+                    end.record()
+                    end.synchronize()
+                    times[n][key].append(start.elapsed_time(end))
+        log("ragged_split_sweep", shape=shape_name, launches_per_count=24, **{
+            f"splits_{n}": {key: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+                            for key, v in times[n].items()} for n in (1, 2, 4)})
 
     # Path 2's largest chunk launch: its rows' offsets and chunk lengths, T
     # pinned to the chunk size, fresh pages per row.
@@ -1559,12 +1704,12 @@ def time_ragged(paths, eng2, errs):
     q = randn((b, t, h, d), dt, gen)
     kp, vp = randn((n_blocks, bs, g, d), dt, gen), randn((n_blocks, bs, g, d), dt, gen)
     shape = f"B={b} T={t} H={h} G={g} Dh={d} bs={bs} nb={nb} bf16 seq_lens={offsets} q_lens={lens}"
-    p1, p2, p3 = paths
     entry("ragged", shape, q, kp, vp, tables, seq, ql, t, p2["ragged"], 1,
-          launches_by_path={"path2": p2["ragged"], "path3": p3["ragged"]})
+          {"path2": p2["ragged"], "path3": p3["ragged"]})
     auto = cuda_ragged._auto_kv_splits(nb, b)
     entry("ragged_split", shape, q, kp, vp, tables, seq, ql, t, p2["ragged_split"] + p3["ragged_split"],
-          auto, launches_by_path={"path2": p2["ragged_split"], "path3": p3["ragged_split"]})
+          auto, {"path2": p2["ragged_split"], "path3": p3["ragged_split"]})
+    sweep(f"path 2 chunk: {shape}", lambda n: f(q, kp, vp, tables, seq, ql, kv_splits=n))
 
     # A path 3 decode step: 8 rows, q_len 1, lengths drawn like path 3's
     # (prompts 401-784 plus up to 63 generated), int8 pools, bf16 scales.
@@ -1574,9 +1719,12 @@ def time_ragged(paths, eng2, errs):
     q = randn((b, t, h, d), dt, gen)
     kp, ks, vp, vs = int8_pools((n_blocks, bs, g, d), torch.bfloat16, gen)
     shape = f"B={b} T=1 H={h} G={g} Dh={d} bs={bs} nb={nb} int8 pools, bf16 scales, bf16 q seq_lens={seqs}"
-    entry("ragged_int8", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, ks=ks, vs=vs)
-    entry("ragged_int8_amla", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, amla=True,
+    by_path = {"path2": p2["ragged"], "path3": p3["ragged"]}
+    entry("ragged_int8", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, by_path, ks=ks, vs=vs)
+    entry("ragged_int8_amla", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, by_path, amla=True,
           ks=ks, vs=vs, launches_note="one-pass launches on path 3, which runs the classic form")
+    sweep(f"path 3 decode: {shape}",
+          lambda n: f(q, kp, vp, tables, seq, ql, kv_splits=n, k_scale=ks, v_scale=vs))
     for kern in kernels:
         kern["kernel_ms"] = kern["ms"]
         kern["max_err"] = kern["max_abs_err"]

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_fwd_tc.cu, flash_bwd_tc.cu): TMA tensor maps, loads, stores and
+// Hopper (sm_90a) building blocks of the tensor-core kernels
+// (flash_fwd_tc.cu, flash_bwd_tc.cu, ragged_paged_tc.cu): TMA tensor maps, loads, stores and
 // fp32 adds, mbarriers, warpgroup matrix multiplies (wgmma) with their
 // shared-memory descriptors, and turns taken between blocks. Inline PTX
 // only, no CUTLASS headers, so nvcc stays fast.
@@ -220,19 +220,19 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint3
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
 
-// Step kk (columns 16kk..16kk+15) of a tile read K-major.
-template <int D>
+// Step kk (columns 16kk..16kk+15) of a tile of ROWS rows read K-major.
+template <int D, int ROWS = TILE_ROWS>
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int kk) {
   using P = Panels<D>;
-  const uint32_t addr = tile + (kk * 16 / P::COLS) * TILE_ROWS * P::SW + (kk * 16 % P::COLS) * 2;
+  const uint32_t addr = tile + (kk * 16 / P::COLS) * ROWS * P::SW + (kk * 16 % P::COLS) * 2;
   return make_desc(addr, 16, 8 * P::SW, P::LAYOUT);
 }
 
-// Step kk (rows 16kk..16kk+15) of a tile read MN-major (N = D).
-template <int D>
+// Step kk (rows 16kk..16kk+15) of a tile of ROWS rows read MN-major (N = D).
+template <int D, int ROWS = TILE_ROWS>
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
   using P = Panels<D>;
-  return make_desc(tile + kk * 16 * P::SW, TILE_ROWS * P::SW, 8 * P::SW, P::LAYOUT);
+  return make_desc(tile + kk * 16 * P::SW, ROWS * P::SW, 8 * P::SW, P::LAYOUT);
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -291,10 +291,21 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D(64x128, fp32) (+)= A(64x16, smem) * B(16x128, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int scale_d) {
   if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
-  else wgmma_ss_n64(d, da, db, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  else wgmma_ss_n128(d, da, db, scale_d);
 }
 
 // D(64x32, fp32) (+)= A(64x16, registers) * B(16x32, smem, MN-major).

@@ -32,7 +32,10 @@ from typing import Dict, Iterable, Tuple
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "paged_decode", "ragged_paged")
+SOURCES = (
+    "flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "paged_decode", "ragged_paged",
+    "ragged_paged_tc",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

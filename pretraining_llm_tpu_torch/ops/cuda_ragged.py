@@ -1,5 +1,5 @@
-"""Ragged paged attention: the CUDA kernel ``csrc/ragged_paged.cu`` and its
-plain PyTorch version.
+"""Ragged paged attention: the CUDA kernels ``csrc/ragged_paged_tc.cu`` and
+``csrc/ragged_paged.cu`` and their plain PyTorch version.
 
 Counterpart of ``pretraining_llm_tpu/ops/pallas_ragged.py``: attention over
 each row's pages of the block pool (n_blocks, block_size, G, Dh) through its
@@ -11,13 +11,20 @@ chunks and prefix-cache suffixes. Pools are exact (fp32/bf16) or int8 codes
 with per-(slot, head) scale pages (fp32 or bf16), dequantized as
 ``code * (f32(scale) * (1/127))``.
 
-``ragged_paged_attention`` launches the kernel for CUDA tensors: one pass
+``ragged_paged_attention`` launches a kernel for CUDA tensors: one pass
 (``kv_splits`` 1), or the KV range cut into ``kv_splits`` partitions whose
 fp32 partials are merged here by a log-sum-exp combine (torch ops), in the
 classic or the AMLA form (``amla=True``: base-2 online softmax with an
-integer running max and exponent-add rescaling). For CPU tensors it runs
-``ragged_gather_attention``, the plain version, which the JAX package calls
-its single source of truth for what the kernel computes.
+integer running max and exponent-add rescaling). Two routes, chosen by
+shape and dtype before launch (``ragged_route``): bf16 queries over bf16 or
+int8 pools at Dh 64 or 128 and block sizes that are multiples of 16 up to
+128 run on the tensor cores (``wgmma`` fed by a TMA ring of page loads,
+``csrc/ragged_paged_tc.cu``); fp32 queries, and every other bf16 shape,
+run the CUDA-core kernel (``csrc/ragged_paged.cu``), because TF32 products
+would miss the fp32 bar. A failure raises; no route stands in for another.
+For CPU tensors it runs ``ragged_gather_attention``, the plain version,
+which the JAX package calls its single source of truth for what the kernel
+computes.
 """
 
 from __future__ import annotations
@@ -42,6 +49,57 @@ _ARGTYPES = tuple(
     + [ctypes.c_int] * 3
     + [ctypes.c_void_p]
 )
+# (q, k_pool, v_pool, k_scale, v_scale, tables, seq_lens, q_lens, out, acc_p, m_p, l_p,
+#  B, T, H, G, D, bs, nb, n_blocks, window, splits, tq, amla, score_scale, kv_dtype, scale_dtype, stream)
+_TC_ARGTYPES = tuple(
+    [ctypes.c_void_p] * 12
+    + [ctypes.c_int] * 12
+    + [ctypes.c_float]
+    + [ctypes.c_int] * 2
+    + [ctypes.c_void_p]
+)
+_TC_HEAD_DIMS = (64, 128)
+ROUTES = ("wgmma", "fp32")
+
+
+def ragged_route(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int, block_size: int,
+                 n_rep: int = 1) -> str:
+    """The kernel that a CUDA call takes: ``"wgmma"`` (the tensor-core
+    kernel) for bfloat16 queries over bfloat16 or int8 pools at Dh 64 or 128,
+    a block size that is a multiple of 16 no larger than 128 and at most
+    TILE_ROWS query heads per KV head; ``"fp32"`` (the CUDA-core kernel) for
+    float32 queries and for every other bfloat16 shape. Raises for dtypes
+    that neither kernel takes."""
+    if q_dtype not in _Q_CODES:
+        raise TypeError(f"ragged attention takes float32 or bfloat16 q, got {q_dtype}")
+    if kv_dtype not in _KV_CODES:
+        raise TypeError(f"ragged attention takes float32, bfloat16 or int8 pools, got {kv_dtype}")
+    if q_dtype == torch.float32:
+        return "fp32"
+    if kv_dtype == torch.float32:
+        raise TypeError("bfloat16 queries take bfloat16 or int8 pools, not float32")
+    fits = head_dim in _TC_HEAD_DIMS and block_size % 16 == 0 and 16 <= block_size <= 128
+    return "wgmma" if fits and n_rep <= TILE_ROWS else "fp32"
+
+
+def tc_smem_bytes(d: int, bs: int, quantized: bool) -> int:
+    """Shared memory one block of the tensor-core kernel uses (must match
+    ``Smem`` in ``csrc/ragged_paged_tc.cu``): the resident Q tile, a ring of
+    2-3 pages as they arrive (bf16 tiles, or int8 codes and their fp32
+    scale columns), two widened bf16 pages for int8 pools, the barriers and
+    room to align the base."""
+    def round1k(x: int) -> int:
+        return (x + 1023) // 1024 * 1024
+
+    bsm = 64 if bs <= 64 else 128
+    tile = bsm * d * 2
+    raw = bsm * d if quantized else tile
+    scales = 2 * bsm * 4 if quantized else 0
+    stage = round1k(2 * raw + scales)
+    wide = round1k(2 * tile + scales) if quantized else 0
+    ring = TILE_ROWS * d * 2
+    stages = 3 if ring + 2 * wide + 3 * stage <= 110 * 1024 else 2
+    return ring + stages * stage + 2 * wide + 2 * stages * 8 + 1024
 
 
 def queries_per_tile(n_rep: int, t: int) -> int:
@@ -133,8 +191,9 @@ def ragged_paged_attention(
     unchecked): 0 <= q_lens <= T and seq_lens + q_lens <= max_blocks *
     block_size. Returns q's shape and dtype.
 
-    ``ragged_paged_attention.launches`` counts one-pass launches and
-    ``ragged_paged_attention.split_launches`` split launches."""
+    ``ragged_paged_attention.launches`` counts one-pass launches,
+    ``ragged_paged_attention.split_launches`` split launches and
+    ``ragged_paged_attention.launches_by_route`` both, per route."""
     if q.ndim != 4:
         raise ValueError(
             f"ragged attention takes (B, T, H, Dh) queries, got {tuple(q.shape)} "
@@ -200,11 +259,17 @@ def ragged_paged_attention(
     bs = k_pool.shape[1]
     n_rep = h // g
     tq = queries_per_tile(n_rep, t)
-    need = smem_bytes(tq * n_rep, d, bs)
+    route = ragged_route(q.dtype, k_pool.dtype, d, bs, n_rep)
+    need = tc_smem_bytes(d, bs, quantized) if route == "wgmma" else smem_bytes(tq * n_rep, d, bs)
     if need > MAX_SMEM_BYTES:
         raise ValueError(
             f"ragged_paged_attention: {n_rep} heads x {tq} queries x Dh {d} x block "
             f"{bs} needs {need} bytes of shared memory (> {MAX_SMEM_BYTES})"
+        )
+    if route == "wgmma" and any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
+        raise ValueError(
+            "ragged_paged_attention: the tensor-core kernel needs 16-byte aligned q and pools, got data "
+            f"pointers {[x.data_ptr() % 16 for x in (q, k_pool, v_pool)]} mod 16"
         )
 
     split = kv_splits > 1
@@ -216,22 +281,29 @@ def ragged_paged_attention(
         m_p = torch.empty((b, kv_splits, t, h), dtype=torch.float32, device=q.device)
         l_p = torch.empty_like(m_p)
     scale = 1.0 / d**0.5
-    lib = _build.load("ragged_paged", "pllm_ragged_paged", _ARGTYPES)
+    score_scale = scale * LOG2E if amla else scale
 
     def ptr(x: Optional[torch.Tensor]) -> Optional[int]:
         return None if x is None else x.data_ptr()
 
-    rc = lib(
+    pointers = (
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
         block_tables.data_ptr(), seq_lens.data_ptr(), q_lens.data_ptr(),
         ptr(out), ptr(acc_p), ptr(m_p), ptr(l_p),
-        b, t, h, g, d, bs, nb, int(window), kv_splits, tq, int(bool(amla)),
-        scale * LOG2E if amla else scale,
-        _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype],
-        _Q_CODES[k_scale.dtype] if quantized else 0,
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(rc, "ragged_paged")
+    scale_code = _Q_CODES[k_scale.dtype] if quantized else 0
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "wgmma":
+        lib = _build.load("ragged_paged_tc", "pllm_ragged_paged_tc", _TC_ARGTYPES)
+        rc = lib(*pointers, b, t, h, g, d, bs, nb, k_pool.shape[0], int(window), kv_splits, tq,
+                 int(bool(amla)), score_scale, _KV_CODES[k_pool.dtype], scale_code, stream)
+        _build.check(rc, "ragged_paged_tc")
+    else:
+        lib = _build.load("ragged_paged", "pllm_ragged_paged", _ARGTYPES)
+        rc = lib(*pointers, b, t, h, g, d, bs, nb, int(window), kv_splits, tq, int(bool(amla)),
+                 score_scale, _Q_CODES[q.dtype], _KV_CODES[k_pool.dtype], scale_code, stream)
+        _build.check(rc, "ragged_paged")
+    ragged_paged_attention.launches_by_route[route] += 1
     if not split:
         ragged_paged_attention.launches += 1
         return out
@@ -250,3 +322,4 @@ def ragged_paged_attention(
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.split_launches = 0
+ragged_paged_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

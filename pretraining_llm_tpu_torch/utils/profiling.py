@@ -1,13 +1,20 @@
 """Where the time goes on the card: a ``torch.profiler`` breakdown of one
-admission prefill and one decode window of the serving path, and of one
-training step.
+admission prefill and one decode window of the serving path, of path 2's
+chunked prefill and path 3's int8 decode window, and of one training step.
 
 Run from the repository root on a machine with a GPU::
 
     python -m pretraining_llm_tpu_torch.utils.profiling
 
 Serving: gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
-weights from seed 0) with the engine settings ``chip_smoke.py`` uses.
+weights from seed 0) with the engine settings ``chip_smoke.py`` uses: path
+1's admission prefill and decode window (8 prompts of 17-900 tokens); path
+2's chunk phase (the first four scheduler steps after 8 of its shared-prefix
+requests arrive: 256-token chunks and prefix-cache suffixes through the
+one-pass ragged kernel); path 3's decode window (the same 8 requests under
+``quantize="int8-kv"`` with the prefix cache, admitted in one step, then one
+window of 8 decode steps through the ragged kernel on int8 pools at the
+auto split count).
 Training: one ``build_train_step`` step of the gpt2-124m preset (batch 12,
 T 1024, bf16 compute, fp32 params and AdamW, the flash kernels) after two
 warm-up steps, on random tokens; then the same with the fused CE head and
@@ -94,6 +101,44 @@ def profile_serving() -> Dict[str, Dict[str, object]]:
     return out
 
 
+def profile_ragged_paths() -> Dict[str, Dict[str, object]]:
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+    from pretraining_llm_tpu_torch.utils.serving_latency import prompts_for
+
+    out = {}
+    for phase, cfg_kw, engine_kw in (
+        ("path2_chunks", {"ragged_kv_splits": 1}, {"prefill_chunk_tokens": 256, "prefix_cache": True}),
+        ("path3_decode_window", {"ragged_kv_splits": 0}, {"quantize": "int8-kv", "prefix_cache": True}),
+    ):
+        cfg = dataclasses.replace(get_preset("gpt2-124m").model, paged_attention_impl="kernel", **cfg_kw)
+        params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device="cuda"), cfg)
+        prompts = prompts_for(2, cfg.vocab_size)[:8]
+
+        def engine() -> ServingEngine:
+            eng = ServingEngine(params, cfg, max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8,
+                                **engine_kw)
+            for p in prompts:
+                eng.submit(p, 64)
+            return eng
+
+        engine().run()  # first-call costs (kernel loads, library handles)
+        eng = engine()
+        if phase == "path2_chunks":
+            out[phase] = _profile(lambda: [eng.step() for _ in range(4)])
+            out[phase]["steps"] = 4
+            out[phase]["chunk_tokens"] = eng.stats["prefill_chunk_tokens"]
+        else:
+            eng.step()  # admission (suffix prefills) and the first window, not profiled
+            out[phase] = _profile(eng.step)
+            out[phase]["steps"] = eng.steps_per_sched
+        out[phase]["rows"] = len(prompts)
+        del eng, params
+        torch.cuda.empty_cache()
+    return out
+
+
 DOC_SEP = 10  # the separator of the doc-masked phase (byte "\n")
 DOC_SPACING = 67  # tokens per document in that phase
 
@@ -133,7 +178,7 @@ def profile_train() -> Dict[str, Dict[str, object]]:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    for profile_phases in (profile_serving, profile_train):
+    for profile_phases in (profile_serving, profile_ragged_paths, profile_train):
         for phase, rec in profile_phases().items():
             print(json.dumps({"phase": phase, "device": torch.cuda.get_device_name(0), **rec}), flush=True)
 

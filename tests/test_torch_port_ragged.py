@@ -215,3 +215,174 @@ def test_model_routes_paged_attention_as_jax(monkeypatch, kv_dtype, t, with_q_le
         assert lens.tolist() == ([t, 1] if with_q_lens and t > 1 else [t, t])
         assert kw["kv_splits"] == 2 and kw["amla"] is True
         assert ("k_scale" in kw) == (kv_dtype == "int8")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core route (csrc/ragged_paged_tc.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,d,bs,n_rep,want", [
+    (torch.bfloat16, torch.bfloat16, 64, 64, 1, "wgmma"),    # paths 2 and 3: gpt2, exact pools
+    (torch.bfloat16, torch.int8, 64, 64, 1, "wgmma"),        # int8 pools (fp32 or bf16 scales)
+    (torch.bfloat16, torch.bfloat16, 128, 64, 4, "wgmma"),   # GQA n_rep 4 at Dh 128
+    (torch.bfloat16, torch.int8, 128, 16, 8, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 64, 128, 1, "wgmma"),
+    (torch.bfloat16, torch.bfloat16, 64, 96, 64, "wgmma"),
+    (torch.float32, torch.float32, 64, 64, 1, "fp32"),       # TF32 would miss the fp32 bar
+    (torch.float32, torch.int8, 128, 64, 4, "fp32"),
+    (torch.bfloat16, torch.bfloat16, 32, 64, 1, "fp32"),     # other bf16 shapes: the CUDA-core kernel
+    (torch.bfloat16, torch.bfloat16, 16, 8, 1, "fp32"),
+    (torch.bfloat16, torch.bfloat16, 64, 8, 1, "fp32"),
+    (torch.bfloat16, torch.bfloat16, 64, 40, 1, "fp32"),
+    (torch.bfloat16, torch.int8, 64, 256, 1, "fp32"),
+    (torch.bfloat16, torch.bfloat16, 64, 64, 128, "fp32"),
+])
+def test_ragged_route(q_dtype, kv_dtype, d, bs, n_rep, want):
+    assert cuda_ragged.ragged_route(q_dtype, kv_dtype, d, bs, n_rep) == want
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float16, torch.float16), (torch.bfloat16, torch.float32), (torch.bfloat16, torch.float16),
+    (torch.int8, torch.int8),
+])
+def test_ragged_route_raises_on_other_dtypes(q_dtype, kv_dtype):
+    with pytest.raises(TypeError):
+        cuda_ragged.ragged_route(q_dtype, kv_dtype, 64, 64)
+
+
+def _source_smem(d, bs, quantized):
+    """Evaluates the ``Smem`` struct of ``csrc/ragged_paged_tc.cu`` for one
+    shape: each ``static constexpr int NAME = expr;`` line, C's ternaries
+    read as Python's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_ragged.__file__).parent.parent / "csrc" / "ragged_paged_tc.cu").read_text()
+    body = src[src.index("struct Smem {"):]
+    body = body[:body.index("};")]
+    env = {"D": d, "BSM": 64 if bs <= 64 else 128, "QUANT": quantized, "ROWS": cuda_ragged.TILE_ROWS,
+           "round1k": lambda x: (x + 1023) // 1024 * 1024}
+    env["RING_BUDGET"] = eval(re.search(r"RING_BUDGET = ([^;]+);", src).group(1))
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", body):
+        m = re.fullmatch(r"(.+?)\s*\?\s*(.+?)\s*:\s*(.+)", expr)
+        if m:
+            expr = f"(({m.group(2)}) if ({m.group(1)}) else ({m.group(3)}))"
+        env[name] = eval(expr, {}, env)
+    return env["ALLOC"]
+
+
+@pytest.mark.parametrize("d", (64, 128))
+@pytest.mark.parametrize("bs", (16, 32, 64, 96, 128))
+@pytest.mark.parametrize("quantized", (False, True))
+def test_tc_kernel_source_and_wrapper_agree_on_shared_memory(d, bs, quantized):
+    """The wrapper's formula is the source's, every shape the route takes
+    fits a block, and the main path's (gpt2: Dh 64, bs 64, n_rep 1; GQA
+    n_rep 4 at Dh 128, bs 64) fit several blocks to an SM."""
+    need = cuda_ragged.tc_smem_bytes(d, bs, quantized)
+    assert need == _source_smem(d, bs, quantized)
+    assert need <= cuda_ragged.MAX_SMEM_BYTES
+    assert cuda_ragged.ragged_route(torch.bfloat16, torch.int8 if quantized else torch.bfloat16, d, bs,
+                                    4 if d == 128 else 1) == "wgmma"
+    if bs == 64:
+        per_sm = 233472 // (need + 1024)  # the SM's shared memory, 1 KB reserved per block
+        assert per_sm >= (3 if d == 64 else 1)
+
+
+def _exp2_mul_add(x, k):
+    """``x * 2^k`` as the kernels compute it: an add to the fp32 exponent
+    field, zeros, subnormals and underflows to zero."""
+    bits = x.view(torch.int32)
+    field = (bits >> 23) & 0xFF
+    ok = (field > 0) & (field + k > 0)
+    return torch.where(ok, (bits + k * (1 << 23)).view(torch.float32), torch.zeros_like(x))
+
+
+def _tc_int8_model(q, kp, vp, ks, vs, tables, seq, q_lens, *, splits, amla):
+    """The tensor-core route's arithmetic over int8 pools, page by page:
+    bf16 codes against bf16 q in fp32, K's scale (f32(scale) * (1/127)) on
+    the score columns after the dot, the classic or AMLA online softmax,
+    P * vs / 127 rounded to bf16 against the bf16 codes, fp32 partials
+    merged by the wrapper's combine, bf16 out."""
+    b, t, h, d = q.shape
+    g, bs, nb = kp.shape[2], kp.shape[1], tables.shape[1]
+    n_rep = h // g
+    scale = d ** -0.5 * (cuda_ragged.LOG2E if amla else 1.0)
+    nb_split = -(-nb // splits)
+    qf = q.float()
+    out = torch.zeros(b, t, h, d)
+    for row in range(b):
+        qlen, s0 = int(q_lens[row]), int(seq[row])
+        pos = s0 + torch.arange(t)
+        real = (torch.arange(t) < qlen)[:, None, None]  # (T, 1, 1)
+        parts = []
+        for part in range(splits):
+            acc = torch.zeros(t, h, d)
+            m = torch.full((t, h, 1), cuda_ragged.NEG_INF)
+            l = torch.zeros(t, h, 1)
+            last = (s0 + qlen - 1) // bs if qlen > 0 else -1
+            for j in range(part * nb_split, min(nb, (part + 1) * nb_split, last + 1)):
+                blk = int(tables[row, j])
+                codes_k = kp[blk].float().repeat_interleave(n_rep, dim=1)  # (bs, H, D), exact
+                codes_v = vp[blk].float().repeat_interleave(n_rep, dim=1)
+                sk = (ks[blk].float() * (1.0 / 127.0)).repeat_interleave(n_rep, dim=1)[..., 0]  # (bs, H)
+                sv = (vs[blk].float() * (1.0 / 127.0)).repeat_interleave(n_rep, dim=1)[..., 0]
+                s = torch.einsum("thd,shd->ths", qf[row], codes_k) * scale * sk.T[None]
+                lin = j * bs + torch.arange(bs)
+                ok = (lin[None, :] <= pos[:, None])[:, None, :] & real
+                s = torch.where(ok, s, torch.full_like(s, cuda_ragged.NEG_INF))
+                mx = s.amax(-1, keepdim=True)
+                if amla:
+                    mn = torch.maximum(m, torch.ceil(mx))
+                    delta = torch.clamp(m - mn, -126.0, 0.0).to(torch.int32)
+                    p = torch.where(ok, torch.exp2(s - mn), torch.zeros_like(s))
+                    l = _exp2_mul_add(l, delta) + p.sum(-1, keepdim=True)
+                    acc = _exp2_mul_add(acc, delta)
+                else:
+                    mn = torch.maximum(m, mx)
+                    alpha = torch.exp(m - mn)
+                    p = torch.where(ok, torch.exp(s - mn), torch.zeros_like(s))
+                    l = l * alpha + p.sum(-1, keepdim=True)
+                    acc = acc * alpha
+                m = mn
+                pv = (p * sv.T[None]).bfloat16().float()
+                acc = acc + torch.einsum("ths,shd->thd", pv, codes_v)
+            parts.append((acc, m, l))
+        acc = torch.stack([x[0] for x in parts])
+        m = torch.stack([x[1] for x in parts])
+        l = torch.stack([x[2] for x in parts])
+        w = torch.exp2(m - m.amax(0)) if amla else torch.exp(m - m.amax(0))
+        l_tot = (l * w).sum(0)
+        acc_tot = (acc * w).sum(0)
+        out[row] = acc_tot / torch.where(l_tot == 0.0, torch.ones_like(l_tot), l_tot)
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize("splits,amla,scale_pool", [
+    (1, False, "int8-f32"), (1, True, "int8-bf16"), (2, False, "int8-bf16"), (2, True, "int8-f32"),
+])
+def test_tc_int8_rounding_points_within_the_card_bar(splits, amla, scale_pool, capsys):
+    """The tensor-core route's int8 rounding points (bf16 codes, K's scale
+    after the dot, P * vs / 127 in bf16) against the Pallas kernel in
+    interpret mode (fp32 P against the dequantized fp32 V), bf16 q, at the
+    bf16 bar ``chip_smoke.py`` holds the card to: per output row, 2^-6 of
+    the row's largest |value|. The worst use of the bar is printed."""
+    rng = np.random.default_rng(100 + splits + 2 * amla)
+    q, kp, vp, tables, seq, q_lens, (ks, vs) = _state(rng, 2, scale_pool)
+    q = torch.from_numpy(q).bfloat16()
+    bf16_scales = scale_pool == "int8-bf16"
+    want = pallas_ragged.ragged_paged_attention(
+        _jax(q.float().numpy(), True), *map(_jax, (kp, vp, tables, seq, q_lens)), interpret=True,
+        kv_splits=splits, amla=amla, k_scale=_jax(ks, bf16_scales), v_scale=_jax(vs, bf16_scales))
+    want = torch.from_numpy(np.asarray(want, np.float32))
+    tks, tvs = _torch(ks, bf16_scales), _torch(vs, bf16_scales)
+    got = _tc_int8_model(q, torch.from_numpy(kp), torch.from_numpy(vp), tks, tvs, tables, seq, q_lens,
+                         splits=splits, amla=amla).float()
+    limit = 2.0**-6 * want.abs().amax(-1, keepdim=True)
+    use = ((got - want).abs() / limit.clamp_min(1e-30)).max().item()
+    with capsys.disabled():
+        print(f"\n[tc int8 model] splits={splits} amla={amla} {scale_pool}: worst use of the bf16 bar {use:.4f}")
+    assert use <= 1.0
+    # Pad queries come back as zeros in both.
+    for row, n in enumerate(q_lens):
+        assert not got[row, n:].any() and not want[row, n:].any()
