@@ -70,6 +70,22 @@ entries of the kernels line give the CUDA-core kernel's time on the same
 inputs after "was", and a ``ragged_split_sweep`` line per timed shape
 holds one pass against 2 and 4 partitions in alternated launches.
 
+The paged decode kernel (K2) has two routes, chosen by ``paged_route``:
+Dh 64 or 128 with 64-slot pages and at most 16 query rows per KV head run
+the split page stream (``paged_split``: each row's table cut into
+partitions, one block each, merged in partition order by the last block
+inside the launch), other shapes the one-block-per-row loop
+(``paged_loop``). ``check_paged`` logs and asserts each case's route, and
+every split case must give the same bits on a repeat launch; paths 1 and
+2 must decode through the split route only. The fused CE forward (B9)
+takes ``csrc/fused_ce_tc.cu`` (wgmma fed by a TMA ring, the vocabulary cut
+into partitions merged by the last block of each token tile) for bf16
+and ``csrc/fused_ce.cu`` for fp32 (``ce_route``; ``fused_ce_fwd_wgmma`` /
+``fused_ce_fwd_fp32``): ``check_ce`` asserts the route and a bit-identical
+repeat bf16 forward for every case, and T3 asserts all 20 forward launches
+on the tensor cores. The K2 and B9 entries of the kernels line give the
+earlier kernel's time on the same inputs after "was".
+
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
 
@@ -237,9 +253,12 @@ def phase_build() -> None:
     log("build", seconds=round(time.perf_counter() - t0, 3),
         per_source={name: secs for name, (secs, _) in built.items()})
     for name, (_, text) in built.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas[{name}]: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else ""
+            elif "registers" in line or "spill" in line:
+                print(f"ptxas[{name}] {entry}: {line.strip()}", flush=True)
 
 
 def check_flash() -> float:
@@ -432,31 +451,44 @@ def check_flash_bwd() -> None:
 T1_HEAD = (12 * 1024, 768, 50304)  # (S, D, V) of T1's and T3's CE head: batch 12 x 1024 tokens, gpt2-124m
 CE_LOSS_TOL = 1e-4
 CE_GRAD_RTOL = 1e-4
-CE_CASES = [  # (S, D, V, dtype): token and vocabulary tails, GPT-2's real V = 50257
+CE_CASES = [  # (S, D, V, dtype[, labels in the last 256-column tile]): token and vocabulary tails, V = 50257
     (300, 768, 200, torch.float32), (300, 768, 200, torch.bfloat16),
     (300, 256, 384, torch.float32), (300, 256, 384, torch.bfloat16),
     (1000, 768, 50257, torch.float32), (1000, 768, 50257, torch.bfloat16),
+    # The bf16 forward's edges (fused_ce_tc.cu: 128-token tiles, 256-column
+    # vocabulary tiles, D streamed in 64-column slices): D 64 with V under
+    # one tile, D 1024, labels in the tail tile.
+    (300, 64, 200, torch.bfloat16), (1000, 1024, 50257, torch.bfloat16),
+    (257, 768, 50257, torch.bfloat16, True), (129, 128, 1000, torch.bfloat16, True),
 ]
 
 
-def ce_inputs(s, d, v, dtype, gen):
-    """h ~ N(0, 1) (S, D), W (V, D) ~ N(0, 0.05^2), labels uniform in [0, V),
-    and a non-uniform per-token cotangent (0.5 to 2)."""
+def ce_inputs(s, d, v, dtype, gen, tail_labels=False):
+    """h ~ N(0, 1) (S, D), W (V, D) ~ N(0, 0.05^2), labels uniform in [0, V)
+    (or in the last 256-column tile), and a non-uniform per-token cotangent
+    (0.5 to 2)."""
     h = randn((s, d), dtype, gen)
     w_vd = (torch.randn((v, d), generator=gen) * 0.05).to(device=DEVICE, dtype=dtype)
-    labels = torch.randint(0, v, (s,), generator=gen, dtype=torch.int32).to(DEVICE)
+    lo = (v - 1) // 256 * 256 if tail_labels else 0
+    labels = torch.randint(lo, v, (s,), generator=gen, dtype=torch.int32).to(DEVICE)
     return h, w_vd, labels, torch.linspace(0.5, 2.0, s, device=DEVICE)
 
 
 def ce_compare(what, h, w_vd, labels, g, **extra):
     """The three kernels against their plain versions on the same inputs
-    (the backward both from the plain forward's lse). Returns
-    {kernel: (max_abs_err, tol_use)} and fails above 1.0 of a limit."""
+    (the backward both from the plain forward's lse), the forward's route
+    (``ce_route``: bf16 on the tensor cores, fp32 on fused_ce.cu) and, in
+    bf16, a repeat forward with the same bits. Returns {kernel:
+    (max_abs_err, tol_use)} and fails above 1.0 of a limit."""
     from pretraining_llm_tpu_torch.ops import ce_reference as ref
     from pretraining_llm_tpu_torch.ops import cuda_ce
 
+    fwd = cuda_ce.fused_ce_fwd
+    route = cuda_ce.ce_route(h.dtype)
+    by_route = dict(fwd.launches_by_route)
     before = [f.launches for f in (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw)]
     loss, lse = cuda_ce.fused_ce_fwd(h, w_vd, labels)
+    ran_route = {r: fwd.launches_by_route[r] - by_route[r] for r in by_route}
     r_loss, r_lse = ref.fused_ce_fwd_reference(h, w_vd.t(), labels)
     dh = cuda_ce.fused_ce_dh(h, w_vd, labels, r_lse, g)
     dw = cuda_ce.fused_ce_dw(h, w_vd, labels, r_lse, g)
@@ -478,11 +510,19 @@ def ce_compare(what, h, w_vd, labels, g, **extra):
         "fused_ce_dw": (max_err(dw, r_dw), grad_use(dw, r_dw)),
     }
     finite = all(bool(torch.isfinite(x.float()).all()) for x in (loss, lse, dh, dw))
-    log(what, S=h.shape[0], D=h.shape[1], V=w_vd.shape[0], dtype=str(h.dtype), **extra,
+    repeat_same = None
+    if h.dtype == torch.bfloat16:
+        loss2, lse2 = cuda_ce.fused_ce_fwd(h, w_vd, labels)
+        repeat_same = bool(torch.equal(loss, loss2) and torch.equal(lse, lse2))
+    log(what, S=h.shape[0], D=h.shape[1], V=w_vd.shape[0], dtype=str(h.dtype), fwd_route=route, **extra,
         max_abs_err={k: e for k, (e, _) in out.items()}, tol_use={k: u for k, (_, u) in out.items()},
-        finite=finite, launches=ran)
-    if ran != [1, 1, 1] or not finite or not all(u <= 1.0 for _, u in out.values()):
-        raise AssertionError(f"fused CE kernels disagree with their plain versions ({what}): {out}")
+        finite=finite, launches=ran, fwd_repeat_same_bits=repeat_same)
+    if ran != [1, 1, 1] or ran_route[route] != 1 or not finite or not all(u <= 1.0 for _, u in out.values()):
+        raise AssertionError(f"fused CE kernels disagree with their plain versions ({what}, {ran_route}): {out}")
+    if route != ("wgmma" if h.dtype == torch.bfloat16 else "fp32"):
+        raise AssertionError(f"{what}: the {h.dtype} forward took route {route}")
+    if repeat_same is False:
+        raise AssertionError(f"{what}: a repeat bf16 forward gave other bits")
     return out
 
 
@@ -495,8 +535,8 @@ def check_ce() -> None:
     from pretraining_llm_tpu_torch.ops.fused_ce import FusedCE
 
     gen = torch.Generator().manual_seed(SEED + 13)
-    for s, d, v, dtype in CE_CASES:
-        ce_compare("check_ce", *ce_inputs(s, d, v, dtype, gen))
+    for s, d, v, dtype, *tail in CE_CASES:
+        ce_compare("check_ce", *ce_inputs(s, d, v, dtype, gen, *tail), tail_labels=bool(tail))
 
     s, d, v = 512, 768, 50257
     h, emb, labels, g = ce_inputs(s, d, v, torch.float32, gen)
@@ -518,49 +558,86 @@ def check_ce() -> None:
         raise AssertionError(f"FusedCE disagrees with autograd through a dense head: {uses}")
 
 
-def paged_state(rng, b, n_blocks, nb, bs, t, lo=0, hi=None):
-    """Fragmented tables with dead tails (zeros); row 0 has seq 0."""
+def paged_state(rng, b, n_blocks, nb, bs, t, lo=0, hi=None, seqs=None):
+    """Fragmented tables with dead tails (zeros); row 0 has seq 0, or each
+    row b has ``seqs[b]``."""
     perm = rng.permutation(np.arange(1, n_blocks)).tolist()
     tables = np.zeros((b, nb), np.int32)
     seq = np.zeros((b,), np.int32)
     for i in range(b):
-        if i == 0:
-            n_pages, s = 1, 0
+        if seqs is not None:
+            s = seqs[i]
+        elif i == 0:
+            s = 0
         else:
             s = int(rng.integers(lo, (hi if hi is not None else nb * bs - t) + 1))
-            n_pages = (s + t - 1) // bs + 1
+        n_pages = (s + t - 1) // bs + 1
         tables[i, :n_pages] = [perm.pop() for _ in range(n_pages)]
         seq[i] = s
     return torch.from_numpy(tables).cuda(), torch.from_numpy(seq).cuda()
 
 
-def check_paged() -> float:
-    from pretraining_llm_tpu_torch.ops import cuda_paged
+PAGED_CASES = [  # (case, B, T, G, Dh, window, dtype, seq_lens or None for drawn ones)
+    ("grid", 8, 1, 12, 64, 0, torch.bfloat16, None), ("grid", 8, 1, 12, 64, 0, torch.float32, None),
+    ("grid", 8, 4, 12, 64, 0, torch.bfloat16, None), ("grid", 8, 4, 12, 64, 0, torch.float32, None),
+    ("grid", 8, 1, 4, 64, 0, torch.bfloat16, None), ("grid", 8, 4, 4, 64, 200, torch.bfloat16, None),
+    ("grid", 8, 1, 12, 64, 200, torch.float32, None), ("grid", 8, 4, 4, 128, 0, torch.bfloat16, None),
+    # The split route's edges: seq 0 and seq at a page's last and first slot,
+    # a full table, windows ending on a page edge, more partitions than
+    # live pages (one row: 16 partitions of one entry), GQA at Dh 128.
+    ("page_edges", 8, 1, 12, 64, 0, torch.bfloat16, [0, 63, 64, 127, 128, 1, 62, 65]),
+    ("page_edges", 8, 1, 12, 64, 0, torch.float32, [0, 63, 64, 127, 128, 1, 62, 65]),
+    ("page_edges_t4", 8, 4, 12, 64, 0, torch.bfloat16, [0, 60, 61, 63, 64, 124, 125, 128]),
+    ("full_table", 8, 1, 12, 64, 0, torch.bfloat16, [1023] * 4 + [1022, 960, 959, 1000]),
+    ("full_table_t4", 8, 4, 4, 128, 0, torch.bfloat16, [1020] * 4 + [1019, 957, 956, 1000]),
+    ("window_page_edge", 8, 1, 12, 64, 128, torch.bfloat16, [255, 191, 319, 128, 127, 64, 1000, 511]),
+    ("window_page_edge_t4", 8, 4, 4, 64, 64, torch.float32, [252, 188, 316, 125, 124, 61, 1000, 508]),
+    ("more_partitions_than_pages", 1, 1, 12, 64, 0, torch.bfloat16, [70]),
+    ("more_partitions_than_pages", 2, 1, 4, 128, 0, torch.bfloat16, [5, 700]),
+    ("gqa_dh128", 8, 1, 4, 128, 0, torch.bfloat16, None), ("gqa_dh128", 8, 1, 4, 128, 0, torch.float32, None),
+    # Shapes outside the split route's rule: the loop kernel.
+    ("loop_dh32", 8, 1, 12, 32, 0, torch.bfloat16, None), ("loop_rows_24", 8, 8, 4, 64, 0, torch.bfloat16, None),
+]
 
+
+def check_paged() -> float:
+    """K2 against its plain version at PAGED_CASES (H 12, 64-slot pages,
+    16-entry tables): each case logs the route ``paged_route`` gives it and
+    asserts that the launch took it; every split-route case launches twice
+    and must give the same bits (its partials merge in partition order)."""
+    from pretraining_llm_tpu_torch.ops import _build, cuda_paged
+
+    f = cuda_paged.paged_decode_attention
     gen = torch.Generator().manual_seed(SEED + 1)
     rng = np.random.default_rng(SEED + 1)
-    b, h, bs, nb, n_blocks = 8, 12, 64, 16, 160
-    cases = [  # (T, G, Dh, window, dtype)
-        (1, 12, 64, 0, torch.bfloat16), (1, 12, 64, 0, torch.float32),
-        (4, 12, 64, 0, torch.bfloat16), (4, 12, 64, 0, torch.float32),
-        (1, 4, 64, 0, torch.bfloat16), (4, 4, 64, 200, torch.bfloat16),
-        (1, 12, 64, 200, torch.float32), (4, 4, 128, 0, torch.bfloat16),
-    ]
+    h, bs, nb, n_blocks = 12, 64, 16, 160
     worst = 0.0
-    for t, g, d, window, dtype in cases:
+    for case, b, t, g, d, window, dtype, seqs in PAGED_CASES:
         q = randn((b, t, h, d) if t > 1 else (b, h, d), dtype, gen)
         kp = randn((n_blocks, bs, g, d), dtype, gen)
         vp = randn((n_blocks, bs, g, d), dtype, gen)
-        tables, seq = paged_state(rng, b, n_blocks, nb, bs, t)
-        out = cuda_paged.paged_decode_attention(q, kp, vp, tables, seq, window=window)
+        tables, seq = paged_state(rng, b, n_blocks, nb, bs, t, seqs=seqs)
+        route = cuda_paged.paged_route(dtype, d, bs, (h // g) * t)
+        before = dict(f.launches_by_route)
+        out = f(q, kp, vp, tables, seq, window=window)
+        repeat_same = None
+        if route == "split":
+            repeat_same = bool(torch.equal(out, f(q, kp, vp, tables, seq, window=window)))
+        ran = {r: f.launches_by_route[r] - before[r] for r in before}
         ref = cuda_paged.paged_decode_attention_reference(q, kp, vp, tables, seq, window=window)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         use = tol_use(out, ref)
-        log("check_paged", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
-            max_abs_err=err, tol_use=use, seq_lens=seq.tolist())
+        parts = (cuda_paged._kv_partitions(b, g, nb, _build.sm_count(torch.cuda.current_device()))
+                 if route == "split" else None)
+        log("check_paged", case=case, route=route, partitions=parts, B=b, H=h, G=g, T=t, Dh=d, window=window,
+            dtype=str(dtype), max_abs_err=err, tol_use=use, repeat_same_bits=repeat_same, seq_lens=seq.tolist())
+        if ran[route] != (2 if route == "split" else 1) or sum(ran.values()) != ran[route]:
+            raise AssertionError(f"paged case {case} ran {ran}, not the {route} kernel")
         if not (use <= 1.0):
             raise AssertionError(f"paged kernel disagrees with its plain version: {use} x its limit")
+        if repeat_same is False:
+            raise AssertionError(f"paged case {case}: a repeat launch gave other bits")
         worst = max(worst, err)
     return worst
 
@@ -913,7 +990,14 @@ def run_main_path():
         raise AssertionError(f"main path did not run through both kernels: {launches}")
     if launches["flash_fwd_tc"] != launches["flash_fwd"]:
         raise AssertionError(f"main path (bf16) ran the flash forward off the tensor-core route: {launches}")
+    _assert_paged_split("main path", launches)
     return launches, eng.prefill_shapes
+
+
+def _assert_paged_split(name: str, launches: dict) -> None:
+    """Every paged decode launch of a serving path took the split route."""
+    if launches["paged_loop"] != 0 or launches["paged_split"] != launches["paged_decode"]:
+        raise AssertionError(f"{name}: a paged decode launch did not take the split route: {launches}")
 
 
 def shared_prefix_requests(vocab_size: int):
@@ -930,6 +1014,7 @@ def kernel_counts() -> dict:
 
     return {
         "fused_ce_fwd": cuda_ce.fused_ce_fwd.launches,
+        **{f"fused_ce_fwd_{route}": n for route, n in cuda_ce.fused_ce_fwd.launches_by_route.items()},
         "fused_ce_dh": cuda_ce.fused_ce_dh.launches,
         "fused_ce_dw": cuda_ce.fused_ce_dw.launches,
         "flash_fwd": cuda_flash.flash_attention_fwd.launches,
@@ -938,6 +1023,7 @@ def kernel_counts() -> dict:
         **{f"flash_bwd_{name}{route}": getattr(getattr(cuda_flash, f"flash_bwd_{name}"), f"launches{route}")
            for name in ("fused", "dq", "dkv") for route in ("", "_tc", "_fp32")},
         "paged_decode": cuda_paged.paged_decode_attention.launches,
+        **{f"paged_{route}": n for route, n in cuda_paged.paged_decode_attention.launches_by_route.items()},
         "ragged": cuda_ragged.ragged_paged_attention.launches,
         "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
         **{f"ragged_{route}": n for route, n in cuda_ragged.ragged_paged_attention.launches_by_route.items()},
@@ -957,6 +1043,8 @@ def reset_kernel_counts() -> None:
         routed.launches_tc = routed.launches_fp32 = 0
     cuda_ragged.ragged_paged_attention.split_launches = 0
     cuda_ragged.ragged_paged_attention.launches_by_route = dict.fromkeys(cuda_ragged.ROUTES, 0)
+    cuda_paged.paged_decode_attention.launches_by_route = dict.fromkeys(cuda_paged.ROUTES, 0)
+    cuda_ce.fused_ce_fwd.launches_by_route = dict.fromkeys(cuda_ce.ROUTES, 0)
 
 
 def serving_path(name: str, *, arrivals_per_step: int = 0, **engine_kw):
@@ -1036,6 +1124,7 @@ def run_path2():
     if launches["ragged"] <= 0 or launches["paged_decode"] <= 0:
         raise AssertionError(f"path2 did not run through the ragged and paged kernels: {launches}")
     _assert_ragged_tensor_cores("path2", launches)
+    _assert_paged_split("path2", launches)
     return launches, eng
 
 
@@ -1400,7 +1489,8 @@ def run_train_path3() -> dict:
     held = trajectory.same_state(cfg, n_steps, DEVICE, ["fused_flash"])
     _free_card()
     model = cfg.model
-    want = {"fused_ce_fwd": steps, "fused_ce_dh": steps, "fused_ce_dw": steps,
+    want = {"fused_ce_fwd": steps, "fused_ce_fwd_wgmma": steps, "fused_ce_fwd_fp32": 0,
+            "fused_ce_dh": steps, "fused_ce_dw": steps,
             "flash_fwd": model.n_layers * steps, "flash_fwd_tc": model.n_layers * steps, "flash_fwd_fp32": 0,
             "flash_bwd_fused": model.n_layers * steps, "flash_bwd_fused_tc": model.n_layers * steps,
             "flash_bwd_fused_fp32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -1544,7 +1634,14 @@ def time_kernels(launches, prefill_shapes, errs):
     tables, seq = tables[1:].contiguous(), seq[1:].contiguous()  # drop the seq-0 row
     q = randn((b, h, d), dt, gen)
     kp, vp = randn((n_blocks, bs, g, d), dt, gen), randn((n_blocks, bs, g, d), dt, gen)
-    k_ms = time_ms(lambda: cuda_paged.paged_decode_attention(q, kp, vp, tables, seq), flush=flush)
+    call = lambda: cuda_paged.paged_decode_attention(q, kp, vp, tables, seq)  # noqa: E731
+    if cuda_paged.paged_route(dt, d, bs, h // g) != "split":
+        raise AssertionError("paged_decode: the timed shape does not take the split route")
+    k_ms = time_ms(call, flush=flush)
+    k_dev = time_ms(call, flush=flush, device_only=True)
+    with _forced(cuda_paged, "paged_route", "loop"):
+        was_ms = time_ms(call, flush=flush)
+        was_dev = time_ms(call, flush=flush, device_only=True)
     p_ms = time_ms(lambda: cuda_paged.paged_decode_attention_reference(q, kp, vp, tables, seq),
                    flush=flush)
     kv_len = nb * bs
@@ -1556,36 +1653,77 @@ def time_kernels(launches, prefill_shapes, errs):
     live_slots = (seq.long() + 1).sum().item()
     flops = 4.0 * h * live_slots * d  # QK and PV over each row's visible slots
     nbytes = live_pages * bs * g * d * 2 * 2 + 2 * b * h * d * 2 + b * nb * 4 + b * 4
+    parts = cuda_paged._kv_partitions(b, g, nb, torch.cuda.get_device_properties(0).multi_processor_count)
     kernels.append(dict(
-        name="paged_decode", route="cuda", mma="none (fp32 CUDA cores)", source="pretraining_llm_tpu_torch/csrc/paged_decode.cu",
+        name="paged_decode", route="cuda", mma="none (fp32 CUDA cores, cp.async page rings)",
+        source="pretraining_llm_tpu_torch/csrc/paged_decode.cu (paged_split_kernel)",
         replaces="pretraining_llm_tpu/ops/pallas_paged.py:48",
         shape=f"B={b} H={h} G={g} T=1 Dh={d} bs={bs} nb={nb} bf16 seq_lens={seq.tolist()}",
-        launches=launches["paged_decode"], flops=flops, bytes=nbytes, **_bound(flops, nbytes),
-        max_abs_err=errs["paged_decode"], ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+        partitions=parts, launches=launches["paged_split"],
+        launches_by_route={r: launches[f"paged_{r}"] for r in cuda_paged.ROUTES},
+        flops=flops, bytes=nbytes, **_bound(flops, nbytes),
+        max_abs_err=errs["paged_decode"], ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
+        was_ms=was_ms, was_device_ms=was_dev,
+        was_source="pretraining_llm_tpu_torch/csrc/paged_decode.cu (paged_decode_kernel, route loop, same inputs, "
+                   "this run)",
         library_note="SDPA over the pre-gathered KV with a boolean mask (gather not timed)",
     ))
+
+    def with_partitions(n):  # the split kernel with n partitions of ceil(nb / n) table entries
+        per = -(-nb // n)
+        with _forced(cuda_paged, "_kv_partitions", (-(-nb // per), per)):
+            return call()
+
+    split_sweep("paged_split_sweep", f"path 1 decode step: {kernels[-1]['shape']}", "partitions",
+                (1, 2, 4, 8, 16), with_partitions, flush)
     for kern in kernels:
         kern["kernel_ms"] = kern["ms"]
         kern["max_err"] = kern["max_abs_err"]
     return kernels
 
 
-class _cuda_core_route:
-    """Within the block, every ragged call takes the CUDA-core kernel
-    (``csrc/ragged_paged.cu``, the kernel bf16 calls ran before the
-    tensor-core route): the "was" times of ``time_ragged``, measured in the
-    same run."""
+class _forced:
+    """Within the block, ``module.name`` (a route rule or a partition plan)
+    returns ``value`` whatever its arguments: a kernel's earlier route (the
+    "was" times of the kernels line) or another partition count, timed on
+    the same inputs in the same run."""
+
+    def __init__(self, module, name: str, value):
+        self.module, self.name, self.value = module, name, value
 
     def __enter__(self):
-        from pretraining_llm_tpu_torch.ops import cuda_ragged
-
-        self._route = cuda_ragged.ragged_route
-        cuda_ragged.ragged_route = lambda *args, **kw: "fp32"
+        self._fn = getattr(self.module, self.name)
+        setattr(self.module, self.name, lambda *args, **kw: self.value)
 
     def __exit__(self, *exc):
-        from pretraining_llm_tpu_torch.ops import cuda_ragged
+        setattr(self.module, self.name, self._fn)
 
-        cuda_ragged.ragged_route = self._route
+
+def split_sweep(phase: str, shape: str, key: str, counts, call, flush) -> None:
+    """``call(n)`` at each partition count n of ``counts``, 12 rounds of
+    alternated launches (the counts up, then down), L2 flushed before each:
+    logs the median and range of each count, host work included and device
+    only."""
+    order = tuple(counts) + tuple(reversed(counts))
+    times = {n: {"ms": [], "device_ms": []} for n in counts}
+    for n in order:
+        call(n)
+    torch.cuda.synchronize()
+    for _ in range(12):
+        for n in order:
+            for what in ("ms", "device_ms"):
+                flush()
+                if what == "device_ms":
+                    torch.cuda._sleep(2_000_000)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                call(n)
+                end.record()
+                end.synchronize()
+                times[n][what].append(start.elapsed_time(end))
+    log(phase, shape=shape, launches_per_count=24, **{
+        f"{key}_{n}": {what: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+                       for what, v in times[n].items()} for n in counts})
 
 
 def time_ragged(paths, eng2, errs):
@@ -1645,7 +1783,7 @@ def time_ragged(paths, eng2, errs):
             raise AssertionError(f"{name}: the timed shape does not take the tensor-core kernel")
         k_ms = time_ms(call, flush=flush)
         k_dev = time_ms(call, flush=flush, device_only=True)
-        with _cuda_core_route():
+        with _forced(cuda_ragged, "ragged_route", "fp32"):
             was_ms = time_ms(call, flush=flush)
             was_dev = time_ms(call, flush=flush, device_only=True)
         p_ms = time_ms(lambda: cuda_ragged.ragged_gather_attention(q, kp, vp, tables, seq, ql, **kw),
@@ -1671,31 +1809,6 @@ def time_ragged(paths, eng2, errs):
                          "(gather and dequant not timed)", **extra,
         ))
 
-    def sweep(shape_name, call):
-        """One pass against 2 and 4 partitions, 12 rounds of alternated
-        launches (1, 2, 4, 4, 2, 1), L2 flushed before each: the median
-        and range of each count, host work included and device only."""
-        order = (1, 2, 4, 4, 2, 1)
-        times = {n: {"ms": [], "device_ms": []} for n in order}
-        for n in order:
-            call(n)
-        torch.cuda.synchronize()
-        for _ in range(12):
-            for n in order:
-                for key in ("ms", "device_ms"):
-                    flush()
-                    if key == "device_ms":
-                        torch.cuda._sleep(2_000_000)
-                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    call(n)
-                    end.record()
-                    end.synchronize()
-                    times[n][key].append(start.elapsed_time(end))
-        log("ragged_split_sweep", shape=shape_name, launches_per_count=24, **{
-            f"splits_{n}": {key: {"median": statistics.median(v), "min": min(v), "max": max(v)}
-                            for key, v in times[n].items()} for n in (1, 2, 4)})
-
     # Path 2's largest chunk launch: its rows' offsets and chunk lengths, T
     # pinned to the chunk size, fresh pages per row.
     offsets, lens, t = max(eng2.suffix_shapes, key=lambda s: (sum(s[1]), len(s[1])))
@@ -1709,7 +1822,8 @@ def time_ragged(paths, eng2, errs):
     auto = cuda_ragged._auto_kv_splits(nb, b)
     entry("ragged_split", shape, q, kp, vp, tables, seq, ql, t, p2["ragged_split"] + p3["ragged_split"],
           auto, {"path2": p2["ragged_split"], "path3": p3["ragged_split"]})
-    sweep(f"path 2 chunk: {shape}", lambda n: f(q, kp, vp, tables, seq, ql, kv_splits=n))
+    split_sweep("ragged_split_sweep", f"path 2 chunk: {shape}", "splits", (1, 2, 4),
+                lambda n: f(q, kp, vp, tables, seq, ql, kv_splits=n), flush)
 
     # A path 3 decode step: 8 rows, q_len 1, lengths drawn like path 3's
     # (prompts 401-784 plus up to 63 generated), int8 pools, bf16 scales.
@@ -1723,8 +1837,8 @@ def time_ragged(paths, eng2, errs):
     entry("ragged_int8", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, by_path, ks=ks, vs=vs)
     entry("ragged_int8_amla", shape, q, kp, vp, tables, seq, ql, t, p3["ragged"], 1, by_path, amla=True,
           ks=ks, vs=vs, launches_note="one-pass launches on path 3, which runs the classic form")
-    sweep(f"path 3 decode: {shape}",
-          lambda n: f(q, kp, vp, tables, seq, ql, kv_splits=n, k_scale=ks, v_scale=vs))
+    split_sweep("ragged_split_sweep", f"path 3 decode: {shape}", "splits", (1, 2, 4),
+                lambda n: f(q, kp, vp, tables, seq, ql, kv_splits=n, k_scale=ks, v_scale=vs), flush)
     for kern in kernels:
         kern["kernel_ms"] = kern["ms"]
         kern["max_err"] = kern["max_abs_err"]
@@ -2010,14 +2124,30 @@ def time_ce_kernels(paths):
          operand_bytes + 2 * s * 4 + v * d * 2, f"composite: {mm_name} logits, p~ elementwise to bf16, p~^T @ h"),
     ):
         f = flops * products
+        fwd = name == "fused_ce_fwd"
+        extra = {}
+        if fwd:  # B9's redesign: fused_ce.cu's mma.sync kernel on the same inputs, this run
+            if cuda_ce.ce_route(dt) != "wgmma":
+                raise AssertionError("fused_ce_fwd: the timed shape does not take the tensor-core route")
+            with _forced(cuda_ce, "ce_route", "fp32"):
+                extra = dict(was_ms=time_ms(fn, n=10, warmup=2, flush=flush),
+                             was_device_ms=time_ms(fn, n=10, warmup=2, flush=flush, device_only=True),
+                             was_source="pretraining_llm_tpu_torch/csrc/fused_ce.cu (ce_kernel<bf16, D, FWD>, "
+                                        "mma.sync, same inputs, this run)")
+            extra["partitions"] = cuda_ce.ce_partitions(s, v, torch.cuda.get_device_properties(0).multi_processor_count)
+            extra["launches_by_route"] = {r: paths["T3"][f"fused_ce_fwd_{r}"] for r in cuda_ce.ROUTES}
         kernels.append(dict(
-            name=name, route="cuda", mma="mma.sync", source="pretraining_llm_tpu_torch/csrc/fused_ce.cu",
+            name=name, route="cuda", mma="wgmma" if fwd else "mma.sync",
+            source="pretraining_llm_tpu_torch/csrc/" + ("fused_ce_tc.cu" if fwd else "fused_ce.cu"),
             replaces=f"pretraining_llm_tpu/ops/pallas_ce.py:{line}", shape=shape,
-            launches=paths["T3"][name], launches_by_path={p: n[name] for p, n in paths.items()},
+            launches=paths["T3"]["fused_ce_fwd_wgmma" if fwd else name],
+            launches_by_path={p: n[name] for p, n in paths.items()},
             flops=f, bytes=nbytes, **_bound(f, nbytes), max_abs_err=errs[name][0], tol_use=errs[name][1],
-            ms=time_ms(fn, n=10, warmup=2, flush=flush), plain_ms=time_ms(plain, n=3, warmup=1, flush=flush),
+            ms=time_ms(fn, n=10, warmup=2, flush=flush),
+            device_ms=time_ms(fn, n=10, warmup=2, flush=flush, device_only=True),
+            plain_ms=time_ms(plain, n=3, warmup=1, flush=flush),
             library_ms=time_ms(lib, n=10, warmup=2, flush=flush), library_note=note,
-            plain_note="walks the JAX tiles: 393 vocabulary tiles of 128 (pallas_ce._tiles)",
+            plain_note="walks the JAX tiles: 393 vocabulary tiles of 128 (pallas_ce._tiles)", **extra,
         ))
         kernels[-1]["kernel_ms"], kernels[-1]["max_err"] = kernels[-1]["ms"], kernels[-1]["max_abs_err"]
         _free_card()

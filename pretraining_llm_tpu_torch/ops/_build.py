@@ -14,6 +14,9 @@ tensor-core kernels build TMA tensor maps with the driver's
 Every pointer argument is declared ``c_void_p`` (a bare Python int would
 be cut to 32 bits), the stream is PyTorch's current stream, and each C
 entry returns ``cudaGetLastError()``; ``check`` raises when it is not 0.
+``counters`` hands the kernels that merge partials across blocks (the
+paged decode split route, the fused CE forward on the tensor cores) their
+arrival counters.
 """
 
 from __future__ import annotations
@@ -29,12 +32,14 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
-    "flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "paged_decode", "ragged_paged",
-    "ragged_paged_tc",
+    "flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "fused_ce_tc", "paged_decode",
+    "ragged_paged", "ragged_paged_tc",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -113,6 +118,29 @@ def load(name: str, symbol: str, argtypes: Tuple) -> ctypes._CFuncPtr:
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 arrival counters on ``device`` for kernels
+    launched on ``stream``, all 0. A kernel that takes tickets from them
+    sets each back to 0 before it ends, so they are 0 at every launch and
+    are kept (per device and stream; stream order keeps launches apart)
+    rather than zeroed by a launch of their own each call."""
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def check(rc: int, what: str) -> None:

@@ -1,5 +1,5 @@
-"""Fused cross-entropy: the CUDA kernels ``csrc/fused_ce.cu`` (forward,
-dH and dW) and their dispatch.
+"""Fused cross-entropy: the CUDA kernels ``csrc/fused_ce_tc.cu`` (the bf16
+forward) and ``csrc/fused_ce.cu`` (forward, dH and dW) and their dispatch.
 
 Counterpart of the three kernels of ``pretraining_llm_tpu/ops/pallas_ce.py``.
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
@@ -7,6 +7,13 @@ Each wrapper launches its kernel for CUDA tensors and runs the plain version
 the other. W is taken as (V, D) row-major, as the kernels read it: for the
 tied head that is the embedding itself, with no copy. ``.launches`` on
 each wrapper counts kernel launches.
+
+The forward has two routes, chosen by dtype before launch (``ce_route``):
+bf16 runs ``csrc/fused_ce_tc.cu`` (``"wgmma"``: TMA ring, wgmma, the
+vocabulary cut into ``ce_partitions`` partitions merged by the last block
+of each token tile), fp32 runs ``ce_kernel<float, D, FWD>`` of
+``csrc/fused_ce.cu`` (``"fp32"``), because wgmma's fp32 form is TF32 and
+would miss the fp32 bars. ``fused_ce_fwd.launches_by_route`` counts both.
 """
 
 from __future__ import annotations
@@ -26,10 +33,52 @@ from pretraining_llm_tpu_torch.ops.ce_reference import (
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Widths the kernels are built for (csrc/fused_ce.cu, ``dispatch``): a
 # block keeps 32 rows and a whole walked tile of D columns in shared memory.
+# The gate of all three wrappers: the bf16 forward (fused_ce_tc.cu) streams
+# D and would take any multiple of 64, but dH and dW do not, and a width
+# they refuse should fail at the forward, not in the backward.
 HIDDEN_DIMS = {torch.bfloat16: (64, 128, 256, 512, 768, 1024), torch.float32: (64, 128, 256, 512, 768)}
+ROUTES = ("wgmma", "fp32")
+TC_BM, TC_BN, TC_BK, TC_STAGES = 128, 256, 64, 4  # csrc/fused_ce_tc.cu's tile, slice and ring
+MAX_PARTITIONS = 16
 # (h, w, labels, <lse, g,> <outputs>, S, V, D, dtype, stream)
 _FWD_ARGTYPES = tuple([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _BWD_ARGTYPES = tuple([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# (h, w, labels, loss, lse, part, counters, S, V, D, parts, tiles_per_part, stream)
+_TC_ARGTYPES = tuple([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def ce_route(dtype: torch.dtype) -> str:
+    """The forward kernel a CUDA call takes: ``"wgmma"``
+    (``csrc/fused_ce_tc.cu``) for bfloat16, ``"fp32"`` (``csrc/fused_ce.cu``)
+    for float32. Raises for other dtypes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the fused CE kernels take float32 or bfloat16, got {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "fp32"
+
+
+def ce_partitions(s: int, v: int, sm_count: int) -> Tuple[int, int]:
+    """(partitions, vocabulary tiles per partition) of the tensor-core
+    forward: of P = 1..MAX_PARTITIONS, the one whose grid of ceil(S / 128)
+    x P one-block-per-SM blocks needs the fewest block waves times tiles
+    per block (the smallest P on a tie), then no partition left empty."""
+    n_st, n_vt = -(-s // TC_BM), -(-v // TC_BN)
+    best = None
+    for p in range(1, min(MAX_PARTITIONS, n_vt) + 1):
+        per = -(-n_vt // p)
+        cost = -(-(n_st * p) // sm_count) * per
+        if best is None or cost < best[0]:
+            best = (cost, per)
+    per = best[1]
+    return -(-n_vt // per), per
+
+
+def tc_smem_bytes() -> int:
+    """Shared memory one block of ``csrc/fused_ce_tc.cu`` uses (must match
+    its ``Smem``): a ring of TC_STAGES slices of h (128 rows) and W (256
+    rows) of 64 columns, the barriers, the last-block flag and room to
+    align the base."""
+    stage = TC_BM * TC_BK * 2 + TC_BN * TC_BK * 2
+    return TC_STAGES * stage + 2 * TC_STAGES * 8 + 16 + 1024
 
 
 def _check(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, *rows: torch.Tensor) -> None:
@@ -67,19 +116,32 @@ def fused_ce_fwd(
     h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel (``pallas_ce._fwd_kernel``): h (S, D), w_vd (V, D),
-    labels (S,) -> (loss (S,) fp32, lse (S,) fp32)."""
+    labels (S,) -> (loss (S,) fp32, lse (S,) fp32), through the kernel
+    ``ce_route`` picks."""
     _check("fused_ce_fwd", h, w_vd, labels)
     if h.device.type == "cpu":
         return fused_ce_fwd_reference(h, w_vd.t(), labels)
     _check_cuda("fused_ce_fwd", h, w_vd, labels)
     s, d = h.shape
+    v = w_vd.shape[0]
     loss = torch.empty((s,), dtype=torch.float32, device=h.device)
     lse = torch.empty((s,), dtype=torch.float32, device=h.device)
-    fn = _build.load("fused_ce", "pllm_ce_fwd", _FWD_ARGTYPES)
-    rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
-            s, w_vd.shape[0], d, _DTYPE_CODES[h.dtype], _stream(h))
-    _build.check(rc, "fused_ce_fwd")
+    stream = _stream(h)
+    route = ce_route(h.dtype)
+    if route == "wgmma":
+        parts, per = ce_partitions(s, v, _build.sm_count(h.device.index))
+        part = torch.empty(3 * parts * s if parts > 1 else 0, dtype=torch.float32, device=h.device)
+        counters = _build.counters(h.device, stream, -(-s // TC_BM))
+        fn = _build.load("fused_ce_tc", "pllm_ce_fwd_tc", _TC_ARGTYPES)
+        rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+                part.data_ptr(), counters.data_ptr(), s, v, d, parts, per, stream)
+    else:
+        fn = _build.load("fused_ce", "pllm_ce_fwd", _FWD_ARGTYPES)
+        rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), loss.data_ptr(), lse.data_ptr(),
+                s, v, d, _DTYPE_CODES[h.dtype], stream)
+    _build.check(rc, f"fused_ce_fwd ({route})")
     fused_ce_fwd.launches += 1
+    fused_ce_fwd.launches_by_route[route] += 1
     return loss, lse
 
 
@@ -121,5 +183,6 @@ def fused_ce_dw(
 
 
 fused_ce_fwd.launches = 0
+fused_ce_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 fused_ce_dh.launches = 0
 fused_ce_dw.launches = 0

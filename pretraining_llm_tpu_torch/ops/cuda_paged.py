@@ -1,5 +1,5 @@
-"""Paged decode attention: the CUDA kernel ``csrc/paged_decode.cu`` (K2) and
-its plain PyTorch version.
+"""Paged decode attention: the CUDA kernels of ``csrc/paged_decode.cu`` (K2)
+and their plain PyTorch version.
 
 Counterpart of ``pretraining_llm_tpu/ops/pallas_paged.py::
 paged_decode_attention``: attention over each row's pages of the block pool
@@ -8,11 +8,21 @@ queries per row; query t sits at slot seq + t and sees slots <= seq + t
 (and > seq + t - window). The plain version is the model's gather lane —
 ``pool[tables]`` plus a masked softmax — so on the CPU both lanes of
 ``paged_attention_impl`` compute the same thing.
+
+Two kernels, chosen by shape before launch (``paged_route``): Dh 64 or 128
+with 64-slot pages and at most 16 query rows per KV head (n_rep * T) run
+the split page stream (``"split"``: each row's table cut into
+``_kv_partitions`` partitions, one block each, cp.async page rings, the
+partials merged in partition order by the last block of each (row, KV
+head) inside the same launch); every other shape runs the one-block-per-
+(row, KV head) loop (``"loop"``). A failure raises; no route stands in for
+another.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -26,12 +36,63 @@ _ARGTYPES = tuple(
     + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
+# (q, k_pool, v_pool, tables, seq_lens, out, part_acc, part_ml, counters,
+#  B, H, G, T, D, bs, nb, window, parts, nb_split, scale, dtype, stream)
+_SPLIT_ARGTYPES = tuple(
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 10
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)
+ROUTES = ("split", "loop")
+SPLIT_HEAD_DIMS = (64, 128)
+SPLIT_BLOCK_SIZE = 64
+SPLIT_MAX_ROWS = 16
+SPLIT_THREADS = 128
+SPLIT_RING_BUDGET = 96 * 1024
+BLOCKS_PER_SM = 2  # the split route's grid holds at least this many blocks per SM
+
+
+def paged_route(dtype: torch.dtype, head_dim: int, block_size: int, rows: int) -> str:
+    """The kernel that a CUDA call takes: ``"split"`` (the split page
+    stream) for float32 or bfloat16 at Dh 64 or 128, 64-slot pages and at
+    most 16 query rows per KV head (``rows`` = n_rep * T); ``"loop"`` (one
+    block per row and KV head) for every other shape. Raises for dtypes
+    that neither kernel takes."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged_decode_attention takes float32 or bfloat16, got {dtype}")
+    fits = head_dim in SPLIT_HEAD_DIMS and block_size == SPLIT_BLOCK_SIZE and rows <= SPLIT_MAX_ROWS
+    return "split" if fits else "loop"
+
+
+def _kv_partitions(b: int, g: int, nb: int, sm_count: int) -> Tuple[int, int]:
+    """(partitions, table entries per partition) of the split route, from
+    shapes the host knows (never from seq_lens, which lie on the card): the
+    smallest power of two of partitions that gives the grid of B x G x
+    partitions blocks BLOCKS_PER_SM blocks per SM, at most one partition
+    per table entry, then no partition left without an entry."""
+    parts = 1
+    while b * g * parts < BLOCKS_PER_SM * sm_count and parts < nb:
+        parts *= 2
+    per = -(-nb // min(parts, nb))
+    return -(-nb // per), per
+
+
+def split_smem_bytes(elem_bytes: int, d: int, rows: int) -> int:
+    """Shared memory one split block uses (must match ``SplitSmem`` in the
+    source) for up to ``rows`` query rows: a ring of 2-4 pages (K and V of
+    one head), which then holds the slot groups' sums, q in fp32, two
+    score buffers, m, l and two alpha columns, and the last-block flag."""
+    ng = SPLIT_THREADS // (d * elem_bytes // 16)
+    stage = 2 * SPLIT_BLOCK_SIZE * d * elem_bytes
+    stages = 4 if 4 * stage <= SPLIT_RING_BUDGET else (3 if 3 * stage <= SPLIT_RING_BUDGET else 2)
+    area = max(stages * stage, ng * rows * d * 4)
+    return area + rows * d * 4 + 2 * rows * SPLIT_BLOCK_SIZE * 4 + 4 * rows * 4 + 16
 
 
 def smem_bytes(rows: int, d: int, bs: int) -> int:
-    """Shared memory one K2 block uses (must match ``smem_bytes`` in the
-    source): q rows, a padded K page, a V page, the score panel, the
-    accumulator and three per-row stats, all fp32."""
+    """Shared memory one block of the loop route uses (must match
+    ``smem_bytes`` in the source): q rows, a padded K page, a V page, the
+    score panel, the accumulator and three per-row stats, all fp32."""
     return 4 * (rows * d + bs * (d + 1) + bs * d + rows * bs + rows * d + 3 * rows)
 
 
@@ -74,8 +135,10 @@ def paged_decode_attention(
     q: torch.Tensor, k_pool: torch.Tensor, v_pool: torch.Tensor,
     block_tables: torch.Tensor, seq_lens: torch.Tensor, *, window: int = 0,
 ) -> torch.Tensor:
-    """K2 for CUDA tensors, the plain version for CPU tensors. Returns q's
-    shape. ``paged_decode_attention.launches`` counts kernel launches."""
+    """K2 for CUDA tensors (the kernel ``paged_route`` picks), the plain
+    version for CPU tensors. Returns q's shape.
+    ``paged_decode_attention.launches`` counts kernel launches and
+    ``paged_decode_attention.launches_by_route`` the launches per route."""
     multi = q.ndim == 4
     if not multi and q.ndim != 3:
         raise ValueError(f"q must be (B, H, Dh) or (B, T, H, Dh), got {tuple(q.shape)}")
@@ -108,23 +171,44 @@ def paged_decode_attention(
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged_decode_attention: every operand must be contiguous")
     bs, nb = k_pool.shape[1], block_tables.shape[1]
-    need = smem_bytes((h // g) * t, d, bs)
-    if need > MAX_SMEM_BYTES:
+    rows = (h // g) * t
+    route = paged_route(q.dtype, d, bs, rows)
+    if route == "loop" and (need := smem_bytes(rows, d, bs)) > MAX_SMEM_BYTES:
         raise ValueError(
             f"paged_decode_attention: {h // g} heads x {t} queries x Dh {d} x "
             f"block {bs} needs {need} bytes of shared memory (> {MAX_SMEM_BYTES})"
         )
     out = torch.empty_like(q)
-    lib = _build.load("paged_decode", "pllm_paged_decode", _ARGTYPES)
-    rc = lib(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        b, h, g, t, d, bs, nb, int(window), 1.0 / d**0.5,
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(rc, "paged_decode")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "split":
+        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+            raise ValueError("paged_decode_attention: the pools must start on a 16-byte boundary")
+        parts, per = _kv_partitions(b, g, nb, _build.sm_count(q.device.index))
+        # fp32 partials: acc (B, G, parts, rows, D), then (m, l) per row;
+        # read only with several partitions
+        n_acc = b * g * parts * rows * d if parts > 1 else 0
+        part = torch.empty(n_acc + n_acc // d * 2, dtype=torch.float32, device=q.device)
+        counters = _build.counters(q.device, stream, b * g)
+        lib = _build.load("paged_decode", "pllm_paged_decode_split", _SPLIT_ARGTYPES)
+        rc = lib(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+            seq_lens.data_ptr(), out.data_ptr(), part.data_ptr(), part[n_acc:].data_ptr(),
+            counters.data_ptr(), b, h, g, t, d, bs, nb, int(window), parts, per, 1.0 / d**0.5,
+            _DTYPE_CODES[q.dtype], stream,
+        )
+    else:
+        lib = _build.load("paged_decode", "pllm_paged_decode", _ARGTYPES)
+        rc = lib(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            b, h, g, t, d, bs, nb, int(window), 1.0 / d**0.5,
+            _DTYPE_CODES[q.dtype], stream,
+        )
+    _build.check(rc, f"paged_decode ({route})")
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_route[route] += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

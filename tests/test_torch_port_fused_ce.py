@@ -206,6 +206,96 @@ def test_cuda_wrappers_check_their_inputs():
 
 
 # ---------------------------------------------------------------------------
+# The bf16 forward on the tensor cores (csrc/fused_ce_tc.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "fp32")])
+def test_ce_route(dtype, want):
+    assert cuda_ce.ce_route(dtype) == want
+
+
+def test_ce_route_raises_on_other_dtypes():
+    with pytest.raises(TypeError):
+        cuda_ce.ce_route(torch.float16)
+
+
+@pytest.mark.parametrize("s,v", [(12288, 50304), (1000, 50257), (300, 200), (129, 1000), (65536, 128256)])
+def test_ce_partitions_cover_every_vocabulary_tile_once(s, v):
+    """The partitions hold every 256-column tile once and none is empty;
+    T3's head (96 token tiles) fills the 132 SMs in whole waves."""
+    parts, per = cuda_ce.ce_partitions(s, v, 132)
+    n_vt = -(-v // cuda_ce.TC_BN)
+    assert 1 <= parts <= cuda_ce.MAX_PARTITIONS and (parts - 1) * per < n_vt <= parts * per
+    if (s, v) == (12288, 50304):
+        assert (-(-s // cuda_ce.TC_BM) * parts) % 132 == 0
+
+
+def _b9_model(h, w, labels, parts, per):
+    """The tensor-core forward's arithmetic: fp32 logits of the bf16
+    operands in 256-column tiles, an online (m, l) and the label's logit per
+    partition of ``per`` tiles, the vocabulary tail at NEG_INF, then the
+    partials merged in partition order."""
+    s, v = h.shape[0], w.shape[1]
+    logits = h.float() @ w.float()  # (S, V)
+    bn = cuda_ce.TC_BN
+    n_vt = -(-v // bn)
+    m_p, l_p, gold_p = [], [], []
+    for part in range(parts):
+        m = torch.full((s,), -1e30)
+        l = torch.zeros(s)
+        gold = torch.zeros(s)
+        for vt in range(part * per, min(n_vt, (part + 1) * per)):
+            cols = torch.arange(vt * bn, vt * bn + bn)
+            tile = torch.full((s, bn), -1e30)
+            tile[:, cols < v] = logits[:, vt * bn:min(v, vt * bn + bn)]
+            hit = cols[None, :] == labels.long()[:, None]
+            gold = gold + (tile * hit).sum(1)
+            m_new = torch.maximum(m, tile.amax(1))
+            l = l * torch.exp(m - m_new) + torch.exp(tile - m_new[:, None]).sum(1)
+            m = m_new
+        m_p.append(m), l_p.append(l), gold_p.append(gold)
+    m = torch.stack(m_p).amax(0)
+    l = sum(lp * torch.exp(mp - m) for mp, lp in zip(m_p, l_p))
+    lse = m + torch.log(l)
+    return lse - sum(gold_p), lse
+
+
+@pytest.mark.parametrize("s,d,v,parts", [(200, 64, 600, 1), (200, 64, 600, 2), (200, 64, 600, 3),
+                                         (130, 128, 300, 2)])
+def test_b9_partition_merge_matches_pallas(s, d, v, parts):
+    """The partition merge of the bf16 forward, with token and vocabulary
+    tails, against the Pallas forward in interpret mode: loss and lse
+    within 1e-4 of max(1, |value|), the card's bar."""
+    h, w, labels = _inputs(40 + parts, s=s, d=d, v=v)
+    want_loss, want_lse = (np.asarray(x) for x in _jax_fwd(h, w, labels, dtype="bfloat16"))
+    th = torch.from_numpy(h).bfloat16()
+    tw = torch.from_numpy(w).bfloat16()
+    n_vt = -(-v // cuda_ce.TC_BN)
+    per = -(-n_vt // parts)
+    loss, lse = _b9_model(th, tw, torch.from_numpy(labels), -(-n_vt // per), per)
+    for got, want in ((loss.numpy(), want_loss), (lse.numpy(), want_lse)):
+        assert np.all(np.abs(got - want) <= 1e-4 * np.maximum(1.0, np.abs(want)))
+
+
+def test_tc_kernel_source_and_wrapper_agree_on_shared_memory():
+    """``tc_smem_bytes`` is ``Smem::ALLOC`` of ``csrc/fused_ce_tc.cu``, the
+    tile constants are the source's, and one block fits."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_ce.__file__).parent.parent / "csrc" / "fused_ce_tc.cu").read_text()
+    env = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+           for name in ("BM", "BN", "BK", "STAGES")}
+    assert (env["BM"], env["BN"], env["BK"], env["STAGES"]) == (
+        cuda_ce.TC_BM, cuda_ce.TC_BN, cuda_ce.TC_BK, cuda_ce.TC_STAGES)
+    body = src[src.index("struct Smem {"):]
+    for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", body[:body.index("};")]):
+        env[name] = eval(expr, {}, env)
+    assert env["ALLOC"] == cuda_ce.tc_smem_bytes() <= 232448
+
+
+# ---------------------------------------------------------------------------
 # Through the model
 # ---------------------------------------------------------------------------
 
