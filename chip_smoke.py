@@ -83,8 +83,17 @@ into partitions merged by the last block of each token tile) for bf16
 and ``csrc/fused_ce.cu`` for fp32 (``ce_route``; ``fused_ce_fwd_wgmma`` /
 ``fused_ce_fwd_fp32``): ``check_ce`` asserts the route and a bit-identical
 repeat bf16 forward for every case, and T3 asserts all 20 forward launches
-on the tensor cores. The K2 and B9 entries of the kernels line give the
-earlier kernel's time on the same inputs after "was".
+on the tensor cores. dH and dW (B10, B11) take ``csrc/fused_ce_bwd_tc.cu``
+for bf16 (wgmma fed by a TMA ring, the output in D-chunks, the walked axis
+in partitions merged in order by the last block; ``ce_bwd_plan``) and
+``csrc/fused_ce.cu`` for fp32 (``ce_bwd_route``; ``fused_ce_dh_wgmma`` /
+``_fp32``, the same for dw): ``check_ce`` asserts their routes and
+bit-identical repeat bf16 launches for every case, holds a bf16
+``FusedCE`` at llama3-1b-gqa's head (D 2048, V 32000) against the plain
+versions, and T3 asserts all 20 dH and dW launches on the tensor cores.
+The K2 and B9-B11 entries of the kernels line give the earlier kernel's
+time on the same inputs after "was"; B10 and B11 also give their plan, a
+sweep of chunk widths and partition counts, and ptxas's registers.
 
 It times every kernel beside its plain version, a PyTorch library call and
 its bound, and prints:
@@ -245,6 +254,9 @@ def phase_card() -> str:
     return out
 
 
+PTXAS: dict = {}  # source -> {mangled entry: [ptxas lines]}, from phase_build
+
+
 def phase_build() -> None:
     from pretraining_llm_tpu_torch.ops import _build
 
@@ -257,8 +269,9 @@ def phase_build() -> None:
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else ""
-            elif "registers" in line or "spill" in line:
+            elif any(w in line for w in ("registers", "spill", "warning", "Performance", "C75")):
                 print(f"ptxas[{name}] {entry}: {line.strip()}", flush=True)
+                PTXAS.setdefault(name, {}).setdefault(entry, []).append(line.strip())
 
 
 def check_flash() -> float:
@@ -460,7 +473,16 @@ CE_CASES = [  # (S, D, V, dtype[, labels in the last 256-column tile]): token an
     # one tile, D 1024, labels in the tail tile.
     (300, 64, 200, torch.bfloat16), (1000, 1024, 50257, torch.bfloat16),
     (257, 768, 50257, torch.bfloat16, True), (129, 128, 1000, torch.bfloat16, True),
+    # The bf16 dH and dW edges (fused_ce_bwd_tc.cu: 128-row output tiles and
+    # walked tiles, D-chunks of 128-256 columns, partitions): D 2048 (8
+    # chunks, llama3-1b-gqa's head), D 320 (a last chunk of 64 columns) with
+    # token and vocabulary tails, V under one walked tile, dW in 7
+    # partitions (S 2500); D 1024 above runs dH in 4 partitions, V 50257
+    # and labels in the tail tile at D 768.
+    (300, 2048, 32000, torch.bfloat16), (136, 320, 300, torch.bfloat16, True),
+    (200, 192, 100, torch.bfloat16, True), (2500, 256, 1000, torch.bfloat16),
 ]
+LLAMA_HEAD = (2048, 2048, 32000)  # (S, D, V): one llama3-1b-gqa sequence at its untied head
 
 
 def ce_inputs(s, d, v, dtype, gen, tail_labels=False):
@@ -476,26 +498,31 @@ def ce_inputs(s, d, v, dtype, gen, tail_labels=False):
 
 def ce_compare(what, h, w_vd, labels, g, **extra):
     """The three kernels against their plain versions on the same inputs
-    (the backward both from the plain forward's lse), the forward's route
-    (``ce_route``: bf16 on the tensor cores, fp32 on fused_ce.cu) and, in
-    bf16, a repeat forward with the same bits. Returns {kernel:
-    (max_abs_err, tol_use)} and fails above 1.0 of a limit."""
+    (the backward both from the plain forward's lse), their routes
+    (``ce_route``, ``ce_bwd_route``: bf16 on the tensor cores, fp32 on
+    fused_ce.cu) and, in bf16, a repeat launch of each with the same bits.
+    Returns {kernel: (max_abs_err, tol_use)} and fails above 1.0 of a
+    limit."""
+    from pretraining_llm_tpu_torch.ops import _build
     from pretraining_llm_tpu_torch.ops import ce_reference as ref
     from pretraining_llm_tpu_torch.ops import cuda_ce
 
-    fwd = cuda_ce.fused_ce_fwd
-    route = cuda_ce.ce_route(h.dtype)
-    by_route = dict(fwd.launches_by_route)
-    before = [f.launches for f in (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw)]
+    kernels = (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw)
+    route, bwd_route = cuda_ce.ce_route(h.dtype), cuda_ce.ce_bwd_route(h.dtype)
+    by_route = [dict(f.launches_by_route) for f in kernels]
+    before = [f.launches for f in kernels]
     loss, lse = cuda_ce.fused_ce_fwd(h, w_vd, labels)
-    ran_route = {r: fwd.launches_by_route[r] - by_route[r] for r in by_route}
     r_loss, r_lse = ref.fused_ce_fwd_reference(h, w_vd.t(), labels)
     dh = cuda_ce.fused_ce_dh(h, w_vd, labels, r_lse, g)
     dw = cuda_ce.fused_ce_dw(h, w_vd, labels, r_lse, g)
     r_dh = ref.fused_ce_dh_reference(h, w_vd.t(), labels, r_lse, g)
     r_dw = ref.fused_ce_dw_reference(h, w_vd.t(), labels, r_lse, g).t()
     torch.cuda.synchronize()
-    ran = [f.launches - n for f, n in zip((cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw), before)]
+    ran = [f.launches - n for f, n in zip(kernels, before)]
+    ran_route = [f.launches_by_route[r] - b[r] for f, b, r in zip(kernels, by_route, (route, bwd_route, bwd_route))]
+    (s, d), v = h.shape, w_vd.shape[0]
+    plans = ({kind: cuda_ce.ce_bwd_plan(kind, s, v, d, _build.sm_count(h.device.index)) for kind in ("dh", "dw")}
+             if bwd_route == "wgmma" else None)
 
     def stat_use(x, y):
         return ((x - y).abs() / (CE_LOSS_TOL * y.abs().clamp_min(1.0))).max().item()
@@ -513,30 +540,60 @@ def ce_compare(what, h, w_vd, labels, g, **extra):
     repeat_same = None
     if h.dtype == torch.bfloat16:
         loss2, lse2 = cuda_ce.fused_ce_fwd(h, w_vd, labels)
-        repeat_same = bool(torch.equal(loss, loss2) and torch.equal(lse, lse2))
-    log(what, S=h.shape[0], D=h.shape[1], V=w_vd.shape[0], dtype=str(h.dtype), fwd_route=route, **extra,
+        repeat_same = {"fused_ce_fwd": bool(torch.equal(loss, loss2) and torch.equal(lse, lse2)),
+                       "fused_ce_dh": bool(torch.equal(dh, cuda_ce.fused_ce_dh(h, w_vd, labels, r_lse, g))),
+                       "fused_ce_dw": bool(torch.equal(dw, cuda_ce.fused_ce_dw(h, w_vd, labels, r_lse, g)))}
+    log(what, S=s, D=d, V=v, dtype=str(h.dtype), fwd_route=route, bwd_route=bwd_route, bwd_plans=plans, **extra,
         max_abs_err={k: e for k, (e, _) in out.items()}, tol_use={k: u for k, (_, u) in out.items()},
-        finite=finite, launches=ran, fwd_repeat_same_bits=repeat_same)
-    if ran != [1, 1, 1] or ran_route[route] != 1 or not finite or not all(u <= 1.0 for _, u in out.values()):
+        finite=finite, launches=ran, launches_on_route=ran_route, repeat_same_bits=repeat_same)
+    if ran != [1, 1, 1] or ran_route != [1, 1, 1] or not finite or not all(u <= 1.0 for _, u in out.values()):
         raise AssertionError(f"fused CE kernels disagree with their plain versions ({what}, {ran_route}): {out}")
-    if route != ("wgmma" if h.dtype == torch.bfloat16 else "fp32"):
-        raise AssertionError(f"{what}: the {h.dtype} forward took route {route}")
-    if repeat_same is False:
-        raise AssertionError(f"{what}: a repeat bf16 forward gave other bits")
+    want = "wgmma" if h.dtype == torch.bfloat16 else "fp32"
+    if (route, bwd_route) != (want, want):
+        raise AssertionError(f"{what}: the {h.dtype} kernels took routes {route}, {bwd_route}")
+    if repeat_same is not None and not all(repeat_same.values()):
+        raise AssertionError(f"{what}: a repeat bf16 launch gave other bits: {repeat_same}")
     return out
 
 
 def check_ce() -> None:
     """The fused CE kernels (B9 forward, B10 dH, B11 dW) against their plain
-    versions at CE_CASES with a non-uniform cotangent; then ``FusedCE``
-    gradients (fp32, the tied layout: W is the embedding's transpose)
-    against autograd through a plain dense head (logits, then
+    versions at CE_CASES with a non-uniform cotangent; then a bf16
+    ``FusedCE`` forward and backward at llama3-1b-gqa's head (LLAMA_HEAD,
+    the untied (D, V) layout) against the plain versions at the bf16 bars;
+    then ``FusedCE`` gradients (fp32, the tied layout: W is the embedding's
+    transpose) against autograd through a plain dense head (logits, then
     ``cross_entropy``). The T1-shape comparison is in ``time_ce_kernels``."""
+    from pretraining_llm_tpu_torch.ops import ce_reference as ref
+    from pretraining_llm_tpu_torch.ops import cuda_ce
     from pretraining_llm_tpu_torch.ops.fused_ce import FusedCE
 
     gen = torch.Generator().manual_seed(SEED + 13)
     for s, d, v, dtype, *tail in CE_CASES:
         ce_compare("check_ce", *ce_inputs(s, d, v, dtype, gen, *tail), tail_labels=bool(tail))
+
+    s, d, v = LLAMA_HEAD
+    h, w_vd, labels, g = ce_inputs(s, d, v, torch.bfloat16, gen)
+    w = w_vd.t().contiguous()  # the untied head's (D, V) weight
+    counted = (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw)
+    before = [f.launches_by_route["wgmma"] for f in counted]
+    hh, ww = h.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    losses = FusedCE.apply(hh, ww, labels)
+    (losses * g).sum().backward()
+    torch.cuda.synchronize()
+    ran = [f.launches_by_route["wgmma"] - n for f, n in zip(counted, before)]
+    r_loss, r_lse = ref.fused_ce_fwd_reference(h, w, labels)
+    r_dh = ref.fused_ce_dh_reference(h, w, labels, r_lse, g)
+    r_dw = ref.fused_ce_dw_reference(h, w, labels, r_lse, g)
+    uses = {"loss": ((losses.detach() - r_loss).abs() / (CE_LOSS_TOL * r_loss.abs().clamp_min(1.0))).max().item(),
+            "dh": row_tol_use(hh.grad, r_dh, BF16_ROW_RTOL),
+            "dw": row_tol_use(ww.grad.t(), r_dw.t(), BF16_ROW_RTOL)}
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in (losses, hh.grad, ww.grad))
+    log("check_ce_llama_head", S=s, D=d, V=v, dtype="torch.bfloat16", tol_use=uses, finite=finite,
+        wgmma_launches=ran, grad_dtypes=[str(hh.grad.dtype), str(ww.grad.dtype)])
+    if ran != [1, 1, 1] or not finite or not all(u <= 1.0 for u in uses.values()):
+        raise AssertionError(f"FusedCE at llama3-1b-gqa's head disagrees with the plain versions: {uses}, {ran}")
+    del h, w_vd, w, hh, ww, losses, r_dh, r_dw
 
     s, d, v = 512, 768, 50257
     h, emb, labels, g = ce_inputs(s, d, v, torch.float32, gen)
@@ -1017,6 +1074,8 @@ def kernel_counts() -> dict:
         **{f"fused_ce_fwd_{route}": n for route, n in cuda_ce.fused_ce_fwd.launches_by_route.items()},
         "fused_ce_dh": cuda_ce.fused_ce_dh.launches,
         "fused_ce_dw": cuda_ce.fused_ce_dw.launches,
+        **{f"{name}_{route}": n for name in ("fused_ce_dh", "fused_ce_dw")
+           for route, n in getattr(cuda_ce, name).launches_by_route.items()},
         "flash_fwd": cuda_flash.flash_attention_fwd.launches,
         "flash_fwd_tc": cuda_flash.flash_attention_fwd.launches_tc,
         "flash_fwd_fp32": cuda_flash.flash_attention_fwd.launches_fp32,
@@ -1044,7 +1103,8 @@ def reset_kernel_counts() -> None:
     cuda_ragged.ragged_paged_attention.split_launches = 0
     cuda_ragged.ragged_paged_attention.launches_by_route = dict.fromkeys(cuda_ragged.ROUTES, 0)
     cuda_paged.paged_decode_attention.launches_by_route = dict.fromkeys(cuda_paged.ROUTES, 0)
-    cuda_ce.fused_ce_fwd.launches_by_route = dict.fromkeys(cuda_ce.ROUTES, 0)
+    for routed in (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw):
+        routed.launches_by_route = dict.fromkeys(cuda_ce.ROUTES, 0)
 
 
 def serving_path(name: str, *, arrivals_per_step: int = 0, **engine_kw):
@@ -1490,7 +1550,8 @@ def run_train_path3() -> dict:
     _free_card()
     model = cfg.model
     want = {"fused_ce_fwd": steps, "fused_ce_fwd_wgmma": steps, "fused_ce_fwd_fp32": 0,
-            "fused_ce_dh": steps, "fused_ce_dw": steps,
+            "fused_ce_dh": steps, "fused_ce_dh_wgmma": steps, "fused_ce_dh_fp32": 0,
+            "fused_ce_dw": steps, "fused_ce_dw_wgmma": steps, "fused_ce_dw_fp32": 0,
             "flash_fwd": model.n_layers * steps, "flash_fwd_tc": model.n_layers * steps, "flash_fwd_fp32": 0,
             "flash_bwd_fused": model.n_layers * steps, "flash_bwd_fused_tc": model.n_layers * steps,
             "flash_bwd_fused_fp32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
@@ -2074,7 +2135,14 @@ def time_ce_kernels(paths):
     logsumexp and a gather; B10 and B11: the same GEMM, p~ elementwise and
     cast to bf16, then the one product). Bound FLOPs: 2*S*D*V per product
     (B9 one, B10 and B11 two: the recompute and their own); bytes: h, W,
-    labels (and lse, g) read once, the outputs written once."""
+    labels (and lse, g) read once, the outputs written once. B10 and B11
+    also give the design's floor (the logits once per D-chunk, then the
+    second product, at the bf16 peak), their plan, a sweep of plans
+    (``ce_bwd_sweep``: chunk widths and partition counts, alternated
+    launches) and ptxas's registers for the planned instantiation. Each
+    redesigned kernel gives fused_ce.cu's ``mma.sync`` kernel on the same
+    inputs after "was"."""
+    from pretraining_llm_tpu_torch.ops import _build
     from pretraining_llm_tpu_torch.ops import ce_reference as ref
     from pretraining_llm_tpu_torch.ops import cuda_ce
 
@@ -2112,6 +2180,7 @@ def time_ce_kernels(paths):
     flops = 2.0 * s * d * v
     shape = f"S={s} D={d} V={v} bf16"
     kernels = []
+    sms = _build.sm_count(h.device.index)
     for name, line, fn, plain, lib, products, nbytes, note in (
         ("fused_ce_fwd", 80, lambda: cuda_ce.fused_ce_fwd(h, w_vd, labels),
          lambda: ref.fused_ce_fwd_reference(h, w_vd.t(), labels), lib_fwd, 1, operand_bytes + 2 * s * 4,
@@ -2125,22 +2194,36 @@ def time_ce_kernels(paths):
     ):
         f = flops * products
         fwd = name == "fused_ce_fwd"
-        extra = {}
-        if fwd:  # B9's redesign: fused_ce.cu's mma.sync kernel on the same inputs, this run
-            if cuda_ce.ce_route(dt) != "wgmma":
-                raise AssertionError("fused_ce_fwd: the timed shape does not take the tensor-core route")
-            with _forced(cuda_ce, "ce_route", "fp32"):
-                extra = dict(was_ms=time_ms(fn, n=10, warmup=2, flush=flush),
-                             was_device_ms=time_ms(fn, n=10, warmup=2, flush=flush, device_only=True),
-                             was_source="pretraining_llm_tpu_torch/csrc/fused_ce.cu (ce_kernel<bf16, D, FWD>, "
-                                        "mma.sync, same inputs, this run)")
-            extra["partitions"] = cuda_ce.ce_partitions(s, v, torch.cuda.get_device_properties(0).multi_processor_count)
-            extra["launches_by_route"] = {r: paths["T3"][f"fused_ce_fwd_{r}"] for r in cuda_ce.ROUTES}
+        route_rule = "ce_route" if fwd else "ce_bwd_route"
+        if getattr(cuda_ce, route_rule)(dt) != "wgmma":
+            raise AssertionError(f"{name}: the timed shape does not take the tensor-core route")
+        # The redesign's "was": fused_ce.cu's mma.sync kernel on the same inputs, this run.
+        with _forced(cuda_ce, route_rule, "fp32"):
+            extra = dict(was_ms=time_ms(fn, n=10, warmup=2, flush=flush),
+                         was_device_ms=time_ms(fn, n=10, warmup=2, flush=flush, device_only=True),
+                         was_source=f"pretraining_llm_tpu_torch/csrc/fused_ce.cu (ce_kernel<bf16, D, "
+                                    f"{'FWD' if fwd else name[-2:].upper()}>, mma.sync, same inputs, this run)")
+        extra["launches_by_route"] = {r: paths["T3"][f"{name}_{r}"] for r in cuda_ce.ROUTES}
+        if fwd:
+            extra["partitions"] = cuda_ce.ce_partitions(s, v, sms)
+        else:
+            kind = name[-2:]
+            dc, chunks, parts, per = cuda_ce.ce_bwd_plan(kind, s, v, d, sms)
+            floor_flops = flops * (chunks + 1)
+            extra.update(
+                plan={"dc": dc, "chunks": chunks, "partitions": parts, "walked_tiles_per_partition": per,
+                      "blocks": -(-(s if kind == "dh" else v) // cuda_ce.BWD_BM) * chunks * parts},
+                floor_flops=floor_flops, floor_ms=floor_flops / PEAK_BF16_FLOPS * 1e3,
+                floor_note=f"the logits recomputed once per D-chunk ({chunks}) plus the second product, "
+                           "at the bf16 peak",
+                ptxas={entry: lines for entry, lines in PTXAS.get("fused_ce_bwd_tc", {}).items()
+                       if f"ce_bwd_tc_kernelILi{_BWD_MODE[kind]}ELi{dc}E" in entry})
+            ce_bwd_sweep(name, shape, kind, s, v, d, fn, flush)
         kernels.append(dict(
-            name=name, route="cuda", mma="wgmma" if fwd else "mma.sync",
-            source="pretraining_llm_tpu_torch/csrc/" + ("fused_ce_tc.cu" if fwd else "fused_ce.cu"),
+            name=name, route="cuda", mma="wgmma",
+            source="pretraining_llm_tpu_torch/csrc/" + ("fused_ce_tc.cu" if fwd else "fused_ce_bwd_tc.cu"),
             replaces=f"pretraining_llm_tpu/ops/pallas_ce.py:{line}", shape=shape,
-            launches=paths["T3"]["fused_ce_fwd_wgmma" if fwd else name],
+            launches=paths["T3"][f"{name}_wgmma"],
             launches_by_path={p: n[name] for p, n in paths.items()},
             flops=f, bytes=nbytes, **_bound(f, nbytes), max_abs_err=errs[name][0], tol_use=errs[name][1],
             ms=time_ms(fn, n=10, warmup=2, flush=flush),
@@ -2152,6 +2235,31 @@ def time_ce_kernels(paths):
         kernels[-1]["kernel_ms"], kernels[-1]["max_err"] = kernels[-1]["ms"], kernels[-1]["max_abs_err"]
         _free_card()
     return kernels
+
+
+_BWD_MODE = {"dh": 0, "dw": 1}  # csrc/fused_ce_bwd_tc.cu's Mode, in its mangled kernel names
+# Plans (DC, partitions) of the dH and dW sweeps at T3's head: the plan's
+# own pick is among them.
+BWD_SWEEP = {"dh": ((256, 1), (256, 3), (256, 4), (256, 5), (256, 8), (192, 1), (192, 3), (128, 2)),
+             "dw": ((256, 1), (256, 2), (192, 1), (128, 1))}
+
+
+def ce_bwd_sweep(name, shape, kind, s, v, d, fn, flush) -> None:
+    """``fn`` (B10 or B11) under each plan of BWD_SWEEP[kind], alternated
+    (``split_sweep``)."""
+    from pretraining_llm_tpu_torch.ops import cuda_ce
+
+    n_wt = -(-(v if kind == "dh" else s) // cuda_ce.BWD_BN)
+    plans = {}
+    for dc, p in BWD_SWEEP[kind]:
+        per = -(-n_wt // p)
+        plans[f"dc{dc}_p{-(-n_wt // per)}"] = (dc, -(-d // dc), -(-n_wt // per), per)
+
+    def call(label):
+        with _forced(cuda_ce, "ce_bwd_plan", plans[label]):
+            return fn()
+
+    split_sweep(f"{name}_sweep", shape, "plan", tuple(plans), call, flush)
 
 
 def _bound(flops: float, nbytes: float) -> dict:

@@ -261,22 +261,6 @@ ce_fwd_tc_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant
   if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next launch
 }
 
-// Tensor map over a (rows, D) bf16 row-major matrix: boxes of box_rows rows
-// x 64 columns (128 bytes, swizzled); rows past `rows` read as zeros.
-static int make_map(CUtensorMap* map, const void* ptr, int rows, int D, int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return (int)cudaErrorMisalignedAddress;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-                            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 // h: (S, D) bf16; w: (V, D) bf16 (16-byte aligned, D a multiple of 64);
@@ -291,8 +275,8 @@ extern "C" int pllm_ce_fwd_tc(const void* h, const void* w, const void* labels, 
       (long long)parts * tiles_per_part < n_vt || (parts - 1) * tiles_per_part >= n_vt)
     return (int)cudaErrorInvalidValue;
   CUtensorMap hmap, wmap;
-  if (int err = make_map(&hmap, h, S, D, BM)) return err;
-  if (int err = make_map(&wmap, w, V, D, BN)) return err;
+  if (int err = make_row_map(&hmap, h, S, D, BM)) return err;
+  if (int err = make_row_map(&wmap, w, V, D, BN)) return err;
   static std::atomic<uint32_t> smem_set{0};
   if (int err = allow_smem(ce_fwd_tc_kernel, Smem::ALLOC, smem_set)) return err;
   dim3 grid((unsigned)((S + BM - 1) / BM), (unsigned)parts);

@@ -15,7 +15,7 @@ Every pointer argument is declared ``c_void_p`` (a bare Python int would
 be cut to 32 bits), the stream is PyTorch's current stream, and each C
 entry returns ``cudaGetLastError()``; ``check`` raises when it is not 0.
 ``counters`` hands the kernels that merge partials across blocks (the
-paged decode split route, the fused CE forward on the tensor cores) their
+paged decode split route, the fused CE kernels on the tensor cores) their
 arrival counters.
 """
 
@@ -38,8 +38,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = (
-    "flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "fused_ce_tc", "paged_decode",
-    "ragged_paged", "ragged_paged_tc",
+    "flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc", "fused_ce", "fused_ce_tc", "fused_ce_bwd_tc",
+    "paged_decode", "ragged_paged", "ragged_paged_tc",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,5 +1,6 @@
 """Fused cross-entropy: the CUDA kernels ``csrc/fused_ce_tc.cu`` (the bf16
-forward) and ``csrc/fused_ce.cu`` (forward, dH and dW) and their dispatch.
+forward), ``csrc/fused_ce_bwd_tc.cu`` (the bf16 dH and dW) and
+``csrc/fused_ce.cu`` (the fp32 forward, dH and dW) and their dispatch.
 
 Counterpart of the three kernels of ``pretraining_llm_tpu/ops/pallas_ce.py``.
 Each wrapper launches its kernel for CUDA tensors and runs the plain version
@@ -14,6 +15,14 @@ vocabulary cut into ``ce_partitions`` partitions merged by the last block
 of each token tile), fp32 runs ``ce_kernel<float, D, FWD>`` of
 ``csrc/fused_ce.cu`` (``"fp32"``), because wgmma's fp32 form is TF32 and
 would miss the fp32 bars. ``fused_ce_fwd.launches_by_route`` counts both.
+dH and dW take the same two routes by dtype (``ce_bwd_route``): bf16 runs
+``csrc/fused_ce_bwd_tc.cu`` (``"wgmma"``: TMA ring, wgmma for the logits
+and the second product, the output in D-chunks and the walked axis in
+partitions, both from ``ce_bwd_plan``), fp32 runs ``ce_kernel<float, D,
+DH / DW>`` of ``csrc/fused_ce.cu``; ``fused_ce_dh.launches_by_route`` and
+``fused_ce_dw.launches_by_route`` count them. The bf16 kernels take any D
+that is a multiple of 64, the fp32 ones ``FP32_HIDDEN_DIMS``
+(``hidden_dim_ok``).
 """
 
 from __future__ import annotations
@@ -31,20 +40,33 @@ from pretraining_llm_tpu_torch.ops.ce_reference import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# Widths the kernels are built for (csrc/fused_ce.cu, ``dispatch``): a
-# block keeps 32 rows and a whole walked tile of D columns in shared memory.
-# The gate of all three wrappers: the bf16 forward (fused_ce_tc.cu) streams
-# D and would take any multiple of 64, but dH and dW do not, and a width
-# they refuse should fail at the forward, not in the backward.
-HIDDEN_DIMS = {torch.bfloat16: (64, 128, 256, 512, 768, 1024), torch.float32: (64, 128, 256, 512, 768)}
+# The fp32 widths fused_ce.cu is built for (its ``dispatch``): a block keeps
+# 32 rows and a whole walked tile of D columns in shared memory. The bf16
+# kernels stream D in 64-column slices and take any multiple of 64.
+FP32_HIDDEN_DIMS = (64, 128, 256, 512, 768)
 ROUTES = ("wgmma", "fp32")
 TC_BM, TC_BN, TC_BK, TC_STAGES = 128, 256, 64, 4  # csrc/fused_ce_tc.cu's tile, slice and ring
 MAX_PARTITIONS = 16
+# csrc/fused_ce_bwd_tc.cu: output rows, walked rows and ring depth of a
+# block, the chunk widths DC it is built for, and the plan's partition cap.
+BWD_BM, BWD_BN, BWD_STAGES = 128, 128, 5
+BWD_CHUNKS = (128, 192, 256)
+MAX_BWD_PARTITIONS = 8
+# ce_bwd_plan's costs in its unit, one column of D in a walked tile's
+# products (128 x 128 x 2 FLOPs, ~8 SM cycles): a tile's epilogue (exp2,
+# label, g, packing), and per column of a chunk, a block's partial written
+# to device memory and read back by the merge (2 x 128 fp32 at an SM's
+# ~14 bytes per cycle share of the memory rate).
+BWD_EPILOGUE_COLUMNS = 128
+BWD_PARTIAL_COLUMNS = 9
 # (h, w, labels, <lse, g,> <outputs>, S, V, D, dtype, stream)
 _FWD_ARGTYPES = tuple([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _BWD_ARGTYPES = tuple([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 # (h, w, labels, loss, lse, part, counters, S, V, D, parts, tiles_per_part, stream)
 _TC_ARGTYPES = tuple([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+# (mode, h, w, labels, lse, g, out, part, counters, S, V, D, dc, parts, tiles_per_part, stream)
+_TC_BWD_ARGTYPES = tuple([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_BWD_MODES = {"dh": 0, "dw": 1}
 
 
 def ce_route(dtype: torch.dtype) -> str:
@@ -54,6 +76,23 @@ def ce_route(dtype: torch.dtype) -> str:
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the fused CE kernels take float32 or bfloat16, got {dtype}")
     return "wgmma" if dtype == torch.bfloat16 else "fp32"
+
+
+def ce_bwd_route(dtype: torch.dtype) -> str:
+    """The dH and dW kernel a CUDA call takes: ``"wgmma"``
+    (``csrc/fused_ce_bwd_tc.cu``) for bfloat16, ``"fp32"``
+    (``csrc/fused_ce.cu``) for float32. Raises for other dtypes."""
+    return ce_route(dtype)
+
+
+def hidden_dim_ok(dtype: torch.dtype, d: int) -> bool:
+    """Whether the CUDA kernels take hidden width ``d`` in ``dtype``: any
+    positive multiple of 64 in bfloat16 (the tensor-core kernels stream D
+    in 64-column slices), ``FP32_HIDDEN_DIMS`` in float32 (fused_ce.cu
+    keeps whole rows in shared memory)."""
+    if dtype == torch.bfloat16:
+        return d > 0 and d % 64 == 0
+    return d in FP32_HIDDEN_DIMS
 
 
 def ce_partitions(s: int, v: int, sm_count: int) -> Tuple[int, int]:
@@ -70,6 +109,49 @@ def ce_partitions(s: int, v: int, sm_count: int) -> Tuple[int, int]:
             best = (cost, per)
     per = best[1]
     return -(-n_vt // per), per
+
+
+def ce_bwd_plan(kind: str, s: int, v: int, d: int, sm_count: int) -> Tuple[int, int, int, int]:
+    """(DC, chunks, partitions, walked tiles per partition) of the
+    tensor-core dH (``kind="dh"``: 128-token output tiles, the vocabulary
+    walked) or dW (``"dw"``: 128-row vocabulary tiles, the tokens walked)
+    kernel. Of the chunk widths BWD_CHUNKS and P = 1..MAX_BWD_PARTITIONS,
+    the pair whose grid of output tiles x ceil(D / DC) chunks x P
+    one-block-per-SM blocks needs the fewest block waves times the work of
+    a block: its walked tiles times D + min(DC, D) (the logits over all of
+    D, the second product over its chunk) + BWD_EPILOGUE_COLUMNS, and with P
+    > 1 its partial's round trip, BWD_PARTIAL_COLUMNS x min(DC, D). Ties go
+    to fewer partitions, then fewer chunks, then the narrower DC; then no
+    partition is left empty."""
+    if kind not in _BWD_MODES:
+        raise ValueError(f"kind must be 'dh' or 'dw', got {kind!r}")
+    rows, walked = (s, v) if kind == "dh" else (v, s)
+    n_rt, n_wt = -(-rows // BWD_BM), -(-walked // BWD_BN)
+    best = None
+    for dc in BWD_CHUNKS:
+        chunks = -(-d // dc)
+        for p in range(1, min(MAX_BWD_PARTITIONS, n_wt) + 1):
+            per = -(-n_wt // p)
+            waves = -(-(n_rt * chunks * p) // sm_count)
+            width = min(dc, d)
+            work = per * (d + width + BWD_EPILOGUE_COLUMNS) + (BWD_PARTIAL_COLUMNS * width if p > 1 else 0)
+            key = (waves * work, p, chunks, dc)
+            if best is None or key < best[0]:
+                best = (key, dc, chunks, per)
+    _, dc, chunks, per = best
+    return dc, chunks, -(-n_wt // per), per
+
+
+def tc_bwd_smem_bytes(dc: int) -> int:
+    """Shared memory one block of ``csrc/fused_ce_bwd_tc.cu`` with chunk
+    width ``dc`` uses (must match its ``Smem<DC>``): a ring of BWD_STAGES
+    slices of the resident (128 rows) and walked (128 rows) operands of 64
+    columns, the chunk buffer (dc / 64 walked slices), a walked tile's lse,
+    g and labels, the barriers, the last-block flag and room to align the
+    base."""
+    x_slice = BWD_BN * TC_BK * 2
+    ring = BWD_STAGES * (BWD_BM * TC_BK * 2 + x_slice)
+    return ring + dc // TC_BK * x_slice + 3 * BWD_BN * 4 + (2 * BWD_STAGES + 1) * 8 + 16 + 1024
 
 
 def tc_smem_bytes() -> int:
@@ -91,8 +173,8 @@ def _check(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
 
 def _check_cuda(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, *rows: torch.Tensor) -> None:
     """The kernels' contract: one CUDA device; h and w of one dtype (fp32 or
-    bf16), D in HIDDEN_DIMS, 16-byte aligned rows; int32 labels and fp32
-    lse/g; all contiguous."""
+    bf16), a hidden width ``hidden_dim_ok`` takes, 16-byte aligned rows;
+    int32 labels and fp32 lse/g; all contiguous."""
     tensors = (h, w_vd, labels) + rows
     if h.device.type != "cuda" or any(x.device != h.device for x in tensors):
         raise ValueError(f"{what}: tensors on {[str(x.device) for x in tensors]}")
@@ -100,8 +182,9 @@ def _check_cuda(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Te
         raise TypeError(f"{what} takes float32 or bfloat16 h and w of one dtype, got {h.dtype}, {w_vd.dtype}")
     if labels.dtype != torch.int32 or any(r.dtype != torch.float32 for r in rows):
         raise TypeError(f"{what}: labels must be int32 and lse/g float32")
-    if h.shape[1] not in HIDDEN_DIMS[h.dtype]:
-        raise ValueError(f"{what}: hidden dim {h.shape[1]} not in {HIDDEN_DIMS[h.dtype]} for {h.dtype}")
+    if not hidden_dim_ok(h.dtype, h.shape[1]):
+        raise ValueError(f"{what}: hidden dim {h.shape[1]} is not taken for {h.dtype} (bf16: a multiple of 64; "
+                         f"fp32: one of {FP32_HIDDEN_DIMS})")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{what}: inputs must be contiguous")
     if h.data_ptr() % 16 or w_vd.data_ptr() % 16:
@@ -145,44 +228,65 @@ def fused_ce_fwd(
     return loss, lse
 
 
-def _bwd(symbol: str, what: str, h, w_vd, labels, lse, g, out) -> None:
+def _bwd(kind: str, h, w_vd, labels, lse, g, out) -> str:
+    """Launches the dH (``kind="dh"``) or dW kernel ``ce_bwd_route`` picks
+    into ``out``; returns the route."""
     s, d = h.shape
-    fn = _build.load("fused_ce", symbol, _BWD_ARGTYPES)
-    rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
-            s, w_vd.shape[0], d, _DTYPE_CODES[h.dtype], _stream(h))
-    _build.check(rc, what)
+    v = w_vd.shape[0]
+    stream = _stream(h)
+    route = ce_bwd_route(h.dtype)
+    if route == "wgmma":
+        dc, chunks, parts, per = ce_bwd_plan(kind, s, v, d, _build.sm_count(h.device.index))
+        n_tiles = -(-(s if kind == "dh" else v) // BWD_BM) * chunks
+        part = torch.empty(parts * n_tiles * BWD_BM * dc if parts > 1 else 0, dtype=torch.float32, device=h.device)
+        counters = _build.counters(h.device, stream, n_tiles)
+        fn = _build.load("fused_ce_bwd_tc", "pllm_ce_bwd_tc", _TC_BWD_ARGTYPES)
+        rc = fn(_BWD_MODES[kind], h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(),
+                out.data_ptr(), part.data_ptr(), counters.data_ptr(), s, v, d, dc, parts, per, stream)
+    else:
+        fn = _build.load("fused_ce", f"pllm_ce_{kind}", _BWD_ARGTYPES)
+        rc = fn(h.data_ptr(), w_vd.data_ptr(), labels.data_ptr(), lse.data_ptr(), g.data_ptr(), out.data_ptr(),
+                s, v, d, _DTYPE_CODES[h.dtype], stream)
+    _build.check(rc, f"fused_ce_{kind} ({route})")
+    return route
 
 
 def fused_ce_dh(
     h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
 ) -> torch.Tensor:
     """dH kernel (``pallas_ce._bwd_dh_kernel``): (S, D) in h's dtype, for the
-    per-token cotangent g (S,) and the forward's lse."""
+    per-token cotangent g (S,) and the forward's lse, through the kernel
+    ``ce_bwd_route`` picks."""
     _check("fused_ce_dh", h, w_vd, labels, lse, g)
     if h.device.type == "cpu":
         return fused_ce_dh_reference(h, w_vd.t(), labels, lse, g)
     _check_cuda("fused_ce_dh", h, w_vd, labels, lse, g)
     dh = torch.empty_like(h)
-    _bwd("pllm_ce_dh", "fused_ce_dh", h, w_vd, labels, lse, g, dh)
+    route = _bwd("dh", h, w_vd, labels, lse, g, dh)
     fused_ce_dh.launches += 1
+    fused_ce_dh.launches_by_route[route] += 1
     return dh
 
 
 def fused_ce_dw(
     h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
 ) -> torch.Tensor:
-    """dW kernel (``pallas_ce._bwd_dw_kernel``): (V, D) in w's dtype."""
+    """dW kernel (``pallas_ce._bwd_dw_kernel``): (V, D) in w's dtype,
+    through the kernel ``ce_bwd_route`` picks."""
     _check("fused_ce_dw", h, w_vd, labels, lse, g)
     if h.device.type == "cpu":
         return fused_ce_dw_reference(h, w_vd.t(), labels, lse, g).t()
     _check_cuda("fused_ce_dw", h, w_vd, labels, lse, g)
     dw = torch.empty_like(w_vd)
-    _bwd("pllm_ce_dw", "fused_ce_dw", h, w_vd, labels, lse, g, dw)
+    route = _bwd("dw", h, w_vd, labels, lse, g, dw)
     fused_ce_dw.launches += 1
+    fused_ce_dw.launches_by_route[route] += 1
     return dw
 
 
 fused_ce_fwd.launches = 0
 fused_ce_fwd.launches_by_route = dict.fromkeys(ROUTES, 0)
 fused_ce_dh.launches = 0
+fused_ce_dh.launches_by_route = dict.fromkeys(ROUTES, 0)
 fused_ce_dw.launches = 0
+fused_ce_dw.launches_by_route = dict.fromkeys(ROUTES, 0)

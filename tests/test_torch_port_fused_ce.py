@@ -296,6 +296,151 @@ def test_tc_kernel_source_and_wrapper_agree_on_shared_memory():
 
 
 # ---------------------------------------------------------------------------
+# The bf16 dH and dW on the tensor cores (csrc/fused_ce_bwd_tc.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"), (torch.float32, "fp32")])
+def test_ce_bwd_route(dtype, want):
+    assert cuda_ce.ce_bwd_route(dtype) == want
+
+
+def test_ce_bwd_route_raises_on_other_dtypes():
+    with pytest.raises(TypeError):
+        cuda_ce.ce_bwd_route(torch.float16)
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 320, True), (torch.bfloat16, 768, True),
+    (torch.bfloat16, 2048, True), (torch.bfloat16, 96, False), (torch.bfloat16, 0, False),
+    (torch.float32, 768, True), (torch.float32, 64, True), (torch.float32, 1024, False),
+    (torch.float32, 2048, False), (torch.float32, 320, False),
+])
+def test_hidden_width_gate(dtype, d, ok):
+    """bf16 takes any multiple of 64 (llama3-1b-gqa's 2048 included): the
+    tensor-core kernels stream D; fp32 keeps fused_ce.cu's widths."""
+    assert cuda_ce.hidden_dim_ok(dtype, d) is ok
+
+
+@pytest.mark.parametrize("kind", ["dh", "dw"])
+@pytest.mark.parametrize("s,v,d", [(12288, 50304, 768), (2048, 32000, 2048), (1000, 50257, 1024),
+                                   (136, 300, 320), (2500, 1000, 256), (100, 100, 64)])
+def test_ce_bwd_plan_covers_every_walked_tile_and_column_once(kind, s, v, d):
+    """The chunks cover D with no empty chunk, the partitions hold every
+    walked tile once with none empty, and the scratch stays bounded."""
+    dc, chunks, parts, per = cuda_ce.ce_bwd_plan(kind, s, v, d, 132)
+    n_wt = -(-(v if kind == "dh" else s) // cuda_ce.BWD_BN)
+    assert dc in cuda_ce.BWD_CHUNKS and chunks == -(-d // dc) and (chunks - 1) * dc < d
+    assert 1 <= parts <= cuda_ce.MAX_BWD_PARTITIONS and (parts - 1) * per < n_wt <= parts * per
+    if (s, v, d) == (2048, 32000, 2048):  # llama3-1b-gqa's head: no partial scratch
+        assert parts == 1
+
+
+def test_ce_bwd_plan_rejects_other_kinds():
+    with pytest.raises(ValueError):
+        cuda_ce.ce_bwd_plan("dx", 128, 128, 64, 132)
+
+
+def _bwd_tc_model(kind, h, w_vd, labels, lse, g, dc, parts):
+    """The tensor-core dH / dW kernel's arithmetic: per output chunk of dc
+    columns and partition of whole 128-row walked tiles, each logits tile
+    summed over 64-column slices of D in the kernel's order (ascending from
+    the slice after the chunk, so the chunk's come last), p~ =
+    g * (exp2(logit log2 e - lse log2 e) - onehot) in fp32 rounded to bf16,
+    the chunk summed over the walked tiles in order, the partitions' sums
+    added in partition order; written in bf16. Returns (S, D) for "dh",
+    (V, D) for "dw"."""
+    log2e = 1.4426950408889634
+    (s, d), v = h.shape, w_vd.shape[0]
+    res, walk = (h.float(), w_vd.float()) if kind == "dh" else (w_vd.float(), h.float())
+    bn, bk = cuda_ce.BWD_BN, 64
+    n_k, n_wt = d // bk, -(-walk.shape[0] // bn)
+    per = -(-n_wt // parts)
+    ls, lab = lse.float() * log2e, labels.long()
+    out = torch.zeros(res.shape[0], d)
+    for k_lo in range(0, n_k, dc // bk):
+        nc = min(dc // bk, n_k - k_lo)
+        order = [(k_lo + nc + i) % n_k for i in range(n_k)]
+        cols = slice(k_lo * bk, (k_lo + nc) * bk)
+        total = None
+        for part in range(-(-n_wt // per)):
+            acc = torch.zeros(res.shape[0], nc * bk)
+            for wt in range(part * per, min(n_wt, (part + 1) * per)):
+                js = torch.arange(wt * bn, min(walk.shape[0], (wt + 1) * bn))
+                logits = torch.zeros(res.shape[0], len(js))
+                for k in order:
+                    logits += res[:, k * bk:(k + 1) * bk] @ walk[js, k * bk:(k + 1) * bk].T
+                if kind == "dh":
+                    p = torch.exp2(logits * log2e - ls[:, None]) - (js[None, :] == lab[:, None]).float()
+                    p = p * g[:, None]
+                else:
+                    p = torch.exp2(logits * log2e - ls[None, js]) - (torch.arange(v)[:, None] == lab[None, js]).float()
+                    p = p * g[None, js]
+                acc += p.to(torch.bfloat16).float() @ walk[js, cols]
+            total = acc if total is None else total + acc
+        out[:, cols] = total
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("s,d,v,dc,parts", [(136, 320, 300, 256, 1), (136, 320, 300, 128, 2),
+                                             (200, 192, 260, 192, 3)])
+def test_bwd_tc_walk_matches_pallas(s, d, v, dc, parts):
+    """The walk of csrc/fused_ce_bwd_tc.cu (D-chunks, a last chunk narrower
+    than DC at D 320, the rotated slice order, partitions, token and
+    vocabulary tails, labels in the last vocabulary tile, a non-uniform g)
+    against ``_bwd_dh_kernel`` and ``_bwd_dw_kernel`` in interpret mode:
+    each output row within BF16_ROW_RTOL of its largest |value|."""
+    h, w, labels = _inputs(50 + dc, s=s, d=d, v=v)
+    labels[::3] = v - 1 - labels[::3] % 40  # a third of the labels in the last 128-row vocabulary tile
+    g = np.linspace(0.25, 2.0, s).astype(np.float32)
+    want_dh, want_dw = _jax_bwd(h, w, labels, g, dtype="bfloat16")
+    _, lse = _jax_fwd(h, w, labels, dtype="bfloat16")
+    th = torch.from_numpy(h).bfloat16()
+    tw = torch.from_numpy(w).bfloat16().t().contiguous()
+    args = (torch.from_numpy(labels), torch.tensor(np.asarray(lse)), torch.from_numpy(g))
+    dh = _bwd_tc_model("dh", th, tw, *args, dc, parts)
+    dw = _bwd_tc_model("dw", th, tw, *args, dc, parts)
+    _rows_close(dh.float().numpy(), np.asarray(want_dh, np.float32), BF16_ROW_RTOL)
+    _rows_close(dw.float().numpy(), np.asarray(want_dw, np.float32).T, BF16_ROW_RTOL)
+
+
+def test_tc_bwd_kernel_source_and_wrapper_agree():
+    """``tc_bwd_smem_bytes(dc)`` is ``Smem<DC>::ALLOC`` of
+    ``csrc/fused_ce_bwd_tc.cu`` and one block fits at every chunk width the
+    source instantiates, which are the wrapper's; so are the tile
+    constants."""
+    import re
+    from pathlib import Path
+
+    src = (Path(cuda_ce.__file__).parent.parent / "csrc" / "fused_ce_bwd_tc.cu").read_text()
+    env = {name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+           for name in ("BM", "BN", "BK", "STAGES")}
+    assert (env["BM"], env["BN"], env["BK"], env["STAGES"]) == (
+        cuda_ce.BWD_BM, cuda_ce.BWD_BN, cuda_ce.TC_BK, cuda_ce.BWD_STAGES)
+    body = src[src.index("struct Smem {"):]
+    for dc in cuda_ce.BWD_CHUNKS:
+        env["DC"] = dc
+        for name, expr in re.findall(r"static constexpr int (\w+) = ([^;]+);", body[:body.index("};")]):
+            env[name] = eval(expr, {}, env)
+        assert env["ALLOC"] == cuda_ce.tc_bwd_smem_bytes(dc) <= 232448
+    for mode in ("DH", "DW"):
+        assert tuple(int(x) for x in re.findall(rf"PLLM_CE_BWD\({mode}, (\d+)\)", src)) == cuda_ce.BWD_CHUNKS
+
+
+def test_ablation_edits_apply_to_the_kernel_source():
+    """``utils/ce_bwd_ablation.py`` times copies of the kernel with one part
+    taken out; each of its edits must still find its text in the source."""
+    from pretraining_llm_tpu_torch.ops import _build
+    from pretraining_llm_tpu_torch.utils import ce_bwd_ablation
+
+    src = (_build.CSRC / "fused_ce_bwd_tc.cu").read_text()
+    assert set(ce_bwd_ablation.VARIANTS) >= {"kernel", "no_products", "no_resident_loads"}
+    for name, edits in ce_bwd_ablation.VARIANTS.items():
+        for old, _ in edits:
+            assert src.count(old) >= 1, (name, old)
+
+
+# ---------------------------------------------------------------------------
 # Through the model
 # ---------------------------------------------------------------------------
 

@@ -60,7 +60,8 @@ def test_port_has_kernel_sources_for_both_kernels():
 
     names = sorted(p.name for p in (ROOT / "pretraining_llm_tpu_torch" / "csrc").glob("*.cu"))
     assert names == ["flash_bwd.cu", "flash_bwd_tc.cu", "flash_fwd.cu", "flash_fwd_tc.cu", "fused_ce.cu",
-                     "fused_ce_tc.cu", "paged_decode.cu", "ragged_paged.cu", "ragged_paged_tc.cu"]
+                     "fused_ce_bwd_tc.cu", "fused_ce_tc.cu", "paged_decode.cu", "ragged_paged.cu",
+                     "ragged_paged_tc.cu"]
     assert sorted(_build.SOURCES) == [n[:-3] for n in names]
 
 
