@@ -14,9 +14,11 @@ through ``FlashAttention`` gradients, the fused CE kernels also through
 card against the same models on the CPU (the monolithic admission with
 paged decode; the chunked suffix lane with an exact and an int8-kv pool;
 three AdamW steps of a gpt2-width and a GQA model, each with the chunked
-head and again with the fused CE head and document masking), checks that
-documents stay isolated on the card, then drives three serving paths and
-four training runs, counting each kernel's launches on each:
+head and again with the fused CE head and document masking; ``generate``
+on a ragged batch with an exact and an int8 dense cache, and a chunked
+prefill at a nonzero cache index), checks that documents stay isolated on
+the card, then drives three serving paths, four training runs and the
+sample/evaluate/preprocess path, counting each kernel's launches on each:
 
   path 1  16 requests, ``ServingEngine.submit/run`` on full-width
           gpt2-124m, monolithic admission prefill (flash kernel) and paged
@@ -35,6 +37,16 @@ four training runs, counting each kernel's launches on each:
           against a naive-attention run, then a checkpoint round trip that
           must restore every state leaf and the data RNG, and the next
           step's loss, bit for bit;
+  G1      right after T1, on its step-30 checkpoint: the source's sample,
+          evaluate and preprocess entry points. ``load_model_for_inference``
+          + ``cast_params_for_inference``, then ``generate`` and
+          ``generate_text_batch`` of 8 corpus prompts (17-600 bytes, byte
+          tokenizer), 128 greedy tokens, one with a stop token a row emits:
+          K1 once per layer per call (tensor cores), decode over the dense
+          cache in torch ops; every token held against one uncached
+          forward; ``evaluate`` bit for bit against the ``Trainer``'s; a
+          vocab-512 BPE trained on the corpus and ``preprocess`` into
+          ``build/`` with the native encoder;
   T2      ``Trainer.train`` on llama3-1b-gqa cut to 4 layers (T 2048, Dh
           128, 4 KV heads) for 10 steps on synthetic data: flash forward
           and the dQ + dK/dV kernels; held against a naive-attention run;
@@ -111,6 +123,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -999,6 +1012,73 @@ def check_model_chunked_card_vs_cpu() -> None:
         raise AssertionError("the chunked card-vs-CPU check did not launch both ragged forms")
 
 
+NEAR_TIE = 1e-3  # a CPU step whose top two logits lie this close may flip its greedy token
+
+
+def check_generate_card_vs_cpu() -> None:
+    """gpt2-124m widths at 2 layers, fp32 (TF32 off): ``generate`` on a
+    ragged 4-row batch, 16 greedy tokens each, and a chunked prefill at a
+    nonzero cache index, on the card and on the CPU from the same weights.
+    Two models: learned positions with MHA and an exact cache; RoPE with
+    GQA (4 KV heads) and an int8 dense cache. Each row's tokens must be the
+    CPU's up to the first step where the CPU's top two logits lie within
+    NEAR_TIE (that row is not compared from there on); every compared
+    step's logits, and the chunk's, within MODEL_TOL. The prefill at index
+    0 runs K1 (fp32 route); the chunk at index 256 runs blockwise attention
+    in torch ops."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.generate import generate
+    from pretraining_llm_tpu_torch.models import transformer
+    from pretraining_llm_tpu_torch.ops import cuda_flash
+
+    base = dataclasses.replace(get_preset("gpt2-124m").model, n_layers=2, compute_dtype="float32")
+    rng = np.random.default_rng(SEED + 20)
+    lens = [17, 100, 64, 250]
+    batch = np.zeros((len(lens), max(lens)), np.int64)
+    for i, n in enumerate(lens):
+        batch[i, :n] = rng.integers(0, base.vocab_size, n)
+    chunk_toks = torch.from_numpy(rng.integers(0, base.vocab_size, (2, 384)))
+    steps = 16
+    for name, kw in (("learned-mha-exact", {}),
+                     ("rope-gqa-int8", dict(pos_embed="rope", n_kv_heads=4, kv_cache_dtype="int8"))):
+        cfg = dataclasses.replace(base, **kw)
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            before = cuda_flash.flash_attention_fwd.launches_fp32
+            params = transformer.init_params(cfg, SEED, device=device)
+            toks, logits = generate(params, cfg, batch, steps, 0, temperature=0.0, prompt_lengths=lens,
+                                    return_logits=True)
+            cache = transformer.make_kv_cache(cfg, 2, 384, device=device)
+            x = chunk_toks.to(device)
+            _, cache = transformer.forward(params, x[:, :256], cfg, kv_cache=cache, cache_index=0)
+            chunk, _ = transformer.forward(params, x[:, 256:], cfg, kv_cache=cache, cache_index=256)
+            runs[device] = (toks.cpu(), logits.cpu(), chunk.cpu(), cuda_flash.flash_attention_fwd.launches_fp32 - before)
+            del params, cache
+        (ct, cl, cc, k1), (pt, pl, pc, _) = runs[DEVICE], runs["cpu"]
+        top2 = pl.topk(2, dim=-1).values
+        gap = top2[..., 0] - top2[..., 1]  # (rows, steps)
+        compared, same, err = [], True, 0.0
+        for i in range(len(lens)):
+            ties = (gap[i] < NEAR_TIE).nonzero()
+            upto = int(ties[0]) if len(ties) else steps
+            compared.append(upto)
+            same = same and torch.equal(ct[i, :upto], pt[i, :upto])
+            if upto:
+                err = max(err, max_err(cl[i, :upto], pl[i, :upto]))
+        chunk_err = max_err(cc, pc)
+        finite = bool(torch.isfinite(cl).all() and torch.isfinite(cc).all())
+        log("check_generate", model=name, layers=cfg.n_layers, prompt_lens=lens, new_tokens=steps,
+            steps_compared_per_row=compared, near_tie=NEAR_TIE, greedy_tokens_equal=same,
+            max_abs_logit_err=err, chunk="256 at index 0, 128 at index 256", chunk_max_abs_logit_err=chunk_err,
+            tol=MODEL_TOL, finite=finite, k1_fp32_launches=k1)
+        if not (same and err <= MODEL_TOL and chunk_err <= MODEL_TOL and finite and k1 == 2 * cfg.n_layers):
+            raise AssertionError(f"generate ({name}) on the card disagrees with the CPU run")
+        if sum(compared) < len(lens) * steps // 2:
+            raise AssertionError(f"generate ({name}): near ties left too few steps to compare: {compared}")
+
+
 def run_main_path():
     """Full-width gpt2-124m, bf16, paged_attention_impl="kernel", served
     through ServingEngine.submit/run. Returns each kernel's launch count
@@ -1391,6 +1471,18 @@ def _free_card() -> None:
     torch.cuda.empty_cache()
 
 
+T1_STEPS = 30
+
+
+def t1_config():
+    """T1's run: gpt2-124m on ``data/parity`` bytes, a checkpoint at its
+    last step (which G1 then loads)."""
+    return train_config("gpt2-124m", {
+        "train.train_steps": T1_STEPS, "train.checkpoint_interval": T1_STEPS,
+        "data.train_path": str(PARITY_DIR / "train.bin"), "data.val_path": str(PARITY_DIR / "val.bin"),
+    })
+
+
 def run_train_path1() -> dict:
     """T1, this slice's main path: ``Trainer.train`` on gpt2-124m at full
     width and depth (batch 12, T 1024, bf16 compute, fp32 params, flash
@@ -1407,11 +1499,8 @@ def run_train_path1() -> dict:
     from pretraining_llm_tpu_torch.training.trainer import Trainer
 
     shutil.rmtree(SCRATCH, ignore_errors=True)
-    steps = 30
-    cfg = train_config("gpt2-124m", {
-        "train.train_steps": steps, "train.checkpoint_interval": steps,
-        "data.train_path": str(PARITY_DIR / "train.bin"), "data.val_path": str(PARITY_DIR / "val.bin"),
-    })
+    steps = T1_STEPS
+    cfg = t1_config()
     trainer, recs, launches, wall, peak = train_run(cfg, steps, resume=False)
     losses = [r["loss"] for r in recs]
     rates = _rates(recs)
@@ -1473,6 +1562,187 @@ def run_train_path1() -> dict:
         raise AssertionError(f"T1: resumed step {steps + 1} gave loss {resumed} (uninterrupted {uninterrupted}), "
                              f"params {param_diff} apart")
     return launches
+
+
+G1_NEW_TOKENS = 128
+
+
+def run_g1() -> dict:
+    """G1: the source's sample, evaluate and preprocess entry points on T1's
+    step-30 checkpoint (gpt2-124m, full width and depth). Loads it through
+    ``load_model_for_inference`` + ``cast_params_for_inference`` (bf16
+    matmul weights), generates 128 greedy tokens for 8 prompts cut from
+    ``data/parity/corpus.txt`` (17-600 bytes, byte tokenizer) with
+    ``generate``, then again with ``generate_text_batch`` and a stop token
+    that one row emits. Checks: each generate call launches K1 once per
+    layer, all on the tensor cores, and no K2 or K3; every generated token
+    is the argmax of one uncached forward over prompt + continuation, or
+    within BF16_ROW_RTOL of that position's largest |logit|; the strings
+    are the prompts plus the decoded tokens, cut at the stop token; the
+    port's ``evaluate`` on the checkpoint equals the T1 ``Trainer``'s
+    ``evaluate()`` bit for bit; a BPE trained on the corpus's first 200 KB
+    (vocab 512) preprocesses the corpus into ``build/`` with the native
+    encoder, whose ids equal the Python sweep's on a 64 KB sample, and the
+    val document decodes back from its tokens. Returns G1's launches."""
+    from pretraining_llm_tpu_torch.data import native_bpe
+    from pretraining_llm_tpu_torch.data.bpe import BPETokenizer, ByteTokenizer
+    from pretraining_llm_tpu_torch.data.preprocess import preprocess
+    from pretraining_llm_tpu_torch.data.tokenizer import get_tokenizer
+    from pretraining_llm_tpu_torch.evaluate import eval_loss, evaluate
+    from pretraining_llm_tpu_torch.generation.generate import (
+        cast_params_for_inference, generate, generate_text_batch, load_model_for_inference,
+    )
+    from pretraining_llm_tpu_torch.models import transformer
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    t1 = t1_config()
+    ckpt_dir = t1.train.checkpoint_dir
+    t_start = time.perf_counter()
+    params, cfg = load_model_for_inference(ckpt_dir, device=DEVICE)
+    params = cast_params_for_inference(params, cfg.model)
+    model = cfg.model
+    load_s = time.perf_counter() - t_start
+
+    text = (PARITY_DIR / "corpus.txt").read_text()
+    rng = np.random.default_rng(SEED + 21)
+    prompts = []
+    for n in rng.choice(np.arange(17, 601), size=8, replace=False).tolist():
+        while True:  # a window whose bytes are its characters
+            start = int(rng.integers(0, len(text) - n))
+            if len(text[start:start + n].encode()) == n:
+                break
+        prompts.append(text[start:start + n])
+    enc = ByteTokenizer()
+    encoded = [enc.encode_ordinary(p) for p in prompts]
+    lens = [len(e) for e in encoded]
+    batch = np.zeros((len(prompts), max(lens)), np.int64)
+    for i, e in enumerate(encoded):
+        batch[i, :len(e)] = e
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    ids = generate(params, model, batch, G1_NEW_TOKENS, 0, temperature=0.0, prompt_lengths=lens, stats=stats)
+    wall = time.perf_counter() - t0  # generate synchronizes before it returns (stats)
+    gen_launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ids = ids.cpu().numpy()
+
+    # Teacher forcing: one uncached forward over prompt + continuation.
+    seqs = [e + row.tolist() for e, row in zip(encoded, ids)]
+    full = np.zeros((len(seqs), max(map(len, seqs))), np.int64)
+    for i, sq in enumerate(seqs):
+        full[i, :len(sq)] = sq
+    with torch.no_grad():
+        logits, _ = transformer.forward(params, torch.from_numpy(full).to(DEVICE), model)
+        worst_use, argmax_hits = 0.0, 0
+        for i, n in enumerate(lens):
+            rows = logits[i, n - 1:n - 1 + G1_NEW_TOKENS]  # row j predicts ids[i, j]
+            want = torch.from_numpy(ids[i]).to(DEVICE).long()
+            top, picked = rows.max(-1).values, rows.gather(1, want[:, None])[:, 0]
+            argmax_hits += int((rows.argmax(-1) == want).sum())
+            limit = BF16_ROW_RTOL * rows.abs().amax(-1)
+            worst_use = max(worst_use, ((top - picked) / limit).max().item())
+    del logits, params
+    _free_card()
+
+    # The stop token: the first token, at step 8 or later, that a row emits
+    # for the first time (else at step 1 or later).
+    stop, stop_row = None, None
+    for lo in (8, 1, 0):
+        for i, row in enumerate(ids.tolist()):
+            firsts = [j for j in range(lo, len(row)) if row[j] not in row[:j]]
+            if firsts:
+                stop, stop_row = row[firsts[0]], i
+                break
+        if stop is not None:
+            break
+    reset_kernel_counts()
+    texts = generate_text_batch(str(ckpt_dir), prompts, G1_NEW_TOKENS, temperature=0.0, tokenizer="byte",
+                                stop_token=stop, device=DEVICE)
+    text_launches = kernel_counts()
+    expected = [p + enc.decode(row[:row.index(stop)] if stop in row else row)
+                for p, row in zip(prompts, ids.tolist())]
+    texts_ok = texts == expected
+    _free_card()
+
+    # Evaluate: the port's entry point against the T1 Trainer's evaluate().
+    params32, cfg32 = load_model_for_inference(ckpt_dir, device=DEVICE)
+    val = str(PARITY_DIR / "val.bin")
+    port_loss = eval_loss(params32, cfg32, val, iters=t1.train.eval_iters)
+    del params32
+    record = evaluate(str(ckpt_dir), val, iters=t1.train.eval_iters, device=DEVICE)
+    trainer = Trainer(t1, device=DEVICE, resume=True, logger=MetricsLogger("", stream=sys.stderr))
+    trainer_loss = trainer.evaluate()
+    resumed_from = trainer.start_step
+    del trainer
+    _free_card()
+
+    # Preprocess with a BPE trained here, into build/.
+    g1_dir = SCRATCH / "g1"
+    g1_dir.mkdir(parents=True, exist_ok=True)
+    lib, why = native_bpe.load_library()
+    if lib is None:
+        raise AssertionError(f"G1: the native BPE encoder did not build: {why}")
+    corpus = (PARITY_DIR / "corpus.txt").read_bytes()
+    t_bpe = time.perf_counter()
+    bpe = BPETokenizer.train([corpus[:200_000].decode("utf-8", errors="ignore")], 512)
+    bpe_train_s = time.perf_counter() - t_bpe
+    bpe_path = str(g1_dir / "bpe.json")
+    bpe.save(bpe_path)
+    t_pre = time.perf_counter()
+    train_bin, val_bin = preprocess(input_files=[str(PARITY_DIR / "corpus.txt")], out_dir=str(g1_dir / "data"),
+                                    tokenizer_name=bpe_path)
+    preprocess_s = time.perf_counter() - t_pre
+    tok = get_tokenizer(bpe_path)
+    cut = max(1, int(len(text) * (1 - 0.01)))  # preprocess's val tail of a one-document corpus
+    val_ids = np.fromfile(val_bin, dtype=np.uint16)
+    round_trip = tok.decode(val_ids.tolist()) == text[cut:] and int(val_ids[-1]) == tok.eot_token
+    sample = corpus[1_000_000:1_000_000 + 65_536]
+    native_ids = native_bpe.NativeBpeEncoder(bpe.merges).encode_bytes(sample)
+    native_equal = native_ids == bpe._encode_python(list(sample))
+
+    k1 = {k: gen_launches[k] + text_launches[k] for k in ("flash_fwd", "flash_fwd_tc", "flash_fwd_fp32")}
+    per_call_ok = all(
+        c["flash_fwd"] == c["flash_fwd_tc"] == model.n_layers and c["flash_fwd_fp32"] == 0
+        and c["paged_decode"] == 0 and c["ragged"] == 0
+        for c in (gen_launches, text_launches)
+    )
+    log("G1", model="gpt2-124m", layers=model.n_layers, dtype=model.compute_dtype,
+        checkpoint=str(ckpt_dir), load_s=load_s, prompts=len(prompts), prompt_lens=lens,
+        new_tokens=G1_NEW_TOKENS, prefill_tokens=stats["prefill_tokens"], prefill_s=stats["prefill_s"],
+        prefill_tokens_per_s=stats["prefill_tokens"] / stats["prefill_s"],
+        decode_tokens=stats["decode_tokens"], decode_s=stats["decode_s"],
+        decode_tokens_per_s=stats["decode_tokens"] / stats["decode_s"], wall_s=wall,
+        max_memory_allocated_bytes=peak, k1_launches_by_route=k1,
+        launches_generate={k: n for k, n in gen_launches.items() if n},
+        launches_generate_text_batch={k: n for k, n in text_launches.items() if n},
+        teacher_forcing={"argmax_hits": argmax_hits, "tokens": len(prompts) * G1_NEW_TOKENS,
+                         "worst_bf16_bar_use": worst_use, "bar": BF16_ROW_RTOL},
+        stop_token={"id": stop, "row": stop_row, "texts_equal": texts_ok},
+        evaluate={"port": port_loss, "trainer": trainer_loss, "bit_identical": port_loss == trainer_loss,
+                  "record_val_loss": record["val_loss"], "resumed_from": resumed_from,
+                  "iters": t1.train.eval_iters},
+        bpe={"encoder": tok.encoder, "library": why, "vocab": bpe.n_vocab, "train_s": bpe_train_s,
+             "preprocess_s": preprocess_s, "val_round_trip": round_trip, "native_equals_python_64kb": native_equal,
+             "train_tokens": int(os.path.getsize(train_bin) // 2), "val_tokens": int(val_ids.size)})
+    if not per_call_ok:
+        raise AssertionError(f"G1: a generate call did not launch K1 once per layer on the tensor cores alone: "
+                             f"{gen_launches} {text_launches}")
+    if not worst_use <= 1.0:
+        raise AssertionError(f"G1: a generated token is off the uncached forward's argmax by {worst_use}x the bar")
+    if not texts_ok:
+        raise AssertionError(f"G1: generate_text_batch gave other strings than generate's tokens: {texts}")
+    if not (port_loss == trainer_loss and record["val_loss"] == round(trainer_loss, 6)
+            and resumed_from == T1_STEPS and math.isfinite(port_loss)):
+        raise AssertionError(f"G1: evaluate {port_loss} != the Trainer's {trainer_loss} (resumed {resumed_from})")
+    if not (round_trip and native_equal and tok.encoder == "native"):
+        raise AssertionError(f"G1: BPE round trip {round_trip}, native == python {native_equal}, "
+                             f"encoder {tok.encoder}")
+    return {k: gen_launches[k] + text_launches[k] for k in gen_launches}
 
 
 def run_train_path2() -> dict:
@@ -1654,7 +1924,7 @@ def run_parity() -> dict:
     return launches
 
 
-def time_kernels(launches, prefill_shapes, errs):
+def time_kernels(launches, prefill_shapes, errs, launches_g1):
     from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1681,7 +1951,9 @@ def time_kernels(launches, prefill_shapes, errs):
     kernels.append(dict(
         name="flash_fwd", route="cuda", mma="wgmma", source="pretraining_llm_tpu_torch/csrc/flash_fwd_tc.cu",
         replaces="pretraining_llm_tpu/ops/pallas_flash.py:104",
-        shape=f"B*H={b * h} T={t} Dh={d} bf16 causal", launches=launches["flash_fwd_tc"],
+        shape=f"B*H={b * h} T={t} Dh={d} bf16 causal",
+        launches=launches["flash_fwd_tc"] + launches_g1["flash_fwd_tc"],
+        launches_by_path={"path1": launches["flash_fwd_tc"], "G1": launches_g1["flash_fwd_tc"]},
         flops=flops, bytes=nbytes, **_bound(flops, nbytes), max_abs_err=errs["flash_fwd"],
         ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
     ))
@@ -2290,15 +2562,18 @@ def main() -> int:
     check_ce()
     check_model_card_vs_cpu()
     check_model_chunked_card_vs_cpu()
+    check_generate_card_vs_cpu()
     check_train_card_vs_cpu()
     check_doc_isolation()
     launches1, prefill_shapes = run_main_path()
     launches2, eng2 = run_path2()
     launches3, _ = run_path3()
-    train_paths = {"T1": run_train_path1(), "T2": run_train_path2(), "parity": run_parity(),
+    launches_t1 = run_train_path1()
+    launches_g1 = run_g1()  # on T1's checkpoint, before SCRATCH goes
+    train_paths = {"T1": launches_t1, "T2": run_train_path2(), "parity": run_parity(),
                    "T3": run_train_path3()}
     shutil.rmtree(SCRATCH, ignore_errors=True)
-    kernels = time_kernels(launches1, prefill_shapes, errs)
+    kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs)
     del eng2
     kernels += time_train_kernels(train_paths)

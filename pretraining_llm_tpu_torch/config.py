@@ -430,6 +430,19 @@ class Config:
             new = dataclasses.replace(new, **top)
         return new
 
+    @staticmethod
+    def from_dict(raw: Dict[str, Any]) -> "Config":
+        """The config a checkpoint's metadata stores (``extra["config"]``,
+        written by either package's trainer). The sections the port lacks
+        (mesh, resilience, obs, serving, frontend) are ignored: they change
+        nothing that a single-device forward computes."""
+        return Config(
+            model=ModelConfig(**raw["model"]),
+            data=DataConfig(**raw.get("data", {})),
+            train=TrainConfig(**raw.get("train", {})),
+            name=raw.get("name", "custom"),
+        )
+
 
 def _gpt2_model(**kw: Any) -> ModelConfig:
     base = dict(

@@ -9,10 +9,16 @@ Dh)) — so ``models.bridge`` maps one tree onto the other leaf for leaf.
 
 ``forward`` covers three cases:
   - no cache (T tokens of self-attention);
-  - a dense cache at index 0: the admission prefill, which writes K/V
-    into the cache (int8 codes + fp32 scales under
-    ``kv_cache_dtype="int8"``) and attends causally over the block's own
-    q/k/v (``attention_impl="flash"`` goes to the flash kernel);
+  - a dense cache at any ``cache_index``: the call writes its K/V at slots
+    cache_index..cache_index+T-1 (int8 codes + fp32 scales under
+    ``kv_cache_dtype="int8"``), then attends as the JAX package's dense
+    branches do: a prefill at index 0 over the block's own q/k/v
+    (``attention_impl="flash"`` goes to the flash kernel); a chunk at a
+    nonzero index (T > 1, flash) by ``blockwise_attention`` over the
+    written cache, cut to the key tiles it can see; decode (T = 1, ragged
+    rows, or naive attention) by masked attention over the whole cache.
+    ``pad_offsets`` gives ragged rows their left-pad: logical positions
+    ``slot - pad_offsets[i]``, pad slots masked;
   - paged: each row writes its T query tokens' K/V into its pool pages at
     slots seq..seq+T-1 (quantized for int8 pools), then attends over its
     pages. ``paged_attention_impl="kernel"`` routes as the JAX package
@@ -42,7 +48,7 @@ from pretraining_llm_tpu_torch.models import layers
 from pretraining_llm_tpu_torch.ops.attention import naive_attention
 from pretraining_llm_tpu_torch.ops.cuda_paged import paged_decode_attention, paged_kv_mask
 from pretraining_llm_tpu_torch.ops.cuda_ragged import ragged_paged_attention
-from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
+from pretraining_llm_tpu_torch.ops.flash_attention import blockwise_attention, flash_attention
 from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -216,7 +222,7 @@ def _kv_fields(cfg: ModelConfig, shape: Tuple[int, ...], names: Tuple[str, ...],
             f"{what}(scale_dtype={scale_dtype!r}) needs kv_cache_dtype='int8' "
             "(exact pools carry no scale pages)"
         )
-    dt = dtype or torch_dtype(cfg.compute_dtype)
+    dt = torch_dtype(dtype) if isinstance(dtype, str) else (dtype or torch_dtype(cfg.compute_dtype))
     return {k: (shape, dt), v: (shape, dt)}
 
 
@@ -224,9 +230,12 @@ def make_kv_cache(
     cfg: ModelConfig, batch_size: int, max_length: int, dtype: Any = None, *,
     device: DeviceLike = None,
 ) -> KVCache:
-    """Dense prefill cache {'k', 'v'}: (L, B, Tmax, kv_heads, Dh), plus
+    """Dense cache {'k', 'v'}: (L, B, Tmax, kv_heads, Dh), plus
     {'k_scale', 'v_scale'} (L, B, Tmax, kv_heads, 1) fp32 when
-    ``kv_cache_dtype='int8'`` (then k/v hold int8 codes)."""
+    ``kv_cache_dtype='int8'`` (then k/v hold int8 codes). ``dtype`` (a
+    torch dtype or its name) overrides the compute dtype of an exact
+    cache. The port keeps the stacked layout for either
+    ``decode_cache_layout``: the layouts hold the same values."""
     if max_length > cfg.context_length:
         raise ValueError(
             f"kv cache max_length={max_length} exceeds context_length={cfg.context_length}"
@@ -318,15 +327,24 @@ def _positions_of_rows(seq_lens: torch.Tensor, t: int, limit: int) -> torch.Tens
     return pos.clamp(0, limit - 1)
 
 
+def _logical_positions(positions: torch.Tensor, pad_offsets: torch.Tensor) -> torch.Tensor:
+    """(B, T) logical positions of left-padded rows: slot - pad_offsets[i],
+    pad slots clipped to 0 (their K/V is masked out of every real query)."""
+    return (positions[None, :] - pad_offsets.long()[:, None]).clamp_min(0)
+
+
 def _attention_block(
     blk: Params, x: torch.Tensor, cfg: ModelConfig,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]], positions: torch.Tensor,
     kv: Optional[Params], paged: Optional[PagedInfo],
-    segments: Optional[torch.Tensor] = None,
+    segments: Optional[torch.Tensor] = None, cache_index: int = 0,
+    pad_offsets: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pre-LN attention sub-block: x + attn(ln1(x)). ``kv`` (one layer's
     dense cache or pools) is written in place. ``segments`` (B, T) int32
-    document ids confine the uncached self-attention to each document."""
+    document ids confine the uncached self-attention to each document.
+    ``pad_offsets`` (B,) left-pads of ragged rows in a dense cache: RoPE
+    takes the rows' logical positions, causality and writes the slots."""
     cdt = torch_dtype(cfg.compute_dtype)
     b, t, _ = x.shape
     h = layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps)
@@ -346,10 +364,12 @@ def _attention_block(
 
     if rope is not None:
         cos, sin = rope
-        rope_pos = (
-            _positions_of_rows(paged.seq_lens, t, cfg.context_length)
-            if paged is not None else positions
-        )
+        if paged is not None:
+            rope_pos = _positions_of_rows(paged.seq_lens, t, cfg.context_length)
+        elif pad_offsets is not None:
+            rope_pos = _logical_positions(positions, pad_offsets)
+        else:
+            rope_pos = positions
         q = layers.apply_rope(q, cos, sin, rope_pos)
         k = layers.apply_rope(k, cos, sin, rope_pos)
 
@@ -357,33 +377,7 @@ def _attention_block(
     if kv is not None and "k_pool" in kv:
         out = _paged_attention(q, k, v, kv, paged, cfg, cdt)
     elif kv is not None:
-        # Admission prefill at cache index 0: write the block's K/V (int8
-        # codes + scales for an int8 cache), then attend causally over this
-        # block's own q/k/v: exactly attention over the written cache prefix
-        # [0, T), and the unquantized local k/v as in the JAX package.
-        quantized = "k_scale" in kv
-        if quantized:
-            for name, val in (("k", k), ("v", v)):
-                kv[name][:, :t], kv[name + "_scale"][:, :t] = _kv_quantize(val)
-        else:
-            kv["k"][:, :t] = k
-            kv["v"][:, :t] = v
-        if t > 1 and cfg.attention_impl == "flash":
-            out = flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
-                                  block_kv=cfg.flash_block_kv)
-        else:
-            tmax = kv["k"].shape[1]
-            kv_pos = torch.arange(tmax, device=x.device)
-            if quantized:
-                ck = _kv_dequantize(kv["k"], kv["k_scale"], cdt)
-                cv = _kv_dequantize(kv["v"], kv["v_scale"], cdt)
-            else:
-                ck, cv = kv["k"].to(cdt), kv["v"].to(cdt)
-            out = naive_attention(
-                q, ck, cv, q_positions=positions,
-                kv_positions=kv_pos, kv_mask=(kv_pos < t)[None, :].expand(b, tmax),
-                window=window,
-            )
+        out = _dense_cached_attention(q, k, v, kv, cfg, cdt, cache_index, positions, pad_offsets)
     elif cfg.attention_impl == "flash":
         out = flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
                               block_kv=cfg.flash_block_kv, segments=segments)
@@ -396,6 +390,68 @@ def _attention_block(
     else:
         out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
     return x + out.to(x.dtype)
+
+
+def _materialize_cache(kv: Params, lo: int, hi: int, cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(k, v) of cache slots [lo, hi) in compute dtype, int8 codes
+    dequantized: the one read point of every dense cached attention (the
+    JAX package's ``_materialize_cache``)."""
+    if "k_scale" in kv:
+        return (_kv_dequantize(kv["k"][:, lo:hi], kv["k_scale"][:, lo:hi], cdt),
+                _kv_dequantize(kv["v"][:, lo:hi], kv["v_scale"][:, lo:hi], cdt))
+    return kv["k"][:, lo:hi].to(cdt), kv["v"][:, lo:hi].to(cdt)
+
+
+def _dense_cached_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv: Params, cfg: ModelConfig,
+    cdt: torch.dtype, cache_index: int, positions: torch.Tensor,
+    pad_offsets: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Write the call's K/V at slots [cache_index, cache_index + T) of one
+    layer's dense cache (int8: codes and scales), then attend as the JAX
+    package's dense branches (``transformer.py:455-571``) do:
+      - T > 1 at index 0, flash, no ragged rows: causal flash attention
+        over the block's own q/k/v (exactly attention over the written
+        prefix [0, T), with the unquantized local k/v);
+      - T > 1 at a nonzero index, flash, no ragged rows (chunked
+        prefill): ``blockwise_attention`` over cache slots [k_lo, hi),
+        ``hi`` the frontier rounded up to the KV tile, ``k_lo`` the
+        window's lower cut rounded down to it, queries placed at
+        ``cache_index``;
+      - otherwise (decode, ragged rows, naive attention): masked attention
+        over the whole cache, slots < cache_index + T and, for ragged
+        rows, slots >= pad_offsets[i]."""
+    b, t = q.shape[:2]
+    end = cache_index + t
+    if "k_scale" in kv:
+        for name, val in (("k", k), ("v", v)):
+            kv[name][:, cache_index:end], kv[name + "_scale"][:, cache_index:end] = _kv_quantize(val)
+    else:
+        kv["k"][:, cache_index:end] = k
+        kv["v"][:, cache_index:end] = v
+    window = cfg.sliding_window
+    tmax = kv["k"].shape[1]
+    if t > 1 and pad_offsets is None and cfg.attention_impl == "flash":
+        if cache_index == 0:
+            return flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
+                                   block_kv=cfg.flash_block_kv)
+        # Keys past the frontier's tile and below the window's tile see no
+        # query: slice them off (tile-aligned, so the block stays JAX's).
+        tile = cfg.flash_block_kv or 512
+        hi = min(tmax, -(-end // tile) * tile)
+        k_lo = max(0, (cache_index - window + 1) // tile * tile) if window else 0
+        ck, cv = _materialize_cache(kv, k_lo, hi, cdt)
+        return blockwise_attention(
+            q, ck, cv, causal=True, block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
+            q_offset=cache_index, k_offset=k_lo, window=window,
+        )
+    kv_pos = torch.arange(tmax, device=q.device)
+    kv_mask = (kv_pos < end)[None, :].expand(b, tmax)
+    if pad_offsets is not None:
+        kv_mask = kv_mask & (kv_pos[None, :] >= pad_offsets.long()[:, None])
+    ck, cv = _materialize_cache(kv, 0, tmax, cdt)
+    return naive_attention(q, ck, cv, q_positions=positions, kv_positions=kv_pos, kv_mask=kv_mask,
+                           window=window)
 
 
 def _paged_attention(
@@ -515,6 +571,7 @@ def forward(
     cache_index: Optional[int] = None,
     paged: Optional[PagedInfo] = None,
     return_pre_logits: bool = False,
+    pad_offsets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache).
 
@@ -522,26 +579,38 @@ def forward(
     D) in place of the logits: the loss path's CE head computes logits
     itself (``loss_fn``).
 
-    ``kv_cache`` from ``make_kv_cache`` with ``cache_index=0`` is the
-    admission prefill; a pool from ``make_paged_kv_pool`` with ``paged``
-    is paged attention: T query tokens per row at slots seq..seq+T-1, of
-    which ``paged.q_lens`` (when given) are real. Caches are updated in
-    place and returned."""
+    ``kv_cache`` from ``make_kv_cache`` takes the T tokens at slots
+    ``cache_index`` (an int, default 0) .. cache_index+T-1: the prefill at
+    0, a chunk or a decode step after it. ``pad_offsets`` (B,) int makes
+    the rows ragged (decode only, with a dense cache): row i is left-padded
+    by pad_offsets[i] dead slots, so its token at slot s has logical
+    position s - pad_offsets[i] (learned and RoPE positions), while writes
+    and causality stay on slots and the pad slots are masked. A pool from
+    ``make_paged_kv_pool`` with ``paged`` is paged attention: T query
+    tokens per row at slots seq..seq+T-1, of which ``paged.q_lens`` (when
+    given) are real. Caches are updated in place and returned."""
     check_ported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     b, t = tokens.shape
     device = tokens.device
-    if paged is not None and not _is_pool_cache(kv_cache):
-        raise ValueError("paged=PagedInfo requires a pool-layout kv_cache (make_paged_kv_pool)")
-    if paged is None and _is_pool_cache(kv_cache):
-        raise ValueError("a pool-layout kv_cache requires forward(..., paged=PagedInfo)")
-    if kv_cache is not None and paged is None and int(cache_index or 0) != 0:
-        raise NotImplementedError(
-            "a cached forward at a nonzero cache_index (chunked prefill) is "
-            "not ported to PyTorch yet"
+    if pad_offsets is not None and kv_cache is None:
+        raise ValueError(
+            "pad_offsets (ragged left-padded rows) is a cached-decode "
+            "layout; training/eval calls must not pass it"
         )
+    if paged is not None:
+        if not _is_pool_cache(kv_cache):
+            raise ValueError("paged=PagedInfo requires a pool-layout kv_cache (make_paged_kv_pool)")
+        if pad_offsets is not None:
+            raise ValueError(
+                "pad_offsets is the contiguous ragged layout; paged rows "
+                "are ragged natively via seq_lens"
+            )
+    elif _is_pool_cache(kv_cache):
+        raise ValueError("a pool-layout kv_cache requires forward(..., paged=PagedInfo)")
+    cache_index = int(cache_index or 0)
     if positions is None:
-        positions = torch.arange(t, device=device)
+        positions = cache_index + torch.arange(t, device=device)
 
     # Packed-document masking, as the JAX package derives it in-model: token
     # i belongs to document #(separators strictly before i), so a separator
@@ -564,6 +633,8 @@ def forward(
         if paged is not None:
             ppos = _positions_of_rows(paged.seq_lens, t, cfg.context_length)
             x = x + pos_table[ppos].to(cdt)
+        elif pad_offsets is not None:
+            x = x + pos_table[_logical_positions(positions, pad_offsets)].to(cdt)
         else:
             x = x + pos_table[positions].to(cdt)[None]
     else:
@@ -576,7 +647,8 @@ def forward(
             layer_kv = kv_cache["layers"][i]
         elif kv_cache is not None:
             layer_kv = {name: buf[i] for name, buf in kv_cache.items()}
-        x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged, segments)
+        x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged, segments,
+                             cache_index, pad_offsets)
         x = _mlp_block(blk, x, cfg)
 
     x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)

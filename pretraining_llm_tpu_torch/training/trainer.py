@@ -36,6 +36,7 @@ from pretraining_llm_tpu_torch.training.metrics import MetricsLogger, Throughput
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 HostBatch = Tuple[np.ndarray, np.ndarray]
+EVAL_SEED_OFFSET = 104729  # eval batches are drawn with data.sample_seed + this, never advanced
 
 
 def _check_ported(config: Config) -> None:
@@ -144,7 +145,7 @@ class Trainer:
     def _fresh_val_iterator(self) -> Iterator[HostBatch]:
         """A new iterator per evaluate(): the same eval batches every time."""
         mcfg, dcfg, tcfg = self.config.model, self.config.data, self.config.train
-        eval_seed = dcfg.sample_seed + 104729  # fixed, never advanced
+        eval_seed = dcfg.sample_seed + EVAL_SEED_OFFSET
         if self._synthetic_data:
             return data_loader.synthetic_iterator(
                 mcfg.vocab_size, mcfg.context_length, tcfg.batch_size, eval_seed)

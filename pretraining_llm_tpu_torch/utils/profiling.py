@@ -1,6 +1,7 @@
 """Where the time goes on the card: a ``torch.profiler`` breakdown of one
 admission prefill and one decode window of the serving path, of path 2's
-chunked prefill and path 3's int8 decode window, and of one training step.
+chunked prefill and path 3's int8 decode window, of one training step, and
+of one ``generate`` call at G1's shape.
 
 Run from the repository root on a machine with a GPU::
 
@@ -20,7 +21,12 @@ T 1024, bf16 compute, fp32 params and AdamW, the flash kernels) after two
 warm-up steps, on random tokens; then the same with the fused CE head and
 document masking (``ce_impl="fused"``, ``doc_mask_token=10``, separators
 at chip_smoke T3's density of one per 67 tokens, the median spacing of
-``data/parity``). One JSON line per phase: the host wall
+``data/parity``).
+Sampling: G1's ``generate`` call (``chip_smoke.py``): gpt2-124m cast to
+bf16, 8 ragged prompts of G1's lengths (random tokens), 128 greedy tokens
+over the dense cache: the prefill alone (``forward`` at cache index 0 over
+the 896-token bucket, as ``generate`` runs it), then the whole call.
+One JSON line per phase: the host wall
 time (which ends when the loss or the sampled tokens reach the host), the
 summed device kernel time, their ratio (the device's busy share), and the
 kernels that took the most device time.
@@ -175,10 +181,47 @@ def profile_train() -> Dict[str, Dict[str, object]]:
     return out
 
 
+G1_NEW_TOKENS = 128  # chip_smoke.py's G1
+
+
+def profile_generate() -> Dict[str, Dict[str, object]]:
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.generate import _bucket_len, generate
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+
+    cfg = get_preset("gpt2-124m").model
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device="cuda"), cfg)
+    rng = np.random.default_rng(SEED + 21)
+    lens = rng.choice(np.arange(17, 601), size=8, replace=False).tolist()  # G1's prompt lengths
+    batch = np.zeros((len(lens), max(lens)), np.int64)
+    for i, n in enumerate(lens):
+        batch[i, :n] = rng.integers(0, 256, n)
+    bucket = _bucket_len(max(lens), cfg.context_length, G1_NEW_TOKENS)
+    padded = torch.zeros((len(lens), bucket), dtype=torch.long, device="cuda")
+    padded[:, :batch.shape[1]] = torch.from_numpy(batch)
+
+    def prefill() -> None:
+        cache = transformer.make_kv_cache(cfg, len(lens), bucket + G1_NEW_TOKENS, device="cuda")
+        with torch.no_grad():
+            logits, _ = transformer.forward(params, padded, cfg, kv_cache=cache, cache_index=0)
+        logits[:, -1].argmax(-1).cpu()
+
+    def call() -> None:
+        generate(params, cfg, batch, G1_NEW_TOKENS, 0, temperature=0.0, prompt_lengths=lens).cpu()
+
+    out = {}
+    for phase, fn, tokens in (("generate_prefill", prefill, sum(lens)),
+                              ("generate_call", call, len(lens) * G1_NEW_TOKENS)):
+        fn()  # warm-up
+        out[phase] = _profile(fn)
+        out[phase]["tokens"] = tokens
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    for profile_phases in (profile_serving, profile_ragged_paths, profile_train):
+    for profile_phases in (profile_serving, profile_ragged_paths, profile_train, profile_generate):
         for phase, rec in profile_phases().items():
             print(json.dumps({"phase": phase, "device": torch.cuda.get_device_name(0), **rec}), flush=True)
 

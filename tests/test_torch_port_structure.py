@@ -5,7 +5,9 @@
 - Entry points run on the GPU unless the caller passes ``device="cpu"``:
   with no GPU they raise instead of falling back to the CPU.
 - Options the port does not implement yet raise ``NotImplementedError``.
-- Every kernel family has its CUDA source, built by ``ops/_build.py``.
+- Every kernel family has its CUDA source, built by ``ops/_build.py``; the
+  host BPE encoder's C++ source is the port's own copy, built under
+  ``build/``.
 """
 
 import ast
@@ -181,11 +183,61 @@ def test_unported_training_options_raise(key, value, name):
 
 
 def test_unported_forward_paths_raise():
+    """A dense cache at a nonzero cache_index is ported: a chunk there
+    gives the uncached forward's logits. The forward options still
+    unported raise."""
     params = transformer.init_params(TINY, 0, device="cpu")
     cache = transformer.make_kv_cache(TINY, 1, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="cache_index"):
-        transformer.forward(params, torch.zeros(1, 4, dtype=torch.long), TINY,
-                            kv_cache=cache, cache_index=4)
+    tokens = torch.arange(8, dtype=torch.long)[None]
+    full, _ = transformer.forward(params, tokens, TINY)
+    _, cache = transformer.forward(params, tokens[:, :4], TINY, kv_cache=cache, cache_index=0)
+    chunk, _ = transformer.forward(params, tokens[:, 4:], TINY, kv_cache=cache, cache_index=4)
+    torch.testing.assert_close(chunk, full[:, 4:], rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="n_experts"):
+        transformer.forward(params, tokens, dataclasses.replace(TINY, n_experts=2), kv_cache=cache, cache_index=4)
+
+
+SAMPLE_EVAL_PREPROCESS_MODULES = (
+    "generation/generate.py", "data/_native.py", "data/bpe.py", "data/native_bpe.py", "data/tokenizer.py",
+    "data/preprocess.py", "generate_text.py", "evaluate.py", "data_preprocess.py",
+)
+
+
+def test_sample_evaluate_preprocess_modules_are_scanned():
+    """The sample, evaluate and preprocess modules and their CLIs are among
+    the sources that ``test_port_imports_nothing_of_jax`` scans, so none of
+    them imports JAX or the JAX package (not even its JAX-free
+    ``data/*.py``)."""
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(SAMPLE_EVAL_PREPROCESS_MODULES) <= scanned
+    for rel in SAMPLE_EVAL_PREPROCESS_MODULES:
+        text = (ROOT / "pretraining_llm_tpu_torch" / rel).read_text()
+        assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
+
+
+def test_bpe_build_writes_only_under_build(tmp_path, monkeypatch):
+    """The native BPE library is built from the port's own copy of the
+    source (``csrc/bpe.cpp``) into ``build/native/``, never into the repo's
+    ``native/`` or the package."""
+    from pretraining_llm_tpu_torch.data import _native, native_bpe
+
+    assert _native.BUILD_DIR == ROOT / "build" / "native"
+    assert _native.library_path("bpe").parent == ROOT / "build" / "native"
+
+    def listing():
+        return sorted(str(p) for d in (ROOT / "native", ROOT / "pretraining_llm_tpu_torch")
+                      for p in d.rglob("*") if "__pycache__" not in p.parts)
+
+    before = listing()
+    build_dir = tmp_path / "build" / "native"
+    monkeypatch.setattr(_native, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(_native, "_cache", {})
+    lib, why = native_bpe.load_library()
+    assert lib is not None, why
+    assert why.startswith("native (libbpe-")
+    assert [p.name for p in build_dir.iterdir() if not p.name.startswith(".")] == [
+        _native.library_path("bpe").name]
+    assert listing() == before
 
 
 def test_presets_and_config_validation():
