@@ -60,7 +60,34 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           forward and one-pass backward with document segments; its
           losses and every parameter's gradient held against its
           all-torch-ops twin (chunked head, naive attention) on T3's own
-          states.
+          states;
+  T4      ``Trainer.train`` on each single-card preset T1-T3 do not run,
+          at full width and depth with its own remat policy (bf16
+          compute, fp32 params, AdamW, synthetic data, no checkpoints), 4
+          steps at the preset's global batch: gpt2-350m-dp (none, 32 x
+          1024), gpt2-1p3b-fsdp (dots_saveable, 64 x 1024 in microbatches),
+          llama-1b (dots_saveable, 32 x 2048, Dh 128 MHA: dQ + dK/dV) and
+          the source's reference-3b (dots_saveable, 32 x 512, ReLU, no
+          output projection, biased head). Each runs as the microbatches
+          it is first given, or twice as many after an out-of-memory error
+          or a peak at 80 GB or more, and prints them with step ms,
+          tokens/s, MFU, peak memory, losses and launches; the launches
+          must be the exact counts of the one-pass or split backward on
+          the tensor cores, K1 twice a layer where the policy recomputes it;
+  R       the remat sweep: llama3-1b-gqa at its 22 layers, batch 2 x
+          2048, under each of the seven policies from one init: step-1 loss
+          and every gradient leaf against remat none's (the bf16 bar; bit
+          equality reported), then 3 steps: step ms, peak memory, K1
+          launches per step (22, or 44 under full, dots_saveable and
+          save_attn); full's peak below none's;
+  O       gpt2-124m at full size, 10 steps under AdamW, Adafactor and
+          Muon: finite, falling losses; then the trainer's options on a
+          2-layer gpt2-width model: ``checkpoint_async`` (the step-3
+          checkpoint and a resume from it bit for bit as the synchronous
+          run), ``profile_dir`` (a trace of steps 1-2 naming K1),
+          ``debug_nans`` (a NaN weight raises ``FloatingPointError``) and a
+          3:1 mixture of ``data/parity``'s files with ``data.prefetch=2``
+          (the batches the steps got equal the unprefetched iterator's).
 
 The flash forward (K1) and the three backward kernels (one pass, dQ,
 dK/dV) have two routes: bf16 runs the tensor-core kernels
@@ -387,6 +414,10 @@ BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv, document seg
     (1, 8, 2, 1000, 32, 200, torch.bfloat16, 0, 0, False),      # Dh 32, window 200, n_rep 4
     (1, 12, 12, 832, 64, 0, torch.bfloat16, 0, 0, True),        # T 832, segments
     (1, 16, 4, 832, 128, 256, torch.bfloat16, 0, 0, True),      # window 256 + segments, n_rep 4
+    # The T4 presets' MHA shapes at Dh 128 (n_rep 1).
+    (1, 16, 16, 1024, 128, 0, torch.bfloat16, 0, 0, False),     # gpt2-1p3b-fsdp: one pass
+    (1, 16, 16, 512, 128, 0, torch.bfloat16, 0, 0, False),      # reference-3b: one pass
+    (1, 16, 16, 2048, 128, 0, torch.bfloat16, 0, 0, False),     # llama-1b: split
 ]
 
 
@@ -1302,7 +1333,13 @@ def check_train_card_vs_cpu() -> None:
     flash blocks (dQ + dK/dV kernels). Each model runs twice: with the
     chunked CE head, then with ``ce_impl="fused"`` (the fused CE kernels)
     and ``doc_mask_token`` (segments in every flash kernel) on batches with
-    ~3% separators."""
+    ~3% separators. Then the gpt2 model without its QKV bias under Adafactor
+    and the GQA model under Muon (Newton-Schulz in fp32: TF32 is off for the
+    whole run): after 3 steps every parameter and optimizer-state leaf
+    within TRAIN_GRAD_RTOL of its largest |value| on the CPU. (The key
+    bias's gradient is zero in exact arithmetic, so its computed value is
+    rounding noise that a normalizing update blows up to +-lr on either
+    device: the state check leaves that bias out, as the CPU tests do.)"""
     import dataclasses
 
     from pretraining_llm_tpu_torch.config import Config, ModelConfig, TrainConfig, get_preset
@@ -1321,13 +1358,14 @@ def check_train_card_vs_cpu() -> None:
     rng = np.random.default_rng(SEED + 10)
     fused = ("fused_ce_fwd", "fused_ce_dh", "fused_ce_dw")
     runs = []
-    for name, model, want in (("gpt2", gpt2, ("flash_fwd", "flash_bwd_fused")),
-                              ("llama_gqa", llama, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))):
-        runs.append((name, model, want))
+    for name, model, want, optimizer in (("gpt2", gpt2, ("flash_fwd", "flash_bwd_fused"), "adafactor"),
+                                         ("llama_gqa", llama, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), "muon")):
+        runs.append((name, model, want, "adamw"))
         runs.append((name + "+fused_ce+doc_mask",
-                     dataclasses.replace(model, ce_impl="fused", doc_mask_token=DOC_SEP), want + fused))
-    for name, model, want in runs:
-        cfg = Config(model=model, train=train)
+                     dataclasses.replace(model, ce_impl="fused", doc_mask_token=DOC_SEP), want + fused, "adamw"))
+        runs.append((f"{name}+{optimizer}", dataclasses.replace(model, qkv_bias=False), want, optimizer))
+    for name, model, want, optimizer in runs:
+        cfg = Config(model=model, train=dataclasses.replace(train, optimizer=optimizer))
         batches = [rng.integers(0, model.vocab_size, (train.batch_size, model.context_length + 1))
                    for _ in range(3)]
         if model.doc_mask_token >= 0:
@@ -1346,25 +1384,34 @@ def check_train_card_vs_cpu() -> None:
                     grads = opt.tree_map(lambda g: g.cpu(), grads)
                 state, metrics = step(state, batch)
                 losses.append(float(metrics["loss"]))
-            return losses, grads
+            return losses, grads, opt.tree_map(lambda x: x.cpu(), {"params": state["params"], "opt": state["opt"]})
 
         reset_kernel_counts()
-        card_losses, card_grads = run(DEVICE)
+        card_losses, card_grads, card_state = run(DEVICE)
         launched = kernel_counts()
-        cpu_losses, cpu_grads = run("cpu")
+        cpu_losses, cpu_grads, cpu_state = run("cpu")
         loss_use = max(abs(a - b) / (TRAIN_LOSS_RTOL * abs(b)) for a, b in zip(card_losses, cpu_losses))
         grad_use = {
             "/".join(path): max_err(a, b) / (TRAIN_GRAD_RTOL * max(b.abs().max().item(), 1e-30))
             for (path, a), (_, b) in zip(opt.tree_leaves(card_grads), opt.tree_leaves(cpu_grads))
         }
         worst_leaf = max(grad_use, key=grad_use.get)
-        log("check_train", model=name, layers=model.n_layers, d=model.d_model, H=model.n_heads,
+        state_use = {
+            "/".join(path): max_err(a, b) / (TRAIN_GRAD_RTOL * max(b.float().abs().max().item(), 1e-30))
+            for (path, a), (_, b) in zip(opt.tree_leaves(card_state), opt.tree_leaves(cpu_state))
+            if a.is_floating_point()
+        }
+        if optimizer == "adamw":  # the AdamW runs keep their loss and gradient checks
+            state_use = {"-": 0.0}
+        worst_state = max(state_use, key=state_use.get)
+        log("check_train", model=name, optimizer=optimizer, state_tol_use=state_use[worst_state],
+            worst_state_leaf=worst_state, layers=model.n_layers, d=model.d_model, H=model.n_heads,
             G=model.kv_heads, T=model.context_length, batch=train.batch_size, card_losses=card_losses,
             cpu_losses=cpu_losses, loss_rtol=TRAIN_LOSS_RTOL, loss_tol_use=loss_use,
             grad_rtol=TRAIN_GRAD_RTOL, grad_tol_use=grad_use[worst_leaf], worst_leaf=worst_leaf,
             ce_impl=model.ce_impl, doc_mask_token=model.doc_mask_token,
             kernel_launches={k: launched[k] for k in want})
-        if not (loss_use <= 1.0 and grad_use[worst_leaf] <= 1.0):
+        if not (loss_use <= 1.0 and grad_use[worst_leaf] <= 1.0 and state_use[worst_state] <= 1.0):
             raise AssertionError(f"training {name} on the card disagrees with the CPU run")
         if not all(launched[k] > 0 for k in want):
             raise AssertionError(f"training {name} on the card did not launch {want}: {launched}")
@@ -1924,6 +1971,293 @@ def run_parity() -> dict:
     return launches
 
 
+# Phases added with the presets, remat and trainer-option slice.
+T4_PRESETS = (  # (preset, the microbatches tried first: the JAX preset's, or 2 where one pass cannot fit)
+    ("gpt2-350m-dp", 1), ("gpt2-1p3b-fsdp", 2), ("llama-1b", 2), ("reference-3b", 2))
+T4_STEPS = 4
+CARD_BYTES = 80e9  # the card's 80 GB
+RECOMPUTES_K1 = ("full", "dots_saveable", "save_attn")  # remat policies under which K1 reruns in the backward
+R_STEPS = 3
+
+
+def _no_checkpoint_dir() -> str:
+    """A checkpoint dir that cannot be created (a file stands in its
+    place): a failing step's emergency save fails at once instead of
+    writing the full-size state to disk."""
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    blocker = SCRATCH / "no-checkpoints"
+    blocker.touch()
+    return str(blocker / "ck")
+
+
+def _route_check(name: str, launches: dict, one_pass: bool, layers: int, k1_per_layer: int, passes: int) -> None:
+    """Every flash launch on the tensor cores, the backward's algorithm as
+    the JAX block rule picks it, and the exact counts: K1 ``k1_per_layer``
+    times a layer per forward-backward pass, each backward kernel once."""
+    want = {"flash_fwd": layers * k1_per_layer * passes,
+            "flash_bwd_fused": layers * passes if one_pass else 0,
+            "flash_bwd_dq": 0 if one_pass else layers * passes,
+            "flash_bwd_dkv": 0 if one_pass else layers * passes}
+    got = {k: launches[k] for k in want}
+    if got != want or any(launches[f"{k}_tc"] != n for k, n in want.items()):
+        raise AssertionError(f"{name}: flash launches {launches}, expected {want} all on the tensor cores")
+
+
+def run_t4() -> dict:
+    """T4: ``Trainer.train`` on each single-card preset that T1-T3 do not
+    run, at full width and depth with the preset's own remat policy, bf16
+    compute, fp32 params and AdamW, for T4_STEPS steps at the preset's
+    global batch on synthetic data, no checkpoints. The global batch runs
+    as the preset's microbatches, or twice as many after an out-of-memory
+    error or a peak at CARD_BYTES or above. Returns {"T4 <preset>":
+    launches}."""
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.ops import cuda_flash
+
+    out = {}
+    for preset, micro in T4_PRESETS:
+        model = get_preset(preset).model
+        batch = get_preset(preset).train.batch_size
+        t0 = time.perf_counter()
+        tried = []
+        while True:
+            cfg = train_config(preset, {"train.train_steps": T4_STEPS, "train.microbatches": micro,
+                                        "train.checkpoint_dir": _no_checkpoint_dir()})
+            try:
+                trainer, recs, launches, wall, peak = train_run(cfg, T4_STEPS, synthetic_data=True, resume=False)
+                del trainer
+            except torch.cuda.OutOfMemoryError as e:
+                tried.append({"microbatches": micro, "error": str(e).splitlines()[0][:160]})
+                peak = None
+            _free_card()
+            if peak is not None and peak < CARD_BYTES:
+                break
+            if peak is not None:
+                tried.append({"microbatches": micro, "max_memory_allocated_bytes": peak})
+            micro *= 2
+            if batch % micro:
+                raise AssertionError(f"T4 {preset}: no microbatch count fits: {tried}")
+        losses = [r["loss"] for r in recs]
+        one_pass = cuda_flash.backward_is_one_pass(model.context_length, model.flash_block_q, model.flash_block_kv)
+        log("train_t4", preset=preset, params=model.num_params(), layers=model.n_layers, d=model.d_model,
+            H=model.n_heads, G=model.kv_heads, Dh=model.head_dim, T=model.context_length, V=model.vocab_size,
+            remat=model.remat, batch=batch, microbatches=micro, tried=tried, dtype=model.compute_dtype,
+            data="synthetic", steps=T4_STEPS, wall_s=wall, **_rates(recs), max_memory_allocated_bytes=peak,
+            card_bytes=CARD_BYTES, losses=losses, launches={k: v for k, v in launches.items() if v},
+            backward="one pass" if one_pass else "dq + dkv", phase_s=time.perf_counter() - t0)
+        if len(losses) != T4_STEPS or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"T4 {preset}: expected {T4_STEPS} finite losses, got {losses}")
+        _route_check(f"T4 {preset}", launches, one_pass, model.n_layers,
+                     2 if model.remat in RECOMPUTES_K1 else 1, T4_STEPS * micro)
+        out[f"T4 {preset}"] = launches
+    return out
+
+
+def run_remat_sweep() -> dict:
+    """R: llama3-1b-gqa at its full 22 layers, batch 2 x 2048, bf16, under
+    each remat policy from the same init: the step-1 loss and gradients
+    (``compute_grads``) against remat "none"'s, within BF16_ROW_RTOL of
+    each leaf's largest |g| (and whether every bit is equal), then R_STEPS
+    AdamW steps: step ms (median of the steps after the first), peak
+    memory over those steps, K1 launches per step (n_layers without a K1
+    rerun, twice that under RECOMPUTES_K1). ``full``'s peak must be below
+    ``none``'s. Returns {"R <policy>": launches}."""
+    from pretraining_llm_tpu_torch.ops import remat
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    t_phase = time.perf_counter()
+    cfg0 = train_config("llama3-1b-gqa", {"train.batch_size": 2, "train.train_steps": 100})
+    model = cfg0.model
+    init = ts.init_train_state(cfg0, SEED, device=DEVICE)
+    rng = np.random.default_rng(SEED + 30)
+    toks = torch.from_numpy(rng.integers(0, model.vocab_size, (R_STEPS, 2, model.context_length + 1))).to(DEVICE)
+    batches = [(t[:, :-1], t[:, 1:]) for t in toks]
+    ref = None
+    peaks, out = {}, {}
+    for policy in remat.POLICIES:
+        cfg = cfg0.with_overrides({"model.remat": policy})
+        state = opt.tree_map(torch.clone, init)
+        loss1, grads = ts.compute_grads(state, batches[0], cfg)
+        loss1 = float(loss1)
+        if ref is None:
+            ref = (loss1, grads)
+            grad_use, bits_equal = 0.0, True
+        else:
+            pairs = list(zip(opt.tree_leaves(grads), opt.tree_leaves(ref[1])))
+            grad_use = max(max_err(a, b) / (BF16_ROW_RTOL * max(b.abs().max().item(), 1e-30))
+                           for (_, a), (_, b) in pairs)
+            bits_equal = loss1 == ref[0] and all(torch.equal(a, b) for (_, a), (_, b) in pairs)
+            del grads, pairs
+        loss_use = abs(loss1 - ref[0]) / (BF16_ROW_RTOL * abs(ref[0]))
+        step = ts.build_train_step(cfg)
+        _free_card()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        times, losses = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        peaks[policy] = torch.cuda.max_memory_allocated()
+        launches = kernel_counts()
+        k1_per_step = launches["flash_fwd"] / R_STEPS
+        del state
+        log("remat_sweep", model="llama3-1b-gqa", layers=model.n_layers, batch=2, T=model.context_length,
+            remat=policy, step_ms=statistics.median(times[1:]), step_ms_all=times, losses=losses,
+            max_memory_allocated_bytes=peaks[policy], state_bytes=base,
+            activation_peak_bytes=peaks[policy] - base, k1_launches_per_step=k1_per_step,
+            step1_loss=loss1, step1_loss_tol_use=loss_use, grad_tol_use=grad_use, grad_rtol=BF16_ROW_RTOL,
+            bit_identical_to_none=bits_equal,
+            launches={k: v for k, v in launches.items() if v})
+        want_k1 = model.n_layers * (2 if policy in RECOMPUTES_K1 else 1)
+        if k1_per_step != want_k1:
+            raise AssertionError(f"R {policy}: {k1_per_step} K1 launches per step, expected {want_k1}")
+        if loss_use > 1.0 or grad_use > 1.0:
+            raise AssertionError(f"R {policy}: step-1 loss or gradients differ from remat none's "
+                                 f"(loss {loss_use}, grads {grad_use} of the bar)")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"R {policy}: non-finite losses {losses}")
+        _route_check(f"R {policy}", launches, False, model.n_layers, 2 if policy in RECOMPUTES_K1 else 1, R_STEPS)
+        out[f"R {policy}"] = launches
+    del init, ref
+    _free_card()
+    log("remat_sweep_summary", peaks=peaks, full_below_none=peaks["full"] < peaks["none"],
+        phase_s=time.perf_counter() - t_phase)
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"R: remat full's peak {peaks['full']} is not below none's {peaks['none']}")
+    return out
+
+
+OPT_STEPS = 10
+
+
+def run_optimizers() -> dict:
+    """gpt2-124m at full width and depth, ``Trainer.train`` for OPT_STEPS
+    steps under each optimizer (batch 12, synthetic data, lr 6e-4 after a
+    one-step warmup): finite losses, the last below the first."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("adamw", "adafactor", "muon"):
+        cfg = train_config("gpt2-124m", {"train.optimizer": name, "train.train_steps": OPT_STEPS})
+        trainer, recs, launches, wall, peak = train_run(cfg, OPT_STEPS, synthetic_data=True, resume=False)
+        del trainer
+        _free_card()
+        losses = [r["loss"] for r in recs]
+        log("train_optimizer", model="gpt2-124m", optimizer=name, steps=OPT_STEPS, wall_s=wall, **_rates(recs),
+            max_memory_allocated_bytes=peak, losses=losses, launches={k: v for k, v in launches.items() if v})
+        if not (len(losses) == OPT_STEPS and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"{name}: losses are not finite and falling: {losses}")
+        out[f"optimizer {name}"] = launches
+    log("train_optimizers_phase", phase_s=time.perf_counter() - t0)
+    return out
+
+
+def run_trainer_options() -> None:
+    """The trainer's options on the card, gpt2-124m widths at 2 layers,
+    batch 4, bf16: ``checkpoint_async`` (the step-3 checkpoint equals the
+    synchronous run's leaf for leaf, bit for bit, and a run resumed from it
+    ends on the synchronous run's params bit for bit); ``profile_dir`` (the
+    trace of steps 1-2 exists and names K1's kernel); ``debug_nans`` (a NaN
+    in one weight raises ``FloatingPointError``; the phase fails if it does
+    not); a 3:1 mixture of ``data/parity``'s two files with
+    ``data.prefetch=2`` (the batches each step received equal the
+    unprefetched iterator's)."""
+    from pretraining_llm_tpu_torch.data import loader
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+    from pretraining_llm_tpu_torch.utils import debug
+
+    t0 = time.perf_counter()
+    small = {"model.n_layers": 2, "train.batch_size": 4, "train.train_steps": 6, "train.checkpoint_interval": 3}
+
+    def leaves(tree):
+        return {".".join(p): x for p, x in tree_leaves(tree)}
+
+    sync = train_config("gpt2-124m", {**small, "train.checkpoint_dir": str(SCRATCH / "opt_sync")})
+    asyn = sync.with_overrides({"train.checkpoint_async": True, "train.checkpoint_dir": str(SCRATCH / "opt_async")})
+    t_sync, recs_sync, _, _, _ = train_run(sync, 6, synthetic_data=True, resume=False)
+    t_async, recs_async, _, _, _ = train_run(asyn, 6, synthetic_data=True, resume=False)
+    template = t_sync.state
+    saved = [leaves(ckpt.load_checkpoint(str(SCRATCH / d / "step-3"), template)[0]) for d in ("opt_sync", "opt_async")]
+    ckpt_differs = [n for n in saved[0] if not torch.equal(saved[0][n], saved[1][n])]
+    shutil.rmtree(SCRATCH / "opt_async" / "step-6")
+    resumed = Trainer(asyn, device=DEVICE, resume=True, synthetic_data=True,
+                      logger=MetricsLogger("", stream=sys.stderr))
+    resumed_from = resumed.start_step
+    resumed.train(6)
+    want, got = leaves(t_sync.state["params"]), leaves(resumed.state["params"])
+    resume_differs = [n for n in want if not torch.equal(want[n], got[n])]
+    losses_equal = [r["loss"] for r in recs_sync] == [r["loss"] for r in recs_async]
+    del t_sync, t_async, resumed, template, saved, want, got
+    _free_card()
+
+    prof_dir = SCRATCH / "profile"
+    prof = sync.with_overrides({"train.profile_dir": str(prof_dir), "train.profile_start": 1,
+                                "train.profile_steps": 2, "train.checkpoint_interval": 0})
+    t_prof, recs_prof, _, _, _ = train_run(prof, 4, synthetic_data=True, resume=False)
+    del t_prof
+    traces = sorted(p.name for p in prof_dir.iterdir()) if prof_dir.is_dir() else []
+    names = set()
+    if traces:
+        names = {str(e.get("name")) for e in json.loads((prof_dir / traces[0]).read_text())["traceEvents"]}
+    k1_traced = sorted(n for n in names if "flash_fwd_tc_kernel" in n)
+    profiled_losses_equal = [r["loss"] for r in recs_prof] == [r["loss"] for r in recs_sync[:4]]
+
+    nan_cfg = sync.with_overrides({"train.debug_nans": True, "train.checkpoint_interval": 0,
+                                   "train.checkpoint_dir": _no_checkpoint_dir()})
+    raised = None
+    try:
+        trainer = Trainer(nan_cfg, device=DEVICE, resume=False, synthetic_data=True,
+                          logger=MetricsLogger("", stream=sys.stderr))
+        trainer.state["params"]["blocks"]["mlp"]["w1"][0, 0, 0] = float("nan")
+        trainer.train(2)
+    except FloatingPointError as e:
+        raised = str(e)
+    finally:
+        debug.enable_nan_checks(False)
+    trainer = None
+    _free_card()
+
+    spec = f"{PARITY_DIR / 'train.bin'}:3,{PARITY_DIR / 'val.bin'}:1"
+    mix = sync.with_overrides({"data.train_path": spec, "data.prefetch": 2, "train.checkpoint_interval": 0})
+    seen = []
+    trainer = Trainer(mix, device=DEVICE, resume=False, logger=MetricsLogger("", stream=sys.stderr))
+    step_fn = trainer.step_fn
+
+    def recording_step(state, batch):
+        seen.append(tuple(t.cpu().numpy() for t in batch))
+        return step_fn(state, batch)
+
+    trainer.step_fn = recording_step
+    trainer.train(3)
+    del trainer
+    _free_card()
+    plain = loader.get_batch_iterator(spec, mix.train.batch_size, mix.model.context_length,
+                                      seed=mix.data.sample_seed)
+    mixture_equal = len(seen) == 3 and all(
+        all(np.array_equal(a, b) for a, b in zip(got, next(plain))) for got in seen)
+    log("train_options", checkpoint_async={"leaves_differing_at_step_3": ckpt_differs, "resumed_from": resumed_from,
+                                           "params_differing_after_resume": resume_differs,
+                                           "losses_equal_sync": losses_equal},
+        profile={"traces": traces, "k1_kernels_named": k1_traced, "losses_equal_unprofiled": profiled_losses_equal},
+        debug_nans={"raised": raised}, mixture_prefetch={"spec_weights": "3:1", "prefetch": 2,
+                                                         "batches_equal_unprefetched": mixture_equal},
+        phase_s=time.perf_counter() - t0)
+    if ckpt_differs or resume_differs or resumed_from != 3 or not losses_equal:
+        raise AssertionError("checkpoint_async: the async checkpoint or its resume differs from the sync run")
+    if traces != ["trace-1-3.json"] or not k1_traced or not profiled_losses_equal:
+        raise AssertionError(f"profile_dir: trace {traces}, K1 named {k1_traced}, losses equal {profiled_losses_equal}")
+    if raised is None:
+        raise AssertionError("debug_nans: a NaN weight did not raise FloatingPointError")
+    if not mixture_equal:
+        raise AssertionError("mixture + prefetch: the trainer's batches differ from the unprefetched iterator's")
+
+
 def time_kernels(launches, prefill_shapes, errs, launches_g1):
     from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
 
@@ -2393,6 +2727,44 @@ def time_train_kernels(paths):
     entry("flash_bwd_dkv_seg", key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,
           nbytes=bwd_in + 2 * k.numel() * 2 + seg.numel() * 4, err=dkv_err,
           fn=lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, segments=seg), **common)
+    del q, k, v, do, o, lse, delta, seg
+
+    # The T4 presets' MHA shapes at Dh 128 (BWD_CASES' three last cases):
+    # the one pass at gpt2-1p3b-fsdp's T 1024 and reference-3b's T 512, the
+    # dQ and dK/dV kernels at llama-1b's T 2048.
+    for b, h, g, t, d, main, names in ((1, 16, 16, 1024, 128, "T4 gpt2-1p3b-fsdp", ("flash_bwd_fused_1p3b",)),
+                                       (1, 16, 16, 512, 128, "T4 reference-3b", ("flash_bwd_fused_3b",)),
+                                       (1, 16, 16, 2048, 128, "T4 llama-1b",
+                                        ("flash_bwd_dq_llama1b", "flash_bwd_dkv_llama1b"))):
+        q, k, v, do, o, lse, delta = inputs(b, h, g, t, d)
+        common = dict(main=main, shape=f"B={b} H={h} G={g} T={t} Dh={d} bf16 causal", pairs=b * h * t * (t + 1) // 2,
+                      d=d, library_note="SDPA backward alone (dq, dk, dv), is_causal=True")
+        act, rows = q.numel() * 2, lse.numel() * 4
+        ref = cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g)
+        common["plain_ms"] = time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
+                                     flush=flush)
+        common["library_ms"] = sdpa_bwd_ms(q, k, v, do, b, h, g, t, d)
+        if len(names) == 1:
+            fused = lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g)  # noqa: E731
+            out = fused()
+            err = compare(names[0], common["shape"], ("dq", "dk", "dv"), out, ref, bwd_use)
+            repeat_check(names[0], common["shape"], fused, out)
+            entry(names[0], key="flash_bwd_fused_tc", source="flash_bwd_tc.cu", line=348, products=5,
+                  nbytes=7 * act + 2 * rows, err=err, fn=fused, **common)
+        else:
+            dq_fn = lambda: (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g),)  # noqa: E731
+            dkv_fn = lambda: cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g)  # noqa: E731
+            dq_out, dkv_out = dq_fn(), dkv_fn()
+            dq_err = compare(names[0], common["shape"], ("dq",), dq_out, ref[:1], bwd_use)
+            dkv_err = compare(names[1], common["shape"], ("dk", "dv"), dkv_out, ref[1:], bwd_use)
+            repeat_check(names[0], common["shape"], dq_fn, dq_out)
+            repeat_check(names[1], common["shape"], dkv_fn, dkv_out)
+            bwd_in = 4 * act + 2 * rows
+            entry(names[0], key="flash_bwd_dq_tc", source="flash_bwd_tc.cu", line=236, products=3,
+                  nbytes=bwd_in + act, err=dq_err, fn=dq_fn, **common)
+            entry(names[1], key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,
+                  nbytes=bwd_in + 2 * act, err=dkv_err, fn=dkv_fn, **common)
+        del q, k, v, do, o, lse, delta, ref
     return kernels
 
 
@@ -2572,6 +2944,10 @@ def main() -> int:
     launches_g1 = run_g1()  # on T1's checkpoint, before SCRATCH goes
     train_paths = {"T1": launches_t1, "T2": run_train_path2(), "parity": run_parity(),
                    "T3": run_train_path3()}
+    train_paths.update(run_t4())
+    train_paths.update(run_remat_sweep())
+    train_paths.update(run_optimizers())
+    run_trainer_options()
     shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs)

@@ -4,24 +4,31 @@ Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
 ``TrainConfig`` (same field names, defaults and validation), so that one
 kwargs dict builds the config of either package, and ``Config`` with the
 model, data and train sections and ``with_overrides``, plus the presets the
-port runs (with the JAX presets' train settings). The port keeps its own
+port runs: every JAX preset that needs no ring attention, MoE or second
+device, with its model and train sections field for field and no mesh
+section. A JAX preset's ``batch_size`` is its global batch; one device runs
+it whole, in ``train.microbatches`` where one pass does not fit (the mean
+of the microbatches' gradients is the batch's). The port keeps its own
 copy rather than importing the JAX package's module.
 
 Several model fields are tuning knobs of the XLA/TPU program
-(``flash_heads_major``, ``remat``, ``scan_unroll``, ``decode_unroll_layers``,
+(``flash_heads_major``, ``scan_unroll``, ``decode_unroll_layers``,
 ``decode_cache_layout``, ``decode_loop_max_tokens``): they change no result,
-and the port accepts and ignores them. ``flash_block_q``/``flash_block_kv``
+and the port accepts and ignores them. ``remat`` picks the per-layer
+activation checkpointing policy, as in JAX (``ops/remat.py``): it changes
+memory and recompute, not the result. ``flash_block_q``/``flash_block_kv``
 choose the flash backward's algorithm as they do in JAX (one block each:
 the one-pass kernel; otherwise the dQ and dK/dV kernels); the CUDA kernels
 tile T themselves. ``ragged_kv_splits``, ``ragged_amla`` and ``ce_impl``
 ("chunked", "dense" or "fused") choose between forms that compute the same
 result.
-``data.prefetch`` and ``data.use_native_batcher`` are accepted and ignored:
-the port's trainer feeds batches synchronously from the numpy sampler,
-which draws the same batches as the JAX package's numpy sampler. Options
-that change what is computed but are not ported yet are refused where they
-would be used (``models.transformer.check_ported``, the optimizer, and
-the trainer's ``checkpoint_async``, ``profile_dir`` and ``debug_nans``).
+``data.prefetch`` > 0 runs the sampler and the host-to-device copy that
+many batches ahead on a thread (``data.loader.DevicePrefetcher``).
+``data.use_native_batcher`` is accepted and ignored: the port samples with
+the numpy sampler, which draws the same batches as the JAX package's numpy
+sampler (the JAX native batcher draws others). Options that change what is
+computed but are not ported yet are refused where they would be used
+(``models.transformer.check_ported``).
 """
 
 from __future__ import annotations
@@ -302,7 +309,7 @@ class DataConfig:
     val_fraction: float = 0.0005
     split_seed: int = 42
     sample_seed: int = 1337
-    prefetch: int = 2  # accepted and ignored: the port feeds synchronously
+    prefetch: int = 2  # batches sampled and copied ahead on a thread (0: synchronous)
     use_native_batcher: bool = True  # accepted and ignored: numpy sampler
 
 
@@ -316,9 +323,7 @@ _LR_SCHEDULES = ("warmup_constant", "warmup_cosine", "warmup_stable_decay")
 @dataclass(frozen=True)
 class TrainConfig:
     """Training config (the JAX package's ``TrainConfig``; see it for the
-    meaning of every field). The port runs ``optimizer="adamw"``; the
-    others, ``checkpoint_async``, ``profile_dir`` and ``debug_nans`` are
-    refused where they would be used."""
+    meaning of every field)."""
 
     batch_size: int = 32
     microbatches: int = 1
@@ -489,6 +494,67 @@ _register(
         attention_impl="flash",
     ),
     train=TrainConfig(batch_size=12, train_steps=5000, lr=6e-4, eval_interval=250, eval_iters=20),
+)
+
+# GPT-2 350M (the JAX preset trains it data-parallel; one device here runs
+# its global batch).
+_register(
+    "gpt2-350m-dp",
+    _gpt2_model(
+        context_length=1024, d_model=1024, n_heads=16, n_layers=24,
+        attention_impl="flash",
+    ),
+    train=TrainConfig(batch_size=32, lr=3e-4),
+)
+
+# GPT-2 1.3B (FSDP-sharded in JAX; one device here, its two microbatches).
+_register(
+    "gpt2-1p3b-fsdp",
+    _gpt2_model(
+        context_length=1024, d_model=2048, n_heads=16, n_layers=24,
+        remat="dots_saveable", attention_impl="flash",
+    ),
+    train=TrainConfig(batch_size=64, lr=2e-4, microbatches=2),
+)
+
+# Llama-style 1B: RoPE, SwiGLU, RMSNorm, multi-head attention at Dh 128.
+_register(
+    "llama-1b",
+    _llama_model(
+        vocab_size=32000,
+        context_length=2048,
+        d_model=2048,
+        n_heads=16,
+        n_layers=22,
+        mlp_ratio=2.6875,  # d_ff = 5504
+        remat="dots_saveable",
+        attention_impl="flash",
+    ),
+    train=TrainConfig(batch_size=32, lr=3e-4, weight_decay=0.1),
+)
+
+# The source's own model: 3.16B parameters, ReLU MLP, no attention output
+# projection, an untied head with a bias, learned positions.
+_register(
+    "reference-3b",
+    ModelConfig(
+        vocab_size=50304,
+        context_length=512,
+        d_model=2048,
+        n_heads=16,
+        n_layers=64,
+        activation="relu",
+        norm="layernorm",
+        pos_embed="learned",
+        use_output_proj=False,
+        tie_embeddings=False,
+        lm_head_bias=True,
+        qkv_bias=False,
+        mlp_bias=True,
+        remat="dots_saveable",
+        attention_impl="flash",
+    ),
+    train=TrainConfig(batch_size=32, train_steps=200_000, lr=1e-4, eval_interval=1000, eval_iters=250),
 )
 
 # Llama-3-style 1B with grouped-query attention (4 KV heads for 16 query

@@ -45,6 +45,7 @@ import torch
 
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.models import layers
+from pretraining_llm_tpu_torch.ops import remat
 from pretraining_llm_tpu_torch.ops.attention import naive_attention
 from pretraining_llm_tpu_torch.ops.cuda_paged import paged_decode_attention, paged_kv_mask
 from pretraining_llm_tpu_torch.ops.cuda_ragged import ragged_paged_attention
@@ -349,14 +350,19 @@ def _attention_block(
     b, t, _ = x.shape
     h = layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps)
     attn = blk["attn"]
+    # The "qkv" remat tag: a policy that keeps it keeps these products.
     if "wqkv" in attn:
-        qkv = _mm(h, _weight(attn, "wqkv", cdt), cdt)  # (B, T, 3, H, Dh)
+        wqkv = _weight(attn, "wqkv", cdt)
+        with remat.site("qkv"):
+            qkv = _mm(h, wqkv, cdt)  # (B, T, 3, H, Dh)
         if "bqkv" in attn:
             qkv = qkv + attn["bqkv"].to(cdt)
         q, k, v = qkv.unbind(2)
     else:
-        q = _mm(h, _weight(attn, "wq", cdt), cdt)  # (B, T, H, Dh)
-        kvp = _mm(h, _weight(attn, "wkv", cdt), cdt)  # (B, T, 2, G, Dh)
+        wq, wkv = _weight(attn, "wq", cdt), _weight(attn, "wkv", cdt)
+        with remat.site("qkv"):
+            q = _mm(h, wq, cdt)  # (B, T, H, Dh)
+            kvp = _mm(h, wkv, cdt)  # (B, T, 2, G, Dh)
         if "bq" in attn:
             q = q + attn["bq"].to(cdt)
             kvp = kvp + attn["bkv"].to(cdt)
@@ -544,20 +550,27 @@ def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         gates = _mm(h, _weight(mlp, "w1", cdt), cdt)  # (B, T, 2, f)
         if "b1" in mlp:
             gates = gates + mlp["b1"].to(cdt)
-        hidden = torch.nn.functional.silu(gates[..., 0, :]) * gates[..., 1, :]
+        act = torch.nn.functional.silu(gates[..., 0, :])
+        with remat.site("mlp_hidden"):  # the remat tag on the activation's last op
+            hidden = act * gates[..., 1, :]
     else:
         hidden = _mm(h, _weight(mlp, "w1", cdt), cdt)
         if "b1" in mlp:
             hidden = hidden + mlp["b1"].to(cdt)
-        hidden = layers.activation_fn(cfg.activation, hidden)
+        with remat.site("mlp_hidden"):
+            hidden = layers.activation_fn(cfg.activation, hidden)
     out = _mm(hidden, _weight(mlp, "w2", cdt), cdt)
     if "b2" in mlp:
         out = out + mlp["b2"].to(cdt)
     return x + out.to(x.dtype)
 
 
-def _layer(tree: Params, i: int) -> Params:
-    """Layer i's parameters: views into the stacked block tensors."""
+def _layer(tree: Union[Params, list], i: int) -> Params:
+    """Layer i's parameters: views into the stacked block tensors, or entry
+    i of a per-layer list (``training.train_step`` hands the backward one
+    leaf per layer, so no layer's gradient is a full stacked tensor)."""
+    if isinstance(tree, list):
+        return tree[i]
     return {k: _layer(s, i) if isinstance(s, dict) else s[i] for k, s in tree.items()}
 
 
@@ -640,13 +653,19 @@ def forward(
     else:
         rope = layers.rope_table(cfg.context_length, cfg.head_dim, cfg.rope_theta, device)
 
+    def layer_body(x: torch.Tensor, blk: Params) -> torch.Tensor:
+        x = _attention_block(blk, x, cfg, rope, positions, None, None, segments)
+        return _mlp_block(blk, x, cfg)
+
+    # Training wraps each layer in the remat policy; cached and no-grad
+    # calls (serving, generate, eval) run the layers as they are.
+    body = remat.checkpoint_wrap(layer_body, cfg.remat) if torch.is_grad_enabled() else layer_body
     for i in range(cfg.n_layers):
         blk = _layer(params["blocks"], i)
-        layer_kv = None
-        if paged is not None:
-            layer_kv = kv_cache["layers"][i]
-        elif kv_cache is not None:
-            layer_kv = {name: buf[i] for name, buf in kv_cache.items()}
+        if kv_cache is None:
+            x = body(x, blk)
+            continue
+        layer_kv = kv_cache["layers"][i] if paged is not None else {name: buf[i] for name, buf in kv_cache.items()}
         x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged, segments,
                              cache_index, pad_offsets)
         x = _mlp_block(blk, x, cfg)

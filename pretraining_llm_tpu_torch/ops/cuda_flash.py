@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from pretraining_llm_tpu_torch.ops import _build
+from pretraining_llm_tpu_torch.ops import _build, remat
 
 NEG_INF = -1e30  # finite, as in the Pallas kernel: exp/max edge cases
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -369,7 +369,14 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, h, g, window, block_q, block_kv, segments=None):
-        o, lse = flash_attention_fwd(q, k, v, h, g, window=window, segments=segments)
+        # Inside a checkpointed layer's recompute, a named remat policy may
+        # hand back the first run's (o, lse): K1 runs only for what it
+        # did not keep (``ops/remat.py``).
+        o, lse = remat.kept_attention()
+        if lse is None:
+            o_run, lse = flash_attention_fwd(q, k, v, h, g, window=window, segments=segments)
+            o = o_run if o is None else o
+        remat.keep_attention(o, lse)
         ctx.save_for_backward(q, k, v, o, lse, segments)
         ctx.meta = (h, g, window, block_q, block_kv)
         return o

@@ -1,14 +1,22 @@
 """Training entry point of the PyTorch port.
 
 The flag names of the JAX package's ``scripts/train.py`` for what is
-ported: a preset, dotted overrides, file or synthetic data, ``--no-resume``
-and ``--steps``. Runs on the GPU; ``--device cpu`` runs the plain PyTorch
-versions of the kernels on the CPU.
+ported: a preset (every single-device preset of the JAX package: gpt2-124m,
+gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, llama3-1b-gqa, reference-3b,
+tiny), dotted overrides of any model, data or train field, file, mixture
+or synthetic data, ``--no-resume`` and ``--steps``. ``--obs-dir`` and
+``--compile-only`` are not ported. Runs on the GPU; ``--device cpu`` runs
+the plain PyTorch versions of the kernels on the CPU.
 
 Examples::
 
     python -m pretraining_llm_tpu_torch.train --preset tiny --data synthetic \\
         --override train.train_steps=100
+    python -m pretraining_llm_tpu_torch.train --preset reference-3b --data synthetic \\
+        --override model.remat=full
+    python -m pretraining_llm_tpu_torch.train --preset gpt2-124m --override \\
+        train.optimizer=muon train.checkpoint_async=True train.profile_dir=build/prof \\
+        data.train_path=data/parity/train.bin:3,data/parity/val.bin:1
     python -m pretraining_llm_tpu_torch.train --preset gpt2-124m \\
         --override data.train_path=data/train.bin data.val_path=data/val.bin
     python -m pretraining_llm_tpu_torch.train --preset gpt2-124m --no-resume \\

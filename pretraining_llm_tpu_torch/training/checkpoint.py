@@ -13,7 +13,9 @@ checkpoint.py``:
   - writes go to ``tmp-<N>`` and are renamed to ``step-<N>``, so a killed
     run never leaves a half checkpoint visible; the latest ``keep`` steps
     are kept;
-  - ``restore_latest`` falls back past a corrupt newest step.
+  - ``restore_latest`` falls back past a corrupt newest step;
+  - ``AsyncCheckpointWriter`` copies the state to host memory at the step
+    and writes it on a thread (``train.checkpoint_async``).
 
 A checkpoint written by the JAX trainer restores in the port and the
 reverse: same names, same ``.npy`` bytes. A bf16 leaf is written as the
@@ -28,6 +30,7 @@ import hashlib
 import json
 import os
 import shutil
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -230,3 +233,46 @@ def load_checkpoint(path: str, state_template: Any) -> Tuple[Any, Dict[str, Any]
             raise ValueError(f"checkpoint leaf {name}: shape {tuple(got.shape)} != expected {want}")
         leaves[name] = got
     return _unflatten(state_template, leaves), meta.get("extra", {})
+
+
+class AsyncCheckpointWriter:
+    """``train.checkpoint_async``: ``save`` copies the state to host memory
+    synchronously (the written values are exactly this step's, although the
+    step updates the device state in place afterwards) and writes it on a
+    background thread; ``join`` waits for the write in flight and raises
+    ``RuntimeError`` from its error, so a failed write reaches the training
+    loop at the next save or at the end of ``train``."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, directory: str, step: int, state: Any, **kwargs: Any) -> None:
+        host = _host_copy(state)
+        self.join()  # one write at a time into the directory
+
+        def write() -> None:
+            try:
+                save_checkpoint(directory, step, host, **kwargs)
+            except BaseException as e:  # surfaced by join()
+                self._error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()
+
+    def join(self) -> None:
+        thread, self._thread = self._thread, None
+        if thread is None:
+            return
+        thread.join()
+        err, self._error = self._error, None
+        if err is not None:
+            raise RuntimeError("async checkpoint write failed") from err
+
+
+def _host_copy(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree

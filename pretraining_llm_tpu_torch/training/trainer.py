@@ -8,12 +8,20 @@ atomic checkpoints, a final save, and JSONL/stdout metrics with step ms,
 tokens/s and MFU over log windows that exclude eval and save time. The loop
 does no math; metrics reach the host only at log boundaries.
 
+Options, as in the JAX trainer: ``data.prefetch`` > 0 samples and copies
+batches that many steps ahead on a thread (``data.loader.DevicePrefetcher``:
+pinned host memory, a side CUDA stream and an event the step's stream waits
+on), checkpointing the consumed-batch RNG frontier; ``train.
+checkpoint_async`` copies the state to host memory at the step and writes
+it on a thread, joined (and its error raised) on every exit path;
+``train.profile_dir`` traces steps [profile_start, profile_start +
+profile_steps) (``utils.profiling.StepProfiler``); ``train.debug_nans``
+makes a step raise ``FloatingPointError`` at a non-finite loss or gradient
+(``utils.debug``); mixture specs in ``data.train_path``.
+
 Not ported (listed in ROADMAP): the step watchdog, the preemption handler,
 anomaly detection and rollback, fault injection, the observability hub,
-meshes and multi-process runs, the background prefetch thread (batches
-are fed synchronously, through pinned memory for a card), async
-checkpoint writes, the profiler window and NaN debugging; the last three
-config options raise ``NotImplementedError``.
+meshes and multi-process runs, and the native batcher.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import sys
 from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
@@ -33,24 +42,12 @@ from pretraining_llm_tpu_torch.training import checkpoint as ckpt
 from pretraining_llm_tpu_torch.training import optimizer as opt
 from pretraining_llm_tpu_torch.training import train_step as ts
 from pretraining_llm_tpu_torch.training.metrics import MetricsLogger, Throughput
+from pretraining_llm_tpu_torch.utils import debug
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
+from pretraining_llm_tpu_torch.utils.profiling import StepProfiler
 
 HostBatch = Tuple[np.ndarray, np.ndarray]
 EVAL_SEED_OFFSET = 104729  # eval batches are drawn with data.sample_seed + this, never advanced
-
-
-def _check_ported(config: Config) -> None:
-    tcfg = config.train
-    unported = [
-        name for name, on in (
-            ("train.checkpoint_async", tcfg.checkpoint_async),
-            ("train.profile_dir", bool(tcfg.profile_dir)),
-            ("train.debug_nans", tcfg.debug_nans),
-        ) if on
-    ]
-    if unported:
-        raise NotImplementedError("not ported to PyTorch yet: " + ", ".join(unported))
-    opt.check_optimizer(tcfg)
 
 
 class Trainer:
@@ -65,8 +62,9 @@ class Trainer:
         logger: Optional[MetricsLogger] = None,
         device: DeviceLike = None,
     ) -> None:
-        _check_ported(config)
         self.config = config
+        if config.train.debug_nans:
+            debug.enable_nan_checks()
         self.device = resolve_device(device)
         self._owns_logger = logger is None
         self.logger = logger or MetricsLogger(config.train.metrics_path)
@@ -87,6 +85,9 @@ class Trainer:
         # iterator is consumed as a stream instead.
         self.val_iterator = val_iterator
         self._eval_batch_cache: Dict[int, HostBatch] = {}
+        self._feed: Optional[data_loader.DevicePrefetcher] = None
+        self._writer = ckpt.AsyncCheckpointWriter()
+        self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
         self.start_step = 0
         restored = None
@@ -126,7 +127,7 @@ class Trainer:
         params = meta(transformer.param_shapes(self.config.model))
         scalar = torch.empty((), device="meta")
         state: Dict[str, Any] = {
-            "params": params, "opt": {"mu": params, "nu": params, "count": scalar}, "step": scalar,
+            "params": params, "opt": opt.optimizer_init(params, self.config.train), "step": scalar,
         }
         if self.config.train.ema_decay > 0:
             state["ema"] = params
@@ -141,6 +142,36 @@ class Trainer:
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t
         return one(batch[0]), one(batch[1])
+
+    def _put_ahead(self, batch: HostBatch) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Any]:
+        """The prefetcher's put, on its thread: on a card, the pinned copy
+        runs on a side stream and ``ready`` makes the consumer's stream wait
+        for it; on the CPU, ``_put``."""
+        if self._copy_stream is None:
+            return self._put(batch), None
+        with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream):
+            x, y = self._put(batch)
+            copied = torch.cuda.Event()
+            copied.record(self._copy_stream)
+
+        def ready() -> None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(copied)
+            x.record_stream(stream)
+            y.record_stream(stream)
+
+        return (x, y), ready
+
+    def _close_feed(self) -> None:
+        """Stop the prefetch thread and rewind the source to the consumed
+        frontier, so a later ``train`` call draws the discarded batches
+        again (a worker that does not stop keeps its stream: no rewind)."""
+        if self._feed is None:
+            return
+        frontier = self._feed.state()
+        if self._feed.close() and frontier is not None and hasattr(self.train_iterator, "set_state"):
+            self.train_iterator.set_state(frontier)
+        self._feed = None
 
     def _fresh_val_iterator(self) -> Iterator[HostBatch]:
         """A new iterator per evaluate(): the same eval batches every time."""
@@ -168,7 +199,10 @@ class Trainer:
                 self._eval_batch_cache[iters] = batch
         return float(self.eval_loop(self.state, self._put(batch)))
 
-    def save(self, step: int) -> str:
+    def save(self, step: int, *, sync: bool = False) -> Optional[str]:
+        """Write a checkpoint of this step. With ``train.checkpoint_async``
+        (and not ``sync``), the state is copied to host memory here and
+        written on a thread: returns None."""
         extra: Dict[str, Any] = {
             "step": step,
             "config": dataclasses.asdict(self.config),
@@ -176,12 +210,23 @@ class Trainer:
             "block_layout": "depth_major",
         }
         local_extra: Dict[str, Any] = {}
-        if hasattr(self.train_iterator, "state"):
-            local_extra["data_rng"] = self.train_iterator.state()
-        return ckpt.save_checkpoint(
-            self.config.train.checkpoint_dir, step, self.state, extra=extra,
-            local_extra=local_extra, keep=self.config.train.keep_checkpoints,
-        )
+        # With the prefetcher running, the source's RNG is ahead by the queue:
+        # checkpoint the consumed-batch frontier.
+        rng_src = self._feed if self._feed is not None else self.train_iterator
+        if hasattr(rng_src, "state") and rng_src.state() is not None:
+            local_extra["data_rng"] = rng_src.state()
+        kwargs = dict(extra=extra, local_extra=local_extra, keep=self.config.train.keep_checkpoints)
+        directory = self.config.train.checkpoint_dir
+        if self.config.train.checkpoint_async and not sync:
+            self._writer.save(directory, step, self.state, **kwargs)
+            return None
+        self.join_pending_save()  # never two writes into the directory at once
+        return ckpt.save_checkpoint(directory, step, self.state, **kwargs)
+
+    def join_pending_save(self) -> None:
+        """Wait for an async checkpoint write in flight; raise
+        ``RuntimeError`` from its error."""
+        self._writer.join()
 
     def train(self, steps: Optional[int] = None) -> Dict[str, float]:
         """Train until the state's step reaches ``steps`` (default
@@ -190,11 +235,19 @@ class Trainer:
         tcfg = self.config.train
         total = steps if steps is not None else tcfg.train_steps
         tokens_per_step = tcfg.batch_size * self.config.model.context_length
+        profiler = StepProfiler(tcfg.profile_dir, tcfg.profile_start, tcfg.profile_steps)
         last: Dict[str, float] = {}
         step = int(self.state["step"])
         try:
             while step < total:
-                batch = self._put(next(self.train_iterator))
+                if self._feed is None and self.config.data.prefetch > 0:
+                    self._feed = data_loader.DevicePrefetcher(
+                        self.train_iterator, self._put_ahead, self.config.data.prefetch)
+                profiler.step(step)
+                if self._feed is not None:
+                    batch = next(self._feed)
+                else:
+                    batch = self._put(next(self.train_iterator))
                 self.state, metrics = self.step_fn(self.state, batch)
                 self.throughput.tick(tokens_per_step)
                 step += 1
@@ -219,18 +272,28 @@ class Trainer:
                 if off_path:
                     self.throughput.reset_clock()  # keep eval/save time out of step_ms
         except Exception as e:
-            # Persist the last good state before propagating: self.state is
-            # the previous step's output and still valid.
+            # Persist the last good state before propagating: the step
+            # raises before its optimizer update (a NaN check, a kernel
+            # error), so self.state is still the previous step's.
             self.logger.log({"event": "failure", "step": step, "error": repr(e)[:200]})
             try:
-                self.save(step)
+                self.save(step, sync=True)
             except Exception as save_err:  # keep the original error primary
                 self.logger.log({"event": "emergency_save_failed", "error": repr(save_err)[:200]})
             raise
         finally:
-            if self._owns_logger:
-                self.logger.close()
+            propagating = sys.exc_info()[0] is not None
+            profiler.close()
+            self._close_feed()
+            try:
+                self.join_pending_save()
+            except RuntimeError:
+                self.logger.log({"event": "async_checkpoint_failed", "step": step})
+                if not propagating:
+                    raise
+            finally:
+                if self._owns_logger:
+                    self.logger.close()
         if tcfg.save_final and (tcfg.checkpoint_interval <= 0 or step % tcfg.checkpoint_interval != 0):
-            self.save(step)
+            self.save(step, sync=True)
         return last
-

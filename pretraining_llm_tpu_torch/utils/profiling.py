@@ -1,11 +1,12 @@
-"""Where the time goes on the card: a ``torch.profiler`` breakdown of one
+"""The trainer's step-window profiler (``StepProfiler``), and where the time
+goes on the card: a ``torch.profiler`` breakdown of one
 admission prefill and one decode window of the serving path, of path 2's
 chunked prefill and path 3's int8 decode window, of one training step, and
 of one ``generate`` call at G1's shape.
 
 Run from the repository root on a machine with a GPU::
 
-    python -m pretraining_llm_tpu_torch.utils.profiling
+    python -m pretraining_llm_tpu_torch.utils.profiling [serving ragged train generate reference-3b remat]
 
 Serving: gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
 weights from seed 0) with the engine settings ``chip_smoke.py`` uses: path
@@ -21,7 +22,10 @@ T 1024, bf16 compute, fp32 params and AdamW, the flash kernels) after two
 warm-up steps, on random tokens; then the same with the fused CE head and
 document masking (``ce_impl="fused"``, ``doc_mask_token=10``, separators
 at chip_smoke T3's density of one per 67 tokens, the median spacing of
-``data/parity``).
+``data/parity``); one step of the reference-3b preset at full size
+(batch 32 x 512 in 2 microbatches, ``dots_saveable``); and one step of
+llama3-1b-gqa (22 layers, batch 2) under remat none, full and
+dots_saveable.
 Sampling: G1's ``generate`` call (``chip_smoke.py``): gpt2-124m cast to
 bf16, 8 ragged prompts of G1's lengths (random tokens), 128 greedy tokens
 over the dense cache: the prefill alone (``forward`` at cache index 0 over
@@ -37,10 +41,59 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+
+class StepProfiler:
+    """Capture a [start, start + n_steps) window of training steps with
+    ``torch.profiler`` (host ops and, on a card, its kernels) and write it
+    as a Chrome trace, ``<logdir>/trace-<start>-<stop>.json``: the
+    counterpart of the JAX package's ``StepProfiler``, which writes a
+    ``jax.profiler`` trace there. No ``logdir``: does nothing."""
+
+    def __init__(self, logdir: str, start_step: int, n_steps: int) -> None:
+        self.logdir = logdir
+        self.start_step = start_step
+        self.stop_step = start_step + n_steps
+        self._prof = None
+
+    def step(self, step: int) -> None:
+        """Call before running step ``step``."""
+        if not self.logdir:
+            return
+        if step == self.start_step and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        elif step >= self.stop_step and self._prof is not None:
+            self._finish()
+
+    def _finish(self) -> None:
+        import os
+
+        prof, self._prof = self._prof, None
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.__exit__(None, None, None)
+        os.makedirs(self.logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.logdir, f"trace-{self.start_step}-{self.stop_step}.json"))
+
+    def close(self) -> None:
+        """Stop and write an open capture. Idempotent, and safe on any exit
+        path: a failure here never masks the error that is propagating."""
+        if self._prof is None:
+            return
+        try:
+            self._finish()
+        except Exception:
+            pass
+
 
 TOP_KERNELS = 12  # kernels listed per phase, by device time
 SEED = 0  # weights and prompts, as in chip_smoke.py
@@ -149,36 +202,51 @@ DOC_SEP = 10  # the separator of the doc-masked phase (byte "\n")
 DOC_SPACING = 67  # tokens per document in that phase
 
 
-def profile_train() -> Dict[str, Dict[str, object]]:
+def _profile_train_step(preset: str, overrides: Dict[str, object]) -> Dict[str, object]:
+    """One ``build_train_step`` step of ``preset`` after two warm-up steps,
+    on random tokens (document separators at T3's density when the model
+    masks documents)."""
     from pretraining_llm_tpu_torch.config import get_preset
     from pretraining_llm_tpu_torch.training import train_step as ts
 
-    out = {}
-    for phase, overrides in (
-        ("train_step", {}),
-        ("train_step_fused_ce_doc_mask", {"model.ce_impl": "fused", "model.doc_mask_token": DOC_SEP}),
-    ):
-        cfg = get_preset("gpt2-124m").with_overrides(overrides)
-        state = {"state": ts.init_train_state(cfg, SEED, device="cuda")}
-        step = ts.build_train_step(cfg)
-        rng = np.random.default_rng(SEED + 12)
-        toks = rng.integers(0, cfg.model.vocab_size, (cfg.train.batch_size, cfg.model.context_length + 1))
-        if cfg.model.doc_mask_token >= 0:
-            toks[rng.random(toks.shape) < 1.0 / DOC_SPACING] = DOC_SEP
-        toks = torch.from_numpy(toks).cuda()
-        batch = (toks[:, :-1], toks[:, 1:])
+    cfg = get_preset(preset).with_overrides(overrides)
+    torch.cuda.reset_peak_memory_stats()
+    state = {"state": ts.init_train_state(cfg, SEED, device="cuda")}
+    step = ts.build_train_step(cfg)
+    rng = np.random.default_rng(SEED + 12)
+    toks = rng.integers(0, cfg.model.vocab_size, (cfg.train.batch_size, cfg.model.context_length + 1))
+    if cfg.model.doc_mask_token >= 0:
+        toks[rng.random(toks.shape) < 1.0 / DOC_SPACING] = DOC_SEP
+    toks = torch.from_numpy(toks).cuda()
+    batch = (toks[:, :-1], toks[:, 1:])
 
-        def one() -> None:
-            state["state"], metrics = step(state["state"], batch)
-            float(metrics["loss"])  # the step ends when its loss reaches the host
+    def one() -> None:
+        state["state"], metrics = step(state["state"], batch)
+        float(metrics["loss"])  # the step ends when its loss reaches the host
 
-        for _ in range(2):
-            one()
-        out[phase] = _profile(one)
-        out[phase]["tokens"] = cfg.train.batch_size * cfg.model.context_length
-        del state, step
-        torch.cuda.empty_cache()
+    for _ in range(2):
+        one()
+    out = _profile(one)
+    out["tokens"] = cfg.train.batch_size * cfg.model.context_length
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del state, step
+    torch.cuda.empty_cache()
     return out
+
+
+def profile_train() -> Dict[str, Dict[str, object]]:
+    return {
+        "train_step": _profile_train_step("gpt2-124m", {}),
+        "train_step_fused_ce_doc_mask": _profile_train_step(
+            "gpt2-124m", {"model.ce_impl": "fused", "model.doc_mask_token": DOC_SEP}),
+    }
+
+
+def profile_reference_3b() -> Dict[str, Dict[str, object]]:
+    """The source's reference-3b at full size: batch 32 x 512 in 2
+    microbatches (chip_smoke T4's fit), its dots_saveable remat, bf16
+    compute, fp32 params and AdamW."""
+    return {"train_step_reference_3b": _profile_train_step("reference-3b", {"train.microbatches": 2})}
 
 
 G1_NEW_TOKENS = 128  # chip_smoke.py's G1
@@ -218,11 +286,30 @@ def profile_generate() -> Dict[str, Dict[str, object]]:
     return out
 
 
-def main() -> None:
+def profile_remat() -> Dict[str, Dict[str, object]]:
+    """chip_smoke R's model (llama3-1b-gqa, 22 layers, batch 2 x 2048) one
+    step under remat none, full and dots_saveable: how the selective
+    policy's dispatch-level recompute shows in the busy share."""
+    return {f"train_step_llama3_1b_gqa_{policy}": _profile_train_step(
+        "llama3-1b-gqa", {"train.batch_size": 2, "model.remat": policy})
+        for policy in ("none", "full", "dots_saveable")}
+
+
+PHASES = {"serving": profile_serving, "ragged": profile_ragged_paths, "train": profile_train,
+          "generate": profile_generate, "reference-3b": profile_reference_3b, "remat": profile_remat}
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="torch.profiler breakdowns on the card")
+    parser.add_argument("phases", nargs="*", default=list(PHASES), choices=list(PHASES),
+                        help="which phases to profile (default: all)")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
-    for profile_phases in (profile_serving, profile_ragged_paths, profile_train, profile_generate):
-        for phase, rec in profile_phases().items():
+    for name in args.phases:
+        for phase, rec in PHASES[name]().items():
             print(json.dumps({"phase": phase, "device": torch.cuda.get_device_name(0), **rec}), flush=True)
 
 

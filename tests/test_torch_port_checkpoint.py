@@ -32,6 +32,7 @@ from pretraining_llm_tpu_torch.training import optimizer as topt
 from pretraining_llm_tpu_torch.training import train_step as tts
 from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
 from pretraining_llm_tpu_torch.training.trainer import Trainer
+from pretraining_llm_tpu_torch.utils import debug as tdebug
 
 MODEL = dict(
     vocab_size=97, context_length=32, d_model=32, n_heads=4, n_layers=2,
@@ -224,9 +225,30 @@ def test_trainer_eval_metrics_and_cli(tmp_path, capsys):
 @pytest.mark.parametrize("key,value", [("train.checkpoint_async", True), ("train.profile_dir", "p"),
                                        ("train.debug_nans", True)])
 def test_trainer_refuses_unported_options(tmp_path, key, value):
-    cfg = _tiny(tmp_path).with_overrides({key: value})
-    with pytest.raises(NotImplementedError, match=key):
-        Trainer(cfg, synthetic_data=True, resume=False, device="cpu")
+    """These options were refused before they were ported; now the Trainer
+    takes each and does what it asks: an async save writes the synchronous
+    save's bytes, the profiler writes its window's trace, and NaN checks
+    are on for the step."""
+    if key == "train.profile_dir":
+        value = str(tmp_path / value)
+    cfg = _tiny(tmp_path, train_steps=4, checkpoint_interval=4, profile_start=1, profile_steps=2,
+                save_final=False).with_overrides({key: value})
+    try:
+        t = Trainer(cfg, synthetic_data=True, resume=False, device="cpu")
+        t.train()
+        if key == "train.debug_nans":
+            assert tdebug.nan_checks_enabled()
+    finally:
+        tdebug.enable_nan_checks(False)
+    if key == "train.profile_dir":
+        assert os.listdir(value) == ["trace-1-3.json"]
+    ref = Trainer(_tiny(tmp_path / "ref", train_steps=4, checkpoint_interval=4, save_final=False),
+                  synthetic_data=True, resume=False, device="cpu")
+    ref.train()
+    got, want = (_leaves_np(tckpt.load_checkpoint(tckpt.latest_checkpoint(str(d)), ref.state)[0])
+                 for d in (tmp_path / "ck", tmp_path / "ref" / "ck"))
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
 def test_config_overrides():

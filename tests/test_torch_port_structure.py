@@ -24,6 +24,7 @@ from pretraining_llm_tpu_torch import train as train_cli
 from pretraining_llm_tpu_torch.models import bridge, transformer
 from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
 from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
+from pretraining_llm_tpu_torch.training import optimizer as opt
 from pretraining_llm_tpu_torch.training import train_step
 from pretraining_llm_tpu_torch.training.trainer import Trainer
 
@@ -175,11 +176,27 @@ def test_unported_model_options_raise(kw, name):
     ("train.optimizer", "muon", "muon"),
 ])
 def test_unported_training_options_raise(key, value, name):
+    """Adafactor and Muon were refused before they were ported; now a
+    train step with either runs and updates the state in place: finite
+    parameters, the same tensors (``data_ptr``) before and after, and the
+    optimizer's state tree under the JAX package's names."""
     cfg = get_preset("tiny").with_overrides({key: value, "model.compute_dtype": "float32"})
-    with pytest.raises(NotImplementedError, match=name):
-        state = train_step.init_train_state(cfg, device="cpu")
-        x = torch.zeros(2, cfg.model.context_length, dtype=torch.long)
-        train_step.build_train_step(cfg)(state, (x, x))
+    state = train_step.init_train_state(cfg, device="cpu")
+    assert set(state["opt"]) == {"v" if name == "adafactor" else "s", "count"}
+    moments = "v" if name == "adafactor" else "s"
+
+    def ptrs(st):
+        return [t.data_ptr() for _, t in opt.tree_leaves({"params": st["params"], "opt": st["opt"][moments]})]
+
+    before_ptrs = ptrs(state)
+    x = torch.randint(0, cfg.model.vocab_size, (cfg.train.batch_size, cfg.model.context_length))
+    before = opt.tree_map(torch.clone, state["params"])
+    state, metrics = train_step.build_train_step(cfg)(state, (x, x))
+    assert int(state["opt"]["count"]) == 1 and torch.isfinite(metrics["loss"])
+    assert ptrs(state) == before_ptrs
+    moved = [not torch.equal(a, b) for (_, a), (_, b) in zip(opt.tree_leaves(before),
+                                                               opt.tree_leaves(state["params"]))]
+    assert any(moved) and all(torch.isfinite(t).all() for _, t in opt.tree_leaves(state["params"]))
 
 
 def test_unported_forward_paths_raise():
@@ -240,8 +257,13 @@ def test_bpe_build_writes_only_under_build(tmp_path, monkeypatch):
     assert listing() == before
 
 
+PORT_PRESETS = ("gpt2-124m", "gpt2-1p3b-fsdp", "gpt2-350m-dp", "llama-1b", "llama3-1b-gqa", "reference-3b", "tiny")
+
+
 def test_presets_and_config_validation():
-    assert {"gpt2-124m", "tiny", "llama3-1b-gqa"} <= set(list_presets())
+    """The port registers the seven single-device presets of the JAX
+    package; ring attention and MoE presets stay out."""
+    assert tuple(list_presets()) == PORT_PRESETS
     gpt2 = get_preset("gpt2-124m").model
     assert (gpt2.vocab_size, gpt2.d_model, gpt2.n_heads, gpt2.head_dim, gpt2.n_layers) == (50304, 768, 12, 64, 12)
     assert gpt2.attention_impl == "flash" and gpt2.tie_embeddings and gpt2.qkv_bias

@@ -285,10 +285,22 @@ def test_learning_rate_schedules_match_jax(schedule):
 
 
 def test_unported_optimizers_raise():
+    """Adafactor and Muon were refused before they were ported; now
+    ``init_train_state`` builds each one's state with the JAX package's
+    tree: the same leaf names, shapes and dtypes."""
     for name in ("adafactor", "muon"):
         cfg = tcfg.get_preset("tiny").with_overrides({"train.optimizer": name})
-        with pytest.raises(NotImplementedError, match=name):
-            tts.init_train_state(cfg, device="cpu")
+        jc = jcfg.get_preset("tiny").with_overrides({"train.optimizer": name})
+        got = tts.init_train_state(cfg, device="cpu")["opt"]
+        want = jax.eval_shape(lambda: jts.init_train_state(jc, jax.random.key(0)))["opt"]
+        got_flat = {"/".join(p): (tuple(t.shape), str(t.dtype).split(".")[-1]) for p, t in topt.tree_leaves(got)}
+        want_flat = {k: (tuple(v.shape), str(v.dtype)) for k, v in _flat_specs(want).items()}
+        assert got_flat == want_flat, name
+
+
+def _flat_specs(tree):
+    return {"/".join(str(getattr(p, "key", p)) for p in path): x
+            for path, x in jax.tree_util.tree_leaves_with_path(tree)}
 
 
 # ---------------------------------------------------------------------------
@@ -375,8 +387,13 @@ def test_batch_iterator_matches_jax_and_resumes():
     for (wx, wy), (gx, gy) in zip(want, (next(fresh) for _ in range(2))):
         np.testing.assert_array_equal(wx, gx)
         np.testing.assert_array_equal(wy, gy)
-    with pytest.raises(NotImplementedError, match="mixture"):
-        tloader.get_batch_iterator("a.bin:3,b.bin:1", 2, 8)
+    # A mixture spec (refused before mixtures were ported) draws the JAX
+    # package's batches.
+    spec = f"{path}:3,{PARITY / 'val.bin'}:1"
+    jmix, tmix = (m.get_batch_iterator(spec, 16, 256, seed=7) for m in (jloader, tloader))
+    for _ in range(2):
+        for a, b in zip(next(jmix), next(tmix)):
+            np.testing.assert_array_equal(a, b)
 
 
 def test_synthetic_stream_matches_jax():
