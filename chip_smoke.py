@@ -31,6 +31,31 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           ``quantize="int8-kv"`` with the prefix cache: every attention
           (suffix prefill and decode) through the ragged kernel on int8
           pools, with the auto KV-split count;
+          (paths 1 and 2 run the synchronous scheduler,
+          ``run(pipeline=False)``, path 3 ``step()``)
+  path 4  path 1's requests through the pipelined scheduler, ``run()`` at
+          the engine's defaults (depth 2), at depth 1, at depth 3 and at
+          depth 2 with ``admit_batch=4``, beside a synchronous run: every
+          decode dispatch under ``torch.cuda.set_sync_debug_mode("error")``,
+          each run's streams against path 1's up to each row's first near
+          tie, windows, flushes, host-blocked seconds per window, tokens/s
+          and the profiled busy share; then 4 requests on the unfused lane
+          (``fused_sampling=False``), token for token the fused streams;
+  checksum
+          path 2's workload with ``kv_checksum=True`` (path 2's streams),
+          then one byte of a published page flipped: the request that hits
+          it drops the page, prefills privately and gives the stream of the
+          same request on a fresh engine;
+  path 5  after T1: speculative serving (``spec_k=4``, depth 2) of 8 corpus
+          lines on gpt2-124m with T1's step-30 weights and a draft of its
+          first 2 blocks, against target-only serving up to near ties, K2's
+          verify at T = 5 on the split route once per layer per round; then
+          llama3-1b-gqa at its 22 layers (random weights, 8 requests of
+          64-400 tokens, 32 new tokens), whose verify (20 query rows per KV
+          head) takes K2's loop route;
+  serve   ``python -m pretraining_llm_tpu_torch.serve`` as a subprocess on
+          the same checkpoint and prompts, without and with the draft: the
+          JSONL outputs are path 5's streams decoded;
   T1      ``Trainer.train`` on gpt2-124m at full width and depth (batch
           12, T 1024, bf16 compute) for 30 steps on ``data/parity``
           bytes: flash forward and the one-pass backward kernel; held
@@ -115,8 +140,10 @@ the split page stream (``paged_split``: each row's table cut into
 partitions, one block each, merged in partition order by the last block
 inside the launch), other shapes the one-block-per-row loop
 (``paged_loop``). ``check_paged`` logs and asserts each case's route, and
-every split case must give the same bits on a repeat launch; paths 1 and
-2 must decode through the split route only. The fused CE forward (B9)
+every split case must give the same bits on a repeat launch; paths 1, 2
+and 4 must decode through the split route only; path 5's llama3-1b-gqa
+verify (T 5) through the loop route, which two ``check_paged`` cases hold
+at its shape (H 16, G 4, T 5, Dh 128). The fused CE forward (B9)
 takes ``csrc/fused_ce_tc.cu`` (wgmma fed by a TMA ring, the vocabulary cut
 into partitions merged by the last block of each token tile) for bf16
 and ``csrc/fused_ce.cu`` for fp32 (``ce_route``; ``fused_ce_fwd_wgmma`` /
@@ -678,7 +705,7 @@ def paged_state(rng, b, n_blocks, nb, bs, t, lo=0, hi=None, seqs=None):
     return torch.from_numpy(tables).cuda(), torch.from_numpy(seq).cuda()
 
 
-PAGED_CASES = [  # (case, B, T, G, Dh, window, dtype, seq_lens or None for drawn ones)
+PAGED_CASES = [  # (case, B, T, G, Dh, window, dtype, seq_lens or None for drawn ones[, H; default 12])
     ("grid", 8, 1, 12, 64, 0, torch.bfloat16, None), ("grid", 8, 1, 12, 64, 0, torch.float32, None),
     ("grid", 8, 4, 12, 64, 0, torch.bfloat16, None), ("grid", 8, 4, 12, 64, 0, torch.float32, None),
     ("grid", 8, 1, 4, 64, 0, torch.bfloat16, None), ("grid", 8, 4, 4, 64, 200, torch.bfloat16, None),
@@ -698,22 +725,29 @@ PAGED_CASES = [  # (case, B, T, G, Dh, window, dtype, seq_lens or None for drawn
     ("gqa_dh128", 8, 1, 4, 128, 0, torch.bfloat16, None), ("gqa_dh128", 8, 1, 4, 128, 0, torch.float32, None),
     # Shapes outside the split route's rule: the loop kernel.
     ("loop_dh32", 8, 1, 12, 32, 0, torch.bfloat16, None), ("loop_rows_24", 8, 8, 4, 64, 0, torch.bfloat16, None),
+    # llama3-1b-gqa's speculative verify (H 16 over G 4, T 5 = k + 1, Dh 128:
+    # 20 rows per KV head, the loop route), drawn lengths and page edges.
+    ("loop_gqa_t5", 8, 5, 4, 128, 0, torch.bfloat16, None, 16),
+    ("loop_gqa_t5_page_edges", 8, 5, 4, 128, 0, torch.bfloat16, [0, 59, 60, 63, 64, 123, 124, 1019], 16),
 ]
 
 
-def check_paged() -> float:
-    """K2 against its plain version at PAGED_CASES (H 12, 64-slot pages,
-    16-entry tables): each case logs the route ``paged_route`` gives it and
-    asserts that the launch took it; every split-route case launches twice
-    and must give the same bits (its partials merge in partition order)."""
+def check_paged() -> dict:
+    """K2 against its plain version at PAGED_CASES (H 12 unless the case
+    names its own, 64-slot pages, 16-entry tables): each case logs the
+    route ``paged_route`` gives it and asserts that the launch took it;
+    every split-route case launches twice and must give the same bits (its
+    partials merge in partition order). Returns the worst error over the
+    cases and over the loop route's speculative-verify cases."""
     from pretraining_llm_tpu_torch.ops import _build, cuda_paged
 
     f = cuda_paged.paged_decode_attention
     gen = torch.Generator().manual_seed(SEED + 1)
     rng = np.random.default_rng(SEED + 1)
-    h, bs, nb, n_blocks = 12, 64, 16, 160
-    worst = 0.0
-    for case, b, t, g, d, window, dtype, seqs in PAGED_CASES:
+    bs, nb, n_blocks = 64, 16, 160
+    worst, worst_gqa_t5 = 0.0, 0.0
+    for case, b, t, g, d, window, dtype, seqs, *case_h in PAGED_CASES:
+        h = case_h[0] if case_h else 12
         q = randn((b, t, h, d) if t > 1 else (b, h, d), dtype, gen)
         kp = randn((n_blocks, bs, g, d), dtype, gen)
         vp = randn((n_blocks, bs, g, d), dtype, gen)
@@ -740,7 +774,9 @@ def check_paged() -> float:
         if repeat_same is False:
             raise AssertionError(f"paged case {case}: a repeat launch gave other bits")
         worst = max(worst, err)
-    return worst
+        if case.startswith("loop_gqa_t5"):
+            worst_gqa_t5 = max(worst_gqa_t5, err)
+    return {"paged_decode": worst, "paged_loop_gqa_t5": worst_gqa_t5}
 
 
 def ragged_state(rng, q_lens, seqs, n_blocks, nb, bs):
@@ -1110,10 +1146,18 @@ def check_generate_card_vs_cpu() -> None:
             raise AssertionError(f"generate ({name}): near ties left too few steps to compare: {compared}")
 
 
+def main_path_requests(vocab_size: int):
+    """Path 1's 16 requests: prompts of 17-900 random tokens."""
+    rng = np.random.default_rng(SEED + 3)
+    lens = rng.integers(17, 901, size=16).tolist()
+    return [rng.integers(0, vocab_size, size=n).tolist() for n in lens]
+
+
 def run_main_path():
     """Full-width gpt2-124m, bf16, paged_attention_impl="kernel", served
-    through ServingEngine.submit/run. Returns each kernel's launch count
-    on that run and the (rows, padded length) of each admission prefill."""
+    through ServingEngine.submit/run(pipeline=False) (the synchronous
+    scheduler). Returns each kernel's launch count on that run, the (rows,
+    padded length) of each admission prefill and the 16 token streams."""
     import dataclasses
 
     from pretraining_llm_tpu_torch.config import get_preset
@@ -1126,14 +1170,14 @@ def run_main_path():
     torch.cuda.reset_peak_memory_stats()
     eng = ServingEngine(params, cfg, max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8,
                         device=DEVICE)
-    rng = np.random.default_rng(SEED + 3)
-    lens = rng.integers(17, 901, size=16).tolist()
+    prompts = main_path_requests(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
     max_new = 64
-    rids = [eng.submit(rng.integers(0, cfg.vocab_size, size=n).tolist(), max_new) for n in lens]
+    rids = [eng.submit(p, max_new) for p in prompts]
 
     reset_kernel_counts()
     t0 = time.perf_counter()
-    out = eng.run()
+    out = eng.run(pipeline=False)  # the synchronous scheduler, as PERF.md's path 1 numbers
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_counts()
@@ -1159,7 +1203,7 @@ def run_main_path():
     if launches["flash_fwd_tc"] != launches["flash_fwd"]:
         raise AssertionError(f"main path (bf16) ran the flash forward off the tensor-core route: {launches}")
     _assert_paged_split("main path", launches)
-    return launches, eng.prefill_shapes
+    return launches, eng.prefill_shapes, [out[r] for r in rids]
 
 
 def _assert_paged_split(name: str, launches: dict) -> None:
@@ -1194,6 +1238,7 @@ def kernel_counts() -> dict:
            for name in ("fused", "dq", "dkv") for route in ("", "_tc", "_fp32")},
         "paged_decode": cuda_paged.paged_decode_attention.launches,
         **{f"paged_{route}": n for route, n in cuda_paged.paged_decode_attention.launches_by_route.items()},
+        **{f"paged_{route}_t{t}": n for (route, t), n in cuda_paged.paged_decode_attention.launches_by_queries.items()},
         "ragged": cuda_ragged.ragged_paged_attention.launches,
         "ragged_split": cuda_ragged.ragged_paged_attention.split_launches,
         **{f"ragged_{route}": n for route, n in cuda_ragged.ragged_paged_attention.launches_by_route.items()},
@@ -1214,6 +1259,7 @@ def reset_kernel_counts() -> None:
     cuda_ragged.ragged_paged_attention.split_launches = 0
     cuda_ragged.ragged_paged_attention.launches_by_route = dict.fromkeys(cuda_ragged.ROUTES, 0)
     cuda_paged.paged_decode_attention.launches_by_route = dict.fromkeys(cuda_paged.ROUTES, 0)
+    cuda_paged.paged_decode_attention.launches_by_queries = {}
     for routed in (cuda_ce.fused_ce_fwd, cuda_ce.fused_ce_dh, cuda_ce.fused_ce_dw):
         routed.launches_by_route = dict.fromkeys(cuda_ce.ROUTES, 0)
 
@@ -1221,9 +1267,10 @@ def reset_kernel_counts() -> None:
 def serving_path(name: str, *, arrivals_per_step: int = 0, **engine_kw):
     """Full-width gpt2-124m, bf16, random weights from the seed, serving the
     16 shared-prefix requests (64 new tokens each) through
-    ``ServingEngine``: all submitted up front and ``run()``, or
-    ``arrivals_per_step`` submitted before each ``step()``. Returns (each
-    kernel's launches on the run, the engine)."""
+    ``ServingEngine``: all submitted up front and ``run(pipeline=False)``
+    (the synchronous scheduler), or ``arrivals_per_step`` submitted before
+    each ``step()``. Returns (each kernel's launches on the run, the
+    engine)."""
     import dataclasses
 
     from pretraining_llm_tpu_torch.config import get_preset
@@ -1252,7 +1299,7 @@ def serving_path(name: str, *, arrivals_per_step: int = 0, **engine_kw):
         out = eng.finished
     else:
         rids = [eng.submit(p, max_new) for p in prompts]
-        out = eng.run()
+        out = eng.run(pipeline=False)  # the synchronous scheduler, as PERF.md's path 2 numbers
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_counts()
@@ -1318,6 +1365,427 @@ def run_path3():
         raise AssertionError(f"path3 launched the paged kernel on int8 pools: {launches}")
     _assert_ragged_tensor_cores("path3", launches)
     return launches, eng
+
+
+# ---------------------------------------------------------------------------
+# The pipelined scheduler, speculative serving, KV checksums, the serve CLI
+# ---------------------------------------------------------------------------
+
+SERVE_DIR = SCRATCH / "serve"  # T1's weights and the 2-block draft, saved for serving
+SERVE_ENGINE = dict(max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8)  # the serve CLI's defaults
+SPEC_K = 4
+P5_NEW_TOKENS = 64
+LLAMA_SPEC_NEW_TOKENS = 32
+
+
+def guard_dispatch(eng) -> None:
+    """Every decode dispatch of ``eng`` (a window or a spec round) runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: a call inside it that
+    waits for the stream raises."""
+    for name in ("_dispatch_window", "_dispatch_spec_round"):
+        orig = getattr(eng, name)
+
+        def guarded(*args, _orig=orig):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _orig(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        setattr(eng, name, guarded)
+
+
+def compare_streams(name: str, params, cfg, prompts, want, got) -> dict:
+    """Each row of ``got`` against ``want`` (two greedy runs of the same
+    requests on the card) up to the first token where they part. There the
+    two tokens must be a near tie of one uncached bf16 forward over the
+    prompt and the common prefix: their logits within BF16_ROW_RTOL of that
+    position's largest |logit| (G1's bar; bf16 logits move by more than
+    NEAR_TIE when an admission's padded shape picks another GEMM
+    algorithm). Returns the exact rows, the compared tokens and each tie."""
+    from pretraining_llm_tpu_torch.models import transformer
+
+    exact, compared, ties = 0, 0, []
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        if len(w) != len(g):
+            raise AssertionError(f"{name}: row {i} has {len(g)} tokens, the reference {len(w)}")
+        j = next((j for j, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if j is None:
+            exact += 1
+            compared += len(w)
+            continue
+        compared += j
+        with torch.no_grad():
+            logits, _ = transformer.forward(params, torch.tensor([list(p) + w[:j]], device=DEVICE), cfg)
+        row = logits[0, -1].float()
+        gap, bar = (row[w[j]] - row[g[j]]).abs().item(), BF16_ROW_RTOL * row.abs().max().item()
+        ties.append({"row": i, "step": j, "gap": gap, "bar": bar})
+        if not gap <= bar:
+            raise AssertionError(f"{name}: row {i} parts at step {j}, where the logits are {gap} apart (> {bar})")
+    return {"rows": len(want), "exact_rows": exact, "compared_tokens": compared,
+            "tokens": sum(map(len, want)), "near_ties": ties}
+
+
+def _first_blocks(tree: dict, n: int) -> dict:
+    """A parameter tree with only its first ``n`` blocks (block leaves are
+    stacked on axis 0); embeddings, final norm and head unchanged."""
+    def cut(sub):
+        return {k: cut(v) if isinstance(v, dict) else v[:n] for k, v in sub.items()}
+
+    return {**tree, "blocks": cut(tree["blocks"])}
+
+
+def corpus_lines(n: int = 8):
+    """``n`` lines of ``data/parity/corpus.txt`` of 17-600 ASCII bytes,
+    drawn from the seed: prompts a prompt file holds one a line."""
+    lines = [ln for ln in (PARITY_DIR / "corpus.txt").read_text().split("\n")
+             if 17 <= len(ln) <= 600 and ln.isascii() and ln.strip() == ln]
+    rng = np.random.default_rng(SEED + 31)
+    return [lines[i] for i in rng.choice(len(lines), size=n, replace=False)]
+
+
+P4_RUNS = (("sync", {}, False), ("default", {}, True), ("depth1", dict(pipeline_depth=1), True),
+           ("depth3", dict(pipeline_depth=3), True), ("depth2_admit4", dict(admit_batch=4), True))
+P4_ORDER = ("sync", "default", "depth1", "depth3", "depth2_admit4", "default", "sync")  # timed runs, in turns
+P4_PROFILED_WINDOWS = 2
+
+
+def run_path4(path1_streams) -> dict:
+    """Path 4: path 1's 16 requests (full-width gpt2-124m, bf16, 64 greedy
+    tokens) through the pipelined scheduler: ``run()`` at the defaults
+    (depth 2), at depth 1, at depth 3, and at depth 2 with
+    ``admit_batch=4``, beside the synchronous scheduler. After a warm-up
+    run, the timed runs go in turns (P4_ORDER: the synchronous and default
+    runs twice, first and last), every decode dispatch under the sync
+    guard, each run's streams against path 1's (``compare_streams``). The
+    busy share of each configuration comes from P4_PROFILED_WINDOWS decode
+    windows in steady state under the profiler (a whole run's trace takes
+    minutes to read). Then 4 of the requests with ``fused_sampling=False``:
+    the fused streams exactly. Returns the first default run's launches."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+    from pretraining_llm_tpu_torch.utils.profiling import profile_call
+
+    cfg = dataclasses.replace(get_preset("gpt2-124m").model, paged_attention_impl="kernel")
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
+    prompts = main_path_requests(cfg.vocab_size)
+    max_new = 64
+
+    def engine(kw, pipeline, reqs):
+        eng = ServingEngine(params, cfg, device=DEVICE, **SERVE_ENGINE, **kw)
+        rids = [eng.submit(p, max_new) for p in reqs]
+        if pipeline and kw.get("fused_sampling", True):
+            guard_dispatch(eng)
+        torch.cuda.synchronize()
+        return eng, rids
+
+    def serve(kw, pipeline, reqs):
+        eng, rids = engine(kw, pipeline, reqs)
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = eng.run(pipeline=pipeline)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return eng, [out[r] for r in rids], wall, kernel_counts()
+
+    def profiled_windows(kw, pipeline) -> dict:
+        eng, _ = engine(kw, pipeline, prompts)
+        tick = eng.pipeline_tick if pipeline else eng.step
+        for _ in range(3 if pipeline else 1):  # admission, and the queue filled
+            tick()
+        before = dict(eng.stats)
+        prof = profile_call(lambda: [tick() for _ in range(P4_PROFILED_WINDOWS)])
+        reaped = eng.stats["windows_reaped"] - before["windows_reaped"]
+        return dict(windows=P4_PROFILED_WINDOWS, wall_ms_per_window=prof["wall_ms"] / P4_PROFILED_WINDOWS,
+                    device_kernel_ms_per_window=prof["device_kernel_ms"] / P4_PROFILED_WINDOWS,
+                    busy_share=prof["device_busy_share"], kernel_launches=prof["kernel_launches"],
+                    host_blocked_ms_per_window=(eng.stats["host_blocked_s"] - before["host_blocked_s"]) * 1e3
+                    / max(1, reaped))
+
+    serve({}, True, prompts[:8])  # warm-up: the pipelined path's first pinned buffers and events
+    configs = {name: (kw, pipeline) for name, kw, pipeline in P4_RUNS}
+    walls = {name: [] for name in configs}
+    first_streams = {}
+    default_launches = None
+    for turn, name in enumerate(P4_ORDER):
+        kw, pipeline = configs[name]
+        eng, streams, wall, launches = serve(kw, pipeline, prompts)
+        walls[name].append(wall)
+        if len(walls[name]) > 1:  # a repeat: the same streams, timed again
+            if streams != first_streams[name]:
+                raise AssertionError(f"path4 {name}: a repeat run gave other streams")
+            continue
+        first_streams[name] = streams
+        st = eng.stats
+        decode_tokens = st["tokens"] - st["admissions"]
+        cmp = compare_streams(f"path4 {name}", params, cfg, prompts, path1_streams, streams)
+        log("path4", run=name, turn=turn, engine=kw, scheduler="pipelined" if pipeline else "synchronous",
+            pipeline_depth=eng.pipeline_depth if pipeline else None, requests=len(prompts), max_new_tokens=max_new,
+            wall_s=wall, tokens=st["tokens"], tokens_per_s=st["tokens"] / wall, decode_tokens=decode_tokens,
+            decode_tokens_per_s=decode_tokens / wall, windows=st["windows"], windows_reaped=st["windows_reaped"],
+            flushes=st["flushes"], host_blocked_s=st["host_blocked_s"],
+            host_blocked_s_per_window=st["host_blocked_s"] / max(1, st["windows_reaped"]),
+            steps=st["steps"], admissions=st["admissions"], admit_batches=st.get("admit_batches", 0),
+            admit_deferrals=st.get("admit_deferrals", 0), preemptions=st["preemptions"], prefill_s=st["prefill_s"],
+            profiled=profiled_windows(kw, pipeline), launches={k: n for k, n in launches.items() if n},
+            streams_vs_path1=cmp,
+            sync_guard="every dispatch under set_sync_debug_mode('error')" if pipeline else None)
+        if pipeline and not (st["windows_reaped"] == st["windows"] > 0):
+            raise AssertionError(f"path4 {name}: {st['windows']} windows dispatched, {st['windows_reaped']} reaped")
+        if launches["flash_fwd_tc"] != launches["flash_fwd"] or launches["flash_fwd"] <= 0:
+            raise AssertionError(f"path4 {name}: the admissions did not run K1 on the tensor cores: {launches}")
+        _assert_paged_split(f"path4 {name}", launches)
+        if name == "default":
+            default_launches = launches
+    log("path4_walls", order=list(P4_ORDER), walls_s=walls,
+        tokens_per_s={name: [len(prompts) * max_new / w for w in ws] for name, ws in walls.items()})
+
+    four = prompts[:4]
+    fused_eng, fused, fused_wall, _ = serve({}, True, four)
+    eng, unfused, wall, _ = serve(dict(fused_sampling=False), True, four)
+    st = eng.stats
+    log("path4_unfused", requests=len(four), streams_equal_fused=unfused == fused, steps=st["steps"],
+        logits_bytes_host=st["logits_bytes_host"],
+        logits_bytes_per_step=st["logits_bytes_host"] / max(1, st["steps"]),
+        fused_logits_bytes_host=fused_eng.stats["logits_bytes_host"], wall_s=wall, fused_wall_s=fused_wall)
+    if unfused != fused or st["logits_bytes_host"] != st["steps"] * SERVE_ENGINE["max_batch"] * cfg.vocab_size * 4:
+        raise AssertionError("path4: the unfused lane gave other tokens or moved other bytes than the fused one")
+    del eng, fused_eng, params
+    _free_card()
+    return default_launches
+
+
+def save_serving_checkpoints() -> dict:
+    """T1's step-30 weights re-saved through the port's checkpoint writer
+    with ``paged_attention_impl="kernel"`` and the byte tokenizer, and the
+    2-block draft cut from them (its first 2 blocks with the embeddings,
+    final norm and head): the checkpoints path 5 and the serve CLI load."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.generation.generate import load_model_for_inference
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+
+    params, cfg = load_model_for_inference(str(t1_config().train.checkpoint_dir), device="cpu")
+    model = dataclasses.replace(cfg.model, paged_attention_impl="kernel")
+    data = dataclasses.replace(cfg.data, tokenizer_name="byte")
+    paths = {}
+    for name, tree, m in (("target", params, model),
+                          ("draft", _first_blocks(params, 2), dataclasses.replace(model, n_layers=2))):
+        conf = dataclasses.replace(cfg, model=m, data=data)
+        paths[name] = str(SERVE_DIR / name)
+        ckpt.save_checkpoint(paths[name], T1_STEPS, {"params": tree},
+                             extra={"step": T1_STEPS, "config": dataclasses.asdict(conf)})
+    return paths
+
+
+def _spec_launch_check(name: str, launches: dict, rounds: int, t_layers: int, d_layers: int, verify: str) -> dict:
+    """K2 launches of a speculative run: the verify's at T = k + 1 on route
+    ``verify`` (one a target layer a round), the draft's at T = 1 on the
+    split route ((k + 1) a draft layer a round); nothing else."""
+    k2 = {key: n for key, n in launches.items() if key.startswith("paged_") and "_t" in key and n}
+    want = {f"paged_{verify}_t{SPEC_K + 1}": rounds * t_layers, "paged_split_t1": rounds * (SPEC_K + 1) * d_layers}
+    if k2 != want:
+        raise AssertionError(f"{name}: K2 launches {k2}, expected {want}")
+    return k2
+
+
+def run_path5(paths: dict) -> tuple:
+    """Path 5, speculative serving on full-width gpt2-124m with T1's
+    step-30 weights and the 2-block draft (``spec_k=4``, depth 2, greedy),
+    8 corpus lines (byte tokens), 64 new tokens: the streams against
+    target-only serving's (``compare_streams``), every dispatch under the
+    sync guard, K2 at T = 5 on the split route once per target layer per
+    round. Returns (launches, prompts, target-only streams, spec streams)."""
+    from pretraining_llm_tpu_torch.generation.generate import cast_params_for_inference, load_model_for_inference
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+
+    params, cfg = load_model_for_inference(paths["target"], device=DEVICE)
+    params = cast_params_for_inference(params, cfg.model)
+    d_params, d_cfg = load_model_for_inference(paths["draft"], device=DEVICE)
+    d_params = cast_params_for_inference(d_params, d_cfg.model)
+    prompts = [list(line.encode()) for line in corpus_lines()]
+    runs = {}
+    for name, kw in (("target_only", {}), ("spec", dict(draft_params=d_params, draft_cfg=d_cfg.model, spec_k=SPEC_K))):
+        eng = ServingEngine(params, cfg.model, device=DEVICE, **SERVE_ENGINE, **kw)
+        rids = [eng.submit(p, P5_NEW_TOKENS) for p in prompts]
+        guard_dispatch(eng)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        runs[name] = (eng, [out[r] for r in rids], time.perf_counter() - t0, kernel_counts())
+    (eng_t, want, wall_t, _), (eng, got, wall, launches) = runs["target_only"], runs["spec"]
+    st = eng.stats
+    cmp = compare_streams("path5", params, cfg.model, prompts, want, got)
+    k2 = _spec_launch_check("path5", launches, st["spec_rounds"], cfg.model.n_layers, 2, "split")
+    log("path5", model="gpt2-124m", weights="T1 step 30", draft="first 2 blocks + embeddings, final norm, head",
+        spec_k=SPEC_K, pipeline_depth=eng.pipeline_depth, requests=len(prompts), prompt_lens=list(map(len, prompts)),
+        max_new_tokens=P5_NEW_TOKENS, wall_s=wall, target_only_wall_s=wall_t, tokens_per_s=st["tokens"] / wall,
+        target_only_tokens_per_s=eng_t.stats["tokens"] / wall_t, spec_rounds=st["spec_rounds"],
+        target_only_windows=eng_t.stats["windows"], spec_proposed=st["spec_proposed"],
+        spec_accepted=st["spec_accepted"], acceptance=st["spec_accepted"] / st["spec_proposed"],
+        windows=st["windows"], flushes=st["flushes"], host_blocked_s=st["host_blocked_s"], k2_launches=k2,
+        launches={k: n for k, n in launches.items() if n}, streams_vs_target_only=cmp)
+    del eng, eng_t, params, d_params
+    _free_card()
+    return launches, prompts, want, got
+
+
+def run_path5_llama() -> dict:
+    """Path 5 on full-depth llama3-1b-gqa (22 layers, random weights from
+    the seed, bf16): 8 requests of 64-400 random tokens, 32 greedy tokens,
+    target-only and with the 2-block draft (``spec_k=4``, depth 2): the
+    streams compared, and every verify launch of K2 (16 query heads over 4
+    KV heads x T 5 = 20 rows per KV head) on the loop route."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+
+    cfg = dataclasses.replace(get_preset("llama3-1b-gqa").model, paged_attention_impl="kernel")
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
+    d_cfg = dataclasses.replace(cfg, n_layers=2)
+    d_params = _first_blocks(params, 2)
+    rng = np.random.default_rng(SEED + 32)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in rng.integers(64, 401, size=8)]
+    runs = {}
+    for name, kw in (("target_only", {}), ("spec", dict(draft_params=d_params, draft_cfg=d_cfg, spec_k=SPEC_K))):
+        eng = ServingEngine(params, cfg, device=DEVICE, **SERVE_ENGINE, **kw)
+        rids = [eng.submit(p, LLAMA_SPEC_NEW_TOKENS) for p in prompts]
+        guard_dispatch(eng)
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        runs[name] = (eng, [out[r] for r in rids], time.perf_counter() - t0, kernel_counts())
+    (eng_t, want, wall_t, _), (eng, got, wall, launches) = runs["target_only"], runs["spec"]
+    st = eng.stats
+    cmp = compare_streams("path5 llama", params, cfg, prompts, want, got)
+    k2 = _spec_launch_check("path5 llama", launches, st["spec_rounds"], cfg.n_layers, 2, "loop")
+    log("path5_llama", model="llama3-1b-gqa", layers=cfg.n_layers, draft_layers=2, spec_k=SPEC_K,
+        requests=len(prompts), prompt_lens=list(map(len, prompts)), max_new_tokens=LLAMA_SPEC_NEW_TOKENS,
+        wall_s=wall, target_only_wall_s=wall_t, spec_rounds=st["spec_rounds"], spec_proposed=st["spec_proposed"],
+        spec_accepted=st["spec_accepted"], acceptance=st["spec_accepted"] / st["spec_proposed"],
+        verify_rows_per_kv_head=(cfg.n_heads // cfg.kv_heads) * (SPEC_K + 1), k2_launches=k2,
+        launches={k: n for k, n in launches.items() if n}, streams_vs_target_only=cmp)
+    del eng, eng_t, params, d_params
+    _free_card()
+    return launches
+
+
+def run_checksum(path2_streams) -> dict:
+    """Path 2's workload with ``kv_checksum=True``: the same streams as
+    path 2 (digests only read the pages). Then one byte of a published page
+    that path 2's first prompt hits is flipped, and that prompt is
+    submitted again: the page fails verification and is dropped, the
+    request prefills privately (no cached tokens, its whole prompt
+    prefilled), and its stream equals that of the same request served alone
+    on a fresh engine. Returns the first run's launches."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+    from pretraining_llm_tpu_torch.resilience import integrity
+
+    launches, eng = serving_path("checksum", prefill_chunk_tokens=256, prefix_cache=True, ragged_kv_splits=1,
+                                 kv_checksum=True)
+    clean = [eng.finished[r] for r in range(len(path2_streams))]
+    victim = shared_prefix_requests(eng.cfg.vocab_size)[0]
+    cache = eng.prefix_cache
+    cached_len, ids = cache.acquire(victim)
+    cache.release_shared(ids)
+    if not ids or cache.checksum_of(ids[0]) is None:
+        raise AssertionError("checksum: path 2's first prompt hits no checksummed page")
+    block = ids[0]
+    page = eng.pools["layers"][0]["k_pool"][block].view(torch.uint8).view(-1)
+    page[0] ^= 1
+    before = dict(eng.stats)
+    rid = eng.submit(victim, 64)
+    got = eng.run(pipeline=False)[rid]
+    cfg = dataclasses.replace(get_preset("gpt2-124m").model, paged_attention_impl="kernel", ragged_kv_splits=1)
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
+    fresh = ServingEngine(params, cfg, device=DEVICE, **SERVE_ENGINE, prefill_chunk_tokens=256, prefix_cache=True)
+    fresh_rid = fresh.submit(victim, 64)
+    want = fresh.run(pipeline=False)[fresh_rid]
+    st = eng.stats
+    checks = {
+        "streams_equal_path2": clean == path2_streams,
+        "kv_mismatches": st.get("kv_mismatches", 0),
+        # Dropped: no page left in the cache differs from its digest.
+        "page_dropped": all(integrity.kv_block_digest(eng.pools, b) == cache.checksum_of(b)
+                            for b in cache.cached_block_ids()),
+        "cached_tokens_of_the_rerun": eng.timing_summary(rid).get("cached_tokens"),
+        "prefilled_privately": st["prefill_tokens"] - before["prefill_tokens"] == len(victim),
+        "stream_equals_fresh_engine": got == want,
+        "hit_before_the_flip": cached_len,
+    }
+    log("checksum", workload="path 2 with kv_checksum=True", flipped={"block": block, "leaf": "layer 0 k_pool",
+        "byte": 0}, launches={k: n for k, n in launches.items() if n}, **checks)
+    if not (checks["streams_equal_path2"] and checks["kv_mismatches"] == 1 and checks["page_dropped"]
+            and checks["cached_tokens_of_the_rerun"] == 0 and checks["prefilled_privately"]
+            and checks["stream_equals_fresh_engine"]):
+        raise AssertionError(f"checksum: {checks}")
+    del eng, fresh, params
+    _free_card()
+    return launches
+
+
+def run_serve_cli(paths: dict, p5) -> None:
+    """``python -m pretraining_llm_tpu_torch.serve`` as two subprocesses on
+    the saved T1 checkpoint, run together: path 5's 8 corpus lines,
+    ``--tokenizer byte --temperature 0``, 64 new tokens, the CLI's engine
+    defaults (which are path 5's); one of them with ``--draft_model_path``
+    the 2-block draft.
+    Each JSONL file's outputs must be path 5's streams decoded (target-only
+    and spec), whose agreement path 5 holds up to near ties."""
+    from pretraining_llm_tpu_torch.data.bpe import ByteTokenizer
+
+    _, prompts, want, got = p5
+    lines = [bytes(p).decode() for p in prompts]
+    prompt_file = SERVE_DIR / "prompts.txt"
+    prompt_file.write_text("\n".join(lines) + "\n")
+    enc = ByteTokenizer()
+    expected = {"plain": [enc.decode(t) for t in want], "spec": [enc.decode(t) for t in got]}
+    # Both processes at once (their start-up dominates), each waited for.
+    procs = {}
+    t0 = time.perf_counter()
+    try:
+        for name, extra in (("plain", []), ("spec", ["--draft_model_path", paths["draft"], "--spec_k", str(SPEC_K)])):
+            cmd = [sys.executable, "-m", "pretraining_llm_tpu_torch.serve", "--model_path", paths["target"],
+                   "--input_file", str(prompt_file), "--tokenizer", "byte", "--temperature", "0",
+                   "--max_new_tokens", str(P5_NEW_TOKENS), "--output", str(SERVE_DIR / f"{name}.jsonl")] + extra
+            procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        stderr = {name: proc.communicate(timeout=600)[1] for name, proc in procs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    results = {}
+    for name, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"serve CLI ({name}) exited {proc.returncode}: {stderr[name][-2000:]}")
+        records = [json.loads(line) for line in (SERVE_DIR / f"{name}.jsonl").read_text().splitlines()]
+        results[name] = dict(records=len(records),
+                             outputs_equal_path5=[r["output"] for r in records] == expected[name],
+                             prompts_in_order=[r["prompt"] for r in records] == lines,
+                             n_tokens=[r["n_tokens"] for r in records],
+                             summary=[ln for ln in stderr[name].splitlines() if ln.startswith("[serve]")][-1:])
+    plain_out, spec_out = expected["plain"], expected["spec"]
+    log("serve_cli", module="pretraining_llm_tpu_torch.serve", checkpoint=paths["target"], draft=paths["draft"],
+        both_processes_wall_s=wall, exact_rows_plain_vs_spec=sum(a == b for a, b in zip(plain_out, spec_out)),
+        **results)
+    for name, res in results.items():
+        if not (res["outputs_equal_path5"] and res["prompts_in_order"] and res["records"] == len(lines)):
+            raise AssertionError(f"serve CLI ({name}): {res}")
 
 
 # ---------------------------------------------------------------------------
@@ -2258,7 +2726,7 @@ def run_trainer_options() -> None:
         raise AssertionError("mixture + prefetch: the trainer's batches differ from the unprefetched iterator's")
 
 
-def time_kernels(launches, prefill_shapes, errs, launches_g1):
+def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
     from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2287,7 +2755,8 @@ def time_kernels(launches, prefill_shapes, errs, launches_g1):
         replaces="pretraining_llm_tpu/ops/pallas_flash.py:104",
         shape=f"B*H={b * h} T={t} Dh={d} bf16 causal",
         launches=launches["flash_fwd_tc"] + launches_g1["flash_fwd_tc"],
-        launches_by_path={"path1": launches["flash_fwd_tc"], "G1": launches_g1["flash_fwd_tc"]},
+        launches_by_path={"path1": launches["flash_fwd_tc"], "G1": launches_g1["flash_fwd_tc"],
+                          **{name: n["flash_fwd_tc"] for name, n in serving_paths.items()}},
         flops=flops, bytes=nbytes, **_bound(flops, nbytes), max_abs_err=errs["flash_fwd"],
         ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
     ))
@@ -2328,6 +2797,9 @@ def time_kernels(launches, prefill_shapes, errs, launches_g1):
         shape=f"B={b} H={h} G={g} T=1 Dh={d} bs={bs} nb={nb} bf16 seq_lens={seq.tolist()}",
         partitions=parts, launches=launches["paged_split"],
         launches_by_route={r: launches[f"paged_{r}"] for r in cuda_paged.ROUTES},
+        launches_by_path={"path1": {"paged_split_t1": launches["paged_split"]},
+                          **{name: {k: v for k, v in n.items() if k.startswith("paged_") and "_t" in k and v}
+                             for name, n in serving_paths.items()}},
         flops=flops, bytes=nbytes, **_bound(flops, nbytes),
         max_abs_err=errs["paged_decode"], ms=k_ms, device_ms=k_dev, plain_ms=p_ms, library_ms=l_ms,
         was_ms=was_ms, was_device_ms=was_dev,
@@ -2343,6 +2815,40 @@ def time_kernels(launches, prefill_shapes, errs, launches_g1):
 
     split_sweep("paged_split_sweep", f"path 1 decode step: {kernels[-1]['shape']}", "partitions",
                 (1, 2, 4, 8, 16), with_partitions, flush)
+
+    # The loop route at path 5's llama3-1b-gqa verify: 8 rows, H 16 over G
+    # 4, T 5 queries (20 rows per KV head), Dh 128, lengths drawn like its
+    # prompts (64-400 plus up to 32 generated), bf16.
+    b, h, g, t, d = 8, 16, 4, 5, 128
+    tables, seq = paged_state(rng, b + 1, n_blocks, nb, bs, t, lo=64, hi=432)
+    tables, seq = tables[1:].contiguous(), seq[1:].contiguous()
+    q = randn((b, t, h, d), dt, gen)
+    kp, vp = randn((n_blocks, bs, g, d), dt, gen), randn((n_blocks, bs, g, d), dt, gen)
+    if cuda_paged.paged_route(dt, d, bs, (h // g) * t) != "loop":
+        raise AssertionError("paged_decode: the verify shape does not take the loop route")
+    call = lambda: cuda_paged.paged_decode_attention(q, kp, vp, tables, seq)  # noqa: E731
+    loop_ms = time_ms(call, flush=flush)
+    loop_dev = time_ms(call, flush=flush, device_only=True)
+    loop_plain = time_ms(lambda: cuda_paged.paged_decode_attention_reference(q, kp, vp, tables, seq), flush=flush)
+    kv_len = nb * bs
+    rep_kv = h // g
+    kg = kp[tables.long()].reshape(b, kv_len, g, d).permute(0, 2, 1, 3).repeat_interleave(rep_kv, dim=1)
+    vg = vp[tables.long()].reshape(b, kv_len, g, d).permute(0, 2, 1, 3).repeat_interleave(rep_kv, dim=1)
+    pos = seq.long()[:, None] + torch.arange(t, device="cuda")[None, :]
+    mask = (torch.arange(kv_len, device="cuda")[None, None, :] <= pos[:, :, None])[:, None]
+    loop_lib = time_ms(lambda: sdpa(q.permute(0, 2, 1, 3), kg, vg, attn_mask=mask), flush=flush)
+    seq_h = seq.tolist()
+    live_pages = sum((s + t - 1) // bs + 1 for s in seq_h)
+    flops = 4.0 * h * sum(s + i + 1 for s in seq_h for i in range(t)) * d
+    nbytes = live_pages * bs * g * d * 2 * 2 + 2 * q.numel() * 2 + tables.numel() * 4 + b * 4
+    kernels[-1]["loop_route"] = dict(
+        source="pretraining_llm_tpu_torch/csrc/paged_decode.cu (paged_decode_kernel)",
+        shape=f"B={b} H={h} G={g} T={t} Dh={d} bs={bs} nb={nb} bf16 seq_lens={seq_h}",
+        launches_by_path={name: n.get("paged_loop_t5", 0) for name, n in serving_paths.items()},
+        max_abs_err=errs["paged_loop_gqa_t5"], ms=loop_ms, device_ms=loop_dev, plain_ms=loop_plain,
+        library_ms=loop_lib, flops=flops, bytes=nbytes, **_bound(flops, nbytes),
+        library_note="SDPA over the pre-gathered KV, KV heads repeated, boolean mask (gather not timed)",
+    )
     for kern in kernels:
         kern["kernel_ms"] = kern["ms"]
         kern["max_err"] = kern["max_abs_err"]
@@ -2393,7 +2899,7 @@ def split_sweep(phase: str, shape: str, key: str, counts, call, flush) -> None:
                        for what, v in times[n].items()} for n in counts})
 
 
-def time_ragged(paths, eng2, errs):
+def time_ragged(paths, eng2, errs, serving_paths):
     """The ragged kernels' four entries: exact bf16 at path 2's largest
     chunk launch (one pass, and at the auto split count), and int8 pools
     with bf16 scales at a path 3 decode step (8 rows, q_len 1), classic and
@@ -2485,7 +2991,8 @@ def time_ragged(paths, eng2, errs):
     kp, vp = randn((n_blocks, bs, g, d), dt, gen), randn((n_blocks, bs, g, d), dt, gen)
     shape = f"B={b} T={t} H={h} G={g} Dh={d} bs={bs} nb={nb} bf16 seq_lens={offsets} q_lens={lens}"
     entry("ragged", shape, q, kp, vp, tables, seq, ql, t, p2["ragged"], 1,
-          {"path2": p2["ragged"], "path3": p3["ragged"]})
+          {"path2": p2["ragged"], "path3": p3["ragged"],
+           **{name: n["ragged"] for name, n in serving_paths.items()}})
     auto = cuda_ragged._auto_kv_splits(nb, b)
     entry("ragged_split", shape, q, kp, vp, tables, seq, ql, t, p2["ragged_split"] + p3["ragged_split"],
           auto, {"path2": p2["ragged_split"], "path3": p3["ragged_split"]})
@@ -2929,7 +3436,7 @@ def main() -> int:
 
     phase_card()
     phase_build()
-    errs = {"flash_fwd": check_flash(), "paged_decode": check_paged(), **check_ragged()}
+    errs = {"flash_fwd": check_flash(), **check_paged(), **check_ragged()}
     check_flash_bwd()
     check_ce()
     check_model_card_vs_cpu()
@@ -2937,11 +3444,17 @@ def main() -> int:
     check_generate_card_vs_cpu()
     check_train_card_vs_cpu()
     check_doc_isolation()
-    launches1, prefill_shapes = run_main_path()
+    launches1, prefill_shapes, streams1 = run_main_path()
     launches2, eng2 = run_path2()
     launches3, _ = run_path3()
+    serving_paths = {"path4": run_path4(streams1),
+                     "checksum": run_checksum([eng2.finished[r] for r in range(len(eng2.finished))])}
     launches_t1 = run_train_path1()
     launches_g1 = run_g1()  # on T1's checkpoint, before SCRATCH goes
+    serve_ckpts = save_serving_checkpoints()  # T1's weights, before SCRATCH goes
+    p5 = run_path5(serve_ckpts)
+    serving_paths.update(path5=p5[0], path5_llama=run_path5_llama())
+    run_serve_cli(serve_ckpts, p5)
     train_paths = {"T1": launches_t1, "T2": run_train_path2(), "parity": run_parity(),
                    "T3": run_train_path3()}
     train_paths.update(run_t4())
@@ -2949,8 +3462,8 @@ def main() -> int:
     train_paths.update(run_optimizers())
     run_trainer_options()
     shutil.rmtree(SCRATCH, ignore_errors=True)
-    kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1)
-    kernels += time_ragged((launches1, launches2, launches3), eng2, errs)
+    kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
+    kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
     del eng2
     kernels += time_train_kernels(train_paths)
     kernels += time_ce_kernels(train_paths)

@@ -1,10 +1,10 @@
 """Configuration for the PyTorch port.
 
-Copies of the JAX package's ``ModelConfig``, ``DataConfig`` and
-``TrainConfig`` (same field names, defaults and validation), so that one
-kwargs dict builds the config of either package, and ``Config`` with the
-model, data and train sections and ``with_overrides``, plus the presets the
-port runs: every JAX preset that needs no ring attention, MoE or second
+Copies of the JAX package's ``ModelConfig``, ``DataConfig``,
+``TrainConfig`` and ``ServingConfig`` (same field names, defaults and
+validation), so that one kwargs dict builds the config of either package,
+and ``Config`` with the model, data, train and serving sections and
+``with_overrides``, plus the presets the port runs: every JAX preset that needs no ring attention, MoE or second
 device, with its model and train sections field for field and no mesh
 section. A JAX preset's ``batch_size`` is its global batch; one device runs
 it whole, in ``train.microbatches`` where one pass does not fit (the mean
@@ -385,22 +385,80 @@ class TrainConfig:
 
 
 # ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ServingConfig:
+    """Decode-serving scheduler knobs (``generation/serving.py``), field for
+    field the JAX package's. They gate host-side scheduling only: greedy
+    tokens are the same at every setting."""
+
+    # In-flight decode-window queue depth of the pipelined scheduler: how
+    # many dispatched-but-unreaped windows the engine keeps before it
+    # blocks on the oldest (1 = double buffering).
+    pipeline_depth: int = 2
+    # Defer waiting prefills until this many can be admitted in one batched
+    # prefill (0 or 1 = admit eagerly); an idle engine always admits.
+    admit_batch: int = 0
+    # Cross-request prefix cache (``generation/prefix_cache.py``).
+    prefix_cache: bool = False
+    # Shortest cached prefix, in blocks, worth mapping.
+    prefix_cache_min_blocks: int = 1
+    # Chunked prefill: prompts stream in chunks of at most this many tokens
+    # between decode windows (0 = monolithic prefill at admission).
+    prefill_chunk_tokens: int = 0
+    # Digest every published prefix-cache page and verify it when a later
+    # admission acquires it (``resilience/integrity.py``).
+    kv_checksum: bool = False
+    # "none", "int8" (int8 block projections) or "int8-kv" (also int8 KV
+    # pools with bf16 scale pages).
+    quantize: str = "none"
+
+    def __post_init__(self) -> None:
+        if self.quantize not in ("none", "int8", "int8-kv"):
+            raise ValueError(
+                "serving.quantize must be 'none', 'int8' or 'int8-kv', "
+                f"got {self.quantize!r}"
+            )
+        if self.pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {self.pipeline_depth}"
+            )
+        if self.admit_batch < 0:
+            raise ValueError(f"admit_batch must be >= 0, got {self.admit_batch}")
+        if self.prefix_cache_min_blocks < 1:
+            raise ValueError(
+                "prefix_cache_min_blocks must be >= 1, got "
+                f"{self.prefix_cache_min_blocks}"
+            )
+        if self.prefill_chunk_tokens < 0:
+            raise ValueError(
+                "prefill_chunk_tokens must be >= 0, got "
+                f"{self.prefill_chunk_tokens}"
+            )
+
+
+# ---------------------------------------------------------------------------
 # Top-level
 # ---------------------------------------------------------------------------
 
 # Sections of the JAX package's Config that the port does not have yet.
-_UNPORTED_SECTIONS = ("mesh", "resilience", "obs", "serving", "frontend")
+_UNPORTED_SECTIONS = ("mesh", "resilience", "obs", "frontend")
+_SECTIONS = ("model", "data", "train", "serving")
 
 
 @dataclass(frozen=True)
 class Config:
-    """A named configuration: model, data and train sections. The JAX
-    package's ``Config`` also carries mesh, resilience, observability,
-    serving and frontend sections, which are not ported."""
+    """A named configuration: model, data, train and serving sections. The
+    JAX package's ``Config`` also carries mesh, resilience, observability
+    and frontend sections, which are not ported."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    serving: ServingConfig = field(default_factory=ServingConfig)
     name: str = "custom"
 
     def with_overrides(self, overrides: Dict[str, Any]) -> "Config":
@@ -416,7 +474,7 @@ class Config:
                     raise NotImplementedError(
                         f"config section {section!r} (override {key!r}) is not ported to PyTorch yet"
                     )
-                if section not in ("model", "data", "train"):
+                if section not in _SECTIONS:
                     raise KeyError(f"unknown config section {section!r} in override {key!r}")
                 sections.setdefault(section, {})[fname] = value
             else:
@@ -439,12 +497,14 @@ class Config:
     def from_dict(raw: Dict[str, Any]) -> "Config":
         """The config a checkpoint's metadata stores (``extra["config"]``,
         written by either package's trainer). The sections the port lacks
-        (mesh, resilience, obs, serving, frontend) are ignored: they change
-        nothing that a single-device forward computes."""
+        (mesh, resilience, obs, frontend) are ignored: they change nothing
+        that a single-device forward computes. A checkpoint written before
+        the serving section existed gets its defaults."""
         return Config(
             model=ModelConfig(**raw["model"]),
             data=DataConfig(**raw.get("data", {})),
             train=TrainConfig(**raw.get("train", {})),
+            serving=ServingConfig(**raw.get("serving", {})),
             name=raw.get("name", "custom"),
         )
 

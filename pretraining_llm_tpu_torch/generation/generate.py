@@ -17,8 +17,9 @@ as the JAX package's decode is plain XLA.
 ``generate_text`` / ``generate_text_batch`` mirror the JAX CLI surface:
 load a checkpoint of either package (``load_model_for_inference``), cast
 the matmul weights once (``cast_params_for_inference``), encode, generate,
-decode. Sharded decode (``mesh``, ``shard_params_for_inference``) and
-speculative decoding (``generate_text_speculative``) are not ported.
+decode. ``generate_text_speculative`` decodes with a draft checkpoint
+(``generation/speculative.py``). Sharded decode (``mesh``,
+``shard_params_for_inference``) is not ported.
 """
 
 from __future__ import annotations
@@ -304,5 +305,43 @@ def generate_text_batch(
     return [t + enc.decode(ids(out[i])) for i, t in enumerate(input_texts)]
 
 
-def generate_text_speculative(*args: Any, **kwargs: Any) -> str:
-    raise NotImplementedError("speculative decoding (generate_text_speculative) is not ported to PyTorch yet")
+def generate_text_speculative(
+    model_path: str,
+    draft_model_path: str,
+    input_text: str,
+    max_new_tokens: int = 100,
+    *,
+    k: int = 4,
+    temperature: float = 0.0,
+    seed: int = 0,
+    tokenizer: Optional[str] = None,
+    device: DeviceLike = None,
+) -> str:
+    """Speculative continuation: a draft checkpoint proposes ``k`` tokens a
+    round and the target verifies them in one forward
+    (``speculative.generate_speculative``; greedy output equals the
+    target's alone). Both checkpoints must share a vocabulary. Prints the
+    acceptance to stderr, as the JAX package does."""
+    import sys
+
+    from pretraining_llm_tpu_torch.generation.speculative import generate_speculative
+
+    params_t, cfg_t = load_model_for_inference(model_path, device=device)
+    params_d, cfg_d = load_model_for_inference(draft_model_path, device=device)
+    params_t = cast_params_for_inference(params_t, cfg_t.model)
+    params_d = cast_params_for_inference(params_d, cfg_d.model)
+    enc = get_tokenizer(tokenizer or cfg_t.data.tokenizer_name)
+    prompt = np.asarray(enc.encode_ordinary(input_text), np.int64)
+    if len(prompt) == 0:
+        raise ValueError("prompt encodes to zero tokens")
+    out, stats = generate_speculative(
+        params_t, cfg_t.model, params_d, cfg_d.model, prompt[None], max_new_tokens, seed,
+        k=k, temperature=temperature,
+    )
+    rate = stats["accepted"] / max(stats["proposed"], 1)
+    print(
+        f"[speculative] rounds={stats['rounds']} "
+        f"acceptance={stats['accepted']}/{stats['proposed']} ({rate:.0%})",
+        file=sys.stderr,
+    )
+    return input_text + enc.decode(out.cpu().tolist())

@@ -1,5 +1,7 @@
 """Paged KV cache for continuous-batching serving: the block allocator,
-batched admission prefill, suffix (chunk) prefill, and paged decode steps.
+batched admission prefill, suffix (chunk) prefill, paged decode steps (fused
+sampling, or the unfused lane's logits and separate sampler) and the
+speculative round over a target and a draft pool.
 
 Counterpart of ``pretraining_llm_tpu/generation/paged.py``. K/V live in a
 shared pool of fixed-size blocks per layer; each live request owns an
@@ -14,6 +16,10 @@ PyTorch has no compile cache to protect, so prompts pad only to the batch's
 longest page count and suffixes to the longest suffix (the JAX package
 buckets rows and lengths to powers of two); the logits of every real token
 are the same either way.
+
+Host arrays reach a CUDA device through ``to_device``: a pinned copy and a
+non-blocking upload, so that no call here waits for the stream (the
+pipelined scheduler dispatches while earlier windows still run).
 """
 
 from __future__ import annotations
@@ -25,8 +31,20 @@ import torch
 
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.generation.sampling import sample_logits, sample_logits_fused
+from pretraining_llm_tpu_torch.generation.speculative import _probs, accept_reject
 from pretraining_llm_tpu_torch.models import transformer
 from pretraining_llm_tpu_torch.models.transformer import PagedInfo
+
+
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device`` without waiting for the device: on CUDA
+    through a pinned copy uploaded with ``non_blocking`` (PyTorch's pinned
+    allocator keeps the buffer until the upload has run); on the CPU a copy,
+    so that later host writes to ``arr`` cannot reach the tensor."""
+    host = torch.from_numpy(np.array(arr, copy=True))
+    if device.type != "cuda":
+        return host
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def required_blocks(n_tokens: int, block_size: int) -> int:
@@ -72,6 +90,16 @@ class BlockAllocator:
         if n > len(self._free):
             return None
         ids = [self._free.pop() for _ in range(n)]
+        self._live.update(ids)
+        return ids
+
+    def alloc_upto(self, n: int) -> List[int]:
+        """Up to ``n`` block ids, possibly fewer or none: the pipelined
+        scheduler's opportunistic growth toward its in-flight horizon.
+        Grants beyond a row's need are rolled back with ``free``."""
+        if n < 0:
+            raise ValueError(f"alloc_upto({n})")
+        ids = [self._free.pop() for _ in range(min(n, len(self._free)))]
         self._live.update(ids)
         return ids
 
@@ -128,15 +156,14 @@ def prefill_logits_into_pool_batched(
 
     cache = transformer.make_kv_cache(cfg, n, p_bucket, device=device)
     logits, cache = transformer.forward(
-        params, torch.from_numpy(prompt_arr).to(device), cfg,
-        kv_cache=cache, cache_index=0,
+        params, to_device(prompt_arr, device), cfg, kv_cache=cache, cache_index=0,
     )
-    last = logits[torch.arange(n, device=device), torch.from_numpy(lens - 1).to(device)]
+    last = logits[torch.arange(n, device=device), to_device(lens - 1, device)]
 
     # Scatter only the real pages: (row, page) -> pool block id.
-    rows = torch.tensor([i for i, np_i in enumerate(pages) for _ in range(np_i)], device=device)
-    cols = torch.tensor([j for np_i in pages for j in range(np_i)], device=device)
-    ids = torch.tensor([b for row_ids in rows_block_ids for b in row_ids], device=device)
+    rows = to_device(np.asarray([i for i, np_i in enumerate(pages) for _ in range(np_i)], np.int64), device)
+    cols = to_device(np.asarray([j for np_i in pages for j in range(np_i)], np.int64), device)
+    ids = to_device(np.asarray([b for row_ids in rows_block_ids for b in row_ids], np.int64), device)
     for layer, pool in enumerate(pools["layers"]):
         for name, buf in cache.items():  # k, v (+ k_scale, v_scale)
             staged = buf[layer].reshape((n, n_pages, bs) + tuple(buf.shape[-2:]))
@@ -211,14 +238,13 @@ def prefill_suffix_logits_into_pool_batched(
         suf[i, : len(suffix)] = suffix
         lens[i] = len(suffix)
     device = pools["layers"][0]["k_pool"].device
-    lens_dev = torch.from_numpy(lens).to(device)
+    lens_dev = to_device(lens, device)
     info = PagedInfo(
-        torch.from_numpy(tables_np).to(device),
-        torch.tensor(np.asarray(cached_lens, np.int32), device=device),
+        to_device(tables_np, device), to_device(np.asarray(cached_lens, np.int32), device),
         q_lens=lens_dev,
     )
     logits, pools = transformer.forward(
-        params, torch.from_numpy(suf).to(device), cfg, kv_cache=pools, paged=info
+        params, to_device(suf, device), cfg, kv_cache=pools, paged=info
     )
     last = logits[torch.arange(n, device=device), lens_dev.long() - 1]
     return last, pools
@@ -297,7 +323,6 @@ def paged_decode_steps(
     return torch.stack(toks, 1), lp_out, pools
 
 
-
 def paged_decode_step(
     params: transformer.Params,
     pools: transformer.KVCache,
@@ -318,3 +343,91 @@ def paged_decode_step(
         temperature, top_k, top_p, min_p,
     )
     return toks[:, 0], pools
+
+
+def paged_decode_logits(
+    params: transformer.Params,
+    pools: transformer.KVCache,
+    tokens: torch.Tensor,  # (B,) int
+    block_tables: torch.Tensor,  # (B, max_blocks) int32
+    seq_lens: torch.Tensor,  # (B,) int32
+    cfg: ModelConfig,
+) -> Tuple[torch.Tensor, transformer.KVCache]:
+    """The unfused lane's forward: one decode step for every row, returning
+    the raw (B, V) fp32 logits of each row's position; the token is picked
+    by a separate ``sample_tokens`` call (the engine brings the logits to
+    the host in between, the transfer fused sampling saves)."""
+    logits, pools = transformer.forward(
+        params, tokens[:, None].long(), cfg, kv_cache=pools,
+        paged=PagedInfo(block_tables, seq_lens),
+    )
+    return logits[:, 0].float(), pools
+
+
+def sample_tokens(
+    logits: torch.Tensor,  # (B, V) fp32
+    generator: Optional[torch.Generator],
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    min_p: Optional[float] = None,
+) -> torch.Tensor:
+    """The unfused lane's sampler over logits the host has seen: the fused
+    path's ``sample_logits``, so greedy streams of the two lanes agree."""
+    return sample_logits(
+        logits, generator, temperature=temperature, top_k=top_k, top_p=top_p, min_p=min_p,
+    )
+
+
+def paged_spec_round(
+    params_t: transformer.Params,
+    t_pools: transformer.KVCache,
+    d_pools: transformer.KVCache,
+    params_d: transformer.Params,
+    tokens: torch.Tensor,  # (B,) int — each row's newest accepted token
+    block_tables: torch.Tensor,  # (B, max_blocks) int32, shared by both pools
+    seq_lens: torch.Tensor,  # (B,) int32
+    generator: Optional[torch.Generator],
+    cfg_t: ModelConfig,
+    cfg_d: ModelConfig,
+    k: int,
+    temperature: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, transformer.KVCache, transformer.KVCache]:
+    """One speculative round for every row over the paged pools: k draft
+    steps at T = 1 propose, a write-only draft step parks the k-th
+    proposal's K/V at slot seq + k, then the target verifies all k in one
+    (k+1)-token paged forward and ``speculative.accept_reject`` keeps 1 to
+    k+1 tokens a row. Both pools share one block table and frontier: page p
+    of a request holds target K/V in the target pool and draft K/V in the
+    draft pool. Rejected slots hold garbage above the new frontier,
+    overwritten by the next round. Returns (emit (B, k+1), n_emit (B,),
+    t_pools, d_pools); greedy output equals target-only paged decoding row
+    for row."""
+    drafts, q_dists = [], []
+    tok = tokens
+    for j in range(k):
+        logits, d_pools = transformer.forward(
+            params_d, tok[:, None].long(), cfg_d, kv_cache=d_pools,
+            paged=PagedInfo(block_tables, seq_lens + j),
+        )
+        step = logits[:, 0].float()
+        q_dists.append(_probs(step, temperature))
+        if temperature == 0.0:
+            tok = torch.argmax(step, dim=-1).to(torch.int32)
+        else:
+            tok = sample_logits(step, generator, temperature=temperature)
+        drafts.append(tok)
+    _, d_pools = transformer.forward(
+        params_d, tok[:, None].long(), cfg_d, kv_cache=d_pools,
+        paged=PagedInfo(block_tables, seq_lens + k),
+    )
+    drafts_t = torch.stack(drafts, dim=1)  # (B, k)
+    fed = torch.cat([tokens[:, None].to(torch.int32), drafts_t], dim=1)  # (B, k+1)
+    t_logits, t_pools = transformer.forward(
+        params_t, fed.long(), cfg_t, kv_cache=t_pools, paged=PagedInfo(block_tables, seq_lens),
+    )
+    emit, n_emit = accept_reject(
+        _probs(t_logits.float(), temperature), torch.stack(q_dists, dim=1), drafts_t,
+        generator, temperature,
+    )
+    return emit, n_emit, t_pools, d_pools

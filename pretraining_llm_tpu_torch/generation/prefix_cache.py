@@ -22,9 +22,13 @@ bookkeeping only; numpy and hashlib):
               set, and go back to the free list only under pool pressure,
               before any live request is preempted.
 
+  integrity   with ``kv_checksum`` the engine records a digest of each
+              published block's pool bytes (``set_checksum``) and verifies
+              it at acquire; a block that fails is dropped
+              (``drop_block``) and never hit again.
+
 Greedy outputs with the cache on are identical to cache off. The JAX
-module's KV checksums and typed metrics are not ported (the engine refuses
-``kv_checksum``).
+module's typed metrics are not ported.
 """
 
 from __future__ import annotations
@@ -76,6 +80,11 @@ class PrefixCache:
         self._ref: Dict[int, int] = {}         # block id -> live-row refcount
         # Refcount-0 cached blocks, LRU order (oldest first).
         self._cold: "OrderedDict[int, bytes]" = OrderedDict()
+        # Pool-content digests recorded at publish (``kv_checksum``).
+        self._checksums: Dict[int, str] = {}
+        # Blocks dropped for corruption while still shared: freed, not
+        # cold-listed, at their last deref.
+        self._doomed: set = set()
         # Tallies live in the caller's dict (the engine's ``stats``).
         self.stats: Dict[str, Any] = stats if stats is not None else {}
         for k in STAT_KEYS:
@@ -168,6 +177,39 @@ class PrefixCache:
             self.alloc.free(to_free)
         return published
 
+    # -- integrity (``kv_checksum``) ---------------------------------------
+
+    def set_checksum(self, block: int, digest: str) -> None:
+        """Record a published block's pool-content digest. Ignored for a
+        block that already left the index."""
+        if block in self._hash_of:
+            self._checksums[block] = digest
+
+    def checksum_of(self, block: int) -> Optional[str]:
+        """The digest recorded at publish, or None (checksums were off when
+        it was published, or the block is gone)."""
+        return self._checksums.get(block)
+
+    def cached_block_ids(self) -> List[int]:
+        """Every indexed block id, sorted."""
+        return sorted(self._hash_of)
+
+    def drop_block(self, block: int) -> None:
+        """Remove a block whose content failed verification, in any state:
+        a cold block goes back to the allocator now; a block live rows still
+        share becomes unreachable and is freed at its last deref.
+        Idempotent."""
+        digest = self._hash_of.pop(block, None)
+        if digest is None:
+            return
+        self._index.pop(digest, None)
+        self._checksums.pop(block, None)
+        if block in self._cold:
+            del self._cold[block]
+            self.alloc.free([block])
+        else:
+            self._doomed.add(block)
+
     # -- pressure ----------------------------------------------------------
 
     def evict(self, n: int) -> int:
@@ -179,6 +221,7 @@ class PrefixCache:
             b, digest = self._cold.popitem(last=False)
             del self._index[digest]
             del self._hash_of[b]
+            self._checksums.pop(b, None)
             freed.append(b)
         if freed:
             self.alloc.free(freed)
@@ -224,6 +267,10 @@ class PrefixCache:
             raise ValueError(f"release of unreferenced block {b}")
         if n == 1:
             del self._ref[b]
-            self._cold[b] = self._hash_of[b]  # most-recently-used end
+            if b in self._doomed:  # dropped while shared: leave the pool now
+                self._doomed.discard(b)
+                self.alloc.free([b])
+            else:
+                self._cold[b] = self._hash_of[b]  # most-recently-used end
         else:
             self._ref[b] = n - 1

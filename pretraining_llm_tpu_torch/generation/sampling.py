@@ -37,7 +37,8 @@ def sample_logits(
         return torch.argmax(logits, dim=-1).to(torch.int32)
     bad = (torch.isnan(logits) | (logits == math.inf)).any(dim=-1)
     logits = logits / temperature
-    neg_inf = torch.tensor(-math.inf, device=logits.device)
+    # A fill, not a host-to-device copy: sampling never waits for the stream.
+    neg_inf = torch.full((), -math.inf, device=logits.device)
     if min_p is not None and 0.0 < min_p <= 1.0:
         # Keep tokens with prob >= min_p * max prob, in logit space.
         cutoff = logits.amax(dim=-1, keepdim=True) + math.log(min_p)

@@ -207,8 +207,13 @@ def paged_decode_attention(
     _build.check(rc, f"paged_decode ({route})")
     paged_decode_attention.launches += 1
     paged_decode_attention.launches_by_route[route] += 1
+    by_t = paged_decode_attention.launches_by_queries
+    by_t[(route, t)] = by_t.get((route, t), 0) + 1
     return out
 
 
 paged_decode_attention.launches = 0
 paged_decode_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+# Launches by (route, queries per row T): decode steps run T = 1, a
+# speculative verify T = k + 1.
+paged_decode_attention.launches_by_queries = {}

@@ -10,7 +10,10 @@ Run from the repository root on a machine with a GPU::
 
 Serving: gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
 weights from seed 0) with the engine settings ``chip_smoke.py`` uses: path
-1's admission prefill and decode window (8 prompts of 17-900 tokens); path
+1's admission prefill and decode window (8 prompts of 17-900 tokens, the
+synchronous scheduler's ``step``), and four windows of the pipelined
+scheduler at depth 2 in steady state (``pipeline_tick``; with the host's
+blocked time per window, from the engine's ``host_blocked_s``); path
 2's chunk phase (the first four scheduler steps after 8 of its shared-prefix
 requests arrive: 256-token chunks and prefix-cache suffixes through the
 one-pass ragged kernel); path 3's decode window (the same 8 requests under
@@ -99,7 +102,10 @@ TOP_KERNELS = 12  # kernels listed per phase, by device time
 SEED = 0  # weights and prompts, as in chip_smoke.py
 
 
-def _profile(fn: Callable[[], None]) -> Dict[str, object]:
+def profile_call(fn: Callable[[], None]) -> Dict[str, object]:
+    """Run ``fn`` under ``torch.profiler`` on the card: host wall time (to a
+    synchronize after ``fn``), summed device kernel time, their ratio (the
+    device's busy share), launches and the top kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -147,16 +153,36 @@ def profile_serving() -> Dict[str, Dict[str, object]]:
     prefill = engine()
     for p in prompts:
         prefill.submit(p, 1)  # finishes at admission: the step is the prefill alone
-    out = {"prefill": _profile(prefill.step)}
+    out = {"prefill": profile_call(prefill.step)}
     out["prefill"]["tokens"] = sum(len(p) for p in prompts)
 
     decode = engine()
     for p in prompts:
         decode.submit(p, 64)
     decode.step()  # admission + first window, not profiled
-    out["decode_window"] = _profile(decode.step)
+    out["decode_window"] = profile_call(decode.step)
     out["decode_window"]["steps"] = decode.steps_per_sched
     out["decode_window"]["rows"] = len(prompts)
+
+    # The pipelined scheduler at depth 2 (the engine's default): admission
+    # and the first two windows unprofiled, then four ticks (four windows
+    # dispatched, four reaped) in steady state.
+    piped = engine()
+    for p in prompts:
+        piped.submit(p, 64)
+    for _ in range(3):
+        piped.pipeline_tick()
+    before = dict(piped.stats)
+    ticks = 4
+    phase = profile_call(lambda: [piped.pipeline_tick() for _ in range(ticks)])
+    reaped = piped.stats["windows_reaped"] - before["windows_reaped"]
+    phase.update(
+        ticks=ticks, rows=len(prompts), steps=piped.steps_per_sched, pipeline_depth=piped.pipeline_depth,
+        windows_dispatched=piped.stats["windows"] - before["windows"], windows_reaped=reaped,
+        host_blocked_ms_per_window=(piped.stats["host_blocked_s"] - before["host_blocked_s"]) * 1e3 / max(1, reaped),
+        wall_ms_per_window=phase["wall_ms"] / ticks, device_kernel_ms_per_window=phase["device_kernel_ms"] / ticks,
+    )
+    out["decode_window_depth2"] = phase
     return out
 
 
@@ -185,12 +211,12 @@ def profile_ragged_paths() -> Dict[str, Dict[str, object]]:
         engine().run()  # first-call costs (kernel loads, library handles)
         eng = engine()
         if phase == "path2_chunks":
-            out[phase] = _profile(lambda: [eng.step() for _ in range(4)])
+            out[phase] = profile_call(lambda: [eng.step() for _ in range(4)])
             out[phase]["steps"] = 4
             out[phase]["chunk_tokens"] = eng.stats["prefill_chunk_tokens"]
         else:
             eng.step()  # admission (suffix prefills) and the first window, not profiled
-            out[phase] = _profile(eng.step)
+            out[phase] = profile_call(eng.step)
             out[phase]["steps"] = eng.steps_per_sched
         out[phase]["rows"] = len(prompts)
         del eng, params
@@ -226,7 +252,7 @@ def _profile_train_step(preset: str, overrides: Dict[str, object]) -> Dict[str, 
 
     for _ in range(2):
         one()
-    out = _profile(one)
+    out = profile_call(one)
     out["tokens"] = cfg.train.batch_size * cfg.model.context_length
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     del state, step
@@ -281,7 +307,7 @@ def profile_generate() -> Dict[str, Dict[str, object]]:
     for phase, fn, tokens in (("generate_prefill", prefill, sum(lens)),
                               ("generate_call", call, len(lens) * G1_NEW_TOKENS)):
         fn()  # warm-up
-        out[phase] = _profile(fn)
+        out[phase] = profile_call(fn)
         out[phase]["tokens"] = tokens
     return out
 

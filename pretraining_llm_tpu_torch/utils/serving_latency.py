@@ -85,7 +85,7 @@ def serve_once(path: int, params, cfg) -> dict:
             eng.step()
     else:
         rids = [eng.submit(p, MAX_NEW) for p in prompts]
-        eng.run()
+        eng.run(pipeline=False)  # chip_smoke's paths 1 and 2 run the synchronous scheduler
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     st = eng.stats

@@ -72,7 +72,7 @@ def _port(kw, impl="kernel"):
 
 def _serve(eng, requests):
     rids = [eng.submit(p, n) for p, n in requests]
-    out = eng.run() if isinstance(eng, ServingEngine) else eng.run(pipeline=False)
+    out = eng.run(pipeline=False)  # the synchronous scheduler of either engine
     return [out[r] for r in rids]
 
 

@@ -270,17 +270,24 @@ def test_generate_validation_raises_jax_types(models):
             tgen.generate(tp, tc, prompt, n_new, 0, **kw)
 
 
-def test_unported_generate_options_raise(models, tmp_path):
+def test_unported_generate_options_raise(models, jax_ckpt, capsys):
+    """Sharded decode and MoE still raise. Speculative decoding, refused
+    before it was ported, now runs: a greedy ``generate_text_speculative``
+    (self-draft, k 3) and the CLI's ``--draft_model_path`` mode give
+    ``generate_text``'s string, and JAX's."""
     _, tc, _, tp = models["learned-mha"]
     with pytest.raises(NotImplementedError, match="mesh"):
         tgen.generate(tp, tc, np.zeros((1, 4), np.int64), 2, 0, mesh=object())
     with pytest.raises(NotImplementedError, match="shard_params_for_inference"):
         tgen.shard_params_for_inference(tp, object())
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tgen.generate_text_speculative(str(tmp_path), str(tmp_path), "x")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        tgen_cli.main(["--model_path", str(tmp_path), "--input_text", "x", "--draft_model_path",
-                       str(tmp_path), "--device", "cpu"])
+    path = jax_ckpt["plain"]
+    want = tgen.generate_text(path, "Hello", 10, temperature=0.0, device="cpu")
+    assert tgen.generate_text_speculative(path, path, "Hello", 10, k=3, device="cpu") == want
+    assert want == jgen.generate_text_speculative(path, path, "Hello", 10, k=3, temperature=0.0)
+    assert "acceptance=" in capsys.readouterr().err
+    assert tgen_cli.main(["--model_path", path, "--input_text", "Hello", "--max_new_tokens", "10",
+                          "--temperature", "0", "--draft_model_path", path, "--spec_k", "3",
+                          "--device", "cpu"]) == [want]
     with pytest.raises(NotImplementedError, match="n_experts"):
         tgen.generate(tp, dataclasses.replace(tc, n_experts=2), np.zeros((1, 4), np.int64), 2, 0)
 

@@ -69,7 +69,7 @@ def test_engine_greedy_streams_match_jax(sps, impl):
     for prompt, max_new in _requests():
         assert jeng.submit(prompt, max_new) == teng.submit(prompt, max_new)
     want = jeng.run(pipeline=False)
-    got = teng.run()
+    got = teng.run(pipeline=False)
     assert got == want
     assert teng.stats["preemptions"] == jeng.stats["preemptions"] > 0
     assert any(len(out) < max_new for out, (_, max_new) in zip(got.values(), _requests()))

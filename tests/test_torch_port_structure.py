@@ -4,7 +4,9 @@
   imports JAX or anything of the JAX package.
 - Entry points run on the GPU unless the caller passes ``device="cpu"``:
   with no GPU they raise instead of falling back to the CPU.
-- Options the port does not implement yet raise ``NotImplementedError``.
+- Options the port does not implement yet raise ``NotImplementedError``;
+  options ported since run and raise the JAX package's ``ValueError`` on a
+  bad value.
 - Every kernel family has its CUDA source, built by ``ops/_build.py``; the
   host BPE encoder's C++ source is the port's own copy, built under
   ``build/``.
@@ -153,9 +155,34 @@ def test_engine_refuses_params_on_another_device():
     dict(fused_sampling=False), dict(kv_checksum=True),
 ])
 def test_unported_engine_options_raise(kw):
+    """Sharded serving (``mesh``) still raises. The other five options were
+    refused before they were ported; now each constructs, serves one tiny
+    request (the pipelined scheduler, and the synchronous one for the
+    unfused lane) to the greedy tokens of the default engine, and raises
+    the JAX engine's ``ValueError`` on a bad value."""
     params = transformer.init_params(TINY, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=next(iter(kw))):
-        ServingEngine(params, TINY, n_blocks=4, block_size=8, device="cpu", **kw)
+    base = dict(n_blocks=8, block_size=8, device="cpu")
+    name = next(iter(kw))
+    if name == "mesh":
+        with pytest.raises(NotImplementedError, match="mesh"):
+            ServingEngine(params, TINY, **base, **kw)
+        return
+    extra = {"spec_k": dict(draft_params=params, draft_cfg=TINY), "kv_checksum": dict(prefix_cache=True),
+             "admit_batch": dict(max_batch=2)}.get(name, {})
+    bad = {"spec_k": (dict(spec_k=-1), "spec_k must be >= 0"),
+           "pipeline_depth": (dict(pipeline_depth=0), "pipeline_depth must be >= 1"),
+           "admit_batch": (dict(admit_batch=-1), "admit_batch must be >= 0"),
+           "fused_sampling": (dict(fused_sampling=False, logprobs_k=2), "logprobs_k requires fused_sampling"),
+           "kv_checksum": (dict(kv_checksum=True, prefix_cache=True, prefix_cache_min_blocks=0),
+                           "min_blocks must be >= 1")}[name]
+    prompt = [3, 1, 4, 1, 5]
+    want = ServingEngine(params, TINY, **base)
+    want.submit(prompt, 4)
+    eng = ServingEngine(params, TINY, **base, **extra, **kw)
+    assert eng.submit(prompt, 4) == 0
+    assert eng.run(pipeline=name != "fused_sampling") == want.run(pipeline=False)
+    with pytest.raises(ValueError, match=bad[1]):
+        ServingEngine(params, TINY, **base, **dict(extra, **bad[0]))
 
 
 @pytest.mark.parametrize("kw,name", [
@@ -228,6 +255,24 @@ def test_sample_evaluate_preprocess_modules_are_scanned():
     scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(SAMPLE_EVAL_PREPROCESS_MODULES) <= scanned
     for rel in SAMPLE_EVAL_PREPROCESS_MODULES:
+        text = (ROOT / "pretraining_llm_tpu_torch" / rel).read_text()
+        assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
+
+
+SERVING_MODULES = (
+    "generation/serving.py", "generation/paged.py", "generation/speculative.py", "generation/prefix_cache.py",
+    "resilience/__init__.py", "resilience/integrity.py", "serve.py",
+)
+
+
+def test_serving_modules_are_scanned():
+    """The pipelined engine, speculative decoding, the port's copy of the
+    KV digests and the serve CLI are among the sources that
+    ``test_port_imports_nothing_of_jax`` scans; none names a module of the
+    JAX package."""
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(SERVING_MODULES) <= scanned
+    for rel in SERVING_MODULES:
         text = (ROOT / "pretraining_llm_tpu_torch" / rel).read_text()
         assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
 
