@@ -10,8 +10,12 @@ It builds the port's CUDA kernels from ``pretraining_llm_tpu_torch/csrc``
 plain PyTorch version at the serving and training paths' shapes (the
 flash kernels with and without document segments, the flash backward also
 through ``FlashAttention`` gradients, the fused CE kernels also through
-``FusedCE`` gradients against a dense head), holds 2-layer models on the
-card against the same models on the CPU (the monolithic admission with
+``FusedCE`` gradients against a dense head, the fp32 CE route at D 1024
+and 2048), holds each kernel on operands one element off an aligned
+address against the aligned call bit for bit, holds 2-layer models on the
+card against the same models on the CPU (a mixture-of-experts model at
+moe-8x350m's widths: loss, gradients, logits, routing decisions and
+greedy ``generate``; the monolithic admission with
 paged decode; the chunked suffix lane with an exact and an int8-kv pool;
 three AdamW steps of a gpt2-width and a GQA model, each with the chunked
 head and again with the fused CE head and document masking; ``generate``
@@ -99,6 +103,15 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           tokens/s, MFU, peak memory, losses and launches; the launches
           must be the exact counts of the one-pass or split backward on
           the tensor cores, K1 twice a layer where the policy recomputes it;
+  M1      ``Trainer.train`` on moe-8x350m at full width and depth (24
+          layers, d 1024, 8 experts, top-2, 1.77B params, 0.56B active),
+          4 steps at 32 x 1024 in the microbatches that fit: step ms,
+          tokens/s, MFU on the active FLOPs, peak memory, the router's aux
+          term per step, dropped (token, choice) pairs per layer at step
+          1, exact K1 and one-pass launches; then ``generate`` (8 prompts
+          of 256 tokens, 64 greedy tokens) and ``evaluate`` (4 batches)
+          from its weights, and 8 cached greedy steps (nothing dropped)
+          against one uncached forward of the same tokens;
   R       the remat sweep: llama3-1b-gqa at its 22 layers, batch 2 x
           2048, under each of the seven policies from one init: step-1 loss
           and every gradient leaf against remat none's (the bf16 bar; bit
@@ -175,6 +188,7 @@ line. With no CUDA device it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -201,6 +215,7 @@ AMLA_FP32_TOL = 2e-4  # AMLA's integer-quantized base-2 running max (the JAX bar
 BF16_ROW_RTOL = 2.0**-6
 MODEL_TOL = 1e-3  # fp32 logits, 2-layer model, card vs CPU
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
+PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 SEED = 0
 DEVICE = "cuda"  # the card; the phases take their tensors from here
@@ -364,6 +379,9 @@ def check_flash() -> float:
         (2, 8, 2, 1000, 64, 200, torch.bfloat16, False), (2, 8, 2, 1000, 64, 200, torch.bfloat16, True),
         (1, 16, 4, 832, 128, 256, torch.bfloat16, False), (1, 16, 4, 832, 128, 256, torch.bfloat16, True),
         (2, 8, 2, 1000, 32, 256, torch.bfloat16, True), (1, 16, 4, 200, 128, 200, torch.bfloat16, True),
+        # M1's shapes (moe-8x350m, MHA): a training microbatch, and its
+        # generate's prefill of 8 prompts of 256 tokens.
+        (8, 16, 16, 1024, 64, 0, torch.bfloat16, False), (8, 16, 16, 256, 64, 0, torch.bfloat16, False),
     ]
     worst = 0.0
     fwd = cuda_flash.flash_attention_fwd
@@ -445,6 +463,7 @@ BWD_CASES = [  # (B, H, G, T, Dh, window, dtype, block_q, block_kv, document seg
     (1, 16, 16, 1024, 128, 0, torch.bfloat16, 0, 0, False),     # gpt2-1p3b-fsdp: one pass
     (1, 16, 16, 512, 128, 0, torch.bfloat16, 0, 0, False),      # reference-3b: one pass
     (1, 16, 16, 2048, 128, 0, torch.bfloat16, 0, 0, False),     # llama-1b: split
+    (8, 16, 16, 1024, 64, 0, torch.bfloat16, 0, 0, False),      # M1's microbatch (moe-8x350m): one pass
 ]
 
 
@@ -452,7 +471,8 @@ def check_flash_bwd() -> None:
     """The three backward kernels against ``flash_attention_bwd_reference``
     on the card (dq, dk, dv), with K1 giving the residuals; every bf16 case
     must run the tensor-core kernels and every fp32 case the CUDA-core ones,
-    and every bf16 case must give the same bits on a repeat launch. Then
+    and every case must give the same bits on a repeat launch (the fp32 one
+    pass too: its dQ partials are summed in key-tile order). Then
     ``FlashAttention`` gradients in fp32 against autograd through the
     port's ``naive_attention``. The kernels line reports each kernel's
     error at its training path's shape (``time_train_kernels``)."""
@@ -478,15 +498,14 @@ def check_flash_bwd() -> None:
         uses = {n: row_tol_use(x, y, rtol) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
         errs = {n: max_err(x, y) for n, x, y in zip(("dq", "dk", "dv"), got, ref)}
         one_pass = cuda_flash.backward_is_one_pass(t, bq, bk)
-        same = None
-        if dtype == torch.bfloat16:  # no unordered sums: a second launch gives the same bits
-            delta = (do.float() * o.float()).sum(-1)
-            if one_pass:
-                again = cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, window=window, segments=seg)
-            else:
-                again = (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, window=window, segments=seg),
-                         *cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window, segments=seg))
-            same = all(torch.equal(x, y) for x, y in zip(again, got))
+        # No unordered sums on either route: a second launch gives the same bits.
+        delta = (do.float() * o.float()).sum(-1)
+        if one_pass:
+            again = cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g, window=window, segments=seg)
+        else:
+            again = (cuda_flash.flash_bwd_dq(q, k, v, do, lse, delta, h, g, window=window, segments=seg),
+                     *cuda_flash.flash_bwd_dkv(q, k, v, do, lse, delta, h, g, window=window, segments=seg))
+        same = all(torch.equal(x, y) for x, y in zip(again, got))
         log("check_flash_bwd", B=b, H=h, G=g, T=t, Dh=d, window=window, dtype=str(dtype),
             block_q=bq, block_kv=bk, segments=segment_summary(seg),
             kernels="one pass" if one_pass else "dq + dkv", route=cuda_flash.kernel_route(dtype, d),
@@ -499,8 +518,8 @@ def check_flash_bwd() -> None:
             raise AssertionError(f"backward at {dtype} ran (all, tensor-core, fp32) = {ran} per kernel")
         if not all(u <= 1.0 for u in uses.values()):
             raise AssertionError(f"flash backward disagrees with its plain version: {uses}")
-        if same is False:
-            raise AssertionError(f"bf16 backward differs between two launches on the same inputs (T {t}, Dh {d})")
+        if not same:
+            raise AssertionError(f"{dtype} backward differs between two launches on the same inputs (T {t}, Dh {d})")
 
     # Gradients of the autograd Function (fp32) against autograd through the
     # plain masked attention, one pass and split: max-abs within GRAD_TOL
@@ -552,7 +571,15 @@ CE_CASES = [  # (S, D, V, dtype[, labels in the last 256-column tile]): token an
     # and labels in the tail tile at D 768.
     (300, 2048, 32000, torch.bfloat16), (136, 320, 300, torch.bfloat16, True),
     (200, 192, 100, torch.bfloat16, True), (2500, 256, 1000, torch.bfloat16),
+    # The fp32 kernels stream D: D 320 takes 64-column output chunks (the
+    # wide ones are FP32_WIDE).
+    (136, 320, 300, torch.float32, True),
 ]
+# The fp32 route past the widths it once kept whole in shared memory:
+# moe-8x350m's D 1024 and D 2048 at GPT-2's V 50304, with a ragged last
+# token tile (1000 = 31 x 32 + 8) and labels in the last vocabulary tile;
+# compared (the CE_CASES bars, a repeat launch) and timed by time_fp32_ce.
+FP32_WIDE = ((1000, 1024, 50304), (1000, 2048, 50304))  # (S, D, V)
 LLAMA_HEAD = (2048, 2048, 32000)  # (S, D, V): one llama3-1b-gqa sequence at its untied head
 
 
@@ -571,7 +598,7 @@ def ce_compare(what, h, w_vd, labels, g, **extra):
     """The three kernels against their plain versions on the same inputs
     (the backward both from the plain forward's lse), their routes
     (``ce_route``, ``ce_bwd_route``: bf16 on the tensor cores, fp32 on
-    fused_ce.cu) and, in bf16, a repeat launch of each with the same bits.
+    fused_ce.cu) and a repeat launch of each with the same bits.
     Returns {kernel: (max_abs_err, tol_use)} and fails above 1.0 of a
     limit."""
     from pretraining_llm_tpu_torch.ops import _build
@@ -608,12 +635,10 @@ def ce_compare(what, h, w_vd, labels, g, **extra):
         "fused_ce_dw": (max_err(dw, r_dw), grad_use(dw, r_dw)),
     }
     finite = all(bool(torch.isfinite(x.float()).all()) for x in (loss, lse, dh, dw))
-    repeat_same = None
-    if h.dtype == torch.bfloat16:
-        loss2, lse2 = cuda_ce.fused_ce_fwd(h, w_vd, labels)
-        repeat_same = {"fused_ce_fwd": bool(torch.equal(loss, loss2) and torch.equal(lse, lse2)),
-                       "fused_ce_dh": bool(torch.equal(dh, cuda_ce.fused_ce_dh(h, w_vd, labels, r_lse, g))),
-                       "fused_ce_dw": bool(torch.equal(dw, cuda_ce.fused_ce_dw(h, w_vd, labels, r_lse, g)))}
+    loss2, lse2 = cuda_ce.fused_ce_fwd(h, w_vd, labels)
+    repeat_same = {"fused_ce_fwd": bool(torch.equal(loss, loss2) and torch.equal(lse, lse2)),
+                   "fused_ce_dh": bool(torch.equal(dh, cuda_ce.fused_ce_dh(h, w_vd, labels, r_lse, g))),
+                   "fused_ce_dw": bool(torch.equal(dw, cuda_ce.fused_ce_dw(h, w_vd, labels, r_lse, g)))}
     log(what, S=s, D=d, V=v, dtype=str(h.dtype), fwd_route=route, bwd_route=bwd_route, bwd_plans=plans, **extra,
         max_abs_err={k: e for k, (e, _) in out.items()}, tol_use={k: u for k, (_, u) in out.items()},
         finite=finite, launches=ran, launches_on_route=ran_route, repeat_same_bits=repeat_same)
@@ -622,19 +647,21 @@ def ce_compare(what, h, w_vd, labels, g, **extra):
     want = "wgmma" if h.dtype == torch.bfloat16 else "fp32"
     if (route, bwd_route) != (want, want):
         raise AssertionError(f"{what}: the {h.dtype} kernels took routes {route}, {bwd_route}")
-    if repeat_same is not None and not all(repeat_same.values()):
-        raise AssertionError(f"{what}: a repeat bf16 launch gave other bits: {repeat_same}")
+    if not all(repeat_same.values()):
+        raise AssertionError(f"{what}: a repeat launch gave other bits: {repeat_same}")
     return out
 
 
-def check_ce() -> None:
+def check_ce() -> dict:
     """The fused CE kernels (B9 forward, B10 dH, B11 dW) against their plain
-    versions at CE_CASES with a non-uniform cotangent; then a bf16
+    versions at CE_CASES with a non-uniform cotangent, and the fp32 route
+    timed at FP32_WIDE (``time_fp32_ce``); then a bf16
     ``FusedCE`` forward and backward at llama3-1b-gqa's head (LLAMA_HEAD,
     the untied (D, V) layout) against the plain versions at the bf16 bars;
     then ``FusedCE`` gradients (fp32, the tied layout: W is the embedding's
     transpose) against autograd through a plain dense head (logits, then
-    ``cross_entropy``). The T1-shape comparison is in ``time_ce_kernels``."""
+    ``cross_entropy``). The T1-shape comparison is in ``time_ce_kernels``.
+    Returns {kernel: [the fp32 route's entry at each FP32_WIDE shape]}."""
     from pretraining_llm_tpu_torch.ops import ce_reference as ref
     from pretraining_llm_tpu_torch.ops import cuda_ce
     from pretraining_llm_tpu_torch.ops.fused_ce import FusedCE
@@ -642,6 +669,7 @@ def check_ce() -> None:
     gen = torch.Generator().manual_seed(SEED + 13)
     for s, d, v, dtype, *tail in CE_CASES:
         ce_compare("check_ce", *ce_inputs(s, d, v, dtype, gen, *tail), tail_labels=bool(tail))
+    wide = time_fp32_ce(gen)
 
     s, d, v = LLAMA_HEAD
     h, w_vd, labels, g = ce_inputs(s, d, v, torch.bfloat16, gen)
@@ -684,6 +712,62 @@ def check_ce() -> None:
     log("check_ce_grad", S=s, D=d, V=v, dtype="torch.float32", tol_use=uses, grad_rtol=CE_GRAD_RTOL)
     if not all(u <= 1.0 for u in uses.values()):
         raise AssertionError(f"FusedCE disagrees with autograd through a dense head: {uses}")
+    return wide
+
+
+def time_fp32_ce(gen) -> dict:
+    """The fp32 route (``csrc/fused_ce.cu``'s ``ce32_kernel``, D streamed)
+    at FP32_WIDE: each kernel held against its plain version (the CE_CASES
+    bars), then timed (3 launches after 1, L2 flushed) beside its plain
+    version, a library composite (the fp32 (S, V) logits as one cuBLAS GEMM
+    with TF32 off, then torch ops) and its bound at the fp32 peak
+    (PEAK_FP32_FLOPS: 2*S*D*V per product, one forward, two dH or dW).
+    Returns {kernel: [entry per shape]}."""
+    from pretraining_llm_tpu_torch.ops import ce_reference as ref
+    from pretraining_llm_tpu_torch.ops import cuda_ce
+
+    l2_buf = torch.empty(64 << 20, dtype=torch.uint8, device=DEVICE)
+    flush = l2_buf.zero_
+    out = {"fused_ce_fwd": [], "fused_ce_dh": [], "fused_ce_dw": []}
+    for s, d, v in FP32_WIDE:
+        h, w_vd, labels, g = ce_inputs(s, d, v, torch.float32, gen, tail_labels=True)
+        errs = ce_compare("check_ce_fp32_wide", h, w_vd, labels, g, tail_labels=True)
+        _, lse = cuda_ce.fused_ce_fwd(h, w_vd, labels)
+
+        def lib_p():
+            p = torch.exp_((h @ w_vd.t()).sub_(lse[:, None]))
+            p[torch.arange(s, device=DEVICE), labels.long()] -= 1.0
+            return p.mul_(g[:, None])
+
+        def lib_fwd():
+            z = h @ w_vd.t()
+            lse_ = torch.logsumexp(z, dim=1)
+            return lse_ - z.gather(1, labels.long()[:, None])[:, 0], lse_
+
+        operand_bytes = 4 * (s * d + v * d + s)
+        for name, fn, plain, lib, products, nbytes in (
+            ("fused_ce_fwd", lambda: cuda_ce.fused_ce_fwd(h, w_vd, labels),
+             lambda: ref.fused_ce_fwd_reference(h, w_vd.t(), labels), lib_fwd, 1, operand_bytes + 8 * s),
+            ("fused_ce_dh", lambda: cuda_ce.fused_ce_dh(h, w_vd, labels, lse, g),
+             lambda: ref.fused_ce_dh_reference(h, w_vd.t(), labels, lse, g), lambda: lib_p() @ w_vd, 2,
+             operand_bytes + 8 * s + 4 * s * d),
+            ("fused_ce_dw", lambda: cuda_ce.fused_ce_dw(h, w_vd, labels, lse, g),
+             lambda: ref.fused_ce_dw_reference(h, w_vd.t(), labels, lse, g), lambda: lib_p().t() @ h, 2,
+             operand_bytes + 8 * s + 4 * v * d),
+        ):
+            flops = 2.0 * s * d * v * products
+            entry = dict(S=s, D=d, V=v, dtype="float32", route=cuda_ce.ce_route(torch.float32),
+                         ms=time_ms(fn, n=3, warmup=1, flush=flush),
+                         device_ms=time_ms(fn, n=3, warmup=1, flush=flush, device_only=True),
+                         plain_ms=time_ms(plain, n=2, warmup=1, flush=flush),
+                         library_ms=time_ms(lib, n=3, warmup=1, flush=flush), flops=flops, bytes=nbytes,
+                         **_bound(flops, nbytes, PEAK_FP32_FLOPS), max_abs_err=errs[name][0],
+                         tol_use=errs[name][1])
+            log("time_fp32_ce", kernel=name, **entry)
+            out[name].append(entry)
+        del h, w_vd, labels, g, lse
+        _free_card()
+    return out
 
 
 def paged_state(rng, b, n_blocks, nb, bs, t, lo=0, hi=None, seqs=None):
@@ -930,6 +1014,82 @@ def check_ragged() -> dict:
                      seqs=seqs, pool=pool, window=window, splits=splits, amla=amla, gen=gen, rng=rng, case=case,
                      edit=edit)
     return worst
+
+
+def offset_view(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous view that starts one element into a fresh
+    buffer: 2 bytes (bf16) or 1 (int8) past an aligned address."""
+    base = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = base[1:].view(x.shape)
+    view.copy_(x)
+    if view.data_ptr() % 16 == 0:
+        raise AssertionError("offset_view: the view is 16-byte aligned")
+    return view
+
+
+def check_misaligned() -> None:
+    """K1, the backward kernels (one pass, dQ, dK/dV), K2 (split route), K3
+    (tensor cores) and B9-B11, bf16, once on aligned operands and once with
+    every operand the kernel reads 16 bytes at a time as ``offset_view``:
+    the wrappers copy a misaligned operand into a fresh buffer
+    (``_build.aligned``) and launch the same kernel, so each output must
+    equal the aligned call's bit for bit, on the same route, one launch
+    each."""
+    from pretraining_llm_tpu_torch.ops import cuda_ce, cuda_flash, cuda_paged, cuda_ragged
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    rng = np.random.default_rng(SEED + 31)
+    bf = torch.bfloat16
+    results = {}
+
+    def same(name, fn, aligned_args, shifted_args, counted):
+        before = counted()
+        want = fn(*aligned_args)
+        mid = counted()
+        got = fn(*shifted_args)
+        after = counted()
+        torch.cuda.synchronize()
+        want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+        equal = all(torch.equal(a, b) for a, b in zip(want, got))
+        results[name] = {"bit_identical": equal, "launches": [mid - before, after - mid]}
+        if not equal or mid - before != after - mid or mid == before:
+            raise AssertionError(f"{name}: misaligned operands gave {results[name]}")
+
+    b, h, g, t, d = 2, 8, 4, 512, 64
+    q, k, v, do = (randn((b * n, t, d), bf, gen) for n in (h, g, g, h))
+    o, lse = cuda_flash.flash_attention_fwd(q, k, v, h, g)
+    fwd = cuda_flash.flash_attention_fwd
+    same("flash_fwd (K1)", lambda *a: fwd(*a, h, g), (q, k, v), tuple(map(offset_view, (q, k, v))),
+         lambda: fwd.launches_tc)
+    for name, blocks, counted in (("flash_bwd_fused (B4)", 0, cuda_flash.flash_bwd_fused),
+                                  ("flash_bwd_dq + dkv (B2, B3)", 128, cuda_flash.flash_bwd_dq)):
+        same(name, lambda q_, k_, v_, do_: cuda_flash.flash_attention_bwd(q_, k_, v_, o, lse, do_, h, g, block_q=blocks,
+                                                                         block_kv=blocks),
+             (q, k, v, do), tuple(map(offset_view, (q, k, v, do))), lambda c=counted: c.launches_tc)
+
+    bs, nb, n_blocks = 64, 16, 160
+    qd = randn((8, 12, 64), bf, gen)
+    kp, vp = randn((n_blocks, bs, 12, 64), bf, gen), randn((n_blocks, bs, 12, 64), bf, gen)
+    tables, seq = paged_state(rng, 8, n_blocks, nb, bs, 1)
+    k2 = cuda_paged.paged_decode_attention
+    same("paged_decode (K2, split)", lambda q_, kp_, vp_: k2(q_, kp_, vp_, tables, seq), (qd, kp, vp),
+         (offset_view(qd), offset_view(kp), offset_view(vp)), lambda: k2.launches_by_route["split"])
+
+    qr = randn((3, 64, 12, 64), bf, gen)
+    rt, rs, rq = ragged_state(rng, [64, 1, 30], [100, 900, 0], n_blocks, nb, bs)
+    k3 = cuda_ragged.ragged_paged_attention
+    same("ragged_paged (K3, tensor cores)", lambda q_, kp_, vp_: k3(q_, kp_, vp_, rt, rs, rq, kv_splits=1),
+         (qr, kp, vp), (offset_view(qr), offset_view(kp), offset_view(vp)),
+         lambda: k3.launches_by_route["wgmma"])
+
+    hh, w_vd, labels, gg = ce_inputs(300, 768, 1000, bf, gen)
+    _, ce_lse = cuda_ce.fused_ce_fwd(hh, w_vd, labels)
+    for name, fn in (("fused_ce_fwd (B9)", lambda h_, w_: cuda_ce.fused_ce_fwd(h_, w_, labels)),
+                     ("fused_ce_dh (B10)", lambda h_, w_: cuda_ce.fused_ce_dh(h_, w_, labels, ce_lse, gg)),
+                     ("fused_ce_dw (B11)", lambda h_, w_: cuda_ce.fused_ce_dw(h_, w_, labels, ce_lse, gg))):
+        counted = getattr(cuda_ce, name.split(" ")[0])
+        same(name, fn, (hh, w_vd), (offset_view(hh), offset_view(w_vd)), lambda c=counted: c.launches_by_route["wgmma"])
+    log("check_misaligned", offset="one element (2 bytes, bf16)", **{"results": results})
 
 
 def check_model_card_vs_cpu() -> None:
@@ -1887,6 +2047,104 @@ def check_train_card_vs_cpu() -> None:
             raise AssertionError(f"training {name} launched the fused CE kernels: {launched}")
 
 
+MOE_NEAR_TIE = 1e-6  # router probabilities this close may order differently on the card and the CPU
+
+
+def check_moe_card_vs_cpu() -> None:
+    """moe-8x350m's widths (d 1024, 16 heads, d_ff 4096, 8 experts, top-2,
+    V 50304) at 2 layers, fp32 (TF32 off), on the card and on the CPU from
+    the same init: the loss with the router term and every gradient leaf
+    on a batch of 2 x 1024 tokens (2 routing groups: ``moe_group_size``
+    1024 here, so the CPU side stays short), the logits
+    and the routing decisions of the uncached forward, and ``generate``
+    (4 equal-length prompts of 64 tokens, 16 greedy tokens: a grouped
+    prefill with capacity, decode steps without). Bars: logits MODEL_TOL,
+    loss TRAIN_LOSS_RTOL, gradients TRAIN_GRAD_RTOL of each leaf's largest
+    |g|; the experts of every (token, choice) equal except at rows whose
+    top k + 1 router probabilities hold two within MOE_NEAR_TIE on the CPU
+    (counted and printed), and, in a group without such a row, every
+    capacity position and drop equal; greedy tokens equal up to each row's
+    first near tie (NEAR_TIE), as ``check_generate_card_vs_cpu``."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.generate import generate
+    from pretraining_llm_tpu_torch.models import transformer
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    cfg = dataclasses.replace(get_preset("moe-8x350m").model, n_layers=2, compute_dtype="float32",
+                              moe_group_size=1024)
+    rng = np.random.default_rng(SEED + 43)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, cfg.context_length + 1)))
+    prompts = rng.integers(0, cfg.vocab_size, (4, 64))
+    steps = 16
+    runs = {}
+    for device in (DEVICE, "cpu"):
+        reset_kernel_counts()
+        params = transformer.init_params(cfg, SEED, device=device)
+        x, y = toks[:, :-1].to(device), toks[:, 1:].to(device)
+        leaves = opt.tree_map(lambda p: p.detach().clone().requires_grad_(True), params)
+        loss = transformer.loss_fn(leaves, x, y, cfg)
+        loss.backward()
+        grads = opt.tree_map(lambda p: p.grad.cpu(), leaves)
+        del leaves
+        routes = []
+
+        def record(router_logits, r):
+            top = torch.sort(torch.softmax(router_logits, dim=-1), dim=-1, descending=True).values
+            routes.append((r.idx.cpu(), r.pos.cpu(), r.keep.cpu(), top[..., : cfg.experts_per_token + 1].cpu()))
+
+        with torch.no_grad(), recording_route(record):
+            logits, _, aux = transformer.forward(params, x, cfg, return_aux=True)
+        gen_toks, gen_logits = generate(params, cfg, prompts, steps, 0, temperature=0.0, return_logits=True)
+        runs[device] = dict(loss=float(loss.detach()), aux=float(aux), grads=grads, logits=logits.cpu(), routes=routes,
+                            toks=gen_toks.cpu(), gen_logits=gen_logits.cpu(), launches=kernel_counts())
+        del params, logits, gen_logits
+        _free_card()
+    card, cpu = runs[DEVICE], runs["cpu"]
+    loss_use = abs(card["loss"] - cpu["loss"]) / (TRAIN_LOSS_RTOL * abs(cpu["loss"]))
+    logit_err = max_err(card["logits"], cpu["logits"])
+    grad_use = {"/".join(path): max_err(a, b) / (TRAIN_GRAD_RTOL * max(b.abs().max().item(), 1e-30))
+                for (path, a), (_, b) in zip(opt.tree_leaves(card["grads"]), opt.tree_leaves(cpu["grads"]))}
+    worst_leaf = max(grad_use, key=grad_use.get)
+    ties, idx_equal, slots_equal, groups_compared = 0, True, True, 0
+    for (ci, cp, ck, _), (pi, pp, pk, top) in zip(card["routes"], cpu["routes"]):
+        near = ((top[..., :-1] - top[..., 1:]) < MOE_NEAR_TIE).any(-1)  # (G, S)
+        ties += int(near.sum())
+        idx_equal = idx_equal and bool((ci == pi).all(-1)[~near].all())
+        for grp in range(near.shape[0]):
+            if not bool(near[grp].any()):
+                groups_compared += 1
+                slots_equal = slots_equal and torch.equal(cp[grp], pp[grp]) and torch.equal(ck[grp], pk[grp])
+    gap = cpu["gen_logits"].topk(2, dim=-1).values
+    gap = gap[..., 0] - gap[..., 1]
+    compared, same_toks, gen_err = [], True, 0.0
+    for i in range(prompts.shape[0]):
+        near_steps = (gap[i] < NEAR_TIE).nonzero()
+        upto = int(near_steps[0]) if len(near_steps) else steps
+        compared.append(upto)
+        same_toks = same_toks and torch.equal(card["toks"][i, :upto], cpu["toks"][i, :upto])
+        if upto:
+            gen_err = max(gen_err, max_err(card["gen_logits"][i, :upto], cpu["gen_logits"][i, :upto]))
+    launched = card["launches"]
+    log("check_moe", layers=cfg.n_layers, d=cfg.d_model, d_ff=cfg.d_ff, experts=cfg.n_experts,
+        top_k=cfg.experts_per_token, V=cfg.vocab_size, T=cfg.context_length, batch=toks.shape[0],
+        group_size=cfg.moe_group_size, remat=cfg.remat,
+        card_loss=card["loss"], cpu_loss=cpu["loss"], loss_tol_use=loss_use, card_aux=card["aux"],
+        cpu_aux=cpu["aux"], max_abs_logit_err=logit_err, logit_tol=MODEL_TOL, grad_rtol=TRAIN_GRAD_RTOL,
+        grad_tol_use=grad_use[worst_leaf], worst_leaf=worst_leaf, near_tie=MOE_NEAR_TIE, near_tie_rows=ties,
+        experts_equal_off_ties=idx_equal, groups_compared=groups_compared, slots_and_drops_equal=slots_equal,
+        generate_steps_compared_per_row=compared, greedy_tokens_equal=same_toks, generate_max_abs_logit_err=gen_err,
+        launches={k: v for k, v in launched.items() if v})
+    if not (loss_use <= 1.0 and logit_err <= MODEL_TOL and grad_use[worst_leaf] <= 1.0 and gen_err <= MODEL_TOL):
+        raise AssertionError("MoE on the card disagrees with the CPU run")
+    if not (idx_equal and slots_equal and groups_compared and same_toks):
+        raise AssertionError(f"MoE routing or greedy tokens differ on the card: experts {idx_equal}, slots "
+                             f"{slots_equal} over {groups_compared} groups, tokens {same_toks}")
+    if not (launched["flash_fwd_fp32"] and launched["flash_bwd_fused_fp32"]):
+        raise AssertionError(f"MoE on the card did not run the fp32 flash kernels: {launched}")
+
+
 def check_doc_isolation() -> None:
     """Cross-document isolation on the card: gpt2-124m widths at 2 layers,
     fp32, flash attention, doc_mask_token = DOC_SEP, T 512. Row 0 holds four
@@ -2521,6 +2779,217 @@ def run_t4() -> dict:
     return out
 
 
+M1_STEPS = 4
+M1_MICRO = 4  # microbatches tried first: 8 x 1024 tokens each, 4 routing groups of 2048
+M1_PROMPTS = (8, 256)  # generate from the step-4 weights: rows x prompt tokens (equal lengths: MoE)
+M1_NEW_TOKENS = 64
+M1_EVAL_ITERS = 4
+M1_CHECK_STEPS = 8  # cached greedy steps held against one uncached forward
+
+
+@contextlib.contextmanager
+def recording_route(record):
+    """Replaces ``moe.route`` while the block runs with a stand-in that
+    passes each forward call's (router logits, routing) to ``record``, not
+    the recompute in the backward (a remat policy reruns the layer
+    there)."""
+    from pretraining_llm_tpu_torch.models import moe
+
+    real = moe.route
+
+    def recording(logits, cfg, capacity):
+        r = real(logits, cfg, capacity)
+        if torch._C._current_graph_task_id() == -1:  # not inside the backward
+            record(logits, r)
+        return r
+
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
+def m1_decode_check(params, model, prompts) -> dict:
+    """The cached MoE decode (``decode=True`` routing, the cache index, the
+    fp32 router) against one uncached forward. ``generate`` of
+    M1_CHECK_STEPS greedy tokens from ``prompts`` with the capacity factor
+    raised to n_experts / top_k, so that no (token, choice) drops in the
+    prefill either (decode routes with every choice kept), then one
+    uncached forward of prompt + continuation under that config, both
+    recording each token's experts. Each row's step logits within
+    BF16_ROW_RTOL of that position's largest |logit|, up to the row's
+    first routing difference, which must be a near tie: the uncached run's
+    k-th and (k+1)-th router probabilities within BF16_ROW_RTOL of the k-th
+    (hidden states a few bf16 roundings apart).
+    Returns the fields to log; raises on a failure."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.generation.generate import generate
+    from pretraining_llm_tpu_torch.models import moe, transformer
+
+    rows, plen = prompts.shape
+    layers = model.n_layers
+    k = model.experts_per_token
+    no_drop = dataclasses.replace(model, expert_capacity_factor=model.n_experts / k)
+    if moe.expert_capacity(no_drop, prompts.numel()) != prompts.numel():
+        raise AssertionError("M1: the raised capacity factor still drops choices")
+    routes = []  # per routed call: each token's k experts (sorted) and top k + 1 router probabilities
+
+    def record(router_logits, r):
+        top = torch.sort(torch.softmax(router_logits, dim=-1), dim=-1, descending=True).values
+        routes.append((r.idx.sort(dim=-1).values.cpu(), top[..., : k + 1].cpu()))
+
+    with recording_route(record):
+        check_toks, step_logits = generate(params, no_drop, prompts, M1_CHECK_STEPS, 0,
+                                           temperature=0.0, return_logits=True)
+        full = torch.cat([prompts, check_toks[:, :-1]], dim=1)
+        with torch.no_grad():
+            logits, _ = transformer.forward(params, full, no_drop)
+    if len(routes) != (M1_CHECK_STEPS + 1) * layers:
+        raise AssertionError(f"M1: {len(routes)} routed calls in the decode check")
+    # (layer, row, position) experts of the cached run (the prefill, then
+    # one decode step a call) and of the uncached forward.
+    got = torch.stack([torch.cat([routes[s * layers + i][0].reshape(rows, -1, k) for s in range(M1_CHECK_STEPS)],
+                                 dim=1) for i in range(layers)])
+    want = torch.stack([routes[M1_CHECK_STEPS * layers + i][0].reshape(rows, -1, k) for i in range(layers)])
+    want_top = torch.stack([routes[M1_CHECK_STEPS * layers + i][1].reshape(rows, -1, k + 1) for i in range(layers)])
+    differs = (got != want).any(-1)  # (layer, row, position)
+    # A row is compared up to its first routing difference: the flip
+    # changes that position's output and, through attention, every later
+    # one. That first flip must be a near tie of the uncached run's k-th
+    # and (k+1)-th router probabilities.
+    compared, flip_gaps = [], []
+    for i in range(rows):
+        pos = differs[:, i].any(0).nonzero()
+        if not len(pos):
+            compared.append(M1_CHECK_STEPS)
+            continue
+        p = int(pos[0])
+        layer = int(differs[:, i, p].nonzero()[0])
+        kth, nxt = want_top[layer, i, p, k - 1].item(), want_top[layer, i, p, k].item()
+        flip_gaps.append({"row": i, "position": p, "layer": layer, "relative_gap": (kth - nxt) / kth})
+        compared.append(max(0, min(M1_CHECK_STEPS, p - (plen - 1))))
+    ref = logits[:, plen - 1:].float()  # position P - 1 + j predicts step j
+    cached = step_logits.float()
+    row_use = (cached - ref).abs().amax(-1) / (BF16_ROW_RTOL * ref.abs().amax(-1))  # (row, step)
+    decode_use = max((row_use[i, :n].max().item() for i, n in enumerate(compared) if n), default=0.0)
+    argmax_equal = (cached.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    fields = dict(steps=M1_CHECK_STEPS, capacity_factor=no_drop.expert_capacity_factor,
+                  steps_compared_per_row=compared, routing_flips=flip_gaps,
+                  bar=BF16_ROW_RTOL, bar_use=decode_use, bar_use_per_step_all_rows=row_use.amax(0).tolist(),
+                  argmax_equal_share=argmax_equal)
+    if not decode_use <= 1.0:
+        raise AssertionError(f"M1: cached MoE decode off the uncached forward: {fields}")
+    if not all(f["relative_gap"] <= BF16_ROW_RTOL for f in flip_gaps):
+        raise AssertionError(f"M1: the cached decode routes a token away from the uncached run: {fields}")
+    return fields
+
+
+def run_m1() -> dict:
+    """M1: ``Trainer.train`` on moe-8x350m at full width and depth (24
+    layers, d 1024, 16 heads, d_ff 4096, 8 experts, top-2, capacity factor
+    1.25, routing groups of 2048 tokens, V 50304, T 1024, tied head,
+    ``dots_saveable``, bf16 compute, fp32 params, AdamW), M1_STEPS steps at
+    the preset's global batch of 32 x 1024 synthetic tokens in M1_MICRO
+    microbatches, or twice as many after an out-of-memory error or a peak at
+    CARD_BYTES or above. Logs step ms, tokens/s, MFU on the active FLOPs
+    (``flops_per_token``), peak memory, the losses, the router's aux term
+    per step (summed over layers, the microbatches' mean; the loss less
+    ``router_aux_coef`` times it is the step's cross-entropy) and the dropped
+    (token, choice) pairs per layer at step 1, and asserts the K1 and
+    one-pass launches (K1 twice a layer: ``dots_saveable`` recomputes it).
+    Then ``generate`` from the step-4 weights (cast for inference): M1_PROMPTS
+    equal-length random prompts, M1_NEW_TOKENS greedy tokens, prefill and
+    decode tokens/s, K1 once a layer; then the trainer's ``evaluate`` on
+    M1_EVAL_ITERS batches (pure cross-entropy); last, ``m1_decode_check``
+    from the same prompts. Returns {"M1": launches, "M1 generate":
+    launches}."""
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.generation.generate import generate
+    from pretraining_llm_tpu_torch.models import bridge, moe
+
+    preset = "moe-8x350m"
+    model = get_preset(preset).model
+    batch = get_preset(preset).train.batch_size
+    micro, tried, records = M1_MICRO, [], []
+    t0 = time.perf_counter()
+    with recording_route(lambda _, r: records.append((r.aux.detach().mean(), (~r.keep).sum()))):
+        while True:
+            records.clear()
+            cfg = train_config(preset, {"train.train_steps": M1_STEPS, "train.microbatches": micro,
+                                        "train.checkpoint_dir": _no_checkpoint_dir()})
+            try:
+                trainer, recs, launches, wall, peak = train_run(cfg, M1_STEPS, synthetic_data=True, resume=False)
+            except torch.cuda.OutOfMemoryError as e:
+                tried.append({"microbatches": micro, "error": str(e).splitlines()[0][:160]})
+                trainer, peak = None, None
+                _free_card()
+            if peak is not None and peak < CARD_BYTES:
+                break
+            if peak is not None:
+                tried.append({"microbatches": micro, "max_memory_allocated_bytes": peak})
+                del trainer
+                _free_card()
+            micro *= 2
+            if batch % micro:
+                raise AssertionError(f"M1: no microbatch count fits: {tried}")
+    layers = model.n_layers
+    per_step = micro * layers
+    if len(records) != M1_STEPS * per_step:
+        raise AssertionError(f"M1: {len(records)} routed forward calls, expected {M1_STEPS * per_step}")
+    aux = torch.stack([a for a, _ in records]).float().reshape(M1_STEPS, micro, layers).cpu()
+    dropped = torch.stack([n for _, n in records]).reshape(M1_STEPS, micro, layers).cpu()
+    aux_per_step = aux.sum(-1).mean(-1).tolist()
+    dropped_step1 = dropped[0].sum(0).tolist()
+    losses = [r["loss"] for r in recs]
+    tokens_micro = batch // micro * model.context_length
+    groups = tokens_micro // model.moe_group_size if tokens_micro > model.moe_group_size else 1
+    log("train_m1", preset=preset, params=model.num_params(), active_params=model.num_active_params(),
+        flops_per_token=model.flops_per_token(), layers=layers, d=model.d_model, H=model.n_heads,
+        d_ff=model.d_ff, experts=model.n_experts, top_k=model.experts_per_token,
+        capacity_factor=model.expert_capacity_factor, groups_per_microbatch=groups,
+        capacity_per_group=moe.expert_capacity(model, tokens_micro // groups), T=model.context_length,
+        V=model.vocab_size, remat=model.remat, batch=batch, microbatches=micro, tried=tried,
+        dtype=model.compute_dtype, data="synthetic", steps=M1_STEPS, wall_s=wall, **_rates(recs),
+        max_memory_allocated_bytes=peak, card_bytes=CARD_BYTES, losses=losses, aux_per_step=aux_per_step,
+        router_aux_coef=model.router_aux_coef,
+        cross_entropy_per_step=[x - model.router_aux_coef * a for x, a in zip(losses, aux_per_step)],
+        dropped_choices_per_layer_step1=dropped_step1,
+        choices_per_layer=batch * model.context_length * model.experts_per_token,
+        launches={k: v for k, v in launches.items() if v})
+    if len(losses) != M1_STEPS or not all(math.isfinite(x) for x in losses + aux_per_step):
+        raise AssertionError(f"M1: expected {M1_STEPS} finite losses and aux terms: {losses}, {aux_per_step}")
+    _route_check("M1", launches, True, layers, 2, M1_STEPS * micro)
+
+    params = bridge.cast_params_for_inference(trainer.state["params"], model)
+    prompts = torch.from_numpy(np.random.default_rng(SEED + 41).integers(0, model.vocab_size, M1_PROMPTS))
+    stats = {}
+    reset_kernel_counts()
+    toks = generate(params, model, prompts.to(DEVICE), M1_NEW_TOKENS, 0, temperature=0.0, stats=stats)
+    torch.cuda.synchronize()
+    gen_launches = kernel_counts()
+    eval_loss = trainer.evaluate(M1_EVAL_ITERS)
+
+    decode = m1_decode_check(params, model, prompts.to(DEVICE))
+    del params
+    log("generate_m1", rows=M1_PROMPTS[0], prompt_tokens=M1_PROMPTS[1], new_tokens=M1_NEW_TOKENS,
+        prefill_tokens_per_s=stats["prefill_tokens"] / stats["prefill_s"],
+        decode_tokens_per_s=stats["decode_tokens"] / stats["decode_s"], **stats,
+        launches={k: v for k, v in gen_launches.items() if v}, eval_iters=M1_EVAL_ITERS, eval_loss=eval_loss,
+        decode_check=decode, phase_s=time.perf_counter() - t0)
+    if tuple(toks.shape) != (M1_PROMPTS[0], M1_NEW_TOKENS) or not (0 <= int(toks.min()) and
+                                                                   int(toks.max()) < model.vocab_size):
+        raise AssertionError(f"M1 generate: tokens of shape {tuple(toks.shape)} in [{toks.min()}, {toks.max()}]")
+    if gen_launches["flash_fwd_tc"] != layers or gen_launches["flash_fwd"] != layers:
+        raise AssertionError(f"M1 generate: K1 launches {gen_launches['flash_fwd']}, expected {layers}")
+    if not math.isfinite(eval_loss):
+        raise AssertionError(f"M1 evaluate: loss {eval_loss}")
+    del trainer
+    _free_card()
+    return {"M1": launches, "M1 generate": gen_launches}
+
+
 def run_remat_sweep() -> dict:
     """R: llama3-1b-gqa at its full 22 layers, batch 2 x 2048, bf16, under
     each remat policy from the same init: the step-1 loss and gradients
@@ -3023,12 +3492,15 @@ def time_train_kernels(paths):
     """``paths``: {"T1" | "T2" | "parity": that run's launches}. The
     training entries: K1 and the one-pass backward at T1's shape
     (B*H = 144, T 1024, Dh 64, bf16, causal), the dQ and dK/dV kernels at
-    T2's (B 2, H 16, G 4, T 2048, Dh 128, bf16). Each wrapper's outputs are
-    first held against its plain version on the same inputs (K1's o and lse
-    by ``tol_use``, the backward's dq, dk, dv per row at BF16_ROW_RTOL),
-    failing above 1.0; the entry reports that error. Each wrapper is timed as
-    the path calls it (the one-pass wrapper's fp32 buffer and zeroed turn
-    counters included); D = rowsum(dO*O) is computed outside. The plain
+    T2's (B 2, H 16, G 4, T 2048, Dh 128, bf16), the T4 presets' backward
+    at their Dh-128 shapes, and K1 and the one pass at M1's microbatch (B 8,
+    H 16, T 1024, Dh 64) with K1 at its generate's prefill (T 256). Each
+    wrapper's outputs are first held against its plain version on the same
+    inputs (K1's o and lse by ``tol_use``, the backward's dq, dk, dv per row
+    at BF16_ROW_RTOL), failing above 1.0; the entry reports that error.
+    Each wrapper is timed as the path calls it (the one-pass wrapper's fp32
+    buffer and zeroed turn counters included); D = rowsum(dO*O) is computed
+    outside. The plain
     backward computes dq, dk and dv together, and so does the library
     yardstick, ``scaled_dot_product_attention(is_causal=True)``'s backward
     alone (``torch.autograd.grad`` on a retained graph), with GQA through
@@ -3272,10 +3744,45 @@ def time_train_kernels(paths):
             entry(names[1], key="flash_bwd_dkv_tc", source="flash_bwd_tc.cu", line=291, products=4,
                   nbytes=bwd_in + 2 * act, err=dkv_err, fn=dkv_fn, **common)
         del q, k, v, do, o, lse, delta, ref
+
+    # M1's shapes (moe-8x350m, MHA, Dh 64): K1 and the one pass at a
+    # training microbatch of 8 x 1024, K1 at its generate's prefill of 8
+    # prompts of 256 tokens.
+    for b, t, main, names in ((8, 1024, "M1", ("flash_fwd_m1", "flash_bwd_fused_m1")),
+                              (8, 256, "M1 generate", ("flash_fwd_m1_prefill",))):
+        h = g = 16
+        d = 64
+        q, k, v, do, o, lse, delta = inputs(b, h, g, t, d)
+        common = dict(main=main, shape=f"B={b} H={h} G={g} T={t} Dh={d} bf16 causal", pairs=b * h * t * (t + 1) // 2,
+                      d=d)
+        act, rows = q.numel() * 2, lse.numel() * 4
+        q4, k4, v4 = (x.view(b, h, t, d) for x in (q, k, v))
+        fwd = lambda: cuda_flash.flash_attention_fwd(q, k, v, h, g)  # noqa: E731
+        fwd_err = compare(names[0], common["shape"], ("o", "lse"), fwd(),
+                          cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), tol_use)
+        entry(names[0], key="flash_fwd_tc", source="flash_fwd_tc.cu", line=104, products=2,
+              nbytes=4 * act + rows, err=fwd_err, fn=fwd,
+              plain_ms=time_ms(lambda: cuda_flash.flash_attention_fwd_reference(q, k, v, h, g), flush=flush),
+              library_ms=time_ms(lambda: sdpa(q4, k4, v4, is_causal=True), flush=flush),
+              library_note="SDPA forward, is_causal=True", **common)
+        if len(names) == 2:
+            fused = lambda: cuda_flash.flash_bwd_fused(q, k, v, do, lse, delta, h, g)  # noqa: E731
+            out = fused()
+            err = compare(names[1], common["shape"], ("dq", "dk", "dv"), out,
+                          cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g), bwd_use)
+            repeat_check(names[1], common["shape"], fused, out)
+            del out
+            entry(names[1], key="flash_bwd_fused_tc", source="flash_bwd_tc.cu", line=348, products=5,
+                  nbytes=7 * act + 2 * rows, err=err, fn=fused,
+                  plain_ms=time_ms(lambda: cuda_flash.flash_attention_bwd_reference(q, k, v, o, lse, do, h, g),
+                                   flush=flush),
+                  library_ms=sdpa_bwd_ms(q, k, v, do, b, h, g, t, d),
+                  library_note="SDPA backward alone (dq, dk, dv), is_causal=True", **common)
+        del q, k, v, do, o, lse, delta, q4, k4, v4
     return kernels
 
 
-def time_ce_kernels(paths):
+def time_ce_kernels(paths, fp32_wide):
     """The fused CE kernels at T1's (and T3's) head shape: S = 12 x 1024
     tokens, D 768, V 50304, bf16, W ~ N(0, 0.02^2) (the model's init), the
     mean's uniform cotangent 1/S. Each is first held against its plain
@@ -3381,7 +3888,8 @@ def time_ce_kernels(paths):
             device_ms=time_ms(fn, n=10, warmup=2, flush=flush, device_only=True),
             plain_ms=time_ms(plain, n=3, warmup=1, flush=flush),
             library_ms=time_ms(lib, n=10, warmup=2, flush=flush), library_note=note,
-            plain_note="walks the JAX tiles: 393 vocabulary tiles of 128 (pallas_ce._tiles)", **extra,
+            plain_note="walks the JAX tiles: 393 vocabulary tiles of 128 (pallas_ce._tiles)",
+            fp32_route=fp32_wide[name], **extra,
         ))
         kernels[-1]["kernel_ms"], kernels[-1]["max_err"] = kernels[-1]["ms"], kernels[-1]["max_abs_err"]
         _free_card()
@@ -3413,8 +3921,8 @@ def ce_bwd_sweep(name, shape, kind, s, v, d, fn, flush) -> None:
     split_sweep(f"{name}_sweep", shape, "plan", tuple(plans), call, flush)
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
@@ -3438,11 +3946,13 @@ def main() -> int:
     phase_build()
     errs = {"flash_fwd": check_flash(), **check_paged(), **check_ragged()}
     check_flash_bwd()
-    check_ce()
+    fp32_wide = check_ce()
+    check_misaligned()
     check_model_card_vs_cpu()
     check_model_chunked_card_vs_cpu()
     check_generate_card_vs_cpu()
     check_train_card_vs_cpu()
+    check_moe_card_vs_cpu()
     check_doc_isolation()
     launches1, prefill_shapes, streams1 = run_main_path()
     launches2, eng2 = run_path2()
@@ -3458,6 +3968,7 @@ def main() -> int:
     train_paths = {"T1": launches_t1, "T2": run_train_path2(), "parity": run_parity(),
                    "T3": run_train_path3()}
     train_paths.update(run_t4())
+    train_paths.update(run_m1())
     train_paths.update(run_remat_sweep())
     train_paths.update(run_optimizers())
     run_trainer_options()
@@ -3466,7 +3977,7 @@ def main() -> int:
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
     del eng2
     kernels += time_train_kernels(train_paths)
-    kernels += time_ce_kernels(train_paths)
+    kernels += time_ce_kernels(train_paths, fp32_wide)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

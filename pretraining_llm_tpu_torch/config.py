@@ -4,8 +4,9 @@ Copies of the JAX package's ``ModelConfig``, ``DataConfig``,
 ``TrainConfig`` and ``ServingConfig`` (same field names, defaults and
 validation), so that one kwargs dict builds the config of either package,
 and ``Config`` with the model, data, train and serving sections and
-``with_overrides``, plus the presets the port runs: every JAX preset that needs no ring attention, MoE or second
-device, with its model and train sections field for field and no mesh
+``with_overrides``, plus the presets the port runs: every JAX preset that
+needs no ring attention, sequence parallelism or second device (MoE
+included), with its model and train sections field for field and no mesh
 section. A JAX preset's ``batch_size`` is its global batch; one device runs
 it whole, in ``train.microbatches`` where one pass does not fit (the mean
 of the microbatches' gradients is the batch's). The port keeps its own
@@ -256,10 +257,7 @@ class ModelConfig:
 
     def num_params(self) -> int:
         """Analytic parameter count (matches ``init_params``; tested)."""
-        d, h, dh, f, v, t = (
-            self.d_model, self.n_heads, self.head_dim, self.d_ff,
-            self.vocab_size, self.context_length,
-        )
+        d, h, dh, v, t = self.d_model, self.n_heads, self.head_dim, self.vocab_size, self.context_length
         g = self.kv_heads
         n = v * d
         if self.pos_embed == "learned":
@@ -270,10 +268,7 @@ class ModelConfig:
             per_block += h * dh + 2 * g * dh
         if self.use_output_proj:
             per_block += h * dh * d + d
-        if self.activation == "swiglu":
-            mlp = d * 2 * f + f * d + ((2 * f + d) if self.mlp_bias else 0)
-        else:
-            mlp = d * f + f * d + ((f + d) if self.mlp_bias else 0)
+        mlp = self._mlp_params()
         if self.n_experts:
             per_block += d * self.n_experts + self.n_experts * mlp
         else:
@@ -283,13 +278,28 @@ class ModelConfig:
             n += d * v + (v if self.lm_head_bias else 0)
         return n
 
+    def num_active_params(self) -> int:
+        """Params one token's forward touches: ``num_params`` less, for a
+        MoE model, the (n_experts - experts_per_token) expert FFNs a token
+        does not run in each layer."""
+        n = self.num_params()
+        if self.n_experts:
+            n -= self.n_layers * (self.n_experts - self.experts_per_token) * self._mlp_params()
+        return n
+
+    def _mlp_params(self) -> int:
+        """One FFN's parameter count: the dense MLP, or one MoE expert."""
+        d, f = self.d_model, self.d_ff
+        if self.activation == "swiglu":
+            return d * 2 * f + f * d + ((2 * f + d) if self.mlp_bias else 0)
+        return d * f + f * d + ((f + d) if self.mlp_bias else 0)
+
     def flops_per_token(self) -> int:
         """Forward+backward training FLOPs per token, the JAX package's MFU
-        count: 6 x params plus the causal attention term 12 * L * (n_heads
-        * d_head) * T / 2. (JAX counts MoE's active params; the port
-        refuses MoE, so all params are active.)"""
+        count: 6 x active params (``num_active_params``) plus the causal
+        attention term 12 * L * (n_heads * d_head) * T / 2."""
         d_attn = self.n_heads * self.head_dim
-        return 6 * self.num_params() + 12 * self.n_layers * d_attn * self.context_length // 2
+        return 6 * self.num_active_params() + 12 * self.n_layers * d_attn * self.context_length // 2
 
 
 # ---------------------------------------------------------------------------
@@ -633,6 +643,18 @@ _register(
         remat="dots_saveable",
     ),
     train=TrainConfig(batch_size=32, lr=3e-4, weight_decay=0.1),
+)
+
+# MoE: 8 experts, top-2 routing, at GPT-2 350M's widths (the JAX preset
+# shards the experts over an 'expert' mesh axis; one device here runs the
+# global batch, in ``train.microbatches`` where it must).
+_register(
+    "moe-8x350m",
+    _gpt2_model(
+        context_length=1024, d_model=1024, n_heads=16, n_layers=24,
+        n_experts=8, experts_per_token=2, remat="dots_saveable", attention_impl="flash",
+    ),
+    train=TrainConfig(batch_size=32, lr=3e-4),
 )
 
 # Tiny config for tests and smoke runs (byte-level vocabulary).

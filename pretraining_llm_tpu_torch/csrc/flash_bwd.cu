@@ -6,7 +6,8 @@
 // Replaces, in pretraining_llm_tpu/ops/pallas_flash.py::_bwd:
 //   _bwd_dq_kernel    -> flash_bwd_dq_kernel    (pllm_flash_bwd_dq)
 //   _bwd_dkv_kernel   -> flash_bwd_dkv_kernel   (pllm_flash_bwd_dkv)
-//   _bwd_fused_kernel -> flash_bwd_dkv_kernel<..., true> (pllm_flash_bwd_fused)
+//   _bwd_fused_kernel -> flash_bwd_dkv_kernel<..., true> + flash_bwd_dq_merge_kernel
+//                        (pllm_flash_bwd_fused)
 // The wrapper (ops/cuda_flash.py::flash_attention_bwd) picks between the
 // one-pass kernel and the dQ + dK/dV pair with the TPU dispatch rule
 // (_block_sizes: one q block and one kv block -> one pass), so both
@@ -46,15 +47,14 @@
 //             the group's n_rep query heads that can see it; dK and dV
 //             accumulate in registers.
 //       one pass: the dK/dV walk, and each (q tile, kv tile) pair's dQ
-//             contribution dS.K is added into an fp32 buffer with
-//             atomicAdd (zeroed by the wrapper, cast to q's dtype after).
-//             S and P are built once per pair: 5 products where the split
-//             takes 7. The TPU kernel held all of T in VMEM with a (T, T)
-//             S; a Hopper block has 227 KB, so it is tiled like FA2.
-//   - The one-pass kernel's dQ sums in an order that changes from run to
-//     run (fp32 atomics; the tensor-core one pass sums in a fixed order);
-//     the split kernels are deterministic. The tests' tolerances hold
-//     either way.
+//             contribution dS.K is written to that kv tile's fp32 partial
+//             of the query rows; a second kernel sums each row's partials
+//             in kv-tile order and writes dq in q's dtype. S and P are
+//             built once per pair: 5 products where the split takes 7. The
+//             TPU kernel held all of T in VMEM with a (T, T) S; a Hopper
+//             block has 227 KB, so it is tiled like FA2.
+//   - Every sum runs in a fixed order (no atomics), so a repeat launch
+//     gives the same bits, as on the tensor-core route.
 //   - Tiles that no (query, key) pair can reach are never started
 //     (_run_ok); the mask is _mask_ok's predicate, q >= k and, with a
 //     window, q - k < window and, with segments, seg[q] == seg[k]; the
@@ -200,12 +200,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dK/dV (_bwd_dkv_kernel) and, with FUSED, the one-pass kernel
 // (_bwd_fused_kernel): one block per (b*g, kv tile).
 // ---------------------------------------------------------------------------
+// With FUSED, dq_part is (T / 64 kv tiles, B*H, T, D) fp32: kv tile j's
+// contribution to each query row it sees.
 template <typename T, int D, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ seg, float* __restrict__ dq_acc, T* __restrict__ dk,
+                     const int* __restrict__ seg, float* __restrict__ dq_part, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int G, int T_len, int window, float scale) {
   constexpr int LD = D + 1;
   constexpr int PLD = BQ + 1;
@@ -298,9 +300,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
             for (int i = 0; i < DC; ++i) part[i] += ds * sK[kk * LD + i * 4 + c];
           }
-          float* row = dq_acc + ((size_t)bh * T_len + qi) * D;
+          const size_t bh_total = (size_t)gridDim.y * n_rep;
+          float* row = dq_part + (((size_t)blockIdx.x * bh_total + bh) * T_len + qi) * D;
 #pragma unroll
-          for (int i = 0; i < DC; ++i) atomicAdd(row + i * 4 + c, part[i]);
+          for (int i = 0; i < DC; ++i) row[i * 4 + c] = part[i];
         }
       } else {
         __syncwarp();  // key row r's P and dS are written and read by its four lanes
@@ -330,6 +333,27 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// dQ of the one pass: each element the sum of its kv tiles' partials in
+// kv-tile order. The kv tiles a query tile sees are the dQ kernel's range
+// (the forward's _run_ok), exactly those whose blocks wrote its partials.
+// One thread per (b*h, query, column), grid-stride.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_merge_kernel(const float* __restrict__ dq_part, T* __restrict__ dq, int BH, int T_len, int D,
+                          int window) {
+  const size_t n = (size_t)BH * T_len * D;  // one kv tile's partials
+  for (size_t i = (size_t)blockIdx.x * THREADS + threadIdx.x; i < n; i += (size_t)gridDim.x * THREADS) {
+    const int qi = (int)((i / D) % T_len);
+    const int q0 = (qi / BQ) * BQ;
+    const int kv_end = min(T_len, q0 + BQ);
+    int kv_begin = 0;
+    if (window > 0 && q0 - (window - 1) > 0) kv_begin = ((q0 - (window - 1)) / BK) * BK;
+    float acc = 0.f;
+    for (int j0 = kv_begin; j0 < kv_end; j0 += BK) acc += dq_part[(size_t)(j0 / BK) * n + i];
+    dq[i] = from_f<T>(acc);
+  }
+}
+
 template <typename K>
 int set_smem(K kern, size_t bytes) {
   return (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -353,7 +377,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 
 template <typename T, int D, bool FUSED>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* seg, void* dq_acc, void* dk, void* dv, int B, int H,
+               const void* delta, const void* seg, void* dq_part, void* dk, void* dv, int B, int H,
                int G, int T_len, int window, float scale, cudaStream_t stream) {
   auto kern = flash_bwd_dkv_kernel<T, D, FUSED>;
   const size_t smem = dkv_smem(D);
@@ -362,9 +386,24 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dq_acc),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dq_part),
       static_cast<T*>(dk),
       static_cast<T*>(dv), H, G, T_len, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_fused(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                 const void* delta, const void* seg, void* dq, void* dk, void* dv, void* dq_part, int B,
+                 int H, int G, int T_len, int window, float scale, cudaStream_t stream) {
+  if (int err = launch_dkv<T, D, true>(q, k, v, dout, lse, delta, seg, dq_part, dk, dv, B, H, G, T_len, window,
+                                       scale, stream)) {
+    return err;
+  }
+  const size_t n = (size_t)B * H * T_len * D;
+  const int blocks = (int)((n + THREADS - 1) / THREADS < 132 * 8 ? (n + THREADS - 1) / THREADS : 132 * 8);
+  flash_bwd_dq_merge_kernel<T><<<blocks, THREADS, 0, stream>>>(static_cast<const float*>(dq_part),
+                                                               static_cast<T*>(dq), B * H, T_len, D, window);
   return (int)cudaGetLastError();
 }
 
@@ -412,16 +451,17 @@ extern "C" int pllm_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// dq_acc: (B*H, T, D) fp32, zeroed by the caller; dq = dq_acc in q's dtype.
+// dq, dk, dv like q, k, v; dq_part: (ceil(T / 64), B*H, T, D) fp32 scratch
+// (no zeroing needed: the merge reads only the partials the kernel wrote).
 extern "C" int pllm_flash_bwd_fused(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
-                                    const void* seg, void* dq_acc, void* dk, void* dv, int B, int H, int G,
-                                    int T_len, int D, int window, float scale, int dtype,
+                                    const void* seg, void* dq, void* dk, void* dv, void* dq_part, int B,
+                                    int H, int G, int T_len, int D, int window, float scale, int dtype,
                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, H, G, T_len)) return (int)cudaErrorInvalidValue;
-#define CALL(T, DD) launch_dkv<T, DD, true>(q, k, v, dout, lse, delta, seg, dq_acc, dk, dv, B, H, G, \
-                                            T_len, window, scale, s)
+#define CALL(T, DD) launch_fused<T, DD>(q, k, v, dout, lse, delta, seg, dq, dk, dv, dq_part, B, H, G, \
+                                        T_len, window, scale, s)
   PLLM_DISPATCH(CALL)
 #undef CALL
 }

@@ -2,7 +2,8 @@
 
 Counterpart of ``pretraining_llm_tpu/generation/generate.py``: one prefill
 over the prompt (padded to ``_bucket_len``'s bucket, so cache slots and
-positions equal the JAX package's slot for slot), then single-token decode
+positions equal the JAX package's slot for slot; a MoE model's prompt is
+not padded and its rows must be of one length), then single-token decode
 steps against the cache. Where JAX scans the decode steps inside one
 compiled program, the port runs a host loop over them; the tokens stay on
 the device between steps, so the loop never waits for the card. Random
@@ -113,12 +114,19 @@ def generate(
         )
     lengths = None
     if prompt_lengths is not None:
+        if cfg.n_experts:
+            raise ValueError(
+                "ragged prompt_lengths is unsupported for MoE models: left-"
+                "pad slots would compete for expert capacity during prefill"
+            )
         lengths = np.asarray(prompt_lengths, np.int64).reshape(-1)
         if lengths.shape[0] != b:
             raise ValueError(f"prompt_lengths has {lengths.shape[0]} rows for a batch of {b}")
         if int(lengths.max()) > prompt_len or int(lengths.min()) < 1:
             raise ValueError("prompt_lengths must lie in [1, P] for (B, P) prompt_tokens")
-    bucket = _bucket_len(prompt_len, cfg.context_length, max_new_tokens)
+    # A MoE prefill routes with a capacity proportional to its token count,
+    # and pad tokens would compete for expert slots: no bucket padding.
+    bucket = prompt_len if cfg.n_experts else _bucket_len(prompt_len, cfg.context_length, max_new_tokens)
     total = bucket + max_new_tokens
     if bucket > prompt_len:
         prompt = torch.nn.functional.pad(prompt, (0, bucket - prompt_len))
@@ -290,6 +298,12 @@ def generate_text_batch(
     for i, e in enumerate(encoded):
         batch[i, : len(e)] = e
     uniform = bool((lengths == lengths[0]).all())
+    if cfg.model.n_experts and not uniform:
+        raise ValueError(
+            "MoE models require equal-length prompts per batch (ragged "
+            "left-pad slots would compete for expert capacity); generate "
+            "each prompt separately or group by length"
+        )
     out = generate(
         params, cfg.model, batch, max_new_tokens, seed, temperature=temperature, top_k=top_k,
         top_p=top_p, min_p=min_p, prompt_lengths=None if uniform else lengths,

@@ -52,8 +52,8 @@ it when a later admission acquires it (``resilience/integrity.py``).
 ``fused_sampling=False`` runs the unfused lane: each decode step's logits
 come to the host and a separate call samples the token.
 
-Not ported: sharded serving (``mesh``) and MoE models raise
-``NotImplementedError``; the JAX engine's trace spans, per-request traces,
+Not ported: sharded serving (``mesh``) raises ``NotImplementedError``. MoE
+models raise the JAX engine's ``ValueError`` (it serves none). The JAX engine's trace spans, per-request traces,
 capacity and histogram hooks, ``cancel``, ``health_gauges`` and migration
 blocks belong to the observability and fleet subsystems.
 """
@@ -201,7 +201,9 @@ class ServingEngine:
         if mesh is not None:
             raise NotImplementedError("ServingEngine(mesh=...) (sharded serving) is not ported to PyTorch yet")
         if cfg.n_experts:
-            raise NotImplementedError("paged serving of MoE models is not ported to PyTorch yet")
+            # The JAX engine's rule: pad slots inside a prefill bucket would
+            # compete for expert capacity.
+            raise ValueError("paged serving does not support MoE models yet")
         if cfg.doc_mask_token >= 0:
             # A decode session is one document; forward() refuses document
             # masking with a cache (the JAX engine sanitizes it the same way).

@@ -76,7 +76,8 @@ def cast_params_for_inference(params: Params, cfg: ModelConfig) -> Params:
     """One-time cast of the matmul weights to ``compute_dtype``. The leaves
     the forward consumes in fp32 keep their dtype: norm scales and biases
     (names starting with ``ln`` or containing ``norm``), the lm_head bias,
-    and the ``_scale`` leaves of int8 weights. Results are identical: the
+    the MoE router (fp32 routing scores) and the ``_scale`` leaves of int8
+    weights. Results are identical: the
     forward casts at every use site."""
     cdt = torch_dtype(cfg.compute_dtype)
 
@@ -90,6 +91,7 @@ def cast_params_for_inference(params: Params, cfg: ModelConfig) -> Params:
                 not leaf.is_floating_point()
                 or any(n.startswith("ln") or "norm" in n for n in where)
                 or where[-2:] == ("lm_head", "bias")
+                or name == "router"
                 or name.endswith("_scale")
             ):
                 out[name] = leaf

@@ -27,7 +27,9 @@ Dh)) — so ``models.bridge`` maps one tree onto the other leaf for leaf.
     through the paged kernel; "gather" through the plain gather path.
 
 int8 serving weights (``models/quantize.py``) are dequantized at each use
-site (``_weight``).
+site (``_weight``). A model with ``n_experts`` runs ``models/moe.py``'s MLP
+in every block, and its forward can return the router's load-balance loss
+(``return_aux``), which ``loss_fn`` adds to the training objective.
 
 Matmuls run in ``compute_dtype`` and round their result to it, as the JAX
 einsums with fp32 accumulation then ``astype(cdt)`` do; norms run in fp32;
@@ -44,7 +46,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 import torch
 
 from pretraining_llm_tpu_torch.config import ModelConfig
-from pretraining_llm_tpu_torch.models import layers
+from pretraining_llm_tpu_torch.models import layers, moe
 from pretraining_llm_tpu_torch.ops import remat
 from pretraining_llm_tpu_torch.ops.attention import naive_attention
 from pretraining_llm_tpu_torch.ops.cuda_paged import paged_decode_attention, paged_kv_mask
@@ -86,8 +88,6 @@ def check_ported(cfg: ModelConfig) -> None:
     """Refuse the options that change what the model computes but are not
     ported to PyTorch yet."""
     unported = []
-    if cfg.n_experts:
-        unported.append("n_experts (mixture of experts)")
     if cfg.attention_impl in ("ring", "ulysses"):
         unported.append(f"attention_impl={cfg.attention_impl!r}")
     if cfg.pipeline_stages > 1:
@@ -132,8 +132,10 @@ def param_shapes(cfg: ModelConfig) -> Params:
     if cfg.use_output_proj:
         attn["wo"] = (h, dh, d)
         attn["bo"] = (d,)
-    if cfg.activation == "swiglu":
-        mlp: Params = {"w1": (d, 2, f), "w2": (f, d)}
+    if cfg.n_experts:
+        mlp: Params = moe.param_shapes(cfg)
+    elif cfg.activation == "swiglu":
+        mlp = {"w1": (d, 2, f), "w2": (f, d)}
         if cfg.mlp_bias:
             mlp["b1"] = (2, f)
             mlp["b2"] = (d,)
@@ -168,9 +170,10 @@ def init_params(
     cfg: ModelConfig, generator: Union[torch.Generator, int], *,
     device: DeviceLike = None,
 ) -> Params:
-    """GPT-2 style init: N(0, 0.02) everywhere, residual-output projections
-    (wo, w2) scaled by 1/sqrt(2*n_layers), zeros for biases, ones for norm
-    scales. Values are drawn on the generator's device (an int seeds a CPU
+    """GPT-2 style init: N(0, 0.02) everywhere (the MoE router and experts'
+    w1 too), residual-output projections (wo, w2, the experts' w2 too)
+    scaled by 1/sqrt(2*n_layers), zeros for biases, ones for norm scales.
+    Values are drawn on the generator's device (an int seeds a CPU
     generator, so one seed gives the same weights on every device) and
     moved to ``device``."""
     check_ported(cfg)
@@ -541,11 +544,17 @@ def _paged_attention(
     )
 
 
-def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Pre-LN MLP sub-block: x + mlp(ln2(x))."""
+def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig, decode: bool = False,
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Pre-LN MLP sub-block: (x + mlp(ln2(x)), the MoE router's aux loss, or
+    None for a dense MLP). ``decode`` routes a MoE call without capacity
+    (``moe.moe_mlp``)."""
     cdt = torch_dtype(cfg.compute_dtype)
     h = layers.apply_norm(cfg.norm, blk["ln2"], x, cfg.norm_eps).to(cdt)
     mlp = blk["mlp"]
+    if cfg.n_experts:
+        out, aux = moe.moe_mlp(mlp, h, cfg, decode=decode)
+        return x + out.to(x.dtype), aux
     if cfg.activation == "swiglu":
         gates = _mm(h, _weight(mlp, "w1", cdt), cdt)  # (B, T, 2, f)
         if "b1" in mlp:
@@ -562,7 +571,7 @@ def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     out = _mm(hidden, _weight(mlp, "w2", cdt), cdt)
     if "b2" in mlp:
         out = out + mlp["b2"].to(cdt)
-    return x + out.to(x.dtype)
+    return x + out.to(x.dtype), None
 
 
 def _layer(tree: Union[Params, list], i: int) -> Params:
@@ -585,12 +594,17 @@ def forward(
     paged: Optional[PagedInfo] = None,
     return_pre_logits: bool = False,
     pad_offsets: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache).
+    return_aux: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache), and with
+    ``return_aux=True`` a third value: the MoE router's load-balance loss
+    summed over layers (fp32 scalar; 0 for a dense model).
 
     ``return_pre_logits=True`` returns the final-norm hidden states (B, T,
     D) in place of the logits: the loss path's CE head computes logits
-    itself (``loss_fn``).
+    itself (``loss_fn``). A MoE model routes with capacity, in groups,
+    except in a cached call of one token per row (decode), which routes
+    without capacity, as the JAX package does.
 
     ``kv_cache`` from ``make_kv_cache`` takes the T tokens at slots
     ``cache_index`` (an int, default 0) .. cache_index+T-1: the prefill at
@@ -653,28 +667,38 @@ def forward(
     else:
         rope = layers.rope_table(cfg.context_length, cfg.head_dim, cfg.rope_theta, device)
 
-    def layer_body(x: torch.Tensor, blk: Params) -> torch.Tensor:
+    def layer_body(x: torch.Tensor, blk: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         x = _attention_block(blk, x, cfg, rope, positions, None, None, segments)
         return _mlp_block(blk, x, cfg)
 
     # Training wraps each layer in the remat policy; cached and no-grad
     # calls (serving, generate, eval) run the layers as they are.
     body = remat.checkpoint_wrap(layer_body, cfg.remat) if torch.is_grad_enabled() else layer_body
+    aux_total = None
     for i in range(cfg.n_layers):
         blk = _layer(params["blocks"], i)
         if kv_cache is None:
-            x = body(x, blk)
-            continue
-        layer_kv = kv_cache["layers"][i] if paged is not None else {name: buf[i] for name, buf in kv_cache.items()}
-        x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged, segments,
-                             cache_index, pad_offsets)
-        x = _mlp_block(blk, x, cfg)
+            x, aux = body(x, blk)
+        else:
+            layer_kv = (kv_cache["layers"][i] if paged is not None
+                        else {name: buf[i] for name, buf in kv_cache.items()})
+            x = _attention_block(blk, x, cfg, rope, positions, layer_kv, paged, segments,
+                                 cache_index, pad_offsets)
+            x, aux = _mlp_block(blk, x, cfg, decode=t == 1)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
 
     x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     if return_pre_logits:
-        return x, kv_cache
-    w_out, bias = _lm_head_weights(params, cfg)
-    return _head_logits32(x, w_out.to(cdt), bias, cdt), kv_cache
+        out = x
+    else:
+        w_out, bias = _lm_head_weights(params, cfg)
+        out = _head_logits32(x, w_out.to(cdt), bias, cdt)
+    if not return_aux:
+        return out, kv_cache
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=device)
+    return out, kv_cache, aux_total
 
 
 def _lm_head_weights(params: Params, cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -854,11 +878,16 @@ def loss_fn(
     include_aux: bool = True,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy in fp32 through the configured CE head
-    (``_chunked_ce``). z-loss (``cfg.z_loss_coef``) is part of the training objective
-    only: ``include_aux=False`` (eval) reports pure cross-entropy."""
-    hidden, _ = forward(params, tokens, cfg, return_pre_logits=True)
+    (``_chunked_ce``). z-loss (``cfg.z_loss_coef``) and, for a MoE model,
+    ``cfg.router_aux_coef`` times the router's load-balance loss are part of
+    the training objective only: ``include_aux=False`` (eval) reports pure
+    cross-entropy."""
+    out = forward(params, tokens, cfg, return_pre_logits=True, return_aux=bool(cfg.n_experts))
     w_out, bias = _lm_head_weights(params, cfg)
-    return _chunked_ce(
-        hidden, w_out, bias, targets.long(), cfg,
+    loss = _chunked_ce(
+        out[0], w_out, bias, targets.long(), cfg,
         z=cfg.z_loss_coef if include_aux else 0.0,
     )
+    if cfg.n_experts and include_aux:
+        loss = loss + cfg.router_aux_coef * out[2]
+    return loss

@@ -16,7 +16,8 @@ be cut to 32 bits), the stream is PyTorch's current stream, and each C
 entry returns ``cudaGetLastError()``; ``check`` raises when it is not 0.
 ``counters`` hands the kernels that merge partials across blocks (the
 paged decode split route, the fused CE kernels on the tensor cores) their
-arrival counters.
+arrival counters. ``aligned`` gives the kernels that read 16 bytes at a
+time (TMA, vector loads) an operand that starts on a 16-byte boundary.
 """
 
 from __future__ import annotations
@@ -141,6 +142,15 @@ def counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` itself where it starts on a 16-byte boundary, else a contiguous
+    copy in a fresh allocation (the allocators' blocks are aligned), on
+    which the wrapper launches the same kernel: an input copy, not a
+    fallback. JAX arrays carry no alignment contract, so a view that starts
+    mid-row computes as any other operand does."""
+    return x if x.data_ptr() % 16 == 0 else x.clone(memory_format=torch.contiguous_format)
 
 
 def check(rc: int, what: str) -> None:

@@ -12,17 +12,18 @@ each wrapper counts kernel launches.
 The forward has two routes, chosen by dtype before launch (``ce_route``):
 bf16 runs ``csrc/fused_ce_tc.cu`` (``"wgmma"``: TMA ring, wgmma, the
 vocabulary cut into ``ce_partitions`` partitions merged by the last block
-of each token tile), fp32 runs ``ce_kernel<float, D, FWD>`` of
+of each token tile), fp32 runs ``ce32_kernel<FWD>`` of
 ``csrc/fused_ce.cu`` (``"fp32"``), because wgmma's fp32 form is TF32 and
 would miss the fp32 bars. ``fused_ce_fwd.launches_by_route`` counts both.
 dH and dW take the same two routes by dtype (``ce_bwd_route``): bf16 runs
 ``csrc/fused_ce_bwd_tc.cu`` (``"wgmma"``: TMA ring, wgmma for the logits
 and the second product, the output in D-chunks and the walked axis in
-partitions, both from ``ce_bwd_plan``), fp32 runs ``ce_kernel<float, D,
-DH / DW>`` of ``csrc/fused_ce.cu``; ``fused_ce_dh.launches_by_route`` and
-``fused_ce_dw.launches_by_route`` count them. The bf16 kernels take any D
-that is a multiple of 64, the fp32 ones ``FP32_HIDDEN_DIMS``
-(``hidden_dim_ok``).
+partitions, both from ``ce_bwd_plan``), fp32 runs ``ce32_kernel<DH / DW,
+NT2>`` of ``csrc/fused_ce.cu``; ``fused_ce_dh.launches_by_route`` and
+``fused_ce_dw.launches_by_route`` count them. Both routes take any D that
+is a multiple of 64 (``hidden_dim_ok``): the fp32 kernels stream D too (in
+64-column slices for the logits, in output chunks of up to 512 columns for
+dH and dW).
 """
 
 from __future__ import annotations
@@ -40,10 +41,6 @@ from pretraining_llm_tpu_torch.ops.ce_reference import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The fp32 widths fused_ce.cu is built for (its ``dispatch``): a block keeps
-# 32 rows and a whole walked tile of D columns in shared memory. The bf16
-# kernels stream D in 64-column slices and take any multiple of 64.
-FP32_HIDDEN_DIMS = (64, 128, 256, 512, 768)
 ROUTES = ("wgmma", "fp32")
 TC_BM, TC_BN, TC_BK, TC_STAGES = 128, 256, 64, 4  # csrc/fused_ce_tc.cu's tile, slice and ring
 MAX_PARTITIONS = 16
@@ -87,12 +84,9 @@ def ce_bwd_route(dtype: torch.dtype) -> str:
 
 def hidden_dim_ok(dtype: torch.dtype, d: int) -> bool:
     """Whether the CUDA kernels take hidden width ``d`` in ``dtype``: any
-    positive multiple of 64 in bfloat16 (the tensor-core kernels stream D
-    in 64-column slices), ``FP32_HIDDEN_DIMS`` in float32 (fused_ce.cu
-    keeps whole rows in shared memory)."""
-    if dtype == torch.bfloat16:
-        return d > 0 and d % 64 == 0
-    return d in FP32_HIDDEN_DIMS
+    positive multiple of 64 in either dtype (every kernel streams D in
+    64-column slices)."""
+    return dtype in _DTYPE_CODES and d > 0 and d % 64 == 0
 
 
 def ce_partitions(s: int, v: int, sm_count: int) -> Tuple[int, int]:
@@ -173,8 +167,9 @@ def _check(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor,
 
 def _check_cuda(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Tensor, *rows: torch.Tensor) -> None:
     """The kernels' contract: one CUDA device; h and w of one dtype (fp32 or
-    bf16), a hidden width ``hidden_dim_ok`` takes, 16-byte aligned rows;
-    int32 labels and fp32 lse/g; all contiguous."""
+    bf16), a hidden width ``hidden_dim_ok`` takes; int32 labels and fp32
+    lse/g; all contiguous. (h and w that do not start on a 16-byte boundary
+    are copied by the wrappers: ``_build.aligned``.)"""
     tensors = (h, w_vd, labels) + rows
     if h.device.type != "cuda" or any(x.device != h.device for x in tensors):
         raise ValueError(f"{what}: tensors on {[str(x.device) for x in tensors]}")
@@ -183,12 +178,9 @@ def _check_cuda(what: str, h: torch.Tensor, w_vd: torch.Tensor, labels: torch.Te
     if labels.dtype != torch.int32 or any(r.dtype != torch.float32 for r in rows):
         raise TypeError(f"{what}: labels must be int32 and lse/g float32")
     if not hidden_dim_ok(h.dtype, h.shape[1]):
-        raise ValueError(f"{what}: hidden dim {h.shape[1]} is not taken for {h.dtype} (bf16: a multiple of 64; "
-                         f"fp32: one of {FP32_HIDDEN_DIMS})")
+        raise ValueError(f"{what}: hidden dim {h.shape[1]} is not a positive multiple of 64")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{what}: inputs must be contiguous")
-    if h.data_ptr() % 16 or w_vd.data_ptr() % 16:
-        raise ValueError(f"{what}: h and w must start on a 16-byte boundary")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -205,6 +197,7 @@ def fused_ce_fwd(
     if h.device.type == "cpu":
         return fused_ce_fwd_reference(h, w_vd.t(), labels)
     _check_cuda("fused_ce_fwd", h, w_vd, labels)
+    h, w_vd = _build.aligned(h), _build.aligned(w_vd)
     s, d = h.shape
     v = w_vd.shape[0]
     loss = torch.empty((s,), dtype=torch.float32, device=h.device)
@@ -261,6 +254,7 @@ def fused_ce_dh(
     if h.device.type == "cpu":
         return fused_ce_dh_reference(h, w_vd.t(), labels, lse, g)
     _check_cuda("fused_ce_dh", h, w_vd, labels, lse, g)
+    h, w_vd = _build.aligned(h), _build.aligned(w_vd)
     dh = torch.empty_like(h)
     route = _bwd("dh", h, w_vd, labels, lse, g, dh)
     fused_ce_dh.launches += 1
@@ -277,6 +271,7 @@ def fused_ce_dw(
     if h.device.type == "cpu":
         return fused_ce_dw_reference(h, w_vd.t(), labels, lse, g).t()
     _check_cuda("fused_ce_dw", h, w_vd, labels, lse, g)
+    h, w_vd = _build.aligned(h), _build.aligned(w_vd)
     dw = torch.empty_like(w_vd)
     route = _bwd("dw", h, w_vd, labels, lse, g, dw)
     fused_ce_dw.launches += 1

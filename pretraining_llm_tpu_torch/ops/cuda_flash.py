@@ -7,9 +7,9 @@ three backward kernels run on the tensor cores (``wgmma`` fed by TMA:
 ``csrc/flash_fwd_tc.cu``, ``csrc/flash_bwd_tc.cu``); fp32 calls run the
 CUDA-core kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), because
 TF32 products would miss the fp32 bars. On the tensor cores the one-pass
-kernel sums dQ in a fixed order (a turn per key tile), so every bf16
-backward gives the same bits on every launch; the fp32 one-pass kernel
-still sums dQ with fp32 atomics. Each kernel's launch counter is kept per
+kernel sums dQ in a fixed order (a turn per key tile), and the fp32 one
+pass sums per-key-tile partials in key-tile order, so every backward gives
+the same bits on every launch. Each kernel's launch counter is kept per
 route (``launches_tc``, ``launches_fp32``) beside the total (``launches``).
 
 Counterpart of ``pretraining_llm_tpu/ops/pallas_flash.py``: causal
@@ -51,7 +51,7 @@ _BWD_ARGTYPES = {
         + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
-    for n_out in (1, 2, 3, 5)
+    for n_out in (1, 2, 3, 4, 5)
 }
 
 
@@ -67,14 +67,6 @@ def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.float32:
         return "fp32"
     raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
-
-
-def _check_tma(what: str, tensors: Tuple[torch.Tensor, ...]) -> None:
-    """The tensor-core route's extra contract: TMA reads each operand from a
-    16-byte aligned address (row strides are 64, 128 or 256 bytes)."""
-    if any(x.data_ptr() % 16 for x in tensors):
-        raise ValueError(f"{what}: the bf16 kernels need 16-byte aligned operands, got data pointers "
-                         f"{[x.data_ptr() % 16 for x in tensors]} mod 16")
 
 
 def _block_sizes(t: int, block_q: int, block_kv: int) -> Tuple[int, int]:
@@ -187,8 +179,8 @@ def flash_attention_fwd(
         return flash_attention_fwd_reference(q, k, v, h, g, window=window, segments=segments)
     _check_cuda("flash_attention_fwd", (q, k, v), (q, k, v))
     route = kernel_route(q.dtype, d)
-    if route == "wgmma":
-        _check_tma("flash_attention_fwd", (q, k, v))
+    if route == "wgmma":  # TMA reads each operand from a 16-byte aligned address
+        q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), dtype=torch.float32, device=q.device)
     lib = "flash_fwd_tc" if route == "wgmma" else "flash_fwd"
@@ -262,12 +254,13 @@ def _bwd_call(symbol: str, n_out: int, what: str, q, k, v, do, lse, delta, outs,
 
 def _route_call(fn, tc: bool, q, k, v, do, lse, delta, outs, h, g, window, segments) -> None:
     """Launches the kernel of wrapper ``fn`` on its route (``kernel_route``):
-    ``pllm_<name>_tc`` of ``csrc/flash_bwd_tc.cu`` for bf16 (``tc``; 16-byte
-    aligned operands), ``pllm_<name>`` of ``csrc/flash_bwd.cu`` for fp32,
-    and counts it."""
+    ``pllm_<name>_tc`` of ``csrc/flash_bwd_tc.cu`` for bf16 (``tc``; the
+    operands TMA reads copied where they do not start on a 16-byte
+    boundary), ``pllm_<name>`` of ``csrc/flash_bwd.cu`` for fp32, and
+    counts it."""
     name = fn.__name__
     if tc:
-        _check_tma(name, (q, k, v, do))
+        q, k, v, do = (_build.aligned(x) for x in (q, k, v, do))
         _bwd_call(f"pllm_{name}_tc", len(outs), f"{name}_tc", q, k, v, do, lse, delta, outs, h, g, window,
                   segments, lib="flash_bwd_tc")
         fn.launches_tc += 1
@@ -278,24 +271,24 @@ def _route_call(fn, tc: bool, q, k, v, do, lse, delta, outs, h, g, window, segme
 
 
 def flash_bwd_fused(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
-    """The one-pass kernel (``_bwd_fused_kernel``): (dq, dk, dv). bf16 on
-    the tensor cores, dQ summed in fp32 in a fixed order (an fp32 scratch
-    buffer and zeroed int32 turn counters: one per (head, 64-query tile),
-    and a ticket); fp32 on the CUDA cores, dQ summed with fp32 atomics into
-    a zeroed buffer and cast to q's dtype. CUDA tensors only, as validated
-    by ``flash_attention_bwd``. ``.launches`` counts launches,
+    """The one-pass kernel (``_bwd_fused_kernel``): (dq, dk, dv), dQ summed
+    in a fixed order on either route, so a repeat launch gives the same
+    bits. bf16 on the tensor cores (an fp32 scratch buffer and zeroed int32
+    turn counters: one per (head, 64-query tile), and a ticket); fp32 on
+    the CUDA cores (an fp32 partial per 64-key tile, summed in key-tile
+    order by a second kernel of the same call). CUDA tensors only, as
+    validated by ``flash_attention_bwd``. ``.launches`` counts launches,
     ``.launches_tc`` and ``.launches_fp32`` those of each route."""
     tc = kernel_route(q.dtype, q.shape[-1]) == "wgmma"
-    bh, t, _ = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    bh, t, d = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if tc:
-        dq = torch.empty_like(q)
         outs = (dq, dk, dv, torch.empty(q.shape, dtype=torch.float32, device=q.device),
                 torch.zeros(bh * -(-t // 64) + 1, dtype=torch.int32, device=q.device))
     else:
-        outs = (torch.zeros(q.shape, dtype=torch.float32, device=q.device), dk, dv)
+        outs = (dq, dk, dv, torch.empty((-(-t // 64), bh, t, d), dtype=torch.float32, device=q.device))
     _route_call(flash_bwd_fused, tc, q, k, v, do, lse, delta, outs, h, g, window, segments)
-    return (dq if tc else outs[0].to(q.dtype)), dk, dv
+    return dq, dk, dv
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, h, g, *, window=0, segments=None):
@@ -374,7 +367,8 @@ class FlashAttention(torch.autograd.Function):
         # did not keep (``ops/remat.py``).
         o, lse = remat.kept_attention()
         if lse is None:
-            o_run, lse = flash_attention_fwd(q, k, v, h, g, window=window, segments=segments)
+            with remat.unrecorded():
+                o_run, lse = flash_attention_fwd(q, k, v, h, g, window=window, segments=segments)
             o = o_run if o is None else o
         remat.keep_attention(o, lse)
         ctx.save_for_backward(q, k, v, o, lse, segments)

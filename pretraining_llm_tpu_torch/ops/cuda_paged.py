@@ -180,9 +180,8 @@ def paged_decode_attention(
         )
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if route == "split":
-        if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-            raise ValueError("paged_decode_attention: the pools must start on a 16-byte boundary")
+    if route == "split":  # cp.async copies 16-byte chunks of the pools
+        k_pool, v_pool = _build.aligned(k_pool), _build.aligned(v_pool)
         parts, per = _kv_partitions(b, g, nb, _build.sm_count(q.device.index))
         # fp32 partials: acc (B, G, parts, rows, D), then (m, l) per row;
         # read only with several partitions

@@ -266,11 +266,8 @@ def ragged_paged_attention(
             f"ragged_paged_attention: {n_rep} heads x {tq} queries x Dh {d} x block "
             f"{bs} needs {need} bytes of shared memory (> {MAX_SMEM_BYTES})"
         )
-    if route == "wgmma" and any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
-        raise ValueError(
-            "ragged_paged_attention: the tensor-core kernel needs 16-byte aligned q and pools, got data "
-            f"pointers {[x.data_ptr() % 16 for x in (q, k_pool, v_pool)]} mod 16"
-        )
+    if route == "wgmma":  # TMA reads q and the pools from 16-byte aligned addresses
+        q, k_pool, v_pool = _build.aligned(q), _build.aligned(k_pool), _build.aligned(v_pool)
 
     split = kv_splits > 1
     out = acc_p = m_p = l_p = None

@@ -46,6 +46,7 @@ import threading
 from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 # Tag names of the model's sites and the flash residuals, per policy (the
@@ -108,6 +109,15 @@ class _Region:
         self.names = names
         self.replay = False
         self.kept: List[Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]] = []
+
+
+def unrecorded() -> contextlib.AbstractContextManager:
+    """Inside a named policy's layer: hide the ops run inside from its
+    selective checkpoint. Its dispatch modes match each kept value to its
+    op by the op's count in the layer, so ops that run in the first run but
+    not in the recompute (K1's wrapper when the layer keeps (o, lse)) would
+    hand later ops another op's value. Elsewhere a no-op."""
+    return _disable_current_modes() if _regions() else contextlib.nullcontext()
 
 
 def kept_attention() -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:

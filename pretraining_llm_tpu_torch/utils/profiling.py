@@ -6,7 +6,7 @@ of one ``generate`` call at G1's shape.
 
 Run from the repository root on a machine with a GPU::
 
-    python -m pretraining_llm_tpu_torch.utils.profiling [serving ragged train generate reference-3b remat]
+    python -m pretraining_llm_tpu_torch.utils.profiling [serving ragged train generate reference-3b remat moe]
 
 Serving: gpt2-124m (bf16, ``paged_attention_impl="kernel"``, random
 weights from seed 0) with the engine settings ``chip_smoke.py`` uses: path
@@ -26,9 +26,11 @@ warm-up steps, on random tokens; then the same with the fused CE head and
 document masking (``ce_impl="fused"``, ``doc_mask_token=10``, separators
 at chip_smoke T3's density of one per 67 tokens, the median spacing of
 ``data/parity``); one step of the reference-3b preset at full size
-(batch 32 x 512 in 2 microbatches, ``dots_saveable``); and one step of
+(batch 32 x 512 in 2 microbatches, ``dots_saveable``); one step of
 llama3-1b-gqa (22 layers, batch 2) under remat none, full and
-dots_saveable.
+dots_saveable; and one step of moe-8x350m at full size (chip_smoke M1's
+batch, 32 x 1024 in 4 microbatches, ``dots_saveable``: routing, index
+gathers and the experts' batched products).
 Sampling: G1's ``generate`` call (``chip_smoke.py``): gpt2-124m cast to
 bf16, 8 ragged prompts of G1's lengths (random tokens), 128 greedy tokens
 over the dense cache: the prefill alone (``forward`` at cache index 0 over
@@ -321,8 +323,16 @@ def profile_remat() -> Dict[str, Dict[str, object]]:
         for policy in ("none", "full", "dots_saveable")}
 
 
+def profile_moe() -> Dict[str, Dict[str, object]]:
+    """moe-8x350m at full size at chip_smoke M1's fit: batch 32 x 1024 in 4
+    microbatches, its dots_saveable remat, bf16 compute, fp32 params and
+    AdamW."""
+    return {"train_step_moe_8x350m": _profile_train_step("moe-8x350m", {"train.microbatches": 4})}
+
+
 PHASES = {"serving": profile_serving, "ragged": profile_ragged_paths, "train": profile_train,
-          "generate": profile_generate, "reference-3b": profile_reference_3b, "remat": profile_remat}
+          "generate": profile_generate, "reference-3b": profile_reference_3b, "remat": profile_remat,
+          "moe": profile_moe}
 
 
 def main(argv: Optional[List[str]] = None) -> None:

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.config import ModelConfig as JaxModelConfig
 from pretraining_llm_tpu.generation.paged import BlockAllocator as JaxBlockAllocator
 from pretraining_llm_tpu.generation.prefix_cache import PrefixCache as JaxPrefixCache

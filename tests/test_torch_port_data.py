@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.data import bpe as jbpe
 from pretraining_llm_tpu.data import preprocess as jpre
 from pretraining_llm_tpu_torch import data_preprocess as tpre_cli

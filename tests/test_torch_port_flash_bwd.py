@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.ops import pallas_flash
 from pretraining_llm_tpu_torch.ops import cuda_flash
 from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu import config as jcfg
 from pretraining_llm_tpu.models import transformer as jt
 from pretraining_llm_tpu.ops import flash_attention as jflash
@@ -271,8 +272,9 @@ def test_generate_validation_raises_jax_types(models):
 
 
 def test_unported_generate_options_raise(models, jax_ckpt, capsys):
-    """Sharded decode and MoE still raise. Speculative decoding, refused
-    before it was ported, now runs: a greedy ``generate_text_speculative``
+    """Sharded decode still raises, and so do ragged rows of a MoE model
+    (JAX's ``ValueError``: MoE itself runs since it was ported). Speculative
+    decoding, refused before it was ported, now runs: a greedy ``generate_text_speculative``
     (self-draft, k 3) and the CLI's ``--draft_model_path`` mode give
     ``generate_text``'s string, and JAX's."""
     _, tc, _, tp = models["learned-mha"]
@@ -288,8 +290,10 @@ def test_unported_generate_options_raise(models, jax_ckpt, capsys):
     assert tgen_cli.main(["--model_path", path, "--input_text", "Hello", "--max_new_tokens", "10",
                           "--temperature", "0", "--draft_model_path", path, "--spec_k", "3",
                           "--device", "cpu"]) == [want]
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        tgen.generate(tp, dataclasses.replace(tc, n_experts=2), np.zeros((1, 4), np.int64), 2, 0)
+    moe_cfg = dataclasses.replace(tc, n_experts=2)
+    with pytest.raises(ValueError, match="ragged prompt_lengths is unsupported for MoE"):
+        tgen.generate(tt.init_params(moe_cfg, 0, device="cpu"), moe_cfg, np.zeros((2, 4), np.int64), 2, 0,
+                      prompt_lengths=[4, 2])
 
 
 def test_sampled_first_tokens_follow_the_softmax(models):

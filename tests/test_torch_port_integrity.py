@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.config import get_preset as jax_preset
 from pretraining_llm_tpu.generation.serving import ServingEngine as JaxEngine
 from pretraining_llm_tpu.models import transformer as jtf
@@ -40,17 +41,6 @@ JCFG = dataclasses.replace(jax_preset("tiny").model, compute_dtype="float32")
 CFG = ModelConfig(**dict(dataclasses.asdict(JCFG), paged_attention_impl="kernel"))
 BS = 8
 N_BLOCKS = 24
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The port's tiny CPU ops on one thread: the suite runs several test
-    processes at once, and spinning thread pools then cost more than the
-    ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,12 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.models import layers as jlayers
 from pretraining_llm_tpu.ops.attention import naive_attention as jax_naive_attention
 from pretraining_llm_tpu.ops import pallas_flash
 from pretraining_llm_tpu.ops.pallas_paged import paged_decode_attention as jax_paged
 from pretraining_llm_tpu_torch.models import layers
-from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
+from pretraining_llm_tpu_torch.ops import _build, cuda_flash, cuda_paged
 from pretraining_llm_tpu_torch.ops.attention import naive_attention
 from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
 
@@ -112,15 +113,31 @@ def test_kernel_route_by_dtype(d):
 
 
 def test_tensor_core_route_needs_16_byte_aligned_operands():
-    """TMA reads each operand from a 16-byte aligned address: a contiguous
-    view that starts 2 bytes into its storage is refused before launch."""
-    base = torch.zeros(1 + 4 * 64 * 32, dtype=torch.bfloat16)
+    """TMA reads each operand from a 16-byte aligned address: the wrappers
+    hand the kernel a contiguous view that starts 2 bytes into its storage
+    as a fresh aligned copy with the same values (``_build.aligned``), and
+    an aligned operand as it is."""
+    base = torch.arange(1 + 4 * 64 * 32, dtype=torch.bfloat16)
     aligned = base[: 4 * 64 * 32].view(4, 64, 32)
     shifted = base[1:].view(4, 64, 32)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
-    cuda_flash._check_tma("flash_attention_fwd", (aligned, aligned, aligned))
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        cuda_flash._check_tma("flash_attention_fwd", (aligned, shifted, aligned))
+    assert _build.aligned(aligned) is aligned
+    copy = _build.aligned(shifted)
+    assert copy is not shifted and copy.data_ptr() % 16 == 0 and copy.is_contiguous()
+    assert torch.equal(copy, shifted)
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.bfloat16, 1), (torch.bfloat16, 8), (torch.float32, 1),
+                                          (torch.float32, 4), (torch.int8, 3), (torch.int8, 16)])
+def test_alignment_helper_copies_only_misaligned(dtype, offset):
+    """A view ``offset`` elements into a fresh buffer is copied exactly when
+    it does not start on a 16-byte boundary (bf16 8, fp32 4 and int8 16
+    elements are 16 bytes); the copy holds the same values."""
+    base = torch.arange(offset + 256).to(dtype)
+    view = base[offset:].view(16, 16)
+    got = _build.aligned(view)
+    assert (got is view) == (view.data_ptr() % 16 == 0) == (offset * base.element_size() % 16 == 0)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
 
 
 def test_flash_wrapper_validates_shapes():

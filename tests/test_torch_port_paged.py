@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.ops.pallas_paged import paged_decode_attention as jax_paged
 from pretraining_llm_tpu_torch.ops import cuda_paged
 

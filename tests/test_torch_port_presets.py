@@ -2,10 +2,10 @@
 
 Each preset the port registers equals the JAX preset of the same name, field
 for field, in its model and train sections (the port has no mesh section).
-A copy of each of the four presets added for single-device training
-(gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, reference-3b), shrunk to 2 layers
-and narrow widths but keeping its own activation, norm, positions, output
-projection, tying, biases and remat policy, gives the JAX logits, loss and
+A copy of each of the presets added for single-device training
+(gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, reference-3b, moe-8x350m), shrunk
+to 2 layers and narrow widths but keeping its own activation, norm,
+positions, output projection, tying, biases, experts and remat policy, gives the JAX logits, loss and
 gradients from the same weights (the JAX tree with seeded numpy noise,
 through ``models/bridge.py``). Tolerances (fp32): logits 1e-4 max-abs, loss
 1e-5 relative, gradients 1e-4 of each leaf's largest |g| (summation order),
@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu import config as jcfg
 from pretraining_llm_tpu.models import transformer as jtf
 from pretraining_llm_tpu_torch import config as tcfg
@@ -27,7 +28,7 @@ from pretraining_llm_tpu_torch.models import bridge
 from pretraining_llm_tpu_torch.models import transformer as ttf
 from pretraining_llm_tpu_torch.training import optimizer as topt
 
-NEW_PRESETS = ("gpt2-350m-dp", "gpt2-1p3b-fsdp", "llama-1b", "reference-3b")
+NEW_PRESETS = ("gpt2-350m-dp", "gpt2-1p3b-fsdp", "llama-1b", "reference-3b", "moe-8x350m")
 SHRINK = dict(vocab_size=97, context_length=32, d_model=32, n_heads=4, n_layers=2, compute_dtype="float32")
 LOGITS_TOL = 1e-4
 LOSS_RTOL = 1e-5

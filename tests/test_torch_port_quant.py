@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.config import ModelConfig as JaxModelConfig
 from pretraining_llm_tpu.generation.serving import ServingEngine as JaxServingEngine
 from pretraining_llm_tpu.models import quantize as jquant

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu.ops import pallas_ragged
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.models import transformer

@@ -19,6 +19,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu import config as jcfg
 from pretraining_llm_tpu.models import transformer as jtf
 from pretraining_llm_tpu_torch import config as tcfg

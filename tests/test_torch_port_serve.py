@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu import config as jcfg
 from pretraining_llm_tpu.models import transformer as jtf
 from pretraining_llm_tpu.training import checkpoint as jckpt
@@ -34,17 +35,6 @@ from pretraining_llm_tpu_torch.generation import serving as tserving
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = dict(vocab_size=260, context_length=64, d_model=32, n_heads=4, n_layers=2, compute_dtype="float32")
 PROMPTS = ["hello world", "a", "the quick brown fox", "zz top", "serving engines", "xyz"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """The port's tiny CPU ops on one thread: the suite runs several test
-    processes at once, and spinning thread pools then cost more than the
-    ops."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _load_jax_serve():

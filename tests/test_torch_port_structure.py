@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu_torch.config import ModelConfig, get_preset, list_presets
 from pretraining_llm_tpu_torch.generation.serving import ServingEngine
 from pretraining_llm_tpu_torch import train as train_cli
@@ -186,7 +187,7 @@ def test_unported_engine_options_raise(kw):
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(n_experts=4), "n_experts"),
+    (dict(sequence_parallel=True), "sequence_parallel"),
     (dict(attention_impl="ring"), "ring"),
     (dict(attention_impl="ulysses"), "ulysses"),
 ])
@@ -237,8 +238,9 @@ def test_unported_forward_paths_raise():
     _, cache = transformer.forward(params, tokens[:, :4], TINY, kv_cache=cache, cache_index=0)
     chunk, _ = transformer.forward(params, tokens[:, 4:], TINY, kv_cache=cache, cache_index=4)
     torch.testing.assert_close(chunk, full[:, 4:], rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="n_experts"):
-        transformer.forward(params, tokens, dataclasses.replace(TINY, n_experts=2), kv_cache=cache, cache_index=4)
+    with pytest.raises(NotImplementedError, match="ring"):
+        transformer.forward(params, tokens, dataclasses.replace(TINY, attention_impl="ring"), kv_cache=cache,
+                            cache_index=4)
 
 
 SAMPLE_EVAL_PREPROCESS_MODULES = (
@@ -302,12 +304,13 @@ def test_bpe_build_writes_only_under_build(tmp_path, monkeypatch):
     assert listing() == before
 
 
-PORT_PRESETS = ("gpt2-124m", "gpt2-1p3b-fsdp", "gpt2-350m-dp", "llama-1b", "llama3-1b-gqa", "reference-3b", "tiny")
+PORT_PRESETS = ("gpt2-124m", "gpt2-1p3b-fsdp", "gpt2-350m-dp", "llama-1b", "llama3-1b-gqa", "moe-8x350m",
+                "reference-3b", "tiny")
 
 
 def test_presets_and_config_validation():
-    """The port registers the seven single-device presets of the JAX
-    package; ring attention and MoE presets stay out."""
+    """The port registers the eight single-device presets of the JAX
+    package, MoE's included; the ring attention presets stay out."""
     assert tuple(list_presets()) == PORT_PRESETS
     gpt2 = get_preset("gpt2-124m").model
     assert (gpt2.vocab_size, gpt2.d_model, gpt2.n_heads, gpt2.head_dim, gpt2.n_layers) == (50304, 768, 12, 64, 12)
@@ -321,3 +324,15 @@ def test_presets_and_config_validation():
     with pytest.raises(ValueError, match="n_kv_heads"):
         ModelConfig(n_heads=12, n_kv_heads=5)
     assert np.isclose(gpt2.num_params(), 124_475_904)
+
+
+def test_moe_module_is_scanned():
+    """``models/moe.py`` is among the sources that
+    ``test_port_imports_nothing_of_jax`` scans and names no module of the
+    JAX package; the model takes MoE configs (``check_ported`` no longer
+    refuses ``n_experts``)."""
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert "models/moe.py" in scanned
+    text = (ROOT / "pretraining_llm_tpu_torch" / "models" / "moe.py").read_text()
+    assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", "")
+    transformer.check_ported(get_preset("moe-8x350m").model)

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu import config as jcfg
 from pretraining_llm_tpu.data import loader as jloader
 from pretraining_llm_tpu.training import train_step as jts
@@ -36,16 +37,6 @@ from pretraining_llm_tpu_torch.utils import debug as tdebug
 from pretraining_llm_tpu_torch.utils.profiling import StepProfiler
 
 PARITY = Path(__file__).resolve().parent.parent / "data" / "parity"
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Runs compared bit for bit use one CPU thread: a multithreaded GEMM
-    may split its sums differently when the machine is loaded."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _tiny(tmp_path, **train):

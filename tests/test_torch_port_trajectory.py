@@ -10,6 +10,7 @@ import math
 
 import pytest
 
+from _torch_threads import _one_torch_thread  # noqa: F401 (autouse fixture)
 from pretraining_llm_tpu_torch.config import get_preset
 from pretraining_llm_tpu_torch.utils import trajectory as tj
 
