@@ -73,7 +73,9 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           tokenizer), 128 greedy tokens, one with a stop token a row emits:
           K1 once per layer per call (tensor cores), decode over the dense
           cache in torch ops; every token held against one uncached
-          forward; ``evaluate`` bit for bit against the ``Trainer``'s; a
+          forward; ``evaluate`` bit for bit against the ``Trainer``'s (numpy
+          sampler), and the default ``Trainer``'s against the eval loop on
+          the native batcher's batches; a
           vocab-512 BPE trained on the corpus and ``preprocess`` into
           ``build/`` with the native encoder;
   T2      ``Trainer.train`` on llama3-1b-gqa cut to 4 layers (T 2048, Dh
@@ -125,7 +127,20 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           run), ``profile_dir`` (a trace of steps 1-2 naming K1),
           ``debug_nans`` (a NaN weight raises ``FloatingPointError``) and a
           3:1 mixture of ``data/parity``'s files with ``data.prefetch=2``
-          (the batches the steps got equal the unprefetched iterator's).
+          (the batches the steps got equal the unprefetched iterator's);
+  D1      the drills: gpt2-124m at full width and depth (T1's model and
+          data, through the native batcher), 32 steps with a log line every
+          4 and a checkpoint every 8, anomaly detection, a 10 s watchdog
+          and telemetry on: a clean run of the train CLI; the same command
+          under the port's supervisor with SIGTERM after step 12 and a hang
+          after step 20 (children exit 43, 45, 0; the final state the clean
+          run's bit for bit); a NaN after step 10 rolled back to step 8; a
+          torn step-16 checkpoint a resume falls back past, whose next two
+          log windows run under ``torch.cuda.set_sync_debug_mode("error")``
+          between log boundaries; the event streams' goodput, the
+          Prometheus textfile's lint and the Chrome trace. The CLI children
+          run ``python3 chip_smoke.py --d1-child COUNTS <train arguments>``,
+          which records each child's kernel launches.
 
 The flash forward (K1) and the three backward kernels (one pass, dQ,
 dK/dV) have two routes: bf16 runs the tensor-core kernels
@@ -232,21 +247,6 @@ SCRATCH = ROOT / "build" / "chip_smoke"  # git-ignored; the train paths' checkpo
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 1e-3
 NAIVE_LOSS_TOL = 0.05
-# T3 on its own states: every parameter's gradient through the fused head
-# and flash attention with segments within 2% (relative to the norm) of the
-# all-torch-ops twin's, twice the largest reading over T3's first 10
-# states on an H100 (0.00995, blocks/mlp/b2; PERF.md): bf16 rounding points
-# differ between the two, so an exact bar is not possible. One exception,
-# for a leaf over that bar only: where the twin's own bf16 gradient lies at
-# least T3_TWIN_OFF from the same model's fp32 gradient (relative to the
-# fp32 norm), the leaf is held to the fp32 gradient instead, no farther from
-# it than the twin (``utils/trajectory.py::held_by``). T3_TWIN_OFF is
-# above the twin's distance at every ordinary state on an H100 (at most
-# 0.029), so there the 2% bar holds alone. At the states after a bf16
-# gradient spike the twin has been found 2.5x to 2800x the bar from fp32,
-# and the flash path about half as far (PERF.md).
-T3_GRAD_RTOL = 0.02
-T3_TWIN_OFF = 2 * T3_GRAD_RTOL
 ISOLATION_TOL = 1e-6  # other documents' fp32 logits when one document changes
 PARITY_LOSS_TOL = 0.02
 PARITY_EVAL_TOL = 0.01
@@ -2353,13 +2353,16 @@ def run_g1() -> dict:
     within BF16_ROW_RTOL of that position's largest |logit|; the strings
     are the prompts plus the decoded tokens, cut at the stop token; the
     port's ``evaluate`` on the checkpoint equals the T1 ``Trainer``'s
-    ``evaluate()`` bit for bit; a BPE trained on the corpus's first 200 KB
+    ``evaluate()`` on the numpy sampler bit for bit, and the ``Trainer``'s
+    ``evaluate()`` at its defaults equals the same eval loop on the native
+    batcher's eval batches bit for bit; a BPE trained on the corpus's first 200 KB
     (vocab 512) preprocesses the corpus into ``build/`` with the native
     encoder, whose ids equal the Python sweep's on a 64 KB sample, and the
     val document decodes back from its tokens. Returns G1's launches."""
     from pretraining_llm_tpu_torch.data import native_bpe
     from pretraining_llm_tpu_torch.data.bpe import BPETokenizer, ByteTokenizer
     from pretraining_llm_tpu_torch.data.preprocess import preprocess
+    from pretraining_llm_tpu_torch.data.native_batcher import NativeBatchIterator
     from pretraining_llm_tpu_torch.data.tokenizer import get_tokenizer
     from pretraining_llm_tpu_torch.evaluate import eval_loss, evaluate
     from pretraining_llm_tpu_torch.generation.generate import (
@@ -2367,7 +2370,8 @@ def run_g1() -> dict:
     )
     from pretraining_llm_tpu_torch.models import transformer
     from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
-    from pretraining_llm_tpu_torch.training.trainer import Trainer
+    from pretraining_llm_tpu_torch.training.train_step import build_eval_loop
+    from pretraining_llm_tpu_torch.training.trainer import EVAL_SEED_OFFSET, Trainer
 
     t1 = t1_config()
     ckpt_dir = t1.train.checkpoint_dir
@@ -2446,11 +2450,26 @@ def run_g1() -> dict:
     params32, cfg32 = load_model_for_inference(ckpt_dir, device=DEVICE)
     val = str(PARITY_DIR / "val.bin")
     port_loss = eval_loss(params32, cfg32, val, iters=t1.train.eval_iters)
+    # The same eval loop on the native gatherer's eval batches, which the
+    # Trainer's evaluate() draws at its defaults.
+    native_it = NativeBatchIterator(val, t1.train.batch_size, t1.model.context_length,
+                                    seed=t1.data.sample_seed + EVAL_SEED_OFFSET)
+    xs, ys = zip(*(next(native_it) for _ in range(t1.train.eval_iters)))
+    native_it.close()
+    native_loss = float(build_eval_loop(cfg32)({"params": params32}, (
+        torch.from_numpy(np.stack(xs)).to(DEVICE), torch.from_numpy(np.stack(ys)).to(DEVICE))))
     del params32
     record = evaluate(str(ckpt_dir), val, iters=t1.train.eval_iters, device=DEVICE)
-    trainer = Trainer(t1, device=DEVICE, resume=True, logger=MetricsLogger("", stream=sys.stderr))
+    # The evaluate entry point samples with the numpy sampler (as
+    # scripts/evaluate.py does): one Trainer is given the same sampler, and
+    # one stays at its defaults (the native batcher).
+    trainer = Trainer(t1.with_overrides({"data.use_native_batcher": False}), device=DEVICE, resume=True,
+                      logger=MetricsLogger("", stream=sys.stderr))
     trainer_loss = trainer.evaluate()
     resumed_from = trainer.start_step
+    del trainer
+    trainer = Trainer(t1, device=DEVICE, resume=True, logger=MetricsLogger("", stream=sys.stderr))
+    native_trainer_loss = trainer.evaluate()
     del trainer
     _free_card()
 
@@ -2498,7 +2517,7 @@ def run_g1() -> dict:
         stop_token={"id": stop, "row": stop_row, "texts_equal": texts_ok},
         evaluate={"port": port_loss, "trainer": trainer_loss, "bit_identical": port_loss == trainer_loss,
                   "record_val_loss": record["val_loss"], "resumed_from": resumed_from,
-                  "iters": t1.train.eval_iters},
+                  "iters": t1.train.eval_iters, "native": native_loss, "native_trainer": native_trainer_loss},
         bpe={"encoder": tok.encoder, "library": why, "vocab": bpe.n_vocab, "train_s": bpe_train_s,
              "preprocess_s": preprocess_s, "val_round_trip": round_trip, "native_equals_python_64kb": native_equal,
              "train_tokens": int(os.path.getsize(train_bin) // 2), "val_tokens": int(val_ids.size)})
@@ -2512,6 +2531,9 @@ def run_g1() -> dict:
     if not (port_loss == trainer_loss and record["val_loss"] == round(trainer_loss, 6)
             and resumed_from == T1_STEPS and math.isfinite(port_loss)):
         raise AssertionError(f"G1: evaluate {port_loss} != the Trainer's {trainer_loss} (resumed {resumed_from})")
+    if not (native_loss == native_trainer_loss and math.isfinite(native_loss)):
+        raise AssertionError(f"G1: the default Trainer's evaluate() {native_trainer_loss} != the eval loop on "
+                             f"the native batches {native_loss}")
     if not (round_trip and native_equal and tok.encoder == "native"):
         raise AssertionError(f"G1: BPE round trip {round_trip}, native == python {native_equal}, "
                              f"encoder {tok.encoder}")
@@ -2571,8 +2593,8 @@ def run_train_path3() -> dict:
     again for 10 steps (``utils/trajectory.py::same_state``), where before
     each step the path's and the twin's loss and gradients of the step's
     params and batch are taken: each loss within NAIVE_LOSS_TOL, and every
-    parameter's gradient within T3_GRAD_RTOL of the twin's (relative to
-    the twin's norm), so B10, B11 and the segmented backward are held at
+    parameter's gradient within ``trajectory.T3_GRAD_RTOL`` of the twin's
+    (relative to the twin's norm), so B10, B11 and the segmented backward are held at
     every state, not only at init. A leaf over that bar passes only where
     the twin is at least T3_TWIN_OFF from the fp32 gradient and the path
     no farther from it than the twin. Two independent runs are not compared:
@@ -2600,7 +2622,7 @@ def run_train_path3() -> dict:
             "flash_bwd_fused_fp32": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     loss_diffs = [r["fused_flash"]["loss_diff"] for r in held]
     grad_diffs = [r["fused_flash"]["max_rel_grad_diff"] for r in held]
-    verdicts = {(r["step"], k): trajectory.held_by(u, T3_GRAD_RTOL, T3_TWIN_OFF)
+    verdicts = {(r["step"], k): trajectory.held_by(u, trajectory.T3_GRAD_RTOL, trajectory.T3_TWIN_OFF)
                 for r in held for k, u in r["fused_flash"]["leaves"].items()}
     off_twin = {f"{s}:{k}": dict(held[s - 1]["fused_flash"]["leaves"][k], held_by=v)
                 for (s, k), v in verdicts.items() if v != "twin"}
@@ -2611,7 +2633,8 @@ def run_train_path3() -> dict:
         losses=losses, launches=launches, expected_launches=want, twin="ce_impl=chunked, attention_impl=naive",
         same_state_twin_losses=[r["twin_loss"] for r in held], same_state_loss_diffs=loss_diffs,
         same_state_max_rel_grad_diffs=grad_diffs, same_state_worst_leaves=[r["fused_flash"]["leaf"] for r in held],
-        same_state_off_twin=off_twin, loss_tol=NAIVE_LOSS_TOL, grad_rtol=T3_GRAD_RTOL, twin_off=T3_TWIN_OFF)
+        same_state_off_twin=off_twin, loss_tol=NAIVE_LOSS_TOL, grad_rtol=trajectory.T3_GRAD_RTOL,
+        twin_off=trajectory.T3_TWIN_OFF)
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"T3: expected {steps} finite losses, got {losses}")
     if statistics.mean(losses[-5:]) > losses[0] - 1.0:
@@ -3194,6 +3217,316 @@ def run_trainer_options() -> None:
     if not mixture_equal:
         raise AssertionError("mixture + prefetch: the trainer's batches differ from the unprefetched iterator's")
 
+
+D1_PRESET = "gpt2-124m"
+D1_STEPS = 32
+D1_DIR = SCRATCH / "d1"
+D1_WATCHDOG_S = 10
+D1_ROLLBACK_STEPS = 16  # the rollback run (c): past the restored step and one more checkpoint
+D1_CHILD = "--d1-child"  # chip_smoke.py's child mode: the train CLI with its kernel counts recorded
+
+
+def d1_argv(tag: str, *overrides: str) -> list:
+    """The train CLI's arguments of D1's run ``tag``: T1's model and data
+    (gpt2-124m, batch 12, T 1024, bf16, ``data/parity`` through the native
+    batcher), 32 steps, a log line every 4, a checkpoint every 8, anomaly
+    detection, a 10 s watchdog, telemetry under the run's ``obs`` dir with
+    a device memory sample every 2 log boundaries."""
+    run = D1_DIR / tag
+    return ["--preset", D1_PRESET, "--device", DEVICE, "--obs-dir", str(run / "obs"), "--override",
+            f"train.train_steps={D1_STEPS}", "train.log_interval=4", "train.checkpoint_interval=8",
+            "train.eval_interval=0", f"train.checkpoint_dir={run / 'ck'}",
+            f"data.train_path={PARITY_DIR / 'train.bin'}", f"data.val_path={PARITY_DIR / 'val.bin'}",
+            "resilience.anomaly_detection=True", f"resilience.watchdog_timeout_s={D1_WATCHDOG_S}",
+            "obs.device_memory_interval=2", *overrides]
+
+
+def d1_config(tag: str, *overrides: str):
+    """``d1_argv``'s configuration, for the runs D1 drives in this process."""
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.train import parse_overrides
+
+    argv = d1_argv(tag, *overrides)
+    over = parse_overrides(argv[argv.index("--override") + 1:])
+    obs = D1_DIR / tag / "obs"
+    obs.mkdir(parents=True, exist_ok=True)
+    over.update({"obs.events_path": str(obs / "events.jsonl"), "obs.spans_path": str(obs / "spans.trace.json"),
+                 "obs.prometheus_path": str(obs / "metrics.prom")})
+    return get_preset(D1_PRESET).with_overrides(over)
+
+
+def d1_child(argv: list) -> int:
+    """``python chip_smoke.py --d1-child COUNTS <train CLI arguments>``: the
+    port's train CLI (``pretraining_llm_tpu_torch.train.main``), with every
+    record its trainer logs followed by a line of this process's kernel
+    launch counts in COUNTS, so D1 reads each child's routes even when the
+    watchdog ends it with ``os._exit``. A separator line opens each child's
+    part of COUNTS."""
+    from pretraining_llm_tpu_torch import train
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+
+    counts_path, args = argv[0], argv[1:]
+    with open(counts_path, "a") as f:
+        f.write("\n===\n")
+    log_record = MetricsLogger.log
+
+    def counted(self, record):
+        log_record(self, record)
+        with open(counts_path, "a") as f:
+            f.write(json.dumps({"step": record.get("step"), "event": record.get("event"),
+                                "counts": kernel_counts()}) + "\n")
+
+    MetricsLogger.log = counted
+    train.main(args)
+    return 0
+
+
+def _d1_events(tag: str) -> list:
+    path = D1_DIR / tag / "obs" / "events.jsonl"
+    return [json.loads(line) for line in path.read_text().splitlines()] if path.exists() else []
+
+
+def _d1_final_state(tag: str):
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+
+    path = D1_DIR / tag / "ck" / f"step-{D1_STEPS}"
+    meta = json.loads((path / "metadata.json").read_text())
+    template = {m["name"]: np.empty(m["shape"]) for m in meta["manifest"]}
+    state, extra = ckpt.load_checkpoint(str(path), template)
+    return state, extra
+
+
+def _d1_child_launches(counts_path: Path) -> list:
+    """Per child process: (steps it ran, its kernel counts at its last
+    record)."""
+    out = []
+    for lines in counts_path.read_text().split("\n===\n")[1:]:
+        recs = [json.loads(line) for line in lines.splitlines() if line.strip()]
+        steps = [r["step"] for r in recs if isinstance(r.get("step"), int)]
+        start = next((r["step"] for r in recs if r.get("event") == "resumed"), 0)
+        out.append((max(steps) - start, recs[-1]["counts"]))
+    return out
+
+
+def run_d1() -> dict:
+    """D1, the drills: gpt2-124m at full width and depth trained on the card
+    under the resilience loop with the observability hub on (T1's model
+    and data through the native batcher; ``d1_argv``).
+
+      (a) clean: 32 steps, the train CLI in a subprocess; its step-32
+          state is the reference;
+      (b) drilled: the same command under the port's supervisor with
+          ``resilience.faults="sigterm@12,hang@20"`` (a fault fires after
+          that many completed steps): the children exit 43 (SIGTERM after
+          step 12, checkpoint at the next log boundary, 16), 45 (the
+          watchdog's emergency checkpoint at 20) and 0, and the step-32
+          state equals (a)'s bit for bit (every leaf and the sampler's
+          counter);
+      (c) rollback, in this process, 16 steps: ``nan@10`` is detected at
+          the step-12 log boundary, step 8 is restored, the poison window
+          skipped, and the run completes with finite losses; then ``ckpt_truncate@17``
+          tears the step-16 checkpoint of an 18-step run, and a resume falls
+          back to step 8;
+      (e) that resume trains two log windows (steps 9-16, no checkpoint)
+          with the hub, the detector and the watchdog on, every stretch
+          between log boundaries under
+          ``torch.cuda.set_sync_debug_mode("error")``: no device sync there;
+      (d) the event streams of (a), (b) and (c) folded by the port's
+          ``GoodputAccountant``: (b) and (c) below (a); (a)'s Prometheus
+          textfile lint-clean and its Chrome trace loadable.
+
+    Every step of every run launches K1 and the one-pass backward on the
+    tensor-core route, 12 each (the children's counts through
+    ``d1_child``). Returns D1's launches, summed."""
+    from pretraining_llm_tpu_torch.observability.export import lint_exposition
+    from pretraining_llm_tpu_torch.observability.goodput import GoodputAccountant
+    from pretraining_llm_tpu_torch.resilience import EXIT_PREEMPTED, EXIT_WEDGED
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+    from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(D1_DIR, ignore_errors=True)
+    D1_DIR.mkdir(parents=True)
+    layers = d1_config("clean").model.n_layers
+    total = kernel_counts()
+    total = dict.fromkeys(total, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    def route_ok(steps, counts):
+        return (counts["flash_fwd_tc"] == counts["flash_fwd"] == layers * steps
+                and counts["flash_bwd_fused_tc"] == counts["flash_bwd_fused"] == layers * steps
+                and counts["flash_fwd_fp32"] == counts["flash_bwd_fused_fp32"] == 0)
+
+    def child_cmd(tag, *overrides):
+        counts = D1_DIR / f"{tag}.counts.jsonl"
+        return [sys.executable, str(ROOT / "chip_smoke.py"), D1_CHILD, str(counts), *d1_argv(tag, *overrides)]
+
+    # (a) clean run, one child.
+    t0 = time.perf_counter()
+    proc = subprocess.run(child_cmd("clean"), cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall_a = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"D1 (a): the clean run exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    children_a = _d1_child_launches(D1_DIR / "clean.counts.jsonl")
+
+    # (b) the drilled run under the supervisor.
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pretraining_llm_tpu_torch.supervisor", "--backoff-base", "1",
+         "--events", str(D1_DIR / "drilled" / "obs" / "events.jsonl"), "--",
+         *child_cmd("drilled", "resilience.faults=sigterm@12,hang@20")],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall_b = time.perf_counter() - t0
+    sup = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith('{"supervisor"')]
+    codes = [r["rc"] for r in sup if r["event"] == "exit"]
+    child_walls = [r["elapsed_s"] for r in sup if r["event"] == "exit"]
+    children_b = _d1_child_launches(D1_DIR / "drilled.counts.jsonl")
+    events_b = _d1_events("drilled")
+    emergency = [e.get("step") for e in events_b if e.get("event") == "ckpt_save" and e.get("emergency")]
+    # Relaunch overhead: from a child's last event to the next child's first
+    # (its restore): exit, backoff, start-up and restore. A child's bus
+    # numbers its events from 0.
+    own = [e for e in events_b if not e.get("supervisor")]
+    relaunch_s = [own[i]["t_wall"] - own[i - 1]["t_wall"] for i in range(1, len(own)) if own[i]["seq"] == 0]
+
+    state_a, extra_a = _d1_final_state("clean")
+    state_b, extra_b = _d1_final_state("drilled")
+    differ = [n for n in state_a if not torch.equal(state_a[n], state_b[n])]
+    rng_equal = extra_a.get("data_rng") == extra_b.get("data_rng")
+    del state_a, state_b
+
+    # (c) rollback and the torn checkpoint, in this process.
+    logger = MetricsLogger("", stream=sys.stderr)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    nan_trainer = Trainer(d1_config("rollback", "resilience.faults=nan@10",
+                                    f"train.train_steps={D1_ROLLBACK_STEPS}"),
+                          device=DEVICE, resume=False, logger=logger)
+    records = []
+    log_record = logger.log
+    logger.log = lambda r: (records.append(dict(r)), log_record(r))[1]
+    nan_trainer.train()
+    wall_c = time.perf_counter() - t0
+    rollbacks = [r for r in records if r.get("event") == "rollback"]
+    c_losses = [(r["step"], r["loss"]) for r in records if "loss" in r]
+    c_reason = nan_trainer.exit_reason
+    del nan_trainer
+    _free_card()
+    c_counts = kernel_counts()
+    c_steps = D1_ROLLBACK_STEPS + sum(r["from_step"] - r["to_step"] for r in rollbacks)  # replays run again
+    add(c_counts)
+
+    reset_kernel_counts()
+    torn = d1_config("torn", "resilience.faults=ckpt_truncate@17", "train.train_steps=18", "train.save_final=False")
+    trainer = Trainer(torn, device=DEVICE, resume=False, logger=MetricsLogger("", stream=sys.stderr))
+    trainer.train()
+    del trainer
+    torn_steps = sorted(ckpt._list_steps(str(D1_DIR / "torn" / "ck")))
+    torn_counts = kernel_counts()
+    add(torn_counts)
+
+    # (e) the resume: falls back to step 8, then two log windows with every
+    # stretch between log boundaries under the sync check.
+    reset_kernel_counts()
+    skipped = []
+    resume_logger = MetricsLogger("", stream=sys.stderr)
+    resume_log = resume_logger.log
+    resume_logger.log = lambda r: (skipped.append(r) if r.get("event") == "checkpoint_skipped" else None,
+                                   resume_log(r))[1]
+    resumed = Trainer(torn.with_overrides({"train.train_steps": 16, "resilience.faults": "",
+                                           "train.checkpoint_interval": 0, "train.save_final": False}),
+                      device=DEVICE, resume=True, logger=resume_logger)
+    fell_back_to = resumed.start_step
+    step_fn, host_step = resumed.step_fn, [fell_back_to]
+
+    def guarded(state, batch):
+        torch.cuda.set_sync_debug_mode("error")  # on from the first step after a boundary
+        try:
+            out = step_fn(state, batch)
+        except BaseException:
+            torch.cuda.set_sync_debug_mode("default")  # the failure path's save may sync
+            raise
+        host_step[0] += 1
+        if host_step[0] % resumed.config.train.log_interval == 0:
+            torch.cuda.set_sync_debug_mode("default")  # the boundary's metric fetch syncs
+        return out
+
+    resumed.step_fn = guarded
+    try:
+        e_last = resumed.train()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    e_reason = resumed.exit_reason
+    del resumed
+    _free_card()
+    e_counts = kernel_counts()
+    add(e_counts)
+
+    # (d) goodput of each event stream, the textfile and the trace.
+    goodput = {tag: GoodputAccountant.fold(_d1_events(tag)) for tag in ("clean", "drilled", "rollback")}
+    samplers = sorted({e.get("sampler") for tag in ("clean", "drilled", "rollback", "torn")
+                       for e in _d1_events(tag) if e["event"] == "run_start"}, key=str)
+    memory = [e["max_bytes_in_use"] for e in _d1_events("clean") if e["event"] == "device_memory"]
+    prom = (D1_DIR / "clean" / "obs" / "metrics.prom").read_text()
+    lint = lint_exposition(prom)
+    trace = json.loads((D1_DIR / "clean" / "obs" / "spans.trace.json").read_text())
+    span_names = sorted({e["name"] for e in trace["traceEvents"]})
+    for _, counts in children_a + children_b:
+        add(counts)
+    routes = {"clean": [route_ok(s, c) for s, c in children_a], "drilled": [route_ok(s, c) for s, c in children_b],
+              "rollback": route_ok(c_steps, c_counts), "torn": route_ok(18, torn_counts),
+              "resumed": route_ok(16 - fell_back_to, e_counts)}
+    log("D1", model="gpt2-124m", layers=layers, batch=12, T=1024, dtype="bfloat16", sampler="native",
+        data=str(PARITY_DIR / "train.bin"), steps=D1_STEPS, log_interval=4, checkpoint_interval=8,
+        watchdog_timeout_s=D1_WATCHDOG_S,
+        clean={"wall_s": wall_a, "children": [s for s, _ in children_a]},
+        drilled={"wall_s": wall_b, "exit_codes": codes, "child_wall_s": child_walls,
+                 "child_steps": [s for s, _ in children_b], "emergency_checkpoint_steps": emergency,
+                 "relaunch_overhead_s": relaunch_s, "final_leaves_differing": differ,
+                 "data_rng_equal": rng_equal, "data_rng": extra_b.get("data_rng")},
+        rollback={"wall_s": wall_c, "exit_reason": c_reason, "rollbacks": rollbacks, "losses": c_losses,
+                  "steps_run": c_steps},
+        torn={"steps_on_disk": torn_steps, "skipped": [r.get("path") for r in skipped],
+              "resumed_from": fell_back_to, "exit_reason": e_reason, "loss": e_last.get("loss")},
+        goodput={tag: {"goodput": g["goodput"], "total_s": g["total_s"], "runs": g["runs"],
+                       "rollbacks": g["rollbacks"], "categories": g["categories"]} for tag, g in goodput.items()},
+        prometheus_lint=lint, trace_spans=span_names, samplers=samplers, device_memory_bytes=memory,
+        routes=routes, launches=total,
+        phase_s=time.perf_counter() - t_phase)
+    if codes != [EXIT_PREEMPTED, EXIT_WEDGED, 0] or proc.returncode != 0:
+        raise AssertionError(f"D1 (b): child exit codes {codes}, supervisor {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    if emergency != [20]:
+        raise AssertionError(f"D1 (b): emergency checkpoints at {emergency}, expected step 20")
+    if differ or not rng_equal:
+        raise AssertionError(f"D1 (b): the drilled run's final state differs from the clean run's: {differ[:8]}, "
+                             f"data rng equal {rng_equal}")
+    if (c_reason != "completed" or [(r["from_step"], r["to_step"]) for r in rollbacks] != [(12, 8)]
+            or not all(math.isfinite(x) for s, x in c_losses if s > 12) or c_losses[-1][0] != D1_ROLLBACK_STEPS):
+        raise AssertionError(f"D1 (c): rollback {rollbacks}, exit {c_reason}, losses {c_losses}")
+    if torn_steps != [8, 16] or fell_back_to != 8 or not skipped or e_reason != "completed" \
+            or not math.isfinite(e_last.get("loss", math.nan)):
+        raise AssertionError(f"D1 (c): torn checkpoint {torn_steps}, resumed from {fell_back_to}, skipped {skipped}, "
+                             f"{e_reason} {e_last}")
+    g = {tag: v["goodput"] for tag, v in goodput.items()}
+    if not (0 < g["drilled"] < g["clean"] and 0 < g["rollback"] < g["clean"]) or goodput["rollback"]["rollbacks"] != 1:
+        raise AssertionError(f"D1 (d): goodput {g}")
+    if samplers != ["native"]:
+        raise AssertionError(f"D1: the runs sampled with {samplers}, not the native batcher")
+    if len(memory) != D1_STEPS // 8 or not all(b > 1e9 for b in memory):  # 8 log boundaries, a sample every 2
+        raise AssertionError(f"D1: device memory samples {memory}")
+    if lint or "ckpt_save" not in span_names or "checkpoint/write_leaves" not in span_names:
+        raise AssertionError(f"D1 (d): Prometheus lint {lint}, trace spans {span_names}")
+    if not all(all(v) if isinstance(v, list) else v for v in routes.values()) or len(children_a) != 1 \
+            or len(children_b) != 3:
+        raise AssertionError(f"D1: K1 or the one pass off the tensor-core route, or a step missing: {routes}")
+    shutil.rmtree(D1_DIR, ignore_errors=True)
+    return total
 
 def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
     from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
@@ -3972,6 +4305,7 @@ def main() -> int:
     train_paths.update(run_remat_sweep())
     train_paths.update(run_optimizers())
     run_trainer_options()
+    train_paths["D1"] = run_d1()
     shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
@@ -3987,4 +4321,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [D1_CHILD]:
+        sys.exit(d1_child(sys.argv[2:]))
     sys.exit(main())

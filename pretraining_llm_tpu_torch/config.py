@@ -1,10 +1,10 @@
 """Configuration for the PyTorch port.
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig``,
-``TrainConfig`` and ``ServingConfig`` (same field names, defaults and
-validation), so that one kwargs dict builds the config of either package,
-and ``Config`` with the model, data, train and serving sections and
-``with_overrides``, plus the presets the port runs: every JAX preset that
+``TrainConfig``, ``ResilienceConfig``, ``ObservabilityConfig`` and
+``ServingConfig`` (same field names, defaults and validation), so that one
+kwargs dict builds the config of either package, and ``Config`` with those
+sections and ``with_overrides``, plus the presets the port runs: every JAX preset that
 needs no ring attention, sequence parallelism or second device (MoE
 included), with its model and train sections field for field and no mesh
 section. A JAX preset's ``batch_size`` is its global batch; one device runs
@@ -25,11 +25,16 @@ tile T themselves. ``ragged_kv_splits``, ``ragged_amla`` and ``ce_impl``
 result.
 ``data.prefetch`` > 0 runs the sampler and the host-to-device copy that
 many batches ahead on a thread (``data.loader.DevicePrefetcher``).
-``data.use_native_batcher`` is accepted and ignored: the port samples with
-the numpy sampler, which draws the same batches as the JAX package's numpy
-sampler (the JAX native batcher draws others). Options that change what is
-computed but are not ported yet are refused where they would be used
-(``models.transformer.check_ported``).
+``data.use_native_batcher`` samples a single token file through the port's
+copy of the C++ counter-based gatherer (``data/native_batcher.py``), as the
+JAX trainer does, so both packages draw the same batches from one seed; a
+mixture spec, or a host without a C++ compiler, takes the numpy sampler.
+``ResilienceConfig`` (anomaly detection and rollback, the step watchdog,
+fault drills) and ``ObservabilityConfig`` (the run-event, span and
+Prometheus sinks) are the JAX package's, field for field. Options that
+change what is computed but are not ported yet are refused where they would
+be used (``models.transformer.check_ported``); the mesh and frontend
+sections are refused by ``Config.with_overrides``.
 """
 
 from __future__ import annotations
@@ -320,7 +325,7 @@ class DataConfig:
     split_seed: int = 42
     sample_seed: int = 1337
     prefetch: int = 2  # batches sampled and copied ahead on a thread (0: synchronous)
-    use_native_batcher: bool = True  # accepted and ignored: numpy sampler
+    use_native_batcher: bool = True  # single files through the C++ gatherer (data/native_batcher.py)
 
 
 # ---------------------------------------------------------------------------
@@ -395,6 +400,108 @@ class TrainConfig:
 
 
 # ---------------------------------------------------------------------------
+# Resilience
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ResilienceConfig:
+    """Fault-tolerance knobs: anomaly detection, rollback, watchdog, faults
+    (the JAX package's ``ResilienceConfig``). All host-side: the detector
+    reads the metrics the trainer already fetched at log boundaries, the
+    watchdog is one idle thread, and fault injection does nothing unless
+    ``faults`` is set (``resilience/``)."""
+
+    # Anomaly detection over the log-boundary metrics. NaN/Inf needs no
+    # history and is always armed; the spike rules compare against a rolling
+    # median of ``anomaly_window`` samples once ``anomaly_min_history``
+    # clean samples exist.
+    anomaly_detection: bool = False
+    anomaly_window: int = 32
+    anomaly_min_history: int = 5
+    loss_spike_factor: float = 3.0
+    grad_spike_factor: float = 10.0
+    # Rollbacks per train() call; the next anomaly past the budget ends the
+    # run with exit_reason "anomaly_budget" (EXIT_ANOMALY).
+    rollback_budget: int = 3
+    # Steps after a rollback in which anomalies are logged, not acted on.
+    cooldown_steps: int = 0
+    # Batches skipped past the poison window on a rollback (the window
+    # itself, anomaly step - restored step, is always skipped).
+    skip_batches: int = 0
+    # Host seconds without a completed step before the watchdog dumps every
+    # thread's stack, attempts an emergency checkpoint and exits EXIT_WEDGED
+    # (0 = off). It arms at the first completed step.
+    watchdog_timeout_s: float = 0.0
+    # Fault plan for drills, e.g. "nan@20,sigterm@50,hang@30,ckpt_truncate@40":
+    # each entry fires once, right before the named step; a resumed run does
+    # not re-fire entries at or below its start step. "" = off.
+    faults: str = ""
+
+    def __post_init__(self) -> None:
+        if self.anomaly_window < 2:
+            raise ValueError(
+                f"anomaly_window must be >= 2, got {self.anomaly_window}"
+            )
+        if self.anomaly_min_history < 1:
+            raise ValueError(
+                f"anomaly_min_history must be >= 1, got {self.anomaly_min_history}"
+            )
+        if self.loss_spike_factor <= 1.0 or self.grad_spike_factor <= 1.0:
+            raise ValueError(
+                "spike factors must be > 1 (a factor <= 1 flags every step): "
+                f"loss={self.loss_spike_factor}, grad={self.grad_spike_factor}"
+            )
+        if self.rollback_budget < 0:
+            raise ValueError(
+                f"rollback_budget must be >= 0, got {self.rollback_budget}"
+            )
+        if self.cooldown_steps < 0 or self.skip_batches < 0:
+            raise ValueError("cooldown_steps and skip_batches must be >= 0")
+        if self.watchdog_timeout_s < 0:
+            raise ValueError(
+                f"watchdog_timeout_s must be >= 0, got {self.watchdog_timeout_s}"
+            )
+        if self.faults:
+            from pretraining_llm_tpu_torch.resilience.faults import parse_faults
+
+            parse_faults(self.faults)  # a malformed plan fails here, naming its entry
+
+
+# ---------------------------------------------------------------------------
+# Observability
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ObservabilityConfig:
+    """Run-wide telemetry sinks (the JAX package's ``ObservabilityConfig``).
+    The in-memory pieces (event bus, goodput, build counting) always run, a
+    few dict updates per log boundary; these fields gate the files and the
+    memory sampler (``observability/``)."""
+
+    # Run-event JSONL ("" = in memory only); scripts/obs_report.py reads it.
+    events_path: str = ""
+    # Chrome trace-event JSON of the host spans, written when train() ends.
+    spans_path: str = ""
+    # Prometheus textfile, rewritten atomically at every log boundary.
+    prometheus_path: str = ""
+    # Sample device memory every N log boundaries (0 = off): an allocator
+    # query on the host, no device sync.
+    device_memory_interval: int = 0
+    # Count the port's kernel and library builds; a build after the first
+    # completed step becomes a ``recompile`` event.
+    compile_telemetry: bool = True
+
+    def __post_init__(self) -> None:
+        if self.device_memory_interval < 0:
+            raise ValueError(
+                f"device_memory_interval must be >= 0, got "
+                f"{self.device_memory_interval}"
+            )
+
+
+# ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
@@ -455,19 +562,21 @@ class ServingConfig:
 # ---------------------------------------------------------------------------
 
 # Sections of the JAX package's Config that the port does not have yet.
-_UNPORTED_SECTIONS = ("mesh", "resilience", "obs", "frontend")
-_SECTIONS = ("model", "data", "train", "serving")
+_UNPORTED_SECTIONS = ("mesh", "frontend")
+_SECTIONS = ("model", "data", "train", "resilience", "obs", "serving")
 
 
 @dataclass(frozen=True)
 class Config:
-    """A named configuration: model, data, train and serving sections. The
-    JAX package's ``Config`` also carries mesh, resilience, observability
-    and frontend sections, which are not ported."""
+    """A named configuration: model, data, train, resilience, obs and
+    serving sections. The JAX package's ``Config`` also carries mesh and
+    frontend sections, which are not ported."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
+    obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
     name: str = "custom"
 
@@ -507,13 +616,15 @@ class Config:
     def from_dict(raw: Dict[str, Any]) -> "Config":
         """The config a checkpoint's metadata stores (``extra["config"]``,
         written by either package's trainer). The sections the port lacks
-        (mesh, resilience, obs, frontend) are ignored: they change nothing
-        that a single-device forward computes. A checkpoint written before
-        the serving section existed gets its defaults."""
+        (mesh, frontend) are ignored: they change nothing that a
+        single-device forward computes. A checkpoint written before a
+        section existed gets its defaults."""
         return Config(
             model=ModelConfig(**raw["model"]),
             data=DataConfig(**raw.get("data", {})),
             train=TrainConfig(**raw.get("train", {})),
+            resilience=ResilienceConfig(**raw.get("resilience", {})),
+            obs=ObservabilityConfig(**raw.get("obs", {})),
             serving=ServingConfig(**raw.get("serving", {})),
             name=raw.get("name", "custom"),
         )

@@ -10,6 +10,8 @@ edited source rebuilds. Builds are serialized across processes with an
 temporary name that is renamed into place, so no process loads a
 half-written library. ``load_native_lib`` returns None, with the reason,
 when no compiler or library is available; callers take their Python path.
+Each finished build is reported to the build telemetry
+(``observability.device.note_build``).
 """
 
 from __future__ import annotations
@@ -21,8 +23,11 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Tuple
+
+from pretraining_llm_tpu_torch.observability.device import note_build
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -54,9 +59,11 @@ def _build(name: str, path: Path) -> None:
             if path.exists():  # a peer process built it meanwhile
                 return
             tmp = path.with_suffix(f".tmp{os.getpid()}")
+            t0 = time.perf_counter()
             subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")],
                            check=True, capture_output=True, timeout=300)
             os.replace(tmp, path)
+            note_build("cxx", name, time.perf_counter() - t0)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
 

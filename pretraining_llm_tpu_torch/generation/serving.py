@@ -52,10 +52,18 @@ it when a later admission acquires it (``resilience/integrity.py``).
 ``fused_sampling=False`` runs the unfused lane: each decode step's logits
 come to the host and a separate call samples the token.
 
+The JAX engine's three host spans are recorded, at its points, into the
+default recorder of ``observability/spans.py`` (a trainer's or a
+caller's ``SpanRecorder``): ``serving.dispatch_window`` around each decode
+window's or speculative round's dispatch, ``serving.reap_window`` around
+each reap (its ``host_blocked_s`` in the span's args) and
+``serving.host_blocked`` around the reap's wait for the window's event.
+
 Not ported: sharded serving (``mesh``) raises ``NotImplementedError``. MoE
-models raise the JAX engine's ``ValueError`` (it serves none). The JAX engine's trace spans, per-request traces,
-capacity and histogram hooks, ``cancel``, ``health_gauges`` and migration
-blocks belong to the observability and fleet subsystems.
+models raise the JAX engine's ``ValueError`` (it serves none). Per-request
+traces, the capacity sampler, the decision log and the window histograms
+(installed by the JAX frontend), ``cancel``, ``health_gauges`` and
+migration blocks belong to the fleet subsystem.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from pretraining_llm_tpu_torch.generation import paged, speculative
 from pretraining_llm_tpu_torch.generation.prefix_cache import PrefixCache
 from pretraining_llm_tpu_torch.models import quantize as quantize_mod
 from pretraining_llm_tpu_torch.models import transformer
+from pretraining_llm_tpu_torch.observability import spans as _spans
 from pretraining_llm_tpu_torch.resilience import integrity
 from pretraining_llm_tpu_torch.resilience.integrity import IntegrityError
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -690,15 +699,16 @@ class ServingEngine:
         capacity = self.max_blocks * self.block_size
         active, seq_dispatch = self._decode_snapshot()
         dev = self.device
-        if self._inflight:
-            base = self._inflight[-1].toks[:, -1]
-        else:
-            base = paged.to_device(self.tokens, dev)
-        base = self._merge_admitted(base)
-        toks, lp = self._decode_window(
-            base, paged.to_device(self.tables, dev), paged.to_device(seq_dispatch, dev), n,
-        )
-        readback = _Readback(toks) if lp is None else _Readback(toks, lp[0], lp[1])
+        with _spans.span("serving.dispatch_window", steps=n):
+            if self._inflight:
+                base = self._inflight[-1].toks[:, -1]
+            else:
+                base = paged.to_device(self.tokens, dev)
+            base = self._merge_admitted(base)
+            toks, lp = self._decode_window(
+                base, paged.to_device(self.tables, dev), paged.to_device(seq_dispatch, dev), n,
+            )
+            readback = _Readback(toks) if lp is None else _Readback(toks, lp[0], lp[1])
         self.stats["steps"] += n
         self.stats["windows"] += 1
         snapshot = [(i, self.rows[i]) for i in active]
@@ -718,18 +728,19 @@ class ServingEngine:
         # horizon by construction.
         active, _ = self._decode_snapshot()
         dev = self.device
-        if self._inflight:
-            prev = self._inflight[-1]
-            base, seq_dev = speculative.spec_next_inputs(prev.emit, prev.n_emit, prev.seq_dev)
-        else:
-            base = paged.to_device(self.tokens, dev)
-            seq_dev = paged.to_device(self.seq_lens, dev)
-        base, seq_dev = self._merge_admitted(base, seq_dev)
-        emit, n_emit, self.pools, self.d_pools = paged.paged_spec_round(
-            self.params, self.pools, self.d_pools, self.draft_params, base,
-            paged.to_device(self.tables, dev), seq_dev, self._gen, self.cfg, self.draft_cfg, k,
-            self.temperature,
-        )
+        with _spans.span("serving.dispatch_window", steps=k + 1):
+            if self._inflight:
+                prev = self._inflight[-1]
+                base, seq_dev = speculative.spec_next_inputs(prev.emit, prev.n_emit, prev.seq_dev)
+            else:
+                base = paged.to_device(self.tokens, dev)
+                seq_dev = paged.to_device(self.seq_lens, dev)
+            base, seq_dev = self._merge_admitted(base, seq_dev)
+            emit, n_emit, self.pools, self.d_pools = paged.paged_spec_round(
+                self.params, self.pools, self.d_pools, self.draft_params, base,
+                paged.to_device(self.tables, dev), seq_dev, self._gen, self.cfg, self.draft_cfg, k,
+                self.temperature,
+            )
         self.stats["steps"] += 1
         self.stats["windows"] += 1
         self.stats["spec_rounds"] = self.stats.get("spec_rounds", 0) + 1
@@ -763,10 +774,18 @@ class ServingEngine:
         rows on stop/max_new (their surplus tokens are dropped, as in the
         synchronous path). The wait for the window's event is the host's
         blocked time, counted in ``host_blocked_s``."""
-        t0 = time.perf_counter()
-        host = w.readback.wait()
-        self.stats["host_blocked_s"] += time.perf_counter() - t0
-        self.stats["windows_reaped"] += 1
+        with _spans.span("serving.reap_window", window=self.stats["windows_reaped"]) as meta:
+            t0 = time.perf_counter()
+            with _spans.span("serving.host_blocked"):
+                host = w.readback.wait()
+            blocked = time.perf_counter() - t0
+            meta["host_blocked_s"] = round(blocked, 6)
+            self.stats["host_blocked_s"] += blocked
+            self.stats["windows_reaped"] += 1
+            self._commit_window(w, host)
+
+    def _commit_window(self, w: _Window, host: List[np.ndarray]) -> None:
+        """The reap's bookkeeping on a window's host tokens."""
         capacity = self.max_blocks * self.block_size
         lp_host = (host[1], host[2]) if w.kind == "decode" and len(host) == 3 else None
         for row, req in w.snapshot:

@@ -35,6 +35,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
+from pretraining_llm_tpu_torch.observability.device import note_build
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -73,7 +75,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
     """Compile every missing library among ``names``, all ``nvcc``
     processes started together. Returns, per source, the seconds its build
     took and nvcc's output (ptxas registers, shared memory and spills);
-    (0.0, "") for a library that was already built."""
+    (0.0, "") for a library that was already built. Each finished build is
+    reported to the build telemetry (``observability.device.note_build``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     procs = {}
@@ -100,6 +103,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:
             os.unlink(tmp)
         else:
             os.replace(tmp, out)
+            note_build("nvcc", name, done[name][0])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return done

@@ -13,9 +13,14 @@ checkpoint.py``:
   - writes go to ``tmp-<N>`` and are renamed to ``step-<N>``, so a killed
     run never leaves a half checkpoint visible; the latest ``keep`` steps
     are kept;
-  - ``restore_latest`` falls back past a corrupt newest step;
+  - ``restore_latest`` falls back past a corrupt newest step (a truncated
+    leaf, a missing ``metadata.json``), optionally only below a step, and
+    collects ``tmp-<step>`` partials first;
   - ``AsyncCheckpointWriter`` copies the state to host memory at the step
-    and writes it on a thread (``train.checkpoint_async``).
+    and writes it on a thread (``train.checkpoint_async``);
+  - leaves are written, read and checksummed by a pool of up to
+    ``IO_WORKERS`` threads (blake2b and file IO release the interpreter
+    lock); each leaf is its own file, so the bytes do not depend on it.
 
 A checkpoint written by the JAX trainer restores in the port and the
 reverse: same names, same ``.npy`` bytes. A bf16 leaf is written as the
@@ -31,11 +36,13 @@ import json
 import os
 import shutil
 import threading
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from pretraining_llm_tpu_torch.observability.spans import span as _span
 from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
 
 _TORCH_DTYPES = {
@@ -43,6 +50,15 @@ _TORCH_DTYPES = {
     "bfloat16": torch.bfloat16, "int32": torch.int32, "int64": torch.int64,
     "int8": torch.int8, "uint8": torch.uint8, "bool": torch.bool,
 }
+
+
+IO_WORKERS = min(8, os.cpu_count() or 1)
+
+
+def _map_leaves(fn: Callable[..., Any], items: Sequence[Tuple[Any, ...]]) -> List[Any]:
+    """``[fn(*item) for item in items]``, in order, on the IO thread pool."""
+    with ThreadPoolExecutor(IO_WORKERS) as pool:
+        return list(pool.map(lambda item: fn(*item), items))
 
 
 class IntegrityError(ValueError):
@@ -58,7 +74,7 @@ def array_digest(arr: np.ndarray, dtype_name: Optional[str] = None) -> str:
     h = hashlib.blake2b(digest_size=16)
     h.update((dtype_name or str(arr.dtype)).encode())
     h.update(repr(arr.shape).encode())
-    h.update(arr.tobytes())
+    h.update(memoryview(arr.reshape(-1).view(np.uint8)))  # the bytes of tobytes(), not copied
     return h.hexdigest()
 
 
@@ -114,7 +130,8 @@ def save_checkpoint(
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    manifest = [_save_leaf(tmp, name, leaf) for name, leaf in _flatten_with_names(state)]
+    with _span("checkpoint/write_leaves"):
+        manifest = _map_leaves(lambda name, leaf: _save_leaf(tmp, name, leaf), _flatten_with_names(state))
     if local_extra:
         with open(os.path.join(tmp, "local.p0.json"), "w") as f:
             json.dump(local_extra, f)
@@ -170,17 +187,24 @@ def gc_partial(directory: str) -> List[str]:
 
 
 def restore_latest(
-    directory: str, state_template: Any, *,
+    directory: str, state_template: Any, *, before_step: Optional[int] = None,
+    loader: Optional[Callable[[str, Any], Tuple[Any, Dict[str, Any]]]] = None,
     on_skip: Optional[Callable[[str, Exception], None]] = None,
 ) -> Optional[Tuple[Any, Dict[str, Any], int]]:
     """The newest loadable checkpoint as (state, extra, step), falling back
     past corrupt ones (each reported to ``on_skip``); None when none
-    loads."""
+    loads. ``before_step`` tries only steps below it (a rollback digging
+    past a poisoned checkpoint); ``loader(path, template)`` defaults to
+    ``load_checkpoint``."""
     gc_partial(directory)
-    for step in sorted(_list_steps(directory), reverse=True):
+    load = loader or load_checkpoint
+    steps = sorted(_list_steps(directory), reverse=True)
+    if before_step is not None:
+        steps = [s for s in steps if s < before_step]
+    for step in steps:
         path = os.path.join(directory, f"step-{step}")
         try:
-            state, extra = load_checkpoint(path, state_template)
+            state, extra = load(path, state_template)
         except Exception as e:  # corrupt/truncated/missing pieces: fall back
             if on_skip is not None:
                 on_skip(path, e)
@@ -226,8 +250,9 @@ def load_checkpoint(path: str, state_template: Any) -> Tuple[Any, Dict[str, Any]
             f"checkpoint {path} missing leaves: {missing[:5]} (+{max(0, len(missing) - 5)} more)"
         )
     leaves = {}
-    for name, tmpl in flat:
-        got = _load_leaf(path, entries[name])
+    with _span("checkpoint/load_leaves"):
+        loaded = _map_leaves(lambda name: _load_leaf(path, entries[name]), [(name,) for name, _ in flat])
+    for (name, tmpl), got in zip(flat, loaded):
         want = tuple(getattr(tmpl, "shape", np.shape(tmpl)))
         if tuple(got.shape) != want:
             raise ValueError(f"checkpoint leaf {name}: shape {tuple(got.shape)} != expected {want}")
@@ -259,6 +284,14 @@ class AsyncCheckpointWriter:
 
         self._thread = threading.Thread(target=write, daemon=True)
         self._thread.start()
+
+    def idle(self, timeout: float) -> bool:
+        """Wait up to ``timeout`` s for the write in flight; True when none
+        is running (its error stays for ``join``)."""
+        thread = self._thread
+        if thread is not None:
+            thread.join(timeout=timeout)
+        return thread is None or not thread.is_alive()
 
     def join(self) -> None:
         thread, self._thread = self._thread, None

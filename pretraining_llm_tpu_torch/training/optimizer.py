@@ -123,8 +123,8 @@ def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tenso
 
 def _bias_corrections(count: torch.Tensor, cfg: TrainConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     c = count.float()
-    bc1 = 1.0 - torch.pow(torch.tensor(cfg.adam_b1, dtype=torch.float32, device=c.device), c)
-    bc2 = 1.0 - torch.pow(torch.tensor(cfg.adam_b2, dtype=torch.float32, device=c.device), c)
+    bc1 = 1.0 - torch.pow(torch.full((), cfg.adam_b1, dtype=torch.float32, device=c.device), c)
+    bc2 = 1.0 - torch.pow(torch.full((), cfg.adam_b2, dtype=torch.float32, device=c.device), c)
     return bc1, bc2
 
 
@@ -371,16 +371,17 @@ def learning_rate(step: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
     """The JAX package's schedules, in fp32: linear warmup over
     max(warmup_frac * train_steps, 1) steps, then constant, cosine to
     ``min_lr_frac * lr``, or warmup-stable-decay (linear over the final
-    ``decay_frac`` of the run)."""
+    ``decay_frac`` of the run). Constants are filled on the step's device
+    (``torch.full``), not copied from the host: no sync in a step."""
     f32 = dict(dtype=torch.float32, device=step.device)
     s = step.to(torch.float32)
-    warmup = torch.tensor(max(cfg.warmup_frac * cfg.train_steps, 1.0), **f32)
+    warmup = torch.full((), max(cfg.warmup_frac * cfg.train_steps, 1.0), **f32)
     warm_lr = cfg.lr * (s + 1.0) / warmup
     if cfg.lr_schedule == "warmup_constant":
-        return torch.minimum(warm_lr, torch.tensor(cfg.lr, **f32))
+        return torch.minimum(warm_lr, torch.full((), cfg.lr, **f32))
     min_lr = cfg.lr * cfg.min_lr_frac
     if cfg.lr_schedule == "warmup_stable_decay":
-        decay_start = torch.maximum(torch.tensor(cfg.train_steps * (1.0 - cfg.decay_frac), **f32), warmup)
+        decay_start = torch.maximum(torch.full((), cfg.train_steps * (1.0 - cfg.decay_frac), **f32), warmup)
         frac = torch.clamp(
             (s - decay_start) / torch.clamp(cfg.train_steps - decay_start, min=1.0), 0.0, 1.0,
         )

@@ -336,3 +336,30 @@ def test_moe_module_is_scanned():
     text = (ROOT / "pretraining_llm_tpu_torch" / "models" / "moe.py").read_text()
     assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", "")
     transformer.check_ported(get_preset("moe-8x350m").model)
+
+
+RESILIENCE_OBSERVABILITY_MODULES = (
+    "resilience/anomaly.py", "resilience/rollback.py", "resilience/watchdog.py", "resilience/faults.py",
+    "observability/__init__.py", "observability/events.py", "observability/spans.py", "observability/goodput.py",
+    "observability/export.py", "observability/metrics.py", "observability/device.py", "observability/hub.py",
+    "data/native_batcher.py", "supervisor.py",
+)
+
+
+def test_resilience_and_observability_modules_are_scanned():
+    """The resilience loop, the observability hub, the native batcher and
+    the supervisor are among the sources that
+    ``test_port_imports_nothing_of_jax`` scans and name no module of the
+    JAX package; the supervisor starts without torch (it must come up
+    while the training stack is wedged)."""
+    import subprocess
+    import sys
+
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(RESILIENCE_OBSERVABILITY_MODULES) <= scanned
+    for rel in RESILIENCE_OBSERVABILITY_MODULES:
+        text = (ROOT / "pretraining_llm_tpu_torch" / rel).read_text()
+        assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
+    code = "import sys, pretraining_llm_tpu_torch.supervisor; assert 'torch' not in sys.modules, 'torch'"
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr

@@ -85,3 +85,21 @@ def test_repeat_compares_two_runs_bit_for_bit(tmp_path):
     assert all(r["loss"][0] == r["loss"][1] and r["grad_norm"][0] == r["grad_norm"][1] for r in res["steps"])
     assert res["losses_bit_identical"] and res["grad_norms_bit_identical"]
     assert res["first_differing_step"] is None and res["step1_grad_leaves_differing"] == []
+
+
+def test_op_trace_measures_twin_and_path_against_fp32(tmp_path):
+    """``op_trace`` (the ``--op-trace`` mode): at fp32 compute the twin is
+    the fp32 reference, so every aligned op and gradient leaf is 0 apart and
+    nothing passes the bar, and the fused/flash path's leaves are within
+    rounding; at bf16 every distance of both is finite and the twin's
+    nonzero, leaf for leaf under the same names."""
+    res = tj.op_trace(_tiny(tmp_path), 2, "cpu")
+    assert res["step"] == 2 and res["bar"] == tj.T3_GRAD_RTOL and res["n_aligned"] == res["n_ops_fp32"]
+    assert res["first_forward_over"] is None and res["first_backward_over"] is None
+    assert set(res["leaves"]) == set(res["path_leaves"])
+    assert all(v == 0.0 for v in res["leaves"].values())
+    assert max(res["path_leaves"].values()) < 1e-5
+    res = tj.op_trace(_tiny(tmp_path).with_overrides({"model.compute_dtype": "bfloat16"}), 2, "cpu")
+    assert set(res["leaves"]) == set(res["path_leaves"])
+    assert all(0.0 < v < math.inf for v in res["leaves"].values())
+    assert all(math.isfinite(v) for v in res["path_leaves"].values())
