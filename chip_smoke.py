@@ -60,6 +60,26 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
   serve   ``python -m pretraining_llm_tpu_torch.serve`` as a subprocess on
           the same checkpoint and prompts, without and with the draft: the
           JSONL outputs are path 5's streams decoded;
+  H1      T1's step-30 weights exported with ``export_hf_checkpoint`` (an
+          HF GPT-2 directory) and imported back with
+          ``import_hf_checkpoint``, every leaf bit for bit; reference-3b's
+          widths cut to 2 layers (random weights) through the reference's
+          ``.pt`` and back, bit for bit, with equal logits on the card; then
+          the imported checkpoint online: 32 requests arriving at 8/s
+          (prompts 17-900 bytes, 16-64 new tokens) through an in-process
+          ``EngineLoop`` at the engine's defaults, and through ``serve
+          --http`` as a child process (``--h1-child``, which records its
+          kernel launches): every request done, streams against the
+          synchronous offline engine's up to near ties, SSE equal to the
+          full response, a client that disconnects mid-stream and its
+          blocks freed, a 1 ms deadline's 504, the metrics lint, /healthz,
+          /readyz, /slo, a SIGTERM drain with a complete span tree per
+          request and one terminal event each; a second server with
+          256-token chunks, the prefix cache and a queue depth of 4 serves
+          16 shared-prefix requests through K3 (tensor cores) and answers
+          a burst of 16 with 429s and ``Retry-After``; the frontend hooks
+          on and off give the same streams and reaps offline; TTFT, TPOT
+          and e2e percentiles, tokens/s and the HTTP path over the loop;
   T1      ``Trainer.train`` on gpt2-124m at full width and depth (batch
           12, T 1024, bf16 compute) for 30 steps on ``data/parity``
           bytes: flash forward and the one-pass backward kernel; held
@@ -1948,6 +1968,554 @@ def run_serve_cli(paths: dict, p5) -> None:
             raise AssertionError(f"serve CLI ({name}): {res}")
 
 
+
+# ---------------------------------------------------------------------------
+# H1: checkpoint import/export and the online front end
+# ---------------------------------------------------------------------------
+
+H1_DIR = SCRATCH / "h1"
+H1_CHILD = "--h1-child"  # chip_smoke.py's child mode: the serve CLI with its kernel counts recorded
+H1_SPEC = dict(n_requests=32, mode="open", rate_rps=8.0, vocab_size=256, prompt_len_min=17, prompt_len_max=900,
+               max_new_min=16, max_new_max=64, seed=SEED, send_traceparent=True)
+# The chunked server's 16 requests: two 384-token prefixes (path 2's shape),
+# 4 in flight at a time against its queue depth of 4.
+H1_CHUNKED_SPEC = dict(n_requests=16, mode="closed", concurrency=4, vocab_size=256, prompt_len_min=17,
+                       prompt_len_max=400, max_new_min=16, max_new_max=64, prefix_pool_size=2, prefix_len=384,
+                       seed=SEED + 1)
+H1_QUEUE_DEPTH = 4  # the chunked server's --max_queue_depth, which a burst of H1_BURST overruns
+H1_BURST = 16
+H1_WAIT = 300  # seconds any one request, stream read or server start may take
+REF_LAYERS = 2  # the reference round trip's cut of reference-3b's 64 layers
+
+
+def assert_no_jax_modules(where: str) -> int:
+    """0 when no module of JAX, Flax or the JAX package was ever loaded
+    into this process (a load by path, not only an import statement)."""
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "pretraining_llm_tpu"))
+    if bad:
+        raise AssertionError(f"{where}: modules of JAX or the JAX package were loaded: {bad[:12]}")
+    return 0
+
+
+def _write_json(path: str, obj) -> None:
+    """Write ``obj`` to ``path`` whole: another process polls for the file."""
+    Path(path + ".tmp").write_text(json.dumps(obj))
+    os.replace(path + ".tmp", path)
+
+
+def h1_child(argv: list) -> int:
+    """``python chip_smoke.py --h1-child COUNTS <serve CLI arguments>``: the
+    port's serve CLI (``pretraining_llm_tpu_torch.serve.main``). SIGUSR1
+    sets this process's kernel launch counts to 0 and writes COUNTS.reset;
+    SIGUSR2 writes the counts to COUNTS.load, so the parent brackets one
+    load on an idle server. The whole process's counts go to COUNTS once
+    the server has drained and stopped."""
+    import signal
+
+    from pretraining_llm_tpu_torch import serve
+
+    counts_path, args = argv[0], argv[1:]
+
+    def reset(*_):
+        reset_kernel_counts()
+        _write_json(counts_path + ".reset", {})
+
+    signal.signal(signal.SIGUSR1, reset)
+    signal.signal(signal.SIGUSR2, lambda *_: _write_json(counts_path + ".load", kernel_counts()))
+    serve.main(args)
+    _write_json(counts_path, kernel_counts())
+    return assert_no_jax_modules("H1 server")
+
+
+def _leaf_diffs(got: dict, want: dict, prefix: str = "") -> list:
+    """Names of the leaves of two parameter trees (tensors or arrays) that
+    differ in name, shape, dtype or any bit."""
+    bad = sorted(set(got) ^ set(want))
+    for k in sorted(set(got) & set(want)):
+        a, b = got[k], want[k]
+        if isinstance(a, dict):
+            bad += _leaf_diffs(a, b, f"{prefix}{k}.")
+            continue
+        a, b = (x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x)) for x in (a, b))
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a.cpu(), b.cpu()):
+            bad.append(prefix + k)
+    return bad
+
+
+def h1_hf_round_trip(target: str) -> str:
+    """T1's step-30 weights through ``export_hf_checkpoint`` (an HF GPT-2
+    directory: config.json + model.safetensors) and back through
+    ``import_hf_checkpoint`` (written with the serving kernels and the byte
+    tokenizer): every leaf T1's bit for bit. Returns the imported
+    checkpoint."""
+    from pretraining_llm_tpu_torch import export_hf_checkpoint, import_hf_checkpoint
+    from pretraining_llm_tpu_torch.generation.generate import load_model_for_inference
+    from pretraining_llm_tpu_torch.utils import safetensors
+
+    t0 = time.perf_counter()
+    hf_dir, imported = H1_DIR / "hf", H1_DIR / "imported"
+    export_hf_checkpoint.main([target, "--out_dir", str(hf_dir)])
+    t_export = time.perf_counter() - t0
+    import_hf_checkpoint.main([str(hf_dir), "--out_dir", str(imported), "--tokenizer", "byte", "--override",
+                               "model.attention_impl=flash", "model.paged_attention_impl=kernel"])
+    wall = time.perf_counter() - t0
+    want, cfg = load_model_for_inference(target, device="cpu")
+    got, icfg = load_model_for_inference(str(imported), device="cpu")
+    bad = _leaf_diffs(got, want)
+    hf_cfg = json.loads((hf_dir / "config.json").read_text())
+    header = safetensors.read_header(str(hf_dir / "model.safetensors"))
+    same_model = all(getattr(icfg.model, f) == getattr(cfg.model, f) for f in (
+        "vocab_size", "context_length", "d_model", "n_heads", "n_layers", "d_ff", "activation", "norm",
+        "pos_embed", "tie_embeddings", "qkv_bias", "norm_eps", "attention_impl", "paged_attention_impl"))
+    log("H1_hf", source=target, hf_dir=str(hf_dir), imported=str(imported), export_s=t_export, round_trip_s=wall,
+        hf_tensors=len(header) - 1, hf_bytes=(hf_dir / "model.safetensors").stat().st_size,
+        hf_config={k: hf_cfg[k] for k in ("n_embd", "n_layer", "n_head", "n_inner", "vocab_size", "n_positions")},
+        leaves=len(checkpoint_leaf_names(want)), leaves_differing=bad, same_model=same_model)
+    if bad or not same_model:
+        raise AssertionError(f"H1 HF round trip: leaves {bad[:8]} differ, same model fields {same_model}")
+    return str(imported)
+
+
+def checkpoint_leaf_names(tree: dict, prefix: str = "") -> list:
+    return [n for k, v in tree.items()
+            for n in (checkpoint_leaf_names(v, f"{prefix}{k}.") if isinstance(v, dict) else [prefix + k])]
+
+
+def h1_reference_round_trip() -> None:
+    """reference-3b's widths (d 2048, 16 heads, d_ff 8192, ReLU, no output
+    projection, biased untied head, T 512) cut to REF_LAYERS layers, random
+    weights from the seed: ``export_torch_checkpoint`` to the reference's
+    ``.pt`` and ``import_torch_checkpoint`` back, every leaf bit for bit,
+    and one forward on the card of each tree: equal logits."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch import export_torch_checkpoint, import_torch_checkpoint
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+
+    cfg = dataclasses.replace(get_preset("reference-3b").model, n_layers=REF_LAYERS)
+    t0 = time.perf_counter()
+    params = bridge.params_to_numpy(transformer.init_params(cfg, SEED, device="cpu"))
+    pt = H1_DIR / "reference.pt"
+    export_torch_checkpoint.save_reference_pt(export_torch_checkpoint.export_params(cfg, params), str(pt))
+    icfg, back = import_torch_checkpoint.import_state_dict(import_torch_checkpoint.read_reference_state_dict(str(pt)))
+    wall = time.perf_counter() - t0
+    bad = _leaf_diffs(back, params)
+    same_model = all(getattr(icfg, f) == getattr(cfg, f) for f in (
+        "vocab_size", "context_length", "d_model", "n_heads", "n_layers", "d_ff", "activation", "use_output_proj",
+        "tie_embeddings", "lm_head_bias", "qkv_bias", "mlp_bias"))
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 41).integers(0, cfg.vocab_size, (2, cfg.context_length)))
+    logits = []
+    for tree in (params, back):
+        dev = bridge.params_from_numpy(tree, cfg, device=DEVICE)
+        with torch.no_grad():
+            out, _ = transformer.forward(dev, tokens.to(DEVICE), cfg)
+        logits.append(out.float())
+        del dev
+    equal = bool(torch.equal(logits[0], logits[1]))
+    finite = bool(torch.isfinite(logits[0]).all())
+    log("H1_reference", preset="reference-3b", n_layers=REF_LAYERS, reduced="64 -> 2 layers",
+        pt_bytes=pt.stat().st_size, round_trip_s=wall, leaves=len(checkpoint_leaf_names(params)),
+        leaves_differing=bad, same_model=same_model, forward=f"B 2, T {cfg.context_length}, {cfg.compute_dtype}",
+        logits_equal=equal, finite=finite)
+    pt.unlink()
+    del logits
+    _free_card()
+    if bad or not (same_model and equal and finite):
+        raise AssertionError(f"H1 reference round trip: leaves {bad[:8]}, model {same_model}, logits {equal}")
+
+
+def _latency(report) -> dict:
+    s = report.summary()
+    return {"counts": s["counts"], "wall_s": s["wall_s"], "tokens_per_s": s["throughput_tok_s"],
+            "ttft_s": s["ttft"], "tpot_s": s["tpot"], "e2e_s": s["e2e"]}
+
+
+def _check_done(name: str, report, schedule) -> list:
+    """Every request ``done`` with tokens; the streams in schedule order."""
+    by_index = {o.index: o for o in report.outcomes}
+    bad = [i for i in range(len(schedule)) if i not in by_index or by_index[i].status != "done"
+           or by_index[i].tokens is None or len(by_index[i].tokens) != schedule[i].max_new]
+    if bad:
+        raise AssertionError(f"{name}: requests {bad} did not end done with all their tokens: "
+                             f"{[by_index.get(i) for i in bad[:4]]}")
+    return [by_index[i].tokens for i in range(len(schedule))]
+
+
+def _assert_routes(name: str, launches: dict, ragged: bool) -> None:
+    if launches["flash_fwd"] and launches["flash_fwd_tc"] != launches["flash_fwd"]:
+        raise AssertionError(f"{name}: K1 left the tensor cores: {launches}")
+    _assert_paged_split(name, launches)
+    if ragged:
+        _assert_ragged_tensor_cores(name, launches)
+        if launches["ragged"] <= 0:
+            raise AssertionError(f"{name}: K3 never ran: {launches}")
+    elif launches["flash_fwd_tc"] <= 0 or launches["ragged"]:
+        raise AssertionError(f"{name}: admissions did not run K1 alone: {launches}")
+
+
+def _http(base: str, path: str, payload=None, headers=None):
+    """(status, headers, body text) of one request; HTTP errors returned."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=H1_WAIT) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _start_server(name: str, imported: str, extra: list):
+    """The serve CLI as a child (``--h1-child``) on port 0, events and trace
+    under H1_DIR/name."""
+    d = H1_DIR / name
+    d.mkdir(parents=True, exist_ok=True)
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), H1_CHILD, str(d / "counts.json"), "--model_path", imported,
+           "--http", "--port", "0", "--tokenizer", "byte", "--temperature", "0", "--events", str(d / "events.jsonl"),
+           # The server's tracer draws its ids from --seed; seed 0 would mint
+           # the id the load's seeded traceparent gives request 0.
+           "--trace", str(d / "trace.json"), "--seed", str(SEED + 101), *extra]
+    err = open(d / "stderr.txt", "w+")
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err, text=True)
+    return {"name": name, "dir": d, "proc": proc, "err": err, "t0": time.perf_counter()}
+
+
+def _server_base(srv: dict) -> str:
+    """The server's base URL once it listens, after one warm-up request (a
+    fresh process's first request loads the kernels and the libraries' GPU
+    state; its e2e is kept as ``cold_request_s``), so the measured load
+    compares warm servers."""
+    deadline = time.monotonic() + H1_WAIT
+    while time.monotonic() < deadline:
+        text = (srv["dir"] / "stderr.txt").read_text()
+        if "listening on " in text:
+            srv["ready_s"] = time.perf_counter() - srv["t0"]
+            base = text.split("listening on ", 1)[1].split(" ")[0]
+            t0 = time.perf_counter()
+            code = _http(base, "/v1/generate", {"prompt": list(range(1, 65)), "max_new_tokens": 16})[0]
+            srv["cold_request_s"] = time.perf_counter() - t0
+            if code != 200:
+                raise AssertionError(f"H1 server {srv['name']}: the warm-up request got {code}")
+            return base
+        if srv["proc"].poll() is not None:
+            raise AssertionError(f"H1 server {srv['name']} exited {srv['proc'].returncode}: {text[-3000:]}")
+        time.sleep(0.2)
+    raise AssertionError(f"H1 server {srv['name']} did not listen within {H1_WAIT} s")
+
+
+def _stop_server(srv: dict) -> dict:
+    """SIGTERM, the exit code, the drain line, the trace's request trees
+    and the events' terminals."""
+    import signal
+
+    from pretraining_llm_tpu_torch.observability.tracing import check_trace_tree, group_request_spans
+
+    srv["proc"].send_signal(signal.SIGTERM)
+    rc = srv["proc"].wait(timeout=H1_WAIT)
+    srv["err"].close()
+    err = (srv["dir"] / "stderr.txt").read_text()
+    if rc != 0 or "SIGTERM drain complete" not in err or "trace written" not in err:
+        raise AssertionError(f"H1 server {srv['name']}: exit {rc} after SIGTERM: {err[-3000:]}")
+    groups = group_request_spans(json.loads((srv["dir"] / "trace.json").read_text()))
+    incomplete = {t: p for t, s in groups.items() if (p := check_trace_tree(t, s))}
+    events = [json.loads(ln) for ln in (srv["dir"] / "events.jsonl").read_text().splitlines()]
+    terminals: dict = {}
+    for e in events:
+        if e["event"] in ("req_done", "req_cancelled", "req_expired", "req_error", "req_rejected") and "trace_id" in e:
+            terminals[e["trace_id"]] = terminals.get(e["trace_id"], 0) + 1
+    submitted = {e["trace_id"] for e in events if e["event"] == "req_submit" and "trace_id" in e}
+    counts = json.loads((srv["dir"] / "counts.json").read_text())
+    out = {"exit": rc, "traces": len(groups), "incomplete_traces": incomplete,
+           "events": len(events), "submitted": len(submitted),
+           "one_terminal_each": all(n == 1 for n in terminals.values()) and set(terminals) >= submitted,
+           "cap_windows": sum(e["event"] == "cap_window" for e in events),
+           "launches_whole_process": {k: n for k, n in counts.items() if n}}
+    if incomplete or not out["one_terminal_each"] or set(groups) != set(terminals):
+        raise AssertionError(f"H1 server {srv['name']}: traces or terminals incomplete: "
+                             f"{ {k: v for k, v in out.items() if k != 'launches'} }")
+    return out
+
+
+def _child_counts(srv: dict, signum: int, suffix: str) -> dict:
+    """Send ``signum`` to an idle server child and wait for the file its
+    handler writes (``h1_child``)."""
+    path = srv["dir"] / f"counts.json.{suffix}"
+    path.unlink(missing_ok=True)
+    srv["proc"].send_signal(signum)
+    deadline = time.monotonic() + 60
+    while not path.exists():
+        if time.monotonic() > deadline or srv["proc"].poll() is not None:
+            raise AssertionError(f"H1 server {srv['name']}: no {path.name} after signal {signum}")
+        time.sleep(0.02)
+    return json.loads(path.read_text())
+
+
+def _measured(srv: dict, base: str, spec) -> tuple:
+    """One load through ``run_http`` on an idle server, with the server's
+    kernel launches over that load alone: (report, launches)."""
+    import signal
+
+    from pretraining_llm_tpu_torch.frontend.loadgen import run_http
+
+    _child_counts(srv, signal.SIGUSR1, "reset")
+    report = run_http(base, spec, timeout_s=H1_WAIT)
+    return report, _child_counts(srv, signal.SIGUSR2, "load")
+
+
+def _sse(base: str, prompt, max_new: int) -> tuple:
+    """One SSE request: (tokens streamed, final event)."""
+    import urllib.request
+
+    req = urllib.request.Request(base + "/v1/generate", headers={"Content-Type": "application/json"},
+                                 data=json.dumps({"prompt": prompt, "max_new_tokens": max_new, "stream": True}).encode())
+    toks, final = [], None
+    with urllib.request.urlopen(req, timeout=H1_WAIT) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if line.startswith("data: {"):
+                ev = json.loads(line[6:])
+                if ev.get("done"):
+                    final = ev
+                else:
+                    toks.append(ev["token"])
+    return toks, final
+
+
+def _disconnect(base: str, prompt, max_new: int) -> None:
+    """An SSE client that reads the first token and closes its socket."""
+    import socket
+
+    host, port = base.split("//", 1)[1].rsplit(":", 1)
+    body = json.dumps({"prompt": prompt, "max_new_tokens": max_new, "stream": True}).encode()
+    s = socket.create_connection((host, int(port)), timeout=H1_WAIT)
+    try:
+        s.sendall(b"POST /v1/generate HTTP/1.1\r\nHost: h1\r\nContent-Type: application/json\r\n"
+                  b"Content-Length: " + str(len(body)).encode() + b"\r\n\r\n" + body)
+        buf = b""
+        while b'data: {"token"' not in buf:
+            chunk = s.recv(4096)
+            if not chunk:
+                raise AssertionError(f"H1 disconnect: the server closed first: {buf[-500:]!r}")
+            buf += chunk
+    finally:
+        s.close()
+
+
+def run_h1(serve_ckpts: dict) -> dict:
+    """H1: the converters on T1's weights and the online front end on them,
+    in-process and as the serve CLI. Returns each path's kernel launches."""
+    import threading
+
+    from pretraining_llm_tpu_torch.frontend.admission import AdmissionController
+    from pretraining_llm_tpu_torch.frontend.engine_loop import EngineLoop
+    from pretraining_llm_tpu_torch.frontend.loadgen import LoadSpec, build_schedule, run_engine_loop
+    from pretraining_llm_tpu_torch.generation.generate import cast_params_for_inference, load_model_for_inference
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+    from pretraining_llm_tpu_torch.observability.export import lint_exposition
+    from pretraining_llm_tpu_torch.observability.metrics import MetricsRegistry
+    from pretraining_llm_tpu_torch.observability.spans import SpanRecorder
+    from pretraining_llm_tpu_torch.observability.tracing import Tracer
+
+    t_h1 = time.perf_counter()
+    card = phase_card()
+    H1_DIR.mkdir(parents=True, exist_ok=True)
+    imported = h1_hf_round_trip(serve_ckpts["target"])
+    h1_reference_round_trip()
+
+    params, cfg = load_model_for_inference(imported, device=DEVICE)
+    params = cast_params_for_inference(params, cfg.model)
+    model = cfg.model
+    spec = LoadSpec(**H1_SPEC)
+    schedule = build_schedule(spec)
+    prompts = [sr.prompt for sr in schedule]
+
+    def offline(pipeline: bool, instrument: bool = False):
+        eng = ServingEngine(params, model, device=DEVICE, temperature=0.0, **SERVE_ENGINE)
+        rids = [eng.submit(sr.prompt, sr.max_new) for sr in schedule]
+        if pipeline:
+            guard_dispatch(eng)
+        streamed, finished = {r: [] for r in rids}, {}
+        if instrument:
+            # An EngineLoop that is never started installs its hooks on the
+            # engine: histograms, typed counters, the capacity sampler and
+            # the decision log. Its token and finish callbacks are replaced
+            # by ones that record what would stream.
+            EngineLoop(eng, bus=EventBus(), registry=MetricsRegistry("pllm_serving_"))
+            eng.on_token = lambda rid, tok: streamed[rid].append(tok)
+            eng.on_finish = lambda rid, toks: finished.__setitem__(rid, list(toks))
+            tracer = Tracer(SpanRecorder(), sample=1.0, seed=SEED)
+            for rid in rids:
+                eng.set_trace(rid, tracer.begin_request())
+        waits = [0]
+        reap = eng._reap_window
+
+        def counted(w):
+            waits[0] += 1
+            return reap(w)
+
+        eng._reap_window = counted
+        out = eng.run(pipeline=pipeline)
+        torch.cuda.synchronize()
+        if instrument and any(streamed[r] != out[r] or finished.get(r) != out[r] for r in rids):
+            raise AssertionError("H1: on_token/on_finish did not stream each request's output")
+        return [out[r] for r in rids], eng.stats, waits[0]
+
+    # The reference streams (synchronous scheduler), and the hooks on and off
+    # under the pipelined one, every dispatch under the sync guard: the same
+    # streams, windows and reaps, and no hook waits for the stream.
+    want, _, _ = offline(False)
+    plain, st_plain, reaps_plain = offline(True)
+    inst, st_inst, reaps_inst = offline(True, instrument=True)
+    hooks = {"windows_reaped": [st_plain["windows_reaped"], st_inst["windows_reaped"]],
+             "reaps": [reaps_plain, reaps_inst], "streams_equal": plain == inst,
+             "host_blocked_s": [st_plain["host_blocked_s"], st_inst["host_blocked_s"]]}
+    log("H1_hooks", **hooks, hooks_on="every hook EngineLoop installs, on_token/on_finish recording",
+        sync_guard="every dispatch under set_sync_debug_mode('error')")
+    if plain != inst or reaps_plain != reaps_inst or st_plain["windows_reaped"] != st_inst["windows_reaped"]:
+        raise AssertionError(f"H1: the frontend hooks changed the offline run: {hooks}")
+
+    # (a) the in-process loop at the engine's defaults (pipelined, depth 2),
+    # unguarded as the servers are (the hooks' syncs were checked above).
+    eng = ServingEngine(params, model, device=DEVICE, temperature=0.0, **SERVE_ENGINE)
+    registry = MetricsRegistry("pllm_serving_")
+    loop = EngineLoop(eng, admission=AdmissionController(registry=registry), bus=EventBus(), registry=registry,
+                      tracer=Tracer(SpanRecorder(), sample=1.0, seed=SEED)).start()
+    reset_kernel_counts()
+    try:
+        rep_a = run_engine_loop(loop, spec)
+    finally:
+        if not loop.stop(timeout=H1_WAIT):
+            raise AssertionError("H1 loop: the engine thread did not stop")
+    launches_a = kernel_counts()
+    if loop.failure is not None:
+        raise AssertionError(f"H1 loop: the engine failed: {loop.failure!r}")
+    got_a = _check_done("H1 loop", rep_a, schedule)
+    cmp_a = compare_streams("H1 loop", params, model, prompts, want, got_a)
+    st = eng.stats
+    lat_a = _latency(rep_a)
+    log("H1_loop", card=card, engine=SERVE_ENGINE, pipeline_depth=eng.pipeline_depth, load=H1_SPEC, **lat_a,
+        windows=st["windows"], windows_reaped=st["windows_reaped"], host_blocked_s=st["host_blocked_s"],
+        host_blocked_s_per_window=st["host_blocked_s"] / max(1, st["windows_reaped"]),
+        launches={k: n for k, n in launches_a.items() if n}, streams_vs_offline=cmp_a)
+    _assert_routes("H1 loop", launches_a, ragged=False)
+    del eng, loop
+    _free_card()
+
+    # (b) the serve CLI over HTTP, and (c) a chunked, prefix-cached one with
+    # a queue depth of 4: both started together, driven one after the other.
+    servers = {"http": _start_server("http", imported, []),
+               "chunked": _start_server("chunked", imported, [
+                   "--prefill_chunk_tokens", "256", "--prefix_cache", "--max_queue_depth", str(H1_QUEUE_DEPTH)])}
+    try:
+        base = _server_base(servers["http"])
+        rep_b, launches_b = _measured(servers["http"], base, spec)
+        got_b = _check_done("H1 http", rep_b, schedule)
+        cmp_b = compare_streams("H1 http", params, model, prompts, want, got_b)
+        lat_b = _latency(rep_b)
+        traced = all(o.trace_id for o in rep_b.outcomes)
+        # SSE on an idle server against the same request's full response.
+        sse_prompt, sse_new = prompts[0], schedule[0].max_new
+        sse_toks, sse_final = _sse(base, sse_prompt, sse_new)
+        code, _, full = _http(base, "/v1/generate", {"prompt": sse_prompt, "max_new_tokens": sse_new})
+        full = json.loads(full)
+        sse_ok = code == 200 and sse_toks == full["tokens"] and sse_final["status"] == "done"
+        # A client that walks away mid-stream: its blocks come back.
+        idle_free = json.loads(_http(base, "/debug/engine")[2])["pool"]["free"]
+        _disconnect(base, prompts[1], 64)
+        deadline, freed, dbg = time.monotonic() + 60, False, {}
+        while time.monotonic() < deadline and not freed:
+            dbg = json.loads(_http(base, "/debug/engine")[2])
+            freed = dbg["pool"]["free"] == idle_free and dbg["rows"]["active"] == 0
+            time.sleep(0.05)
+        # A deadline of 1 ms: 504.
+        code_504, _, body_504 = _http(base, "/v1/generate", {"prompt": prompts[2], "max_new_tokens": 32,
+                                                             "deadline_s": 0.001})
+        metrics = _http(base, "/metrics")[2]
+        health, ready = _http(base, "/healthz"), _http(base, "/readyz")
+        slo = json.loads(_http(base, "/slo")[2])
+        fleet = slo["latency"]["fleet"]
+        checks_b = {"sse_equal_full": sse_ok, "disconnect_freed": bool(freed), "idle_pool_free": idle_free,
+                    "disconnect_cancelled": dbg.get("stats", {}).get("cancelled", 0),
+                    "deadline_1ms_status": code_504, "metrics_lint": lint_exposition(metrics),
+                    "healthz": health[0], "readyz": ready[0],
+                    "slo_ttft_p99_s": fleet.get("ttft_s", {}).get("p99"),
+                    "slo_e2e_p99_s": fleet.get("e2e_s", {}).get("p99"), "trace_ids": traced,
+                    "ready_s": servers["http"].get("ready_s"),
+                    "cold_request_s": servers["http"].get("cold_request_s")}
+        stop_b = _stop_server(servers["http"])
+        log("H1_http", card=card, module="pretraining_llm_tpu_torch.serve --http", load=H1_SPEC, **lat_b,
+            checks=checks_b, shutdown=stop_b, launches_load={k: n for k, n in launches_b.items() if n},
+            streams_vs_offline=cmp_b)
+        if not (sse_ok and freed and code_504 == 504 and not checks_b["metrics_lint"] and health[0] == 200
+                and ready[0] == 200 and checks_b["slo_ttft_p99_s"] is not None
+                and checks_b["slo_e2e_p99_s"] is not None and traced):
+            raise AssertionError(f"H1 http checks: {checks_b} (504 body {body_504[:300]})")
+        _assert_routes("H1 http", launches_b, ragged=False)
+        ratio = {q: lat_b["e2e_s"][q] / lat_a["e2e_s"][q] for q in ("p50", "p90", "p99")}
+        log("H1_http_vs_loop", card=card, e2e_http_over_loop=ratio,
+            tokens_per_s={"loop": lat_a["tokens_per_s"], "http": lat_b["tokens_per_s"]},
+            ttft_p50_s={"loop": lat_a["ttft_s"]["p50"], "http": lat_b["ttft_s"]["p50"]})
+
+        cbase = _server_base(servers["chunked"])
+        cspec = LoadSpec(**H1_CHUNKED_SPEC)
+        cschedule = build_schedule(cspec)
+        stats0 = json.loads(_http(cbase, "/debug/engine")[2])["stats"]
+        rep_c, launches_c = _measured(servers["chunked"], cbase, cspec)
+        stats1 = json.loads(_http(cbase, "/debug/engine")[2])["stats"]
+        cache_hits = {k: stats1.get(k, 0) - stats0.get(k, 0) for k in (
+            "prefix_cache_hits", "prefix_cache_misses", "prefix_cache_hit_tokens")}
+        got_c = _check_done("H1 chunked", rep_c, cschedule)
+        # The same requests on the offline synchronous engine, chunked with
+        # the prefix cache (path 2's settings).
+        ceng = ServingEngine(params, model, device=DEVICE, temperature=0.0, prefill_chunk_tokens=256,
+                             prefix_cache=True, **SERVE_ENGINE)
+        crids = [ceng.submit(sr.prompt, sr.max_new) for sr in cschedule]
+        cout = ceng.run(pipeline=False)
+        cmp_c = compare_streams("H1 chunked", params, model, [sr.prompt for sr in cschedule],
+                                [cout[r] for r in crids], got_c)
+        del ceng
+        # A burst past the queue depth: some 429s with Retry-After.
+        burst: list = [None] * H1_BURST
+
+        def one(i):
+            burst[i] = _http(cbase, "/v1/generate", {"prompt": cschedule[i].prompt, "max_new_tokens": 64})
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(H1_BURST)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=H1_WAIT)
+        codes = [b[0] if b else None for b in burst]
+        retry_after = sorted({b[1].get("Retry-After") for b in burst if b and b[0] == 429})
+        dbg_c = json.loads(_http(cbase, "/debug/engine")[2])
+        stop_c = _stop_server(servers["chunked"])
+        lat_c = _latency(rep_c)
+        log("H1_chunked", card=card, load=H1_CHUNKED_SPEC, **lat_c, burst=H1_BURST, queue_depth=H1_QUEUE_DEPTH,
+            burst_codes={str(c): codes.count(c) for c in sorted(set(codes), key=str)}, retry_after=retry_after,
+            prefix_cache_load=cache_hits, prefix_cache=dbg_c.get("prefix_cache"), shutdown=stop_c,
+            ready_s=servers["chunked"].get("ready_s"), cold_request_s=servers["chunked"].get("cold_request_s"),
+            launches_load={k: n for k, n in launches_c.items() if n}, streams_vs_offline=cmp_c)
+        if cache_hits["prefix_cache_hits"] <= 0 or cache_hits["prefix_cache_hit_tokens"] <= 0:
+            raise AssertionError(f"H1 chunked: the load of shared prefixes never hit the prefix cache: {cache_hits}")
+        if codes.count(429) < 1 or None in retry_after or set(codes) - {200, 429}:
+            raise AssertionError(f"H1 chunked: burst of {H1_BURST} against depth {H1_QUEUE_DEPTH}: {codes}")
+        _assert_routes("H1 chunked", launches_c, ragged=True)
+    finally:
+        for srv in servers.values():
+            if srv["proc"].poll() is None:
+                srv["proc"].kill()
+                srv["proc"].wait()
+            srv["err"].close()
+    del params
+    _free_card()
+    log("H1", wall_s=time.perf_counter() - t_h1, card=card)
+    return {"H1_loop": launches_a, "H1_http": launches_b, "H1_chunked": launches_c}
+
 # ---------------------------------------------------------------------------
 # Training
 # ---------------------------------------------------------------------------
@@ -3278,7 +3846,7 @@ def d1_child(argv: list) -> int:
 
     MetricsLogger.log = counted
     train.main(args)
-    return 0
+    return assert_no_jax_modules("D1 child")
 
 
 def _d1_events(tag: str) -> list:
@@ -3528,6 +4096,12 @@ def run_d1() -> dict:
     shutil.rmtree(D1_DIR, ignore_errors=True)
     return total
 
+def _h1_launches(serving_paths: dict, key: str) -> int:
+    """A kernel's launches over H1's three servers (in-process loop, serve
+    CLI, chunked serve CLI), added to the main path's in the kernels line."""
+    return sum(n.get(key, 0) for name, n in serving_paths.items() if name.startswith("H1"))
+
+
 def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
     from pretraining_llm_tpu_torch.ops import cuda_flash, cuda_paged
 
@@ -3556,7 +4130,7 @@ def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
         name="flash_fwd", route="cuda", mma="wgmma", source="pretraining_llm_tpu_torch/csrc/flash_fwd_tc.cu",
         replaces="pretraining_llm_tpu/ops/pallas_flash.py:104",
         shape=f"B*H={b * h} T={t} Dh={d} bf16 causal",
-        launches=launches["flash_fwd_tc"] + launches_g1["flash_fwd_tc"],
+        launches=launches["flash_fwd_tc"] + launches_g1["flash_fwd_tc"] + _h1_launches(serving_paths, "flash_fwd_tc"),
         launches_by_path={"path1": launches["flash_fwd_tc"], "G1": launches_g1["flash_fwd_tc"],
                           **{name: n["flash_fwd_tc"] for name, n in serving_paths.items()}},
         flops=flops, bytes=nbytes, **_bound(flops, nbytes), max_abs_err=errs["flash_fwd"],
@@ -3597,7 +4171,7 @@ def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
         source="pretraining_llm_tpu_torch/csrc/paged_decode.cu (paged_split_kernel)",
         replaces="pretraining_llm_tpu/ops/pallas_paged.py:48",
         shape=f"B={b} H={h} G={g} T=1 Dh={d} bs={bs} nb={nb} bf16 seq_lens={seq.tolist()}",
-        partitions=parts, launches=launches["paged_split"],
+        partitions=parts, launches=launches["paged_split"] + _h1_launches(serving_paths, "paged_split"),
         launches_by_route={r: launches[f"paged_{r}"] for r in cuda_paged.ROUTES},
         launches_by_path={"path1": {"paged_split_t1": launches["paged_split"]},
                           **{name: {k: v for k, v in n.items() if k.startswith("paged_") and "_t" in k and v}
@@ -3792,7 +4366,7 @@ def time_ragged(paths, eng2, errs, serving_paths):
     q = randn((b, t, h, d), dt, gen)
     kp, vp = randn((n_blocks, bs, g, d), dt, gen), randn((n_blocks, bs, g, d), dt, gen)
     shape = f"B={b} T={t} H={h} G={g} Dh={d} bs={bs} nb={nb} bf16 seq_lens={offsets} q_lens={lens}"
-    entry("ragged", shape, q, kp, vp, tables, seq, ql, t, p2["ragged"], 1,
+    entry("ragged", shape, q, kp, vp, tables, seq, ql, t, p2["ragged"] + _h1_launches(serving_paths, "ragged"), 1,
           {"path2": p2["ragged"], "path3": p3["ragged"],
            **{name: n["ragged"] for name, n in serving_paths.items()}})
     auto = cuda_ragged._auto_kv_splits(nb, b)
@@ -4298,6 +4872,7 @@ def main() -> int:
     p5 = run_path5(serve_ckpts)
     serving_paths.update(path5=p5[0], path5_llama=run_path5_llama())
     run_serve_cli(serve_ckpts, p5)
+    serving_paths.update(run_h1(serve_ckpts))
     train_paths = {"T1": launches_t1, "T2": run_train_path2(), "parity": run_parity(),
                    "T3": run_train_path3()}
     train_paths.update(run_t4())
@@ -4312,6 +4887,7 @@ def main() -> int:
     del eng2
     kernels += time_train_kernels(train_paths)
     kernels += time_ce_kernels(train_paths, fp32_wide)
+    assert_no_jax_modules("chip_smoke")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4323,4 +4899,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == [D1_CHILD]:
         sys.exit(d1_child(sys.argv[2:]))
+    if sys.argv[1:2] == [H1_CHILD]:
+        sys.exit(h1_child(sys.argv[2:]))
     sys.exit(main())

@@ -1,8 +1,8 @@
 """Configuration for the PyTorch port.
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig``,
-``TrainConfig``, ``ResilienceConfig``, ``ObservabilityConfig`` and
-``ServingConfig`` (same field names, defaults and validation), so that one
+``TrainConfig``, ``ResilienceConfig``, ``ObservabilityConfig``,
+``ServingConfig`` and ``FrontendConfig`` (same field names, defaults and validation), so that one
 kwargs dict builds the config of either package, and ``Config`` with those
 sections and ``with_overrides``, plus the presets the port runs: every JAX preset that
 needs no ring attention, sequence parallelism or second device (MoE
@@ -31,10 +31,12 @@ JAX trainer does, so both packages draw the same batches from one seed; a
 mixture spec, or a host without a C++ compiler, takes the numpy sampler.
 ``ResilienceConfig`` (anomaly detection and rollback, the step watchdog,
 fault drills) and ``ObservabilityConfig`` (the run-event, span and
-Prometheus sinks) are the JAX package's, field for field. Options that
-change what is computed but are not ported yet are refused where they would
-be used (``models.transformer.check_ported``); the mesh and frontend
-sections are refused by ``Config.with_overrides``.
+Prometheus sinks) are the JAX package's, field for field, and so is
+``FrontendConfig`` (the online gateway's knobs; its fleet fields are
+refused by ``serve --http`` until the fleet is ported). Options that change
+what is computed but are not ported yet are refused where they would be
+used (``models.transformer.check_ported``); the mesh section is refused by
+``Config.with_overrides``.
 """
 
 from __future__ import annotations
@@ -557,20 +559,283 @@ class ServingConfig:
             )
 
 
+@dataclass(frozen=True)
+class FrontendConfig:
+    """Online serving gateway knobs (frontend/).
+
+    All host-side: none of these change emitted tokens. They bound what the
+    HTTP frontend ADMITS, not how the engine schedules what was admitted.
+    """
+
+    # Gateway bind address. Port 0 binds an ephemeral port (tests read it
+    # back from ServingGateway.port).
+    host: str = "127.0.0.1"
+    port: int = 8000
+    # Backpressure: max requests admitted and not yet terminal; excess gets
+    # HTTP 429 + Retry-After instead of an unbounded queue wait.
+    max_queue_depth: int = 64
+    # Outstanding-token budget (sum of prompt + max_new over live
+    # requests); 0 = unlimited. A depth bound alone cannot tell ten tiny
+    # requests from one huge one.
+    max_outstanding_tokens: int = 0
+    # Retry-After hint (seconds) attached to 429 responses.
+    retry_after_s: float = 1.0
+    # Reject requests whose optimistic service estimate (decode-only TPOT
+    # EWMA) already exceeds their deadline, instead of admitting them to
+    # miss it (HTTP 504 at submit time).
+    shed_infeasible: bool = True
+    # Default per-request deadline applied when the client sends none;
+    # 0 = no default deadline.
+    default_deadline_s: float = 0.0
+    # How long the idle engine-loop thread sleeps between inbox polls.
+    idle_wait_s: float = 0.005
+    # Per-request tracing: head-sampling fraction for requests without an
+    # inbound ``traceparent`` (whose own sampled flag is honored). 0 =
+    # tracing off — the default, and the zero-cost path.
+    trace_sample: float = 0.0
+    # Chrome-trace JSON export path, written at gateway shutdown when
+    # tracing is on ("" = no export).
+    trace_path: str = ""
+    # /healthz returns 503 once the engine loop has gone this many
+    # seconds without completing a scheduler turn. 0 disables — the
+    # default, because a cold-start jit compile legitimately holds the
+    # loop thread for minutes on slow hosts.
+    healthz_stale_after_s: float = 0.0
+    # Capacity observability ring size: per-window occupancy samples and
+    # scheduler decision records kept live for /debug/* (the event-bus
+    # JSONL keeps everything regardless). 0 disables the layer.
+    capacity_ring: int = 512
+    # ---- fleet (frontend/router.py); replicas=1 keeps the single
+    # EngineLoop path with zero router overhead. -----------------------
+    # Number of engine replicas behind the router tier.
+    replicas: int = 1
+    # Where each replica's engine lives: "inproc" (an EngineLoop thread
+    # in the gateway process) or "process" (one worker subprocess per
+    # replica — frontend/worker.py — behind a socket, so a kill -9 or a
+    # dropped connection is a REAL fault domain, not a simulated one).
+    # The router/sentinel/gateway contract is identical in both modes.
+    replica_mode: str = "inproc"
+    # Prefix-affinity routing: prompt tokens hashed for placement. 0
+    # disables affinity (pure least-loaded).
+    affinity_tokens: int = 32
+    # Spill off the affinity choice when it carries this many more
+    # in-system requests than the least-loaded replica.
+    spill_margin: int = 4
+    # Watchdog: eject a replica whose loop has active requests but has
+    # not completed a scheduler turn for this long. 0 disables (same
+    # cold-jit rationale as healthz_stale_after_s).
+    wedged_after_s: float = 0.0
+    # Relaunch backoff for ejected replicas: initial and cap (doubles).
+    eject_backoff_s: float = 0.5
+    eject_backoff_max_s: float = 8.0
+    # Max failovers per request before it errors out (renamed from
+    # ``redrive_max`` — see MIGRATION.md): a request that kills every
+    # replica it lands on gets a clean terminal error after this many
+    # attempts instead of fueling a redrive storm.
+    redrive_max_attempts: int = 3
+    # Brownout: when the healthy fraction of the fleet drops below this,
+    # shed low-priority / long-deadline work with 429. 0 disables.
+    brownout_min_healthy_frac: float = 0.0
+    # Under brownout: shed requests with priority below this ...
+    brownout_min_priority: int = 1
+    # ... or deadline longer than this (0 = don't shed on deadline).
+    brownout_max_deadline_s: float = 0.0
+    # ---- multi-host fleet (replica_mode="process" only). -------------
+    # Attach to pre-spawned workers (``worker.py --listen host:port``)
+    # instead of spawning subprocesses: comma-separated "host:port" list,
+    # one address per replica ("" = spawn locally). Attached workers are
+    # detached (never killed) at teardown, and the stdin-orphan watch is
+    # replaced by heartbeat leases.
+    worker_attach: str = ""
+    # Shared secret for the attach handshake: the first frame on a new
+    # connection must be a hello carrying this token or the worker drops
+    # the connection ("" = no auth; spawn mode ignores it).
+    attach_token: str = ""
+    # Heartbeat lease: a worker that hears nothing from its router for
+    # this long stops admitting, drains, and parks; the router, hearing
+    # nothing back, redrives the worker's in-flight work. 0 disables
+    # (spawn mode's stdin-orphan + conn-EOF detection still applies).
+    lease_s: float = 0.0
+    # Write-ahead fleet journal (append-only JSONL): membership, fence
+    # generations, and per-request committed frontiers, enough for a
+    # restarted router to re-attach survivors, fence the old generation,
+    # and redrive in-flight requests bit-identically ("" = no journal).
+    journal_path: str = ""
+    # Journal compaction threshold in MB: once the JSONL grows past this,
+    # the journal rewrites itself down to its recovery_plan fold (fences,
+    # live request frontiers, next_frid) via an atomic tmp+rename. 0
+    # disables rotation (the journal grows without bound).
+    journal_rotate_mb: float = 64.0
+    # Serving-path fault plan, e.g. "replica_crash@req3:r0,slow_window@req5"
+    # ("" = none). See resilience.faults.parse_serving_faults.
+    serving_faults: str = ""
+    # Retry-After jitter: 429/503 headers carry base * U[1, 1+frac],
+    # drawn from a PRNG seeded with retry_jitter_seed (deterministic for
+    # tests; decorrelates client retry herds in prod).
+    retry_jitter_frac: float = 0.25
+    retry_jitter_seed: int = 0
+    # ---- output-integrity sentinel (resilience/integrity.py). All off
+    # by default: probes, fingerprints, and checksums add zero device
+    # work until a knob turns them on. ---------------------------------
+    # Golden-probe period: every interval the router injects a pinned
+    # greedy probe into each active replica at strict-lowest priority and
+    # quarantines any replica whose output diverges from the reference
+    # pinned at startup. 0 disables the sentinel entirely.
+    probe_interval_s: float = 0.0
+    # How many distinct probes to pin (round-robined across intervals).
+    probe_count: int = 2
+    # Tokens each probe decodes; longer probes catch subtler divergence
+    # at proportionally higher (lowest-priority) cost.
+    probe_max_new: int = 4
+    # Per-replica weight fingerprint recompute period (computed on each
+    # loop thread between scheduler turns; compared by the sentinel
+    # against the value pinned at launch). 0 disables.
+    weight_fingerprint_interval_s: float = 0.0
+
+    def __post_init__(self) -> None:
+        if not 0 <= self.port <= 65535:
+            raise ValueError(f"port must be in [0, 65535], got {self.port}")
+        if not 0.0 <= self.trace_sample <= 1.0:
+            raise ValueError(
+                f"trace_sample must be in [0, 1], got {self.trace_sample}"
+            )
+        if self.healthz_stale_after_s < 0:
+            raise ValueError(
+                f"healthz_stale_after_s must be >= 0, got "
+                f"{self.healthz_stale_after_s}"
+            )
+        if self.max_queue_depth < 1:
+            raise ValueError(
+                f"max_queue_depth must be >= 1, got {self.max_queue_depth}"
+            )
+        if self.max_outstanding_tokens < 0:
+            raise ValueError(
+                f"max_outstanding_tokens must be >= 0, got "
+                f"{self.max_outstanding_tokens}"
+            )
+        if self.retry_after_s <= 0:
+            raise ValueError(
+                f"retry_after_s must be > 0, got {self.retry_after_s}"
+            )
+        if self.default_deadline_s < 0:
+            raise ValueError(
+                f"default_deadline_s must be >= 0, got {self.default_deadline_s}"
+            )
+        if self.idle_wait_s <= 0:
+            raise ValueError(f"idle_wait_s must be > 0, got {self.idle_wait_s}")
+        if self.capacity_ring < 0:
+            raise ValueError(
+                f"capacity_ring must be >= 0 (0 disables), got "
+                f"{self.capacity_ring}"
+            )
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1, got {self.replicas}")
+        if self.affinity_tokens < 0:
+            raise ValueError(
+                f"affinity_tokens must be >= 0, got {self.affinity_tokens}"
+            )
+        if self.spill_margin < 1:
+            raise ValueError(
+                f"spill_margin must be >= 1, got {self.spill_margin}"
+            )
+        if self.wedged_after_s < 0:
+            raise ValueError(
+                f"wedged_after_s must be >= 0, got {self.wedged_after_s}"
+            )
+        if self.eject_backoff_s <= 0:
+            raise ValueError(
+                f"eject_backoff_s must be > 0, got {self.eject_backoff_s}"
+            )
+        if self.eject_backoff_max_s < self.eject_backoff_s:
+            raise ValueError(
+                "eject_backoff_max_s must be >= eject_backoff_s, got "
+                f"{self.eject_backoff_max_s} < {self.eject_backoff_s}"
+            )
+        if self.replica_mode not in ("inproc", "process"):
+            raise ValueError(
+                f"replica_mode must be 'inproc' or 'process', got "
+                f"{self.replica_mode!r}"
+            )
+        if self.redrive_max_attempts < 0:
+            raise ValueError(
+                f"redrive_max_attempts must be >= 0, got "
+                f"{self.redrive_max_attempts}"
+            )
+        if self.lease_s < 0:
+            raise ValueError(f"lease_s must be >= 0, got {self.lease_s}")
+        if self.journal_rotate_mb < 0:
+            raise ValueError(
+                f"journal_rotate_mb must be >= 0 (0 disables rotation), "
+                f"got {self.journal_rotate_mb}"
+            )
+        if self.worker_attach:
+            if self.replica_mode != "process":
+                raise ValueError(
+                    "worker_attach needs replica_mode='process', got "
+                    f"{self.replica_mode!r}"
+                )
+            addrs = [a.strip() for a in self.worker_attach.split(",")]
+            if len(addrs) != self.replicas:
+                raise ValueError(
+                    f"worker_attach lists {len(addrs)} addresses for "
+                    f"{self.replicas} replicas"
+                )
+            for a in addrs:
+                host, _, port_s = a.rpartition(":")
+                if not host or not port_s.isdigit():
+                    raise ValueError(
+                        f"worker_attach address {a!r} is not host:port"
+                    )
+        if self.attach_token and not self.worker_attach:
+            raise ValueError("attach_token needs worker_attach addresses")
+        if not 0.0 <= self.brownout_min_healthy_frac <= 1.0:
+            raise ValueError(
+                "brownout_min_healthy_frac must be in [0, 1], got "
+                f"{self.brownout_min_healthy_frac}"
+            )
+        if self.brownout_max_deadline_s < 0:
+            raise ValueError(
+                "brownout_max_deadline_s must be >= 0, got "
+                f"{self.brownout_max_deadline_s}"
+            )
+        if not 0.0 <= self.retry_jitter_frac <= 1.0:
+            raise ValueError(
+                "retry_jitter_frac must be in [0, 1], got "
+                f"{self.retry_jitter_frac}"
+            )
+        if self.probe_interval_s < 0:
+            raise ValueError(
+                f"probe_interval_s must be >= 0, got {self.probe_interval_s}"
+            )
+        if self.probe_count < 1:
+            raise ValueError(
+                f"probe_count must be >= 1, got {self.probe_count}"
+            )
+        if self.probe_max_new < 1:
+            raise ValueError(
+                f"probe_max_new must be >= 1, got {self.probe_max_new}"
+            )
+        if self.weight_fingerprint_interval_s < 0:
+            raise ValueError(
+                "weight_fingerprint_interval_s must be >= 0, got "
+                f"{self.weight_fingerprint_interval_s}"
+            )
+
+
 # ---------------------------------------------------------------------------
 # Top-level
 # ---------------------------------------------------------------------------
 
 # Sections of the JAX package's Config that the port does not have yet.
-_UNPORTED_SECTIONS = ("mesh", "frontend")
-_SECTIONS = ("model", "data", "train", "resilience", "obs", "serving")
+_UNPORTED_SECTIONS = ("mesh",)
+_SECTIONS = ("model", "data", "train", "resilience", "obs", "serving", "frontend")
 
 
 @dataclass(frozen=True)
 class Config:
-    """A named configuration: model, data, train, resilience, obs and
-    serving sections. The JAX package's ``Config`` also carries mesh and
-    frontend sections, which are not ported."""
+    """A named configuration: model, data, train, resilience, obs, serving
+    and frontend sections. The JAX package's ``Config`` also carries a mesh
+    section, which is not ported."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
@@ -578,6 +843,7 @@ class Config:
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     obs: ObservabilityConfig = field(default_factory=ObservabilityConfig)
     serving: ServingConfig = field(default_factory=ServingConfig)
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
     name: str = "custom"
 
     def with_overrides(self, overrides: Dict[str, Any]) -> "Config":
@@ -615,10 +881,10 @@ class Config:
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "Config":
         """The config a checkpoint's metadata stores (``extra["config"]``,
-        written by either package's trainer). The sections the port lacks
-        (mesh, frontend) are ignored: they change nothing that a
-        single-device forward computes. A checkpoint written before a
-        section existed gets its defaults."""
+        written by either package's trainer). The section the port lacks
+        (mesh) is ignored: it changes nothing that a single-device forward
+        computes. A checkpoint written before a section existed gets its
+        defaults."""
         return Config(
             model=ModelConfig(**raw["model"]),
             data=DataConfig(**raw.get("data", {})),
@@ -626,6 +892,7 @@ class Config:
             resilience=ResilienceConfig(**raw.get("resilience", {})),
             obs=ObservabilityConfig(**raw.get("obs", {})),
             serving=ServingConfig(**raw.get("serving", {})),
+            frontend=FrontendConfig(**raw.get("frontend", {})),
             name=raw.get("name", "custom"),
         )
 

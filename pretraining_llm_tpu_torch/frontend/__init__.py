@@ -1,0 +1,45 @@
+"""Online serving front end: the request-lifecycle layer over ServingEngine
+(the single-engine half of the JAX package's ``frontend/``).
+
+The engine (generation/serving.py) is a scheduler: it knows rows, pages
+and windows, but nothing about arrival, waiting clients, deadlines or
+load. This package adds the online half:
+
+  engine_loop  — a long-lived thread driving ``ServingEngine.pipeline_tick``
+                 that drains a submission inbox, admits requests mid-flight
+                 between scheduler turns, streams committed tokens to
+                 per-request queues, and applies cancellation/deadlines
+                 (releasing rows and pool blocks immediately);
+  admission    — backpressure policy: bounded in-system request depth and
+                 an outstanding-token budget (-> 429 Retry-After), plus
+                 deadline-aware shedding of requests that cannot finish in
+                 time (-> 504);
+  gateway      — a stdlib ThreadingHTTPServer exposing POST /v1/generate
+                 (JSON in; full response or SSE token streaming out),
+                 GET /healthz, /readyz, /metrics, /slo, /metricsz and the
+                 /debug views;
+  loadgen      — open-loop (Poisson) and closed-loop load generators
+                 reporting TTFT/TPOT/e2e percentiles and goodput-under-SLO.
+
+``python -m pretraining_llm_tpu_torch.serve --http`` wires them over one
+engine. The fleet (replicas, the router, the journal, KV transfer, the
+worker and its wire protocol) is not ported yet.
+"""
+
+from pretraining_llm_tpu_torch.frontend.admission import (  # noqa: F401
+    AdmissionController,
+    RejectedBusy,
+    RejectedInfeasible,
+)
+from pretraining_llm_tpu_torch.frontend.engine_loop import (  # noqa: F401
+    EngineLoop,
+    FrontendRequest,
+)
+from pretraining_llm_tpu_torch.frontend.gateway import ServingGateway  # noqa: F401
+from pretraining_llm_tpu_torch.frontend.loadgen import (  # noqa: F401
+    LoadReport,
+    LoadSpec,
+    build_schedule,
+    run_engine_loop,
+    run_http,
+)

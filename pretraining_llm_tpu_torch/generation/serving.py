@@ -59,11 +59,22 @@ window's or speculative round's dispatch, ``serving.reap_window`` around
 each reap (its ``host_blocked_s`` in the span's args) and
 ``serving.host_blocked`` around the reap's wait for the window's event.
 
+The online front end (``frontend/engine_loop.py``) drives ``pipeline_tick``
+from its own thread and installs the hooks the JAX engine has: ``on_token``
+and ``on_finish`` (tokens stream as they commit at reap), per-request
+traces (``set_trace``/``pop_trace``: queue, prefill, chunk and window
+spans), the window and host-blocked histograms, the capacity sampler and
+the decision log (preempt, evict, reclaim, chunk deferral, dropped corrupt
+block), and typed counters. Each is ``None`` or empty by default and every
+recording site checks that first, so the offline engine launches and
+streams the same; none of them reads the device: they record host values
+the reap already holds. ``cancel`` drops a waiting request, or flushes the
+in-flight windows and then releases a running one's row and blocks.
+``health_gauges`` reads host state only.
+
 Not ported: sharded serving (``mesh``) raises ``NotImplementedError``. MoE
-models raise the JAX engine's ``ValueError`` (it serves none). Per-request
-traces, the capacity sampler, the decision log and the window histograms
-(installed by the JAX frontend), ``cancel``, ``health_gauges`` and
-migration blocks belong to the fleet subsystem.
+models raise the JAX engine's ``ValueError`` (it serves none). Migration
+blocks (``reserve_migration_blocks``) wait for the fleet.
 """
 
 from __future__ import annotations
@@ -71,7 +82,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -155,6 +166,8 @@ class _Window:
     kind: str  # "decode" | "spec"
     snapshot: List[tuple]  # [(row, _Request)] at dispatch
     readback: _Readback  # decode: toks (+ logprob values, ids); spec: emit, n_emit
+    n: int  # decode steps (spec: k + 1 slots)
+    t_dispatch: float  # perf_counter after dispatch (trace spans, window histogram)
     toks: Any = None  # decode: (B, n) device tokens (the next window chains on them)
     emit: Any = None  # spec: (B, k+1) device emissions
     n_emit: Any = None  # spec: (B,) device emit counts
@@ -342,10 +355,38 @@ class ServingEngine:
         self.rows: List[Optional[_Request]] = [None] * self.max_batch
         self.waiting: deque = deque()
         self.finished: Dict[int, List[int]] = {}
+        # Requests aborted by cancel(): they never land in ``finished``.
+        self.cancelled: set = set()
         # Per-request lifecycle timestamps (monotonic seconds): submit_s,
         # admit_s (first row claim), first_token_s, end_s.
         self.req_timing: Dict[int, Dict[str, float]] = {}
         self._now = time.monotonic
+        # Streaming hooks (frontend/engine_loop.py), called on the
+        # scheduling thread as tokens commit (at reap in the pipelined
+        # scheduler) and as requests finish. None: offline.
+        self.on_token: Optional[Callable[[int, int], None]] = None
+        self.on_finish: Optional[Callable[[int, List[int]], None]] = None
+        # Per-request traces (observability.tracing.RequestTrace) by rid,
+        # installed by set_trace(); every recording site tests the dict's
+        # emptiness first. Recording is perf_counter reads and appends.
+        self.traces: Dict[int, Any] = {}
+        # Installed by the frontend, each observed or counted at host sites
+        # only: the window and host-blocked histograms (once per reaped
+        # window), the occupancy sampler (once per reaped window), the
+        # decision log (preempt, evict, reclaim, chunk deferral, dropped
+        # corrupt block) and the typed counters.
+        self.window_hist: Optional[Any] = None
+        self.host_blocked_hist: Optional[Any] = None
+        self.capacity: Optional[Any] = None
+        self.decisions: Optional[Any] = None
+        self.preempt_counter: Optional[Any] = None
+        self.preempt_tokens_counter: Optional[Any] = None
+        self.chunk_counter: Optional[Any] = None
+        self.chunk_tokens_counter: Optional[Any] = None
+        self.chunk_interleaved_counter: Optional[Any] = None
+        self.chunk_dedicated_counter: Optional[Any] = None
+        self.invalid_token_counter: Optional[Any] = None
+        self.kv_mismatch_counter: Optional[Any] = None
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._next_rid = 0
         self._admit_counter = 0
@@ -436,6 +477,85 @@ class ServingEngine:
         self.req_timing[rid] = {"submit_s": self._now()}
         self.waiting.append(_Request(rid, [int(t) for t in prompt_ids], max_new))
         return rid
+
+    def set_trace(self, rid: int, trace: Any) -> None:
+        """Attach a RequestTrace to a submitted request; the scheduler
+        records its queue, prefill, chunk and window spans. ``None`` (an
+        unsampled request) is a no-op."""
+        if trace is not None:
+            self.traces[rid] = trace
+
+    def pop_trace(self, rid: int) -> Any:
+        """Detach and return a request's trace at its terminal; the caller
+        finishes it."""
+        return self.traces.pop(rid, None)
+
+    def cancel(self, rid: int) -> bool:
+        """Abort a live request and release its row and pool blocks now. A
+        waiting request is unlinked with no device work. A running one
+        first flushes the in-flight windows, as the JAX engine does: windows
+        already enqueued still write K/V into its pages and carry tokens for
+        every row, and reaping them commits those tokens, so host state is
+        exact before the blocks go back to the allocator. On the card every
+        later write into those pages (the next admission's prefill) is
+        enqueued behind the flushed windows on the one stream. Tokens the
+        flush commits still stream through ``on_token``; the caller owns
+        the terminal. False when the request is unknown or already finished
+        (cancellation lost the race: the output is in ``finished``)."""
+        for req in self.waiting:
+            if req.rid == rid:
+                self.waiting.remove(req)
+                self._mark_cancelled(rid)
+                return True
+        req = next((r for r in self.rows if r is not None and r.rid == rid), None)
+        if req is None:
+            return False
+        self._flush_inflight()
+        # The flush may have finished the request.
+        if req.row is None or self.rows[req.row] is not req:
+            return False
+        # A victim admitted this round may still hold its first token on the
+        # device; resolving it can itself finish the request.
+        self._resolve_first(req)
+        if req.row is None:
+            return False
+        self._release_row(req)
+        self._mark_cancelled(rid)
+        return True
+
+    def _mark_cancelled(self, rid: int) -> None:
+        self.cancelled.add(rid)
+        self.stats["cancelled"] = self.stats.get("cancelled", 0) + 1
+        t = self.req_timing.get(rid)
+        if t is not None:
+            t["end_s"] = self._now()
+
+    def health_gauges(self) -> Dict[str, Any]:
+        """Point-in-time occupancy for the health surface: rows, pool and
+        queue. Host containers only, each read a snapshot, so gateway
+        threads may call it while the engine thread runs (at most one turn
+        stale). Block 0 is the reserved scratch block, hence the ``- 1``
+        (the accounting of ``EngineLoop.debug_engine``)."""
+        pool_total = self.alloc.n_blocks - 1
+        pool_free = self.alloc.available
+        cache = self.prefix_cache
+        pool_cold = cache.evictable if cache is not None else 0
+        stats = dict(self.stats)
+        return {
+            "rows_active": sum(r is not None for r in list(self.rows)),
+            "rows_capacity": self.max_batch,
+            "waiting": len(self.waiting),
+            "pool_total": pool_total,
+            "pool_free": pool_free,
+            "pool_cold": pool_cold,
+            "pool_live": pool_total - pool_free - pool_cold,
+            "kv_pages_adopted": int(stats.get("kv_pages_adopted", 0)),
+            "kv_pages_rejected": int(stats.get("kv_pages_rejected", 0)),
+            "preemptions": int(stats.get("preemptions", 0)),
+        }
+
+    def _trace_id(self, rid: int) -> Optional[str]:
+        return getattr(self.traces.get(rid), "trace_id", None)
 
     def timing_summary(self, rid: int) -> Dict[str, float]:
         """Lifecycle latencies (seconds): ``queue_wait_s`` (submit -> first
@@ -588,6 +708,9 @@ class ServingEngine:
     def _note_chunk_window(self, decoded: bool) -> None:
         key = "chunk_windows_interleaved" if decoded else "chunk_windows_dedicated"
         self.stats[key] += 1
+        counter = self.chunk_interleaved_counter if decoded else self.chunk_dedicated_counter
+        if counter is not None:
+            counter.inc()
 
     def _decode_window(self, base: torch.Tensor, tables_dev: torch.Tensor, seq_dev: torch.Tensor,
                        n: int) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
@@ -714,7 +837,8 @@ class ServingEngine:
         snapshot = [(i, self.rows[i]) for i in active]
         for i in active:
             self.seq_lens[i] = min(int(self.seq_lens[i]) + n, capacity)
-        self._inflight.append(_Window(kind="decode", snapshot=snapshot, readback=readback, toks=toks))
+        self._inflight.append(_Window(kind="decode", snapshot=snapshot, readback=readback, n=n,
+                                      t_dispatch=time.perf_counter(), toks=toks))
 
     def _dispatch_spec_round(self) -> None:
         """Enqueue one speculative round against the device frontier: seed
@@ -746,8 +870,8 @@ class ServingEngine:
         self.stats["spec_rounds"] = self.stats.get("spec_rounds", 0) + 1
         snapshot = [(i, self.rows[i]) for i in active]
         self._inflight.append(_Window(
-            kind="spec", snapshot=snapshot, readback=_Readback(emit, n_emit), emit=emit, n_emit=n_emit,
-            seq_dev=seq_dev,
+            kind="spec", snapshot=snapshot, readback=_Readback(emit, n_emit), n=k + 1,
+            t_dispatch=time.perf_counter(), emit=emit, n_emit=n_emit, seq_dev=seq_dev,
         ))
 
     def _merge_admitted(self, base: torch.Tensor, seq_dev: Optional[torch.Tensor] = None):
@@ -774,17 +898,39 @@ class ServingEngine:
         rows on stop/max_new (their surplus tokens are dropped, as in the
         synchronous path). The wait for the window's event is the host's
         blocked time, counted in ``host_blocked_s``."""
-        with _spans.span("serving.reap_window", window=self.stats["windows_reaped"]) as meta:
+        widx = self.stats["windows_reaped"]
+        with _spans.span("serving.reap_window", window=widx) as meta:
             t0 = time.perf_counter()
             with _spans.span("serving.host_blocked"):
                 host = w.readback.wait()
-            blocked = time.perf_counter() - t0
+            t_reaped = time.perf_counter()
+            blocked = t_reaped - t0
             meta["host_blocked_s"] = round(blocked, 6)
             self.stats["host_blocked_s"] += blocked
             self.stats["windows_reaped"] += 1
-            self._commit_window(w, host)
+            if self.window_hist is not None:
+                self.window_hist.observe(t_reaped - w.t_dispatch)
+            if self.host_blocked_hist is not None:
+                self.host_blocked_hist.observe(blocked)
+            toks_before = self.stats["tokens"]
+            self._commit_window(w, host, widx, t_reaped, blocked)
+            if self.capacity is not None:
+                # Occupancy at the reap: host values this method already
+                # holds (the snapshot, the committed-token delta, the free
+                # count, the queue), no device read.
+                self.capacity.observe_window(
+                    window=widx, kind=w.kind, t_dispatch_s=w.t_dispatch, t_reap_s=t_reaped, steps=w.n,
+                    rows=len(w.snapshot), tokens_committed=self.stats["tokens"] - toks_before,
+                    waiting=len(self.waiting), pool_free=self.alloc.available,
+                    pool_cold=self.prefix_cache.evictable if self.prefix_cache is not None else 0,
+                    host_blocked_s=blocked, cum_tokens=self.stats["tokens"],
+                    cum_prefill_tokens=self.stats["prefill_tokens"],
+                    cum_rework_prefill_tokens=self.stats.get("preempted_tokens_recomputed", 0),
+                    cum_preemptions=self.stats["preemptions"],
+                )
 
-    def _commit_window(self, w: _Window, host: List[np.ndarray]) -> None:
+    def _commit_window(self, w: _Window, host: List[np.ndarray], widx: int, t_reaped: float,
+                       blocked: float) -> None:
         """The reap's bookkeeping on a window's host tokens."""
         capacity = self.max_blocks * self.block_size
         lp_host = (host[1], host[2]) if w.kind == "decode" and len(host) == 3 else None
@@ -794,6 +940,13 @@ class ServingEngine:
                 # this window's tokens for it are surplus. (Preemption
                 # cannot land here: it flushes the queue first.)
                 continue
+            if self.traces:
+                tr = self.traces.get(req.rid)
+                if tr is not None and not tr.finished:
+                    # One span per (request, window) it rode, dispatch to
+                    # reap; under pipelining they overlap across windows.
+                    tr.span("req.window", w.t_dispatch, t_reaped, kind=w.kind, steps=w.n, window=widx,
+                            host_blocked_s=round(blocked, 6))
             self._resolve_first(req)
             if req.row is None:  # the first token alone finished it
                 continue
@@ -844,9 +997,18 @@ class ServingEngine:
             self.logprobs.setdefault(req.rid, []).append(entry)
 
     def _emit_token(self, req: _Request, tok: int) -> None:
+        """First-token time and the streaming hook. The stop token is not
+        output (``_finish`` strips it), so it is never streamed; across
+        preemptions the concatenated stream is the final output."""
         t = self.req_timing.get(req.rid)
-        if t is not None and tok != self.stop_token:
-            t.setdefault("first_token_s", self._now())
+        if t is not None and tok != self.stop_token and "first_token_s" not in t:
+            t["first_token_s"] = self._now()
+            if self.traces:
+                tr = self.traces.get(req.rid)
+                if tr is not None:
+                    tr.event("req.first_token")
+        if self.on_token is not None and tok != self.stop_token:
+            self.on_token(req.rid, tok)
 
     def _check_token(self, req: _Request, tok: int) -> None:
         """An out-of-vocab id can only come from corrupted state (sampling
@@ -855,6 +1017,8 @@ class ServingEngine:
         if 0 <= tok < self.cfg.vocab_size:
             return
         self.stats["invalid_tokens"] = self.stats.get("invalid_tokens", 0) + 1
+        if self.invalid_token_counter is not None:
+            self.invalid_token_counter.inc()
         err = IntegrityError(
             f"invalid token id {tok} for rid {req.rid} (vocab size "
             f"{self.cfg.vocab_size}): refusing to stream corrupted output"
@@ -896,6 +1060,13 @@ class ServingEngine:
             self.prefix_cache.release_shared(shared[j:])
             self.prefix_cache.drop_block(b)
             self.stats["kv_mismatches"] = self.stats.get("kv_mismatches", 0) + 1
+            if self.kv_mismatch_counter is not None:
+                self.kv_mismatch_counter.inc()
+            if self.decisions is not None:
+                self.decisions.record("drop_corrupt_block", rid=req.rid, trace_id=self._trace_id(req.rid),
+                                      block=b, verified_blocks=j)
+                if self.decisions.bus is not None:
+                    self.decisions.bus.emit("integrity_kv_mismatch", rid=req.rid, block=b, verified_blocks=j)
             keep = shared[:j]
             if len(keep) < self.prefix_cache.min_blocks:
                 if keep:
@@ -918,7 +1089,9 @@ class ServingEngine:
         """``alloc.alloc(n)``, evicting cold cached blocks first when the
         free list alone cannot cover it."""
         if self.prefix_cache is not None and n > self.alloc.available:
-            self.prefix_cache.evict(n - self.alloc.available)
+            evicted = self.prefix_cache.evict(n - self.alloc.available)
+            if evicted and self.decisions is not None:
+                self.decisions.record("evict_cold", blocks=evicted, reason="admission")
         return self.alloc.alloc(n)
 
     def _admission_capacity(self) -> int:
@@ -969,10 +1142,13 @@ class ServingEngine:
             # Prefix-cache lookup: retain the longest cached block-aligned
             # prefix and charge admission only for the rest.
             cached_len, shared = 0, []
+            t_lookup = t_hit = 0.0
             if self.prefix_cache is not None:
+                t_lookup = time.perf_counter()
                 cached_len, shared = self.prefix_cache.acquire(req.prompt)
                 if self.kv_checksum and shared:
                     cached_len, shared = self._verify_shared(req, cached_len, shared)
+                t_hit = time.perf_counter()
             need_new = need - len(shared)
             # Admission watermark: keep one growth block of headroom per
             # running row, else a nearly dry pool admits a newcomer only for
@@ -1004,11 +1180,25 @@ class ServingEngine:
                     self.stats["preempted_tokens_recomputed"] = (
                         self.stats.get("preempted_tokens_recomputed", 0) + p - cached_len
                     )
+                    if self.preempt_tokens_counter is not None:
+                        self.preempt_tokens_counter.inc(p - cached_len)
             t = self.req_timing.get(req.rid)
             if t is not None:
                 t.setdefault("admit_s", self._now())
                 if self.prefix_cache is not None:
                     t["cached_tokens"] = t.get("cached_tokens", 0) + cached_len
+            if self.traces:
+                tr = self.traces.get(req.rid)
+                if tr is not None:
+                    if self.prefix_cache is not None:
+                        tr.span("prefix_cache.lookup", t_lookup, t_hit, cached_tokens=cached_len,
+                                blocks=len(shared))
+                    if "admit" not in tr.marks:
+                        # The queue span runs to the first row claim; a
+                        # preempted request's re-admission keeps it.
+                        now_p = time.perf_counter()
+                        tr.span("req.queue", tr.marks.get("submit", tr.t0), now_p, n_prompt=p)
+                        tr.marks["admit"] = now_p
             self.rows[row] = req
             self.tables[row, :] = 0
             self.tables[row, : len(req.blocks)] = req.blocks
@@ -1068,6 +1258,14 @@ class ServingEngine:
                 )
             self.suffix_shapes.append((offsets, [len(x) for x in suffixes], max(map(len, suffixes))))
             groups.append((hits, toks))
+        if self.traces:
+            # The host's prefill interval (dispatch; the device work
+            # overlaps later windows), shared by a batched admission.
+            t_prefill_end = time.perf_counter()
+            for req in admits:
+                tr = self.traces.get(req.rid)
+                if tr is not None:
+                    tr.span("req.prefill", t0, t_prefill_end, n_prompt=len(req.prompt), batch=len(admits))
         self.stats["tokens"] += len(admits)  # the prefill-sampled firsts
         if defer:
             for group, toks in groups:
@@ -1110,6 +1308,10 @@ class ServingEngine:
         for req in pending:
             if budget <= 0:
                 self.stats["chunk_deferrals"] = self.stats.get("chunk_deferrals", 0) + 1
+                if self.decisions is not None:
+                    self.decisions.record("defer_prefill_chunk", rid=req.rid, trace_id=self._trace_id(req.rid),
+                                          budget=self.prefill_chunk_tokens,
+                                          tokens_left=len(req.prompt) - req.prefill_pos)
                 continue
             start = req.prefill_pos
             take = min(budget, len(req.prompt) - start)
@@ -1132,6 +1334,7 @@ class ServingEngine:
                 self._gen, temperature=self.temperature, t_bucket=self.prefill_chunk_tokens,
             )
         self.suffix_shapes.append((offsets, [len(c) for c in chunks], self.prefill_chunk_tokens))
+        t_chunk_end = time.perf_counter()
         finals: List[int] = []
         for i, req in enumerate(group):
             take = len(chunks[i])
@@ -1145,6 +1348,19 @@ class ServingEngine:
                 self.stats["preempted_tokens_recomputed"] = (
                     self.stats.get("preempted_tokens_recomputed", 0) + take
                 )
+                if self.preempt_tokens_counter is not None:
+                    self.preempt_tokens_counter.inc(take)
+            if self.chunk_counter is not None:
+                self.chunk_counter.inc()
+            if self.chunk_tokens_counter is not None:
+                self.chunk_tokens_counter.inc(take)
+            if self.traces:
+                tr = self.traces.get(req.rid)
+                if tr is not None:
+                    # One span per (request, chunk); a batched group shares
+                    # the host interval.
+                    tr.span("req.prefill_chunk", t0, t_chunk_end, offset=offsets[i], chunk_tokens=take,
+                            final=req.prefill_pos is None, batch=len(group))
             if req.prefill_pos is None:
                 finals.append(i)
         self.stats["tokens"] += len(finals)  # prefill-sampled firsts
@@ -1218,6 +1434,9 @@ class ServingEngine:
                 if self._reclaim_spec_pages(horizon):
                     continue
                 if self.prefix_cache is not None and self.prefix_cache.evict(1):
+                    if self.decisions is not None:
+                        self.decisions.record("evict_cold", blocks=1, reason="growth", rid=req.rid,
+                                              trace_id=self._trace_id(req.rid))
                     continue  # a cold cached block went back to the pool
                 victim = max((r for r in self.rows if r is not None), key=lambda r: r.admit_order)
                 self._preempt(victim)
@@ -1268,6 +1487,8 @@ class ServingEngine:
                 freed += len(surplus)
         if freed:
             self.stats["page_reclaims"] = self.stats.get("page_reclaims", 0) + freed
+            if self.decisions is not None:
+                self.decisions.record("reclaim_spec", blocks=freed, horizon=horizon)
         return freed
 
     # -- release --------------------------------------------------------------
@@ -1281,8 +1502,18 @@ class ServingEngine:
         if req.row is None:
             return
         self.stats["preemptions"] += 1
+        if self.preempt_counter is not None:
+            self.preempt_counter.inc()
         new_prompt = req.prompt + req.generated
         remaining = req.max_new - len(req.generated)
+        if self.decisions is not None:
+            # Youngest first by admission order, so the oldest requests
+            # always make progress.
+            self.decisions.record(
+                "preempt", rid=req.rid, trace_id=self._trace_id(req.rid), row=req.row,
+                victim_admit_order=req.admit_order, blocks_reclaimed=len(req.blocks),
+                tokens_to_recompute=len(req.generated), preemption_n=req.preemptions + 1,
+            )
         self._release_row(req)
         self.waiting.appendleft(_Request(
             req.rid, new_prompt, remaining,
@@ -1302,6 +1533,8 @@ class ServingEngine:
         if t is not None:
             t["end_s"] = self._now()
         self._release_row(req)
+        if self.on_finish is not None:
+            self.on_finish(req.rid, out)
 
     def _release_row(self, req: _Request) -> None:
         row = req.row

@@ -1,6 +1,6 @@
-"""Run-wide observability for training: events, spans, goodput, metrics,
-device memory and build telemetry (the training side of the JAX package's
-``observability/``).
+"""Run-wide observability: events, spans, goodput, metrics, device memory
+and build telemetry for training, and request traces, capacity and SLOs
+for the online server (the JAX package's ``observability/``).
 
   - events.py   stamped run events on an ``EventBus`` (in-process
                 subscribers and an optional JSONL sink); the rest of the
@@ -14,10 +14,16 @@ device memory and build telemetry (the training side of the JAX package's
   - export.py   the Prometheus textfile (atomic write) and its lint;
   - device.py   ``torch.cuda`` memory samples and the port's kernel builds
                 as compile telemetry;
-  - hub.py      ``ObservabilityHub``, what the trainer wires in.
+  - hub.py      ``ObservabilityHub``, what the trainer wires in;
+  - tracing.py  per-request span trees (W3C ``traceparent``) on the
+                spans recorder's virtual tracks;
+  - capacity.py the serving engine's occupancy sampler and scheduler
+                decision log;
+  - sketches.py mergeable, windowed percentile sketches;
+  - slo.py      the live SLO engine: error budgets and burn-rate alerts
+                over the ``req_*`` events.
 
 Everything is host-side; nothing here syncs the device between log
 boundaries. ``scripts/obs_report.py`` reads the JSONL this package writes.
-The serving fleet's pieces (request traces, capacity, SLOs, sketches,
-clock sync) are not ported.
+The fleet's clock sync (``clocksync.py``) is not ported.
 """

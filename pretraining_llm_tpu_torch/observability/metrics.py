@@ -1,6 +1,5 @@
 """Typed live metrics: counters, gauges, and log-bucketed histograms (the
-JAX package's ``observability/metrics.py``, without the fleet's
-``render_merged``).
+JAX package's ``observability/metrics.py``).
 
 The textfile exporter (export.py) renders a flat ``{name: value}`` dict —
 every series becomes ``# TYPE ... gauge``, which is wrong for anything
@@ -257,7 +256,11 @@ class MetricsRegistry:
     name share a single ``# TYPE`` header at render time.
 
     ``const_labels`` are merged into every series registered here (call-site
-    labels win on collision).
+    labels win on collision). This is how a fleet of engine replicas shares
+    one metric vocabulary without stomping each other: each replica gets its
+    own registry carrying ``{"replica": "i"}``, the SAME registration code
+    runs unchanged inside each, and ``render_merged`` joins the registries
+    into one exposition where the label tells the series apart.
     """
 
     def __init__(
@@ -374,3 +377,60 @@ class MetricsRegistry:
                 out[key] = m.value
         return out
 
+
+def render_merged(
+    registries: Sequence[MetricsRegistry],
+    extra_gauges: Optional[Mapping[str, float]] = None,
+) -> str:
+    """One valid exposition over several registries (the fleet case: one
+    fleet-level registry + one per replica, all sharing a prefix and metric
+    names distinguished by const_labels). Metric names may repeat ACROSS
+    registries — they get one ``# TYPE`` header and their samples are
+    concatenated — but a name registered as different kinds in different
+    registries is a programming error and raises. ``extra_gauges`` follow
+    ``MetricsRegistry.render`` semantics against the merged name set, using
+    the first registry's prefix."""
+    if not registries:
+        raise ValueError("render_merged needs at least one registry")
+    kinds: Dict[str, str] = {}
+    helps: Dict[str, str] = {}
+    by_name: Dict[str, List[Any]] = {}
+    for reg in registries:
+        with reg._lock:
+            series = list(reg._series.values())
+            for name, kind in reg._kinds.items():
+                prior = kinds.get(name)
+                if prior is not None and prior != kind:
+                    raise ValueError(
+                        f"metric {name} registered as {prior} in one "
+                        f"registry and {kind} in another"
+                    )
+                kinds[name] = kind
+            for name, help in reg._helps.items():
+                helps.setdefault(name, help)
+        for m in series:
+            by_name.setdefault(m.name, []).append(m)
+    lines: List[str] = []
+    for name in sorted(by_name):
+        if name in helps:
+            lines.append(f"# HELP {name} {helps[name]}")
+        lines.append(f"# TYPE {name} {kinds[name]}")
+        for m in by_name[name]:
+            for sname, slabels, sval in m.samples():
+                lines.append(
+                    f"{sname}{_format_labels(slabels)} {_format_value(sval)}"
+                )
+    if extra_gauges:
+        prefix = registries[0].prefix
+        for key in sorted(extra_gauges):
+            val = extra_gauges[key]
+            if isinstance(val, bool):
+                val = float(val)
+            if not isinstance(val, (int, float)):
+                continue
+            name = _metric_name(key, prefix)
+            if name in kinds:
+                continue  # a typed series owns this name
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name} {_format_value(float(val))}")
+    return "\n".join(lines) + ("\n" if lines else "")

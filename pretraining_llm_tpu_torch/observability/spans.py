@@ -16,8 +16,10 @@ spans are counted as dropped instead of recorded.
 
 Spans nest per-thread: each records its thread id and stack depth, and the
 "X" (complete) Chrome events reconstruct the nesting from time containment.
-(The fleet's request tracer and worker span export, ``record`` and
-``drain`` in the JAX package, are not ported.)
+``record`` takes a completed span with explicit timestamps, optionally on
+a named virtual track: the request tracer (``tracing.py``) records each
+request's spans there. (The fleet workers' span export, ``drain`` in the
+JAX package, waits for the fleet.)
 """
 
 from __future__ import annotations
@@ -67,6 +69,32 @@ class SpanRecorder:
                 else:
                     self._dropped += 1
 
+    def record(
+        self,
+        name: str,
+        t0: float,
+        dur: float,
+        *,
+        meta: Optional[Dict[str, Any]] = None,
+        track: Optional[str] = None,
+    ) -> None:
+        """Record a COMPLETED span with explicit timestamps (perf_counter
+        seconds). The request tracer needs this because its spans start
+        and end on different threads — a context manager cannot bracket
+        them. ``track`` places the span on a named virtual track in the
+        Chrome trace export (per-request waterfalls) instead of the
+        calling thread's row."""
+        m = dict(meta) if meta else {}
+        if track is not None:
+            m["_track"] = track
+        with self._lock:
+            if len(self._events) < self.max_events:
+                self._events.append(
+                    (name, t0, dur, threading.get_ident(), 0, m)
+                )
+            else:
+                self._dropped += 1
+
     # -- aggregate views ----------------------------------------------
 
     def summary(self) -> Dict[str, Dict[str, float]]:
@@ -89,15 +117,34 @@ class SpanRecorder:
 
     def to_chrome_trace(self) -> Dict[str, Any]:
         """Chrome trace-event JSON object ("X" complete events, us units).
-        A nonzero dropped count is surfaced as an explicit instant event IN
-        the trace: a saturated recorder must not look like a complete one."""
+
+        Spans recorded with a ``track`` (the request tracer's waterfalls)
+        render on synthetic tids with a thread_name metadata event each,
+        so Perfetto shows one named row per request next to the real host
+        threads. A nonzero dropped count is surfaced as an explicit instant
+        event IN the trace: a saturated recorder must not look like a
+        complete one."""
         with self._lock:
             events = list(self._events)
             dropped = self._dropped
         pid = os.getpid()
         trace = []
+        track_tids: Dict[str, int] = {}
         t_last = 0.0
         for name, t0, dur, tid, depth, meta in events:
+            track = meta.get("_track")
+            if track is not None:
+                vt = track_tids.get(track)
+                if vt is None:
+                    # Virtual tids far above any real thread id's low bits
+                    # collide with nothing Perfetto groups by.
+                    vt = track_tids[track] = (1 << 22) + len(track_tids)
+                    trace.append({
+                        "name": "thread_name", "ph": "M", "pid": pid,
+                        "tid": vt, "args": {"name": track},
+                    })
+                tid = vt
+                meta = {k: v for k, v in meta.items() if k != "_track"}
             ts = (self._wall0 + (t0 - self._perf0)) * 1e6
             t_last = max(t_last, ts + dur * 1e6)
             trace.append({

@@ -1,5 +1,5 @@
-"""KV page digests and the integrity error, the serving engine's part of
-``pretraining_llm_tpu/resilience/integrity.py``.
+"""KV page digests, the weight fingerprint and the integrity error, the
+serving engine's part of ``pretraining_llm_tpu/resilience/integrity.py``.
 
 ``kv_block_digest`` is blake2b over one pool block's bytes in every pool
 leaf: K, V and, for int8 pools, their scale pages. The serving engine
@@ -10,6 +10,11 @@ hit. The digest of the same pool contents is byte for byte the JAX
 package's: leaves in the JAX tree order (layer by layer, each layer's
 names sorted), each leaf's dtype name as numpy spells it, then the page's
 bytes in row-major order.
+
+``weight_fingerprint`` is one position-weighted fp32 sum over every float
+and integer leaf of a parameter tree, read back once: the online engine
+loop pins it at start and refreshes it between scheduler turns
+(``weight_fingerprint_interval_s``). The golden probes wait for the fleet.
 """
 
 from __future__ import annotations
@@ -62,3 +67,21 @@ def kv_block_digest(pools: Any, block: int) -> str:
         h.update(_DTYPE_NAMES[page.dtype].encode())
         h.update(raw.tobytes())
     return h.hexdigest()
+
+
+def weight_fingerprint(params: Any) -> float:
+    """Position-weighted sum of every floating and integer leaf (the int8
+    codes of a quantized tree included), leaves in the JAX flatten order:
+    sum over i of (i + 1) * sum(leaf_i in fp32), accumulated in fp32 on the
+    leaves' device with ONE host read. Both value corruption and swapped
+    leaves move it; it equals the JAX package's fingerprint of the same tree
+    within fp32 rounding (the two sum in different orders). Cheap enough for
+    an interval loop, never on the per-token path."""
+    leaves = [
+        leaf for leaf in _leaves(params)
+        if isinstance(leaf, torch.Tensor) and leaf.dtype != torch.bool and not leaf.dtype.is_complex
+    ]
+    acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device if leaves else "cpu")
+    for i, leaf in enumerate(leaves):
+        acc = acc + float(i + 1) * leaf.detach().float().sum()
+    return float(acc.item())

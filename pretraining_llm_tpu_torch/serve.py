@@ -1,8 +1,8 @@
-"""Offline serving entry point of the PyTorch port.
+"""Serving entry point of the PyTorch port: the JAX package's
+``scripts/serve.py`` with one engine.
 
-The offline mode of the JAX package's ``scripts/serve.py``: a prompt file
-(one prompt a line) flows through ``generation.serving.ServingEngine``'s
-continuous batching, and each prompt gets one JSONL record with ``index``,
+Offline, a prompt file (one prompt a line) flows through
+``generation.serving.ServingEngine``'s continuous batching, and each prompt gets one JSONL record with ``index``,
 ``prompt``, ``output``, ``n_tokens`` and its lifecycle latencies
 (``queue_wait_s``, ``ttft_s``, ``e2e_s``, and ``cached_tokens`` with the
 prefix cache on), in prompt order, to ``--output`` or stdout. A summary
@@ -17,30 +17,53 @@ Examples::
     python -m pretraining_llm_tpu_torch.serve --model_path build/ck \\
         --draft_model_path build/draft --spec_k 4 --input_file prompts.txt --temperature 0
 
-``--http`` (the online gateway) and the fleet, observability and SLO flags
-of ``scripts/serve.py`` are accepted by the parser and raise
-``NotImplementedError``: they wait for the fleet hookup (ROADMAP Queue A
-item 6) and the observability port (item 3).
+With ``--http`` the same engine goes online behind ``frontend.EngineLoop``,
+``AdmissionController`` and ``ServingGateway`` (POST /v1/generate, full or
+SSE; GET /healthz, /readyz, /metrics, /slo, /metricsz, /debug/requests,
+/debug/engine) until SIGINT or SIGTERM; SIGTERM first drains the requests
+in flight. ``--events`` writes the request lifecycle (and capacity) events
+as JSONL, ``--trace`` the request traces as Chrome trace JSON at shutdown,
+and the SLO engine runs unless ``--no-slo``::
+
+    python -m pretraining_llm_tpu_torch.serve --model_path build/ck --http --port 8000 \\
+        --tokenizer byte --temperature 0 --events build/events.jsonl --trace build/trace.json
+    curl -s localhost:8000/v1/generate -d '{"prompt": "hi", "max_new_tokens": 16}'
+
+The fleet flags of ``scripts/serve.py`` (more than one replica, process
+replicas, roles, attach, leases, the journal, recovery, serving faults, the
+wedge watchdog and golden probes) are accepted by the parser and raise
+``NotImplementedError``: they wait for the fleet slice (ROADMAP Queue A
+item 6b).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
 import time
 from typing import Any, Dict, List, Optional
 
-# The JAX CLI's online, fleet, observability and SLO flags: (flag, kind).
-_UNPORTED_FLAGS = (
-    ("--host", str), ("--port", int), ("--max_queue_depth", int), ("--max_outstanding_tokens", int),
-    ("--default_deadline_s", float), ("--events", str), ("--trace", str), ("--trace_sample", float),
-    ("--healthz_stale_after_s", float), ("--replicas", int), ("--replica_mode", str),
-    ("--replica_roles", str), ("--attach", str), ("--attach_token", str), ("--lease_s", float),
-    ("--journal_path", str), ("--serving_faults", str), ("--wedged_after_s", float),
-    ("--probe_interval_s", float), ("--probe_count", int), ("--probe_max_new", int),
-    ("--weight_fingerprint_interval_s", float), ("--slo_ttft_s", float), ("--slo_e2e_s", float),
-    ("--slo_target", float), ("--slo_window_s", float),
+# The JAX CLI's online flags: (flag, kind, help). None leaves the config's
+# ``frontend`` value.
+_HTTP_FLAGS = (
+    ("--host", str, "gateway bind host"),
+    ("--port", int, "gateway bind port, 0 = ephemeral"),
+    ("--max_queue_depth", int, "backpressure: max in-system requests before 429"),
+    ("--max_outstanding_tokens", int, "backpressure: outstanding prompt+max_new budget, 0 = unlimited"),
+    ("--default_deadline_s", float, "deadline of requests that send none, 0 = none"),
+    ("--trace_sample", float, "per-request tracing head-sample fraction in [0, 1]; 0 = off"),
+    ("--healthz_stale_after_s", float, "/healthz is 503 after this many seconds without a scheduler turn"),
+    ("--weight_fingerprint_interval_s", float, "weight fingerprint refresh period on the loop thread; 0 = off"),
+)
+# Its fleet flags, refused until the fleet is ported: (flag, kind, refused
+# unless the value is this).
+_FLEET_FLAGS = (
+    ("--replicas", int, 1), ("--replica_mode", str, "inproc"), ("--replica_roles", str, None),
+    ("--attach", str, None), ("--attach_token", str, None), ("--lease_s", float, None),
+    ("--journal_path", str, None), ("--serving_faults", str, None), ("--wedged_after_s", float, None),
+    ("--probe_interval_s", float, None), ("--probe_count", int, None), ("--probe_max_new", int, None),
 )
 
 
@@ -82,31 +105,134 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--output", default="", help="results JSONL path (default: stdout)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="'cpu' runs the kernels' plain PyTorch versions")
-    parser.add_argument("--http", action="store_true", help="the online gateway (not ported)")
-    parser.add_argument("--recover", action="store_true", help="(--http) not ported")
-    parser.add_argument("--no-slo", action="store_true", help="(--http) not ported")
-    for flag, kind in _UNPORTED_FLAGS:
-        parser.add_argument(flag, type=kind, default=None, help="(--http) not ported")
+    parser.add_argument("--http", action="store_true",
+                        help="serve the HTTP/SSE gateway instead of draining a prompt file")
+    for flag, kind, text in _HTTP_FLAGS:
+        parser.add_argument(flag, type=kind, default=None, help=f"(--http) {text} (default: config)")
+    parser.add_argument("--events", default="", help="(--http) request-lifecycle events JSONL path")
+    parser.add_argument("--trace", default=None,
+                        help="(--http) Chrome-trace JSON written at shutdown; implies --trace_sample 1.0 "
+                        "unless set (default: config)")
+    parser.add_argument("--no-slo", action="store_true", help="(--http) no live SLO engine (GET /slo is 404)")
+    parser.add_argument("--slo_ttft_s", type=float, default=2.0, help="(--http) the interactive class's TTFT bound")
+    parser.add_argument("--slo_e2e_s", type=float, default=30.0, help="(--http) the interactive class's e2e bound")
+    parser.add_argument("--slo_target", type=float, default=0.99, help="(--http) the objectives' success target")
+    parser.add_argument("--slo_window_s", type=float, default=60.0,
+                        help="(--http) rolling window of the live latency sketches")
+    parser.add_argument("--recover", action="store_true", help="(--http) fleet journal recovery (not ported)")
+    for flag, kind, _ in _FLEET_FLAGS:
+        parser.add_argument(flag, type=kind, default=None, help="(--http) fleet flag (not ported)")
     return parser
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    named = [flag for flag, _ in _UNPORTED_FLAGS if getattr(args, flag[2:]) is not None]
-    named += [flag for flag, on in (("--http", args.http), ("--recover", args.recover),
-                                    ("--no-slo", args.no_slo)) if on]
+    named = [flag for flag, _, ok in _FLEET_FLAGS if getattr(args, flag[2:]) not in (None, ok)]
+    if args.recover:
+        named.append("--recover")
     if named:
         raise NotImplementedError(
-            f"{', '.join(named)}: the online gateway, fleet and SLO flags are not ported to "
-            "PyTorch yet (ROADMAP Queue A item 6, the fleet hookup, and item 3, observability)"
+            f"{', '.join(named)}: the serving fleet (replicas, router, journal, serving faults, "
+            "probes) is not ported to PyTorch yet; it waits for the fleet slice (ROADMAP Queue A item 6b)"
         )
 
 
-def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
+def _serve_http(args: argparse.Namespace, cfg: Any, eng: Any, enc: Any) -> None:
+    """The gateway over one engine until SIGINT or SIGTERM (the JAX CLI's
+    single-replica branch). SIGTERM drains first: no new requests, the
+    ones in flight finish (30 s at most), then the loop stops, the bus
+    closes and the trace is written."""
+    from pretraining_llm_tpu_torch.frontend.admission import AdmissionController
+    from pretraining_llm_tpu_torch.frontend.engine_loop import EngineLoop
+    from pretraining_llm_tpu_torch.frontend.gateway import ServingGateway
+    from pretraining_llm_tpu_torch.observability.capacity import DecisionLog
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+    from pretraining_llm_tpu_torch.observability.metrics import MetricsRegistry
+    from pretraining_llm_tpu_torch.observability.slo import SLOEngine, default_slo_classes
+    from pretraining_llm_tpu_torch.observability.spans import get_recorder
+    from pretraining_llm_tpu_torch.observability.tracing import Tracer
+
+    fc = cfg.frontend
+
+    def pick(cli_val, cfg_val):
+        return cfg_val if cli_val is None else cli_val
+
+    # The SLO engine subscribes to the bus, so it makes one (in memory
+    # without --events).
+    bus = EventBus(jsonl_path=args.events) if args.events or not args.no_slo else None
+    slo = None
+    if not args.no_slo:
+        slo = SLOEngine(
+            classes=default_slo_classes(ttft_s=args.slo_ttft_s, e2e_s=args.slo_e2e_s, target=args.slo_target),
+            bus=bus, decisions=DecisionLog(bus=bus), window_s=args.slo_window_s,
+        )
+    trace_path = pick(args.trace, fc.trace_path)
+    trace_sample = pick(args.trace_sample, fc.trace_sample)
+    if args.trace is not None and args.trace_sample is None:
+        trace_sample = 1.0  # asking for an export implies sampling
+    tracer = Tracer(get_recorder(), sample=trace_sample, seed=args.seed) if trace_sample > 0 else None
+    registry = MetricsRegistry(prefix="pllm_serving_", const_labels={"quant_dtype": eng.quantize})
+    admission = AdmissionController(
+        max_queue_depth=pick(args.max_queue_depth, fc.max_queue_depth),
+        max_outstanding_tokens=pick(args.max_outstanding_tokens, fc.max_outstanding_tokens),
+        retry_after_s=fc.retry_after_s, shed_infeasible=fc.shed_infeasible, registry=registry,
+    )
+    loop = EngineLoop(
+        eng, admission=admission, bus=bus, idle_wait_s=fc.idle_wait_s, tracer=tracer, registry=registry,
+        capacity_ring=fc.capacity_ring,
+        weight_fingerprint_interval_s=pick(args.weight_fingerprint_interval_s, fc.weight_fingerprint_interval_s),
+    ).start()
+    gateway = ServingGateway(
+        loop, host=pick(args.host, fc.host), port=pick(args.port, fc.port), encode=enc.encode_ordinary,
+        decode=enc.decode, default_deadline_s=pick(args.default_deadline_s, fc.default_deadline_s),
+        healthz_stale_after_s=pick(args.healthz_stale_after_s, fc.healthz_stale_after_s),
+        retry_jitter_frac=fc.retry_jitter_frac, retry_jitter_seed=fc.retry_jitter_seed, slo=slo,
+    )
+    host, port = gateway._server.server_address[:2]
+    print(f"[serve] gateway listening on http://{host}:{port} — POST /v1/generate, GET /healthz, GET /readyz, "
+          "GET /metrics, GET /slo, GET /metricsz, GET /debug/requests, GET /debug/engine",
+          file=sys.stderr, flush=True)
+    # SIGTERM (the orchestrator's stop) takes the ^C path, after a drain.
+    graceful = {"drain": False}
+
+    def _sigterm(signum, frame):
+        graceful["drain"] = True
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    try:
+        gateway.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if graceful["drain"]:
+            loop.begin_drain()
+            deadline = time.monotonic() + 30.0
+            while loop.active_requests > 0 and time.monotonic() < deadline:
+                time.sleep(0.05)
+            print(f"[serve] SIGTERM drain complete ({loop.active_requests} still in flight)",
+                  file=sys.stderr, flush=True)
+        gateway.stop()
+        if loop.stop() is False:
+            print("[serve] WARNING: engine loop abandoned wedged at shutdown; outstanding requests got "
+                  "error terminals", file=sys.stderr, flush=True)
+        if bus is not None:
+            bus.close()
+        if tracer is not None and trace_path:
+            path = tracer.recorder.export(trace_path)
+            dropped = tracer.recorder.dropped
+            extra = f" ({dropped} spans DROPPED)" if dropped else ""
+            print(f"[serve] trace written to {path}{extra}", file=sys.stderr, flush=True)
+        print(f"[serve] shut down — {loop.counters}", file=sys.stderr, flush=True)
+    if loop.failure is not None:
+        raise RuntimeError(f"the engine loop failed: {loop.failure!r}") from loop.failure
+
+
+def main(argv: Optional[List[str]] = None) -> Optional[List[Dict[str, Any]]]:
     parser = _parser()
     args = parser.parse_args(argv)
     _refuse_unported(args)
-    if not args.input_file:
-        parser.error("--input_file is required")
+    if not args.http and not args.input_file:
+        parser.error("--input_file is required unless --http is set")
 
     from pretraining_llm_tpu_torch.data.tokenizer import get_tokenizer
     from pretraining_llm_tpu_torch.generation.generate import (
@@ -115,10 +241,12 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
     from pretraining_llm_tpu_torch.generation.serving import ServingEngine
     from pretraining_llm_tpu_torch.models import quantize as quantize_mod
 
-    with open(args.input_file) as f:
-        texts = [ln.rstrip("\r\n") for ln in f if ln.strip()]
-    if not texts:
-        raise SystemExit(f"no prompts in {args.input_file}")
+    texts: List[str] = []
+    if args.input_file:
+        with open(args.input_file) as f:
+            texts = [ln.rstrip("\r\n") for ln in f if ln.strip()]
+        if not texts:
+            raise SystemExit(f"no prompts in {args.input_file}")
 
     params, cfg = load_model_for_inference(args.model_path, use_ema=args.ema, device=args.device)
     params = cast_params_for_inference(params, cfg.model)
@@ -145,6 +273,9 @@ def main(argv: Optional[List[str]] = None) -> List[Dict[str, Any]]:
         kv_checksum=args.kv_checksum or serving.kv_checksum,
         quantize=quantize, device=args.device, **spec,
     )
+    if args.http:
+        _serve_http(args, cfg, eng, enc)
+        return None
 
     rids: Dict[int, int] = {}
     for i, text in enumerate(texts):

@@ -8,7 +8,7 @@ tiny JAX-written checkpoint in CPU mode, whose greedy JSONL ``output``
 fields equal those of ``scripts/serve.py``'s ``main()`` on the same
 checkpoint and tokenizer (byte), under the pipelined and the synchronous
 scheduler and with a draft checkpoint; scheduler flags left at 0 fall back
-to the checkpoint's ``serving`` section; the online and fleet flags raise.
+to the checkpoint's ``serving`` section; the fleet flags raise.
 A tiny byte-tokenizer model (2 layers, d 32, V 260) with seeded numpy
 weights (std 0.3).
 """
@@ -73,8 +73,11 @@ def test_serving_overrides_and_from_dict():
     assert (cfg.serving.pipeline_depth, cfg.serving.kv_checksum, cfg.serving.quantize) == (3, True, "int8-kv")
     with pytest.raises(KeyError, match="serving.nope"):
         cfg.with_overrides({"serving.nope": 1})
-    with pytest.raises(NotImplementedError, match="frontend"):
-        cfg.with_overrides({"frontend.port": 1})
+    with pytest.raises(NotImplementedError, match="mesh"):
+        cfg.with_overrides({"mesh.data": 1})
+    fover = {"frontend.port": 1, "frontend.max_queue_depth": 4}
+    assert dataclasses.asdict(cfg.with_overrides(fover).frontend) == dataclasses.asdict(
+        jcfg.get_preset("tiny").with_overrides(fover).frontend)
     raw = dataclasses.asdict(jcfg.get_preset("tiny").with_overrides(over))
     got = tcfg.Config.from_dict(raw)
     assert dataclasses.asdict(got.serving) == raw["serving"]
@@ -170,7 +173,8 @@ def test_serve_cli_falls_back_to_the_serving_section(ckpts, tmp_path, monkeypatc
     assert (seen["pipeline_depth"], seen["kv_checksum"], seen["quantize"]) == (1, True, "int8")
 
 
-@pytest.mark.parametrize("flags", [["--http"], ["--replicas", "2"], ["--trace", "t.json"], ["--no-slo"]])
+@pytest.mark.parametrize("flags", [["--replicas", "2"], ["--replica_mode", "process"], ["--journal_path", "j"],
+                                   ["--serving_faults", "replica_crash@req3:r0"]])
 def test_serve_cli_refuses_the_online_flags(ckpts, flags):
-    with pytest.raises(NotImplementedError, match="item 6.*item 3"):
-        tserve.main(["--model_path", ckpts["target"], "--input_file", ckpts["prompts"]] + flags)
+    with pytest.raises(NotImplementedError, match="the fleet slice"):
+        tserve.main(["--model_path", ckpts["target"], "--http", "--device", "cpu"] + flags)

@@ -44,10 +44,34 @@ def _port_sources():
     return sorted((ROOT / "pretraining_llm_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# Calls that load a module by name or by path, around an import statement.
+_LOADERS = ("spec_from_file_location", "run_path", "run_module", "SourceFileLoader", "import_module", "load_source")
+
+
+def _forbidden_loads(tree) -> list:
+    """The string arguments of module loads by path or name that reach JAX,
+    the JAX package or a file under ``scripts/`` (whose tools import the
+    JAX package)."""
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        func = node.func
+        name = func.attr if isinstance(func, ast.Attribute) else getattr(func, "id", None)
+        if name not in _LOADERS:
+            continue
+        for arg in [*node.args, *(k.value for k in node.keywords)]:
+            for c in ast.walk(arg):
+                if isinstance(c, ast.Constant) and isinstance(c.value, str) and (
+                        _forbidden(c.value) or c.value == "scripts" or "scripts/" in c.value):
+                    bad.append(f"{name}({c.value!r})")
+    return bad
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_nothing_of_jax(path):
     tree = ast.parse(path.read_text(), filename=str(path))
-    bad = []
+    bad = _forbidden_loads(tree)
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             bad += [a.name for a in node.names if _forbidden(a.name)]
@@ -58,6 +82,18 @@ def test_port_imports_nothing_of_jax(path):
             bad += [a.value for a in node.args[:1]
                     if isinstance(a, ast.Constant) and isinstance(a.value, str) and _forbidden(a.value)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("src, caught", [
+    ('spec = importlib.util.spec_from_file_location("r", ROOT / "scripts" / "obs_report.py")', True),
+    ('runpy.run_path("scripts/obs_report.py")', True),
+    ('importlib.import_module("pretraining_llm_tpu.observability.metrics")', True),
+    ('importlib.import_module("jax.numpy")', True),
+    ('importlib.import_module("pretraining_llm_tpu_torch.serve")', False),
+    ('spec = importlib.util.spec_from_file_location("c", ROOT / "chip_smoke.py")', False),
+])
+def test_scan_sees_loads_by_path_and_name(src, caught):
+    assert bool(_forbidden_loads(ast.parse(src))) is caught
 
 
 def test_port_has_kernel_sources_for_both_kernels():
@@ -277,6 +313,32 @@ def test_serving_modules_are_scanned():
     for rel in SERVING_MODULES:
         text = (ROOT / "pretraining_llm_tpu_torch" / rel).read_text()
         assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
+
+
+FRONTEND_AND_TOOLING_MODULES = (
+    "frontend/__init__.py", "frontend/admission.py", "frontend/engine_loop.py", "frontend/gateway.py",
+    "frontend/loadgen.py", "observability/tracing.py", "observability/capacity.py", "observability/sketches.py",
+    "observability/slo.py", "utils/safetensors.py", "import_hf_checkpoint.py", "export_hf_checkpoint.py",
+    "import_torch_checkpoint.py", "export_torch_checkpoint.py",
+)
+
+
+def test_frontend_and_tooling_modules_are_scanned():
+    """The online front end, the serving observability and the checkpoint
+    converters are the port's own copies: scanned by
+    ``test_port_imports_nothing_of_jax``, none naming a module of the JAX
+    package, and none importing ``transformers`` or ``safetensors`` (the
+    card's host has neither)."""
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(FRONTEND_AND_TOOLING_MODULES) <= scanned
+    for rel in FRONTEND_AND_TOOLING_MODULES:
+        path = ROOT / "pretraining_llm_tpu_torch" / rel
+        text = path.read_text()
+        assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
+        for node in ast.walk(ast.parse(text)):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom) and node.level == 0 else [])
+            assert not any(n.split(".")[0] in ("transformers", "safetensors") for n in names), (rel, names)
 
 
 def test_bpe_build_writes_only_under_build(tmp_path, monkeypatch):
