@@ -161,6 +161,31 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           Prometheus textfile's lint and the Chrome trace. The CLI children
           run ``python3 chip_smoke.py --d1-child COUNTS <train arguments>``,
           which records each child's kernel launches.
+  F1      after D1, on T1's step-30 weights (H1's): (b) ``train
+          --compile-only`` as child processes for gpt2-124m and
+          reference-3b (T4's microbatches), whose total estimate must lie
+          within 5% of T4's measured peak; (c) two full-width gpt2-124m
+          replicas in this process behind ``frontend.Router`` (engine
+          defaults, prefix cache on) under H1's load through
+          ``run_engine_loop``: every stream H1's offline one up to near
+          ties; the same load with ``replica_crash@req5:r0``: every request
+          done, a redrive, an eject, the relaunch's seconds, allocated
+          memory after the relaunch within 5% of before; (d) roles
+          ``prefill,decode`` with ``kv_checksum``: chains migrated and
+          adopted (digests checked at adoption and acquire), K3 on the
+          decode replica, migration bytes and milliseconds; then
+          ``corrupt_kv_migration@req1:r1``: the page dropped, no stream
+          changed; (e) ``serve --http --replicas 2`` as a child with a
+          journal, golden probes every 0.5 s and
+          ``corrupt_weights@req8:r1``: traffic until replica 1 is
+          quarantined and relaunched, then 16 of H1's requests held
+          against the offline streams; SIGTERM, no live request in the
+          journal, a ``--recover`` start that replays none; (a) the port's
+          ``obs_report`` in this process (no JAX module loaded) on D1's
+          telemetry and H1's server files (report, ``--json``, ``--slo``,
+          ``--capacity``, ``--strict``), ``--live`` against (e)'s server
+          and ``--fleet --fleet-trace --integrity --strict`` on its files.
+          K1, K2 and K3 launches are counted over each measured load.
 
 The flash forward (K1) and the three backward kernels (one pass, dQ,
 dK/dV) have two routes: bf16 runs the tensor-core kernels
@@ -1986,6 +2011,7 @@ H1_QUEUE_DEPTH = 4  # the chunked server's --max_queue_depth, which a burst of H
 H1_BURST = 16
 H1_WAIT = 300  # seconds any one request, stream read or server start may take
 REF_LAYERS = 2  # the reference round trip's cut of reference-3b's 64 layers
+H1_STATE: dict = {}  # H1's offline reference streams and its loop's latencies, which F1 compares against
 
 
 def assert_no_jax_modules(where: str) -> int:
@@ -2169,10 +2195,10 @@ def _http(base: str, path: str, payload=None, headers=None):
         return e.code, dict(e.headers), e.read().decode()
 
 
-def _start_server(name: str, imported: str, extra: list):
+def _start_server(name: str, imported: str, extra: list, root: Path = H1_DIR):
     """The serve CLI as a child (``--h1-child``) on port 0, events and trace
-    under H1_DIR/name."""
-    d = H1_DIR / name
+    under root/name."""
+    d = root / name
     d.mkdir(parents=True, exist_ok=True)
     cmd = [sys.executable, str(ROOT / "chip_smoke.py"), H1_CHILD, str(d / "counts.json"), "--model_path", imported,
            "--http", "--port", "0", "--tokenizer", "byte", "--temperature", "0", "--events", str(d / "events.jsonl"),
@@ -2196,10 +2222,11 @@ def _server_base(srv: dict) -> str:
             srv["ready_s"] = time.perf_counter() - srv["t0"]
             base = text.split("listening on ", 1)[1].split(" ")[0]
             t0 = time.perf_counter()
-            code = _http(base, "/v1/generate", {"prompt": list(range(1, 65)), "max_new_tokens": 16})[0]
+            code, _, body = _http(base, "/v1/generate", {"prompt": list(range(1, 65)), "max_new_tokens": 16})
             srv["cold_request_s"] = time.perf_counter() - t0
             if code != 200:
-                raise AssertionError(f"H1 server {srv['name']}: the warm-up request got {code}")
+                tail = (srv["dir"] / "stderr.txt").read_text()[-3000:]
+                raise AssertionError(f"server {srv['name']}: the warm-up request got {code}: {body[:1000]}\n{tail}")
             return base
         if srv["proc"].poll() is not None:
             raise AssertionError(f"H1 server {srv['name']} exited {srv['proc'].returncode}: {text[-3000:]}")
@@ -2369,6 +2396,7 @@ def run_h1(serve_ckpts: dict) -> dict:
     # under the pipelined one, every dispatch under the sync guard: the same
     # streams, windows and reaps, and no hook waits for the stream.
     want, _, _ = offline(False)
+    H1_STATE.update(want=want)
     plain, st_plain, reaps_plain = offline(True)
     inst, st_inst, reaps_inst = offline(True, instrument=True)
     hooks = {"windows_reaped": [st_plain["windows_reaped"], st_inst["windows_reaped"]],
@@ -2403,6 +2431,7 @@ def run_h1(serve_ckpts: dict) -> dict:
         host_blocked_s_per_window=st["host_blocked_s"] / max(1, st["windows_reaped"]),
         launches={k: n for k, n in launches_a.items() if n}, streams_vs_offline=cmp_a)
     _assert_routes("H1 loop", launches_a, ragged=False)
+    H1_STATE.update(loop=lat_a)
     del eng, loop
     _free_card()
 
@@ -2515,6 +2544,430 @@ def run_h1(serve_ckpts: dict) -> dict:
     _free_card()
     log("H1", wall_s=time.perf_counter() - t_h1, card=card)
     return {"H1_loop": launches_a, "H1_http": launches_b, "H1_chunked": launches_c}
+
+# ---------------------------------------------------------------------------
+# F1: the port's obs_report and train --compile-only, and the fleet in one
+# process
+# ---------------------------------------------------------------------------
+
+F1_DIR = SCRATCH / "f1"
+F1_D1_OBS = F1_DIR / "d1_obs"  # D1's clean run's telemetry, copied before D1 removes its dir
+F1_FAULT_WEIGHTS = "corrupt_weights@req8:r1"
+F1_PROBE_S = 0.5
+F1_HTTP_REQUESTS = 16  # H1's first 16 requests, each stream held against the offline engine's
+F1_TRIGGER_MAX = 96  # requests sent at most to reach replica 1's 8th submission and its quarantine
+
+
+def obs_report_run(where: str, argv: list) -> tuple:
+    """The port's analyzer in this process, as ``python -m
+    pretraining_llm_tpu_torch.obs_report ARGV`` runs it: (rc, stdout);
+    no module of JAX or the JAX package loaded before or after."""
+    import io
+
+    from pretraining_llm_tpu_torch import obs_report
+
+    assert_no_jax_modules(f"{where} (before)")
+    saved, out = sys.argv, io.StringIO()
+    sys.argv = ["obs_report", *argv]
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = obs_report.main()
+    finally:
+        sys.argv = saved
+    assert_no_jax_modules(where)
+    return rc, out.getvalue()
+
+
+def f1_obs_report(live_base: str = "", live_events: str = "") -> dict:
+    """(a) The analyzer on D1's clean run (events, metrics, spans) and on H1's
+    serve CLI files (events, trace): the run report, ``--json``, ``--slo``,
+    ``--capacity`` and ``--strict``, each rc 0; ``--live`` against one of F1's
+    servers when ``live_base`` is given."""
+    d1_events, h1 = str(F1_D1_OBS / "events.jsonl"), H1_DIR / "http"
+    runs = {
+        "d1_report": [d1_events],
+        "d1_json_strict": ["--json", "--strict", d1_events],
+        "d1_trace_json": ["--json", "--trace", str(F1_D1_OBS / "spans.trace.json"), d1_events],
+        "h1_slo_strict": ["--strict", "--slo", "--trace", str(h1 / "trace.json"), str(h1 / "events.jsonl")],
+        "h1_capacity_json_strict": ["--json", "--strict", "--capacity", str(h1 / "events.jsonl")],
+        "h1_json_strict": ["--json", "--strict", "--trace", str(h1 / "trace.json"), str(h1 / "events.jsonl")],
+    }
+    if live_base:
+        # Not --strict: the probes keep the server busy, so the events file
+        # and the /slo snapshot are read a few requests apart; the rank
+        # reconciliation's verdict is logged.
+        runs["f1_live_json"] = ["--json", "--live", live_base, live_events]
+    out = {}
+    for name, argv in runs.items():
+        rc, text = obs_report_run(f"F1 obs_report {name}", argv)
+        out[name] = rc
+        if rc != 0:
+            raise AssertionError(f"F1 obs_report {name}: rc {rc}: {text[-2000:]}")
+        if "--json" in argv:
+            rep = json.loads(text)
+            if name.startswith("d1") and rep["goodput"]["total_s"] <= 0:
+                raise AssertionError(f"F1 obs_report {name}: no goodput fold: {rep['goodput']}")
+            if name == "h1_capacity_json_strict" and rep["capacity"]["problems"]:
+                raise AssertionError(f"F1 obs_report {name}: {rep['capacity']['problems']}")
+            if "live" in rep:
+                out["live"] = {"events_seen": rep["live"]["events_seen"], "problems": rep["live"]["problems"],
+                               "checked": [m for m, row in rep["live"]["reconcile"].items() if row["checked"]]}
+                if rep["live"]["events_seen"] < 1:
+                    raise AssertionError(f"F1 obs_report {name}: the live snapshot saw no event: {rep['live']}")
+    return out
+
+
+def f1_compile_only() -> dict:
+    """(b) ``train --compile-only`` as child processes, gpt2-124m and
+    reference-3b at T4's microbatches; reference-3b's estimate within 5% of
+    T4's measured peak in this run."""
+    out = {}
+    for preset in ("gpt2-124m", "reference-3b"):
+        over = []
+        if preset in T4_PEAKS:
+            over = ["--override", f"train.microbatches={T4_PEAKS[preset][1]}"]
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "pretraining_llm_tpu_torch.train", "--preset", preset,
+                              "--compile-only", *over], cwd=ROOT, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise AssertionError(f"F1 compile-only {preset}: exit {res.returncode}: {res.stderr[-3000:]}")
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        out[preset] = {**report, "wall_s": time.perf_counter() - t0}
+        per = report["per_device_GiB"]
+        if not all(isinstance(per[k], float) and per[k] > 0 for k in per) or report.get("oom"):
+            raise AssertionError(f"F1 compile-only {preset}: {report}")
+    peak, micro = T4_PEAKS["reference-3b"]
+    est = out["reference-3b"]["per_device_GiB"]["total_peak_estimate"] * 2**30
+    out["reference-3b"].update(t4_peak_bytes=peak, t4_microbatches=micro, estimate_bytes=est,
+                               estimate_over_t4=est / peak)
+    if abs(est / peak - 1.0) > 0.05:
+        raise AssertionError(f"F1 compile-only: reference-3b's estimate {est} is not within 5% of T4's peak {peak}")
+    return out
+
+
+def _replica_recovery_s(events: list, replica: int) -> list:
+    """Seconds from each eject of ``replica`` to its next ``active``
+    (replica_state events on the fleet bus)."""
+    out, t_eject = [], None
+    for e in events:
+        if e.get("event") != "replica_state" or e.get("replica") != replica:
+            continue
+        if e["state"] == "ejected" and t_eject is None and e.get("reason") != "start":
+            t_eject = e["t_mono"]
+        elif e["state"] == "active" and t_eject is not None:
+            out.append(e["t_mono"] - t_eject)
+            t_eject = None
+    return out
+
+
+def run_f1(serve_ckpts: dict) -> dict:
+    """F1 (see the module docstring). Returns the launches of each measured
+    fleet load, for the kernels line."""
+    t_f1 = time.perf_counter()
+    card = phase_card()
+    F1_DIR.mkdir(parents=True, exist_ok=True)
+    _free_card()
+    # (b) first: reference-3b's step needs nearly the whole card.
+    t0 = time.perf_counter()
+    compile_only = f1_compile_only()
+    log("F1_compile_only", card=card, reports=compile_only, phase_s=time.perf_counter() - t0)
+    paths = f1_fleet(serve_ckpts, card)
+    paths["F1_http"] = f1_http(serve_ckpts, card)
+    log("F1", wall_s=time.perf_counter() - t_f1, card=card)
+    return paths
+
+
+def _f1_model(serve_ckpts: dict) -> tuple:
+    """T1's weights for serving, H1's load and H1's offline streams:
+    (params, model config, schedule, prompts, reference streams)."""
+    from pretraining_llm_tpu_torch.frontend.loadgen import LoadSpec, build_schedule
+    from pretraining_llm_tpu_torch.generation.generate import cast_params_for_inference, load_model_for_inference
+
+    params, cfg = load_model_for_inference(serve_ckpts["target"], device=DEVICE)
+    params = cast_params_for_inference(params, cfg.model)
+    schedule = build_schedule(LoadSpec(**H1_SPEC))
+    return params, cfg.model, schedule, [sr.prompt for sr in schedule], H1_STATE["want"]
+
+
+def f1_fleet(serve_ckpts: dict, card: str) -> dict:
+    """(c) and (d): the fleet in this process on H1's load. Returns each
+    measured load's launches."""
+    import gc
+
+    from pretraining_llm_tpu_torch.frontend.loadgen import LoadSpec, run_engine_loop
+    from pretraining_llm_tpu_torch.frontend.replica import Replica
+    from pretraining_llm_tpu_torch.frontend.router import Router
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+    from pretraining_llm_tpu_torch.observability.spans import SpanRecorder
+    from pretraining_llm_tpu_torch.observability.tracing import Tracer
+    from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector
+
+    params, model, schedule, prompts, want = _f1_model(serve_ckpts)
+    spec = LoadSpec(**H1_SPEC)
+
+    def fleet(roles=None, faults=None, tracer=None, **engine_kw):
+        bus, events = EventBus(), []
+        bus.subscribe(events.append)
+
+        def factory():
+            return ServingEngine(params, model, device=DEVICE, temperature=0.0, prefix_cache=True, **SERVE_ENGINE,
+                                 **engine_kw)
+
+        injector = ServingFaultInjector(faults, bus=bus) if faults else None
+        reps = [Replica(i, factory, bus=bus, tracer=tracer, fault_injector=injector,
+                        role=roles[i] if roles else "both") for i in range(2)]
+        return Router(reps, bus=bus, tracer=tracer, eject_backoff_s=0.1).start(), events
+
+    def settled(router, timeout=60.0):
+        deadline = time.monotonic() + timeout
+        while not all(r.accepting for r in router.replicas):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"F1: replicas not active: {[r.debug_snapshot() for r in router.replicas]}")
+            time.sleep(0.02)
+
+    def measured(name, router):
+        reset_kernel_counts()
+        rep = run_engine_loop(router, spec)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        got = _check_done(name, rep, schedule)
+        cmp = compare_streams(name, params, model, prompts, want, got)
+        if launches["flash_fwd"] <= 0 or launches["flash_fwd_tc"] != launches["flash_fwd"] \
+                or launches["paged_decode"] <= 0:
+            raise AssertionError(f"{name}: K1 on the tensor cores and K2 must both run: {launches}")
+        _assert_paged_split(name, launches)
+        _assert_ragged_tensor_cores(name, launches)
+        return rep, launches, got, cmp
+
+    def stop(router):
+        if not router.stop(timeout=H1_WAIT):
+            raise AssertionError("F1: a replica's loop did not stop")
+
+    # (c) two full-width replicas behind the router, H1's load; then the same
+    # load with replica 0 crashing at its 5th submission.
+    paths = {}
+    router, events = fleet()
+    try:
+        rep_c, paths["F1_fleet"], got_c, cmp_c = measured("F1 fleet", router)
+        lat_c = _latency(rep_c)
+        counters_c = dict(router.counters)
+        per_replica = {r.index: r.submits for r in router.replicas}
+    finally:
+        stop(router)
+    del router
+    _free_card()
+    log("F1_fleet", card=card, engine={**SERVE_ENGINE, "prefix_cache": True, "pipeline_depth": 2}, replicas=2,
+        load=H1_SPEC, **lat_c, h1_loop=H1_STATE.get("loop"), submits_per_replica=per_replica, counters=counters_c,
+        launches={k: n for k, n in paths["F1_fleet"].items() if n}, streams_vs_offline=cmp_c)
+
+    router, events = fleet(faults="replica_crash@req5:r0")
+    try:
+        settled(router)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        rep_x, paths["F1_crash"], got_x, cmp_x = measured("F1 crash", router)
+        settled(router)
+        deadline = time.monotonic() + 60
+        while router.replicas[0].generation < 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        counters_x = dict(router.counters)
+        recovery = _replica_recovery_s(events, 0)
+    finally:
+        stop(router)
+    del router
+    _free_card()
+    redriven = sum(1 for o in rep_x.outcomes if o.redrives)
+    log("F1_crash", card=card, fault="replica_crash@req5:r0", **_latency(rep_x), counters=counters_x,
+        redriven_requests=redriven, relaunch_s=recovery, memory_allocated_before=mem_before,
+        memory_allocated_after_relaunch=mem_after, memory_after_over_before=mem_after / mem_before,
+        launches={k: n for k, n in paths["F1_crash"].items() if n}, streams_vs_offline=cmp_x,
+        streams_equal_undisturbed=got_x == got_c)
+    if counters_x["redrives"] < 1 or counters_x["ejects"] != 1 or not recovery:
+        raise AssertionError(f"F1 crash: expected a redrive, one eject and a relaunch: {counters_x} {recovery}")
+    if abs(mem_after / mem_before - 1.0) > 0.05:
+        raise AssertionError(f"F1 crash: allocated memory {mem_after} after the relaunch against {mem_before}")
+
+    # (d) prefill,decode: the KV pages of every long enough prompt migrate
+    # from the prefill replica to the decode one (digests checked at adoption
+    # and at acquire); then one migrated page flipped in flight.
+    recorder = SpanRecorder(max_events=400000)
+    router, events = fleet(roles=["prefill", "decode"], tracer=Tracer(recorder, sample=1.0, seed=SEED),
+                           kv_checksum=True)
+    # The span covers the prefill leg too: the snapshot (prefill replica)
+    # and the adoption (decode replica) are timed on their own.
+    legs_ms: dict = {"fetch_kv_pages": [], "push_kv_pages": []}
+    for rep_, name in ((router.replicas[0], "fetch_kv_pages"), (router.replicas[1], "push_kv_pages")):
+        def timed(*a, _fn=getattr(rep_, name), _out=legs_ms[name], **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                _out.append((time.perf_counter() - t) * 1e3)
+        setattr(rep_, name, timed)
+    try:
+        rep_d, paths["F1_disagg"], got_d, cmp_d = measured("F1 disagg", router)
+        counters_d = dict(router.counters)
+        dstats = dict(router.replicas[1].engine.stats)
+    finally:
+        stop(router)
+    del router
+    _free_card()
+    migrations = [e for e in events if e.get("event") == "kv_migrate"]
+    spans = [ev for ev in recorder.to_chrome_trace()["traceEvents"] if ev.get("name") == "req.kv_migrate"]
+    mig_ms = sorted(ev["dur"] / 1e3 for ev in spans)
+    mig_bytes = [e["bytes"] for e in migrations]
+    log("F1_disagg", card=card, roles="prefill,decode", **_latency(rep_d), counters=counters_d,
+        decode_replica_stats={k: dstats.get(k, 0) for k in ("kv_pages_adopted", "kv_pages_rejected",
+                                                            "kv_mismatches", "prefill_tokens")},
+        migrations=len(migrations), migrated_bytes_total=sum(mig_bytes),
+        migrated_bytes_per_migration={"min": min(mig_bytes, default=0), "max": max(mig_bytes, default=0)},
+        migration_ms={"p50": mig_ms[len(mig_ms) // 2] if mig_ms else None, "max": mig_ms[-1] if mig_ms else None,
+                      "n": len(mig_ms)},
+        snapshot_and_adopt_ms={name: {"p50": statistics.median(v), "max": max(v), "n": len(v)}
+                               for name, v in legs_ms.items() if v},
+        launches={k: n for k, n in paths["F1_disagg"].items() if n}, streams_vs_offline=cmp_d)
+    if counters_d["kv_pages_migrated"] < 1 or counters_d["kv_migration_rejects"] or dstats.get("kv_mismatches", 0) \
+            or dstats.get("kv_pages_adopted", 0) < 1 or paths["F1_disagg"]["ragged"] <= 0:
+        raise AssertionError(f"F1 disagg: no chain migrated and adopted cleanly, or K3 never ran: {counters_d} "
+                             f"{dstats} {paths['F1_disagg']}")
+
+    router, events = fleet(roles=["prefill", "decode"], faults="corrupt_kv_migration@req1:r1", kv_checksum=True)
+    try:
+        rep_k, launches_k, got_k, cmp_k = measured("F1 corrupt migration", router)
+        counters_k = dict(router.counters)
+        kstats = dict(router.replicas[1].engine.stats)
+    finally:
+        stop(router)
+    del router
+    _free_card()
+    rejects = [e for e in events if e.get("event") == "kv_migration_reject"]
+    log("F1_corrupt_migration", card=card, fault="corrupt_kv_migration@req1:r1", counters=counters_k,
+        rejects=[{k: e.get(k) for k in ("frid", "replica", "rejected", "reason")} for e in rejects],
+        decode_replica_stats={k: kstats.get(k, 0) for k in ("kv_pages_adopted", "kv_pages_rejected")},
+        streams_vs_offline=cmp_k, streams_equal_clean_disagg=got_k == got_d)
+    if counters_k["kv_migration_rejects"] < 1 or not rejects or rejects[0]["reason"] != "checksum_mismatch":
+        raise AssertionError(f"F1 corrupt migration: the flipped page was not dropped: {counters_k} {rejects}")
+    del params
+    _free_card()
+    return paths
+
+
+def f1_http(serve_ckpts: dict, card: str) -> dict:
+    """(e) ``serve --http --replicas 2`` as a child: journal, probes, a
+    weight corruption on replica 1, traffic until it is quarantined and
+    relaunched, then 16 requests held against the offline engine; SIGTERM,
+    the journal, a ``--recover`` start; (a) the analyzer. Returns the
+    launches of the 16 requests' load."""
+    import signal
+    import threading
+
+    from pretraining_llm_tpu_torch.frontend.journal import FleetJournal
+
+    params, model, schedule, prompts, want = _f1_model(serve_ckpts)
+    paths = {}
+    journal = F1_DIR / "journal.jsonl"
+    journal.unlink(missing_ok=True)
+    srv = _start_server("http", serve_ckpts["target"], [
+        "--replicas", "2", "--prefix_cache", "--journal_path", str(journal), "--probe_interval_s", str(F1_PROBE_S),
+        "--serving_faults", F1_FAULT_WEIGHTS], root=F1_DIR)
+    recover = None
+    try:
+        base = _server_base(srv)
+        sent, quarantined, t_q = 0, 0, time.perf_counter()
+        while sent < F1_TRIGGER_MAX and not quarantined:
+            sr = schedule[sent % len(schedule)]
+            code = _http(base, "/v1/generate", {"prompt": sr.prompt[:256], "max_new_tokens": 16})[0]
+            if code != 200:
+                raise AssertionError(f"F1 http: trigger request {sent} got {code}")
+            sent += 1
+            quarantined = json.loads(_http(base, "/readyz")[2])["integrity"]["quarantines"]
+        deadline = time.monotonic() + 60
+        while not quarantined and time.monotonic() < deadline:
+            time.sleep(0.1)
+            quarantined = json.loads(_http(base, "/readyz")[2])["integrity"]["quarantines"]
+        quarantine_s = time.perf_counter() - t_q
+        deadline = time.monotonic() + 120
+        while json.loads(_http(base, "/readyz")[2])["replicas"] != {"0": "active", "1": "active"}:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"F1 http: replica 1 not back: {_http(base, '/readyz')[2]}")
+            time.sleep(0.1)
+        _child_counts(srv, signal.SIGUSR1, "reset")
+        bodies: list = [None] * F1_HTTP_REQUESTS
+
+        def one(i):
+            sr = schedule[i]
+            bodies[i] = _http(base, "/v1/generate", {"prompt": sr.prompt, "max_new_tokens": sr.max_new})
+
+        threads = [threading.Thread(target=one, args=(i,), daemon=True) for i in range(F1_HTTP_REQUESTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=H1_WAIT)
+        paths["F1_http"] = _child_counts(srv, signal.SIGUSR2, "load")
+        if any(b is None or b[0] != 200 for b in bodies):
+            raise AssertionError(f"F1 http: {[b and b[0] for b in bodies]}")
+        got_e = [json.loads(b[2])["tokens"] for b in bodies]
+        cmp_e = compare_streams("F1 http", params, model, prompts[:F1_HTTP_REQUESTS], want[:F1_HTTP_REQUESTS],
+                                got_e)
+        ready = json.loads(_http(base, "/readyz")[2])
+        obs = f1_obs_report(base, str(srv["dir"] / "events.jsonl"))
+        srv["proc"].send_signal(signal.SIGTERM)
+        rc = srv["proc"].wait(timeout=H1_WAIT)
+        srv["err"].close()
+        err = (srv["dir"] / "stderr.txt").read_text()
+        if rc != 0 or "SIGTERM drain complete" not in err or "(2 replicas)" not in err:
+            raise AssertionError(f"F1 http: exit {rc} after SIGTERM: {err[-3000:]}")
+        plan = FleetJournal.recovery_plan(FleetJournal.load(str(journal)))
+        events_e = [json.loads(ln) for ln in (srv["dir"] / "events.jsonl").read_text().splitlines()]
+        quars = sorted({e["replica"] for e in events_e if e["event"] == "integrity_quarantine"})
+        rc_fleet, fleet_text = obs_report_run("F1 obs_report fleet", [
+            "--json", "--strict", "--fleet", "--fleet-trace", "--integrity", "--trace", str(srv["dir"] / "trace.json"),
+            str(srv["dir"] / "events.jsonl")])
+        fleet_rep = json.loads(fleet_text)
+
+        recover = _start_server("recover", serve_ckpts["target"], [
+            "--replicas", "2", "--prefix_cache", "--journal_path", str(journal), "--recover"], root=F1_DIR)
+        _server_base(recover)
+        recover["proc"].send_signal(signal.SIGTERM)
+        rc_r = recover["proc"].wait(timeout=H1_WAIT)
+        recover["err"].close()
+        err_r = (recover["dir"] / "stderr.txt").read_text()
+    finally:
+        for p in (srv, recover):
+            if p is not None and p["proc"].poll() is None:
+                p["proc"].kill()
+                p["proc"].wait()
+            if p is not None:
+                p["err"].close()
+    log("F1_http", card=card, module="pretraining_llm_tpu_torch.serve --http --replicas 2",
+        flags=["--journal_path", "--probe_interval_s", F1_PROBE_S, "--serving_faults", F1_FAULT_WEIGHTS],
+        trigger_requests=sent, quarantine_s=quarantine_s, quarantined_replicas=quars,
+        readyz_integrity=ready.get("integrity"), journal_live_after_sigterm=len(plan["live"]),
+        obs_report=obs, fleet_report={k: fleet_rep["fleet"][k] for k in ("n_submitted", "n_terminal", "lost_requests",
+                                                                         "statuses")},
+        integrity_report={k: fleet_rep["integrity"][k] for k in ("corruptions_fired", "quarantines", "problems",
+                                                                 "detections")},
+        fleet_obs_report_rc=rc_fleet, recover_exit=rc_r, launches_load={k: n for k, n in paths["F1_http"].items() if n},
+        streams_vs_offline=cmp_e)
+    if quars != [1] or not ready["integrity"]["quarantines"]:
+        raise AssertionError(f"F1 http: expected replica 1 quarantined, got {quars} {ready}")
+    if plan["live"] or rc_fleet != 0 or fleet_rep["fleet"]["lost_requests"]:
+        raise AssertionError(f"F1 http: a request was lost or the fleet report failed: {plan['live']} {rc_fleet} "
+                             f"{fleet_text[-2000:]}")
+    if rc_r != 0 or "'journal_replays': 0" not in err_r:
+        raise AssertionError(f"F1 recover: exit {rc_r}: {err_r[-3000:]}")
+    if paths["F1_http"]["flash_fwd_tc"] <= 0 or paths["F1_http"]["paged_decode"] <= 0:
+        raise AssertionError(f"F1 http: the served load did not run K1 and K2: {paths['F1_http']}")
+    _assert_paged_split("F1 http", paths["F1_http"])
+    del params
+    _free_card()
+    return paths["F1_http"]
+
 
 # ---------------------------------------------------------------------------
 # Training
@@ -3292,6 +3745,7 @@ def run_parity() -> dict:
 T4_PRESETS = (  # (preset, the microbatches tried first: the JAX preset's, or 2 where one pass cannot fit)
     ("gpt2-350m-dp", 1), ("gpt2-1p3b-fsdp", 2), ("llama-1b", 2), ("reference-3b", 2))
 T4_STEPS = 4
+T4_PEAKS: dict = {}  # preset -> (peak bytes, microbatches) of its T4 run, which F1's compile-only estimate meets
 CARD_BYTES = 80e9  # the card's 80 GB
 RECOMPUTES_K1 = ("full", "dots_saveable", "save_attn")  # remat policies under which K1 reruns in the backward
 R_STEPS = 3
@@ -3348,6 +3802,7 @@ def run_t4() -> dict:
                 peak = None
             _free_card()
             if peak is not None and peak < CARD_BYTES:
+                T4_PEAKS[preset] = (peak, micro)
                 break
             if peak is not None:
                 tried.append({"microbatches": micro, "max_memory_allocated_bytes": peak})
@@ -4093,13 +4548,16 @@ def run_d1() -> dict:
     if not all(all(v) if isinstance(v, list) else v for v in routes.values()) or len(children_a) != 1 \
             or len(children_b) != 3:
         raise AssertionError(f"D1: K1 or the one pass off the tensor-core route, or a step missing: {routes}")
+    # F1 runs the analyzer on the clean run's telemetry.
+    shutil.copytree(D1_DIR / "clean" / "obs", F1_D1_OBS, dirs_exist_ok=True)
     shutil.rmtree(D1_DIR, ignore_errors=True)
     return total
 
 def _h1_launches(serving_paths: dict, key: str) -> int:
     """A kernel's launches over H1's three servers (in-process loop, serve
-    CLI, chunked serve CLI), added to the main path's in the kernels line."""
-    return sum(n.get(key, 0) for name, n in serving_paths.items() if name.startswith("H1"))
+    CLI, chunked serve CLI) and F1's fleet loads, added to the main path's
+    in the kernels line."""
+    return sum(n.get(key, 0) for name, n in serving_paths.items() if name.startswith(("H1", "F1")))
 
 
 def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
@@ -4881,6 +5339,7 @@ def main() -> int:
     train_paths.update(run_optimizers())
     run_trainer_options()
     train_paths["D1"] = run_d1()
+    serving_paths.update(run_f1(serve_ckpts))
     shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)

@@ -482,7 +482,7 @@ class ObservabilityConfig:
     few dict updates per log boundary; these fields gate the files and the
     memory sampler (``observability/``)."""
 
-    # Run-event JSONL ("" = in memory only); scripts/obs_report.py reads it.
+    # Run-event JSONL ("" = in memory only); obs_report reads it.
     events_path: str = ""
     # Chrome trace-event JSON of the host spans, written when train() ends.
     spans_path: str = ""

@@ -1,5 +1,5 @@
 """Online serving front end: the request-lifecycle layer over ServingEngine
-(the single-engine half of the JAX package's ``frontend/``).
+(the JAX package's ``frontend/`` with its replicas in one process).
 
 The engine (generation/serving.py) is a scheduler: it knows rows, pages
 and windows, but nothing about arrival, waiting clients, deadlines or
@@ -19,11 +19,22 @@ load. This package adds the online half:
                  GET /healthz, /readyz, /metrics, /slo, /metricsz and the
                  /debug views;
   loadgen      — open-loop (Poisson) and closed-loop load generators
-                 reporting TTFT/TPOT/e2e percentiles and goodput-under-SLO.
+                 reporting TTFT/TPOT/e2e percentiles and goodput-under-SLO,
+                 and timed fleet plans (kill, drain, restore, upgrade);
+  replica      — one restartable engine replica (engine factory +
+                 EngineLoop + per-replica registry/admission/fault clock);
+  router       — the fleet tier over N replicas: prefix-affinity routing
+                 with spill, health-based ejection with backoff, brownout
+                 shedding, drain/redrive of in-flight requests, golden
+                 probes and disaggregated prefill;
+  journal      — the router's write-ahead journal, replayed by --recover;
+  kv_transfer  — KV pages of a cached prefix serialized, framed, verified
+                 and adopted into another replica's pool.
 
 ``python -m pretraining_llm_tpu_torch.serve --http`` wires them over one
-engine. The fleet (replicas, the router, the journal, KV transfer, the
-worker and its wire protocol) is not ported yet.
+engine, or with ``--replicas N`` over N replicas in this process. Process
+replicas (the JAX package's ``worker``, ``wire`` and ``remote_replica``)
+are not ported yet.
 """
 
 from pretraining_llm_tpu_torch.frontend.admission import (  # noqa: F401
@@ -37,9 +48,20 @@ from pretraining_llm_tpu_torch.frontend.engine_loop import (  # noqa: F401
 )
 from pretraining_llm_tpu_torch.frontend.gateway import ServingGateway  # noqa: F401
 from pretraining_llm_tpu_torch.frontend.loadgen import (  # noqa: F401
+    FleetAction,
     LoadReport,
     LoadSpec,
     build_schedule,
+    rolling_restart_plan,
     run_engine_loop,
+    run_fleet_plan,
     run_http,
+)
+from pretraining_llm_tpu_torch.frontend.replica import (  # noqa: F401
+    Replica,
+    ReplicaUnavailable,
+)
+from pretraining_llm_tpu_torch.frontend.router import (  # noqa: F401
+    Router,
+    RouterRequest,
 )

@@ -1,5 +1,5 @@
 """SLO load generator for the serving frontend (the JAX package's
-``frontend/loadgen.py``; its fleet plans wait for the router).
+``frontend/loadgen.py``), with the fleet plans that drive a ``Router``.
 
 Two classic shapes:
 
@@ -419,3 +419,122 @@ def run_http(base_url: str, spec: LoadSpec, timeout_s: float = 120.0) -> LoadRep
         )
 
     return _execute(spec, client)
+
+
+# -- fleet choreography ----------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetAction:
+    """One timed operation against a fleet Router while load is running:
+
+      kill     shadow the replica's live engine tick to raise (the loop
+               thread dies mid-decode; the router's health loop ejects the
+               replica and redrives its in-flight requests) — the
+               wall-clock analogue of the injector's ``replica_crash@req_n``;
+      drain    administrative drain: redrive in-flight work to survivors,
+               stop the loop, hold the replica not-ready;
+      restore  relaunch a drained/ejected replica with a fresh engine;
+      upgrade  probe-vetted weight upgrade: drain, apply ``update`` to the
+               replica's spec/factory, relaunch HELD, run golden probes,
+               and only then take traffic (Router.upgrade_replica). The
+               mid-upgrade-kill drill rides this action: an ``update``
+               carrying ``kill_after_submits: 1`` makes the new worker die
+               on its first vetting probe, which must roll the old weights
+               back without clients ever seeing the unvetted checkpoint;
+      partition, heal  act on process replicas' connections only (the JAX
+               package's); an in-process replica has no wire to cut, so
+               they do nothing here.
+    """
+
+    at_s: float
+    kind: str  # "kill" | "drain" | "restore" | "upgrade" | "partition" | "heal"
+    replica: int
+    # Spec/factory delta applied before the upgrade relaunch (upgrade
+    # only). None means "relaunch with the current spec" — still vetted.
+    update: Optional[Dict[str, Any]] = None
+
+    def __post_init__(self) -> None:
+        if self.kind not in (
+            "kill", "drain", "restore", "upgrade", "partition", "heal"
+        ):
+            raise ValueError(f"unknown fleet action kind {self.kind!r}")
+        if self.at_s < 0:
+            raise ValueError(f"at_s must be >= 0, got {self.at_s}")
+        if self.update is not None and self.kind != "upgrade":
+            raise ValueError(
+                f"update only applies to upgrade actions, got {self.kind!r}"
+            )
+
+
+def rolling_restart_plan(
+    n_replicas: int, *, start_s: float, step_s: float
+) -> List[FleetAction]:
+    """Drain replica i at ``start_s + i*step_s``, restore it one step
+    later — at most one replica down at a time once ``step_s`` exceeds a
+    drain's duration (the standard rolling-restart invariant)."""
+    out: List[FleetAction] = []
+    for i in range(n_replicas):
+        t = start_s + i * step_s
+        out.append(FleetAction(at_s=t, kind="drain", replica=i))
+        out.append(FleetAction(at_s=t + step_s, kind="restore", replica=i))
+    return out
+
+
+def run_fleet_plan(router: Any, actions: List[FleetAction]) -> threading.Thread:
+    """Execute a fleet plan against ``router`` on a daemon thread (offsets
+    are from the call, so start it when the load run starts). Returns the
+    thread; join it after the load run to be sure every action fired."""
+    from pretraining_llm_tpu_torch.resilience.faults import InjectedFault
+
+    plan = sorted(actions, key=lambda a: a.at_s)
+    start = time.monotonic()
+
+    def _kill(replica: int) -> None:
+        rep = router.replicas[replica]
+        # Out-of-process replica: the honest kill is SIGKILL to the worker
+        # itself — the parent sees the socket die, exactly like a real
+        # process death.
+        proc = getattr(rep, "proc", None)
+        if proc is not None:
+            proc.kill()
+            return
+        eng = rep.engine
+        if eng is None:
+            return
+
+        def _boom(*a: Any, **k: Any) -> None:
+            raise InjectedFault(f"fleet plan killed replica {replica}")
+
+        # Same instance-attribute shadowing as ServingFaultInjector.wrap_tick;
+        # the loop thread dies on its next scheduler turn.
+        eng.pipeline_tick = _boom
+
+    def _run() -> None:
+        for act in plan:
+            delay = start + act.at_s - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            try:
+                if act.kind == "kill":
+                    _kill(act.replica)
+                elif act.kind == "drain":
+                    router.drain(act.replica)
+                elif act.kind == "upgrade":
+                    router.upgrade_replica(act.replica, act.update)
+                elif act.kind in ("partition", "heal"):
+                    # Process-mode replicas only (RemoteReplica.partition/
+                    # heal); in-process replicas have no wire to cut.
+                    fn = getattr(router.replicas[act.replica], act.kind, None)
+                    if fn is not None:
+                        fn()
+                else:
+                    router.restore(act.replica)
+            except Exception:
+                # The plan is chaos against live infrastructure; a replica
+                # already down when its action fires is not a plan failure.
+                pass
+
+    th = threading.Thread(target=_run, name="fleet-plan", daemon=True)
+    th.start()
+    return th

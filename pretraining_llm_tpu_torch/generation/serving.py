@@ -1094,6 +1094,20 @@ class ServingEngine:
                 self.decisions.record("evict_cold", blocks=evicted, reason="admission")
         return self.alloc.alloc(n)
 
+    def reserve_migration_blocks(self, n: int) -> Optional[List[int]]:
+        """Claim ``n`` pool blocks for adopted (migrated-in) KV pages, or
+        None when serving pressure says no. Admission's watermark: the
+        pool never goes below one spare block per active request, so a
+        migration loses to live decode. Loop thread only (callers come
+        through ``EngineLoop.run_on_loop``); the caller publishes the
+        blocks into the prefix cache (where they are cold, so
+        reclaimable) or frees them."""
+        if n < 1:
+            return None
+        if self._cache_available() - n < self.n_active:
+            return None
+        return self._cache_alloc(n)
+
     def _admission_capacity(self) -> int:
         """How many queue heads the free-row and watermark rules would
         admit now, without committing anything (the ``admit_batch``

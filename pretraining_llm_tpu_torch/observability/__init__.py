@@ -24,6 +24,7 @@ for the online server (the JAX package's ``observability/``).
                 over the ``req_*`` events.
 
 Everything is host-side; nothing here syncs the device between log
-boundaries. ``scripts/obs_report.py`` reads the JSONL this package writes.
+boundaries. ``python -m pretraining_llm_tpu_torch.obs_report`` reads the
+JSONL this package writes.
 The fleet's clock sync (``clocksync.py``) is not ported.
 """

@@ -23,7 +23,7 @@ another (tests/test_torch_port_capacity.py counts the reads):
     spec-page reclaim, in-flight deadline expiry — becomes one typed
     record carrying ``trace_id`` so "why was trace X preempted/shed" is
     answerable offline by joining against the ``req_*`` event stream
-    (scripts/obs_report.py --capacity).
+    (``python -m pretraining_llm_tpu_torch.obs_report --capacity``).
 
 Timestamps: records carry explicit ``time.perf_counter`` fields
 (``t_dispatch_s``/``t_reap_s`` on windows, ``t_s`` on decisions) so the

@@ -1,7 +1,7 @@
 """Mergeable streaming percentile sketches for the live SLO engine (the JAX
 package's ``observability/sketches.py``; ``to_dict`` gives the same JSON).
 
-The offline analyzer (scripts/obs_report.py) computes exact percentiles
+The offline analyzer (``pretraining_llm_tpu_torch.obs_report``) computes exact percentiles
 because it holds the whole run in memory; a live fleet cannot. This
 module provides the streaming replacement: a t-digest-style centroid
 sketch that is

@@ -25,13 +25,13 @@ pipelining. This module adds the request-scoped half:
 
 Every span's args carry ``trace_id``/``span_id``/``parent_span_id``; the
 EventBus ``req_*`` records carry the same ``trace_id``, which is the
-cross-link scripts/obs_report.py --slo joins on.
+cross-link ``obs_report --slo`` joins on.
 
   group_request_spans / check_trace_tree
                     the analyzer's completeness check of each request's
-                    span tree in an exported trace (copies of
-                    scripts/obs_report.py's, so a checker of the port
-                    needs nothing of the JAX package).
+                    span tree in an exported trace, used by the port's
+                    ``obs_report`` (the JAX script's checks, so a checker
+                    of the port needs nothing of the JAX package).
 """
 
 from __future__ import annotations
@@ -258,7 +258,7 @@ class Tracer:
             )
 
 
-# -- trace analysis (scripts/obs_report.py's --trace checks) ----------------
+# -- trace analysis (obs_report's --trace checks) ----------------------------
 
 _ROOT = "req.request"
 _TERMINAL = "req.terminal"

@@ -1,5 +1,10 @@
-"""KV page digests, the weight fingerprint and the integrity error, the
-serving engine's part of ``pretraining_llm_tpu/resilience/integrity.py``.
+"""Golden probes, KV page digests, the weight fingerprint and the integrity
+error, the serving part of ``pretraining_llm_tpu/resilience/integrity.py``.
+
+``build_probe_set`` pins seeded probe prompts and their greedy
+continuations from the reference ``generate`` path; the fleet router
+re-runs them per replica through the normal admission lane, and any token
+mismatch is proof of divergence, whatever its cause.
 
 ``kv_block_digest`` is blake2b over one pool block's bytes in every pool
 leaf: K, V and, for int8 pools, their scale pages. The serving engine
@@ -14,14 +19,16 @@ bytes in row-major order.
 ``weight_fingerprint`` is one position-weighted fp32 sum over every float
 and integer leaf of a parameter tree, read back once: the online engine
 loop pins it at start and refreshes it between scheduler turns
-(``weight_fingerprint_interval_s``). The golden probes wait for the fleet.
+(``weight_fingerprint_interval_s``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
-from typing import Any, Iterator
+from typing import Any, Iterator, List, Tuple
 
+import numpy as np
 import torch
 
 # numpy's names for the pool dtypes (numpy has no bfloat16; ml_dtypes, which
@@ -37,6 +44,66 @@ _BYTE_VIEWS = {torch.bfloat16: torch.int16}
 class IntegrityError(RuntimeError):
     """Served state failed an integrity check: an out-of-vocabulary token
     id reached the output (corrupted weights, pages or kernel)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GoldenProbe:
+    """One pinned probe: a prompt and its reference greedy continuation.
+    ``alternates`` holds other continuations a healthy replica gives
+    through another prefill lane (the router pins a prefix-cache miss and
+    a hit, whose bf16 roundings differ on the port's kernels); a probe
+    passes on any of them."""
+
+    prompt: Tuple[int, ...]
+    expected: Tuple[int, ...]
+    alternates: Tuple[Tuple[int, ...], ...] = ()
+
+
+def probe_prompts(
+    n_probes: int, probe_len: int, vocab_size: int, seed: int = 20260805
+) -> List[List[int]]:
+    """Deterministic probe prompts, the JAX package's draws. Every probe
+    shares the first ``probe_len - 1`` tokens and differs in its LAST
+    token only: with the prefix cache on, probe #0 publishes the shared
+    prefix blocks and every later probe re-acquires them, so the probes
+    keep exercising the cached-KV read path and a corrupted shared page
+    shows up as probe divergence, not just as a checksum event."""
+    if n_probes < 1:
+        raise ValueError(f"n_probes must be >= 1, got {n_probes}")
+    if probe_len < 2:
+        raise ValueError(f"probe_len must be >= 2, got {probe_len}")
+    rng = np.random.RandomState(seed)
+    prefix = rng.randint(0, vocab_size, size=probe_len - 1).tolist()
+    return [
+        prefix + [int(rng.randint(0, vocab_size))] for _ in range(n_probes)
+    ]
+
+
+def build_probe_set(
+    params: Any,
+    cfg: Any,
+    *,
+    n_probes: int = 2,
+    probe_len: int = 9,
+    max_new: int = 4,
+    seed: int = 20260805,
+) -> List[GoldenProbe]:
+    """Pin the probe set: greedy continuations from the reference
+    ``generate`` path (batch-1 fixed-count decode, deliberately NOT the
+    serving engine, so the pin is independent of the machinery it later
+    judges), on the params' device. Call once at startup, before
+    traffic."""
+    from pretraining_llm_tpu_torch.generation.generate import generate
+
+    device = params["tok_embed"]["embedding"].device
+    probes = []
+    for prompt in probe_prompts(n_probes, probe_len, cfg.vocab_size, seed):
+        toks = generate(
+            params, cfg, torch.tensor([prompt], dtype=torch.int32, device=device),
+            max_new, 7, temperature=0.0,
+        )
+        probes.append(GoldenProbe(tuple(prompt), tuple(int(t) for t in toks[0].tolist())))
+    return probes
 
 
 def _leaves(pools: Any) -> Iterator[torch.Tensor]:

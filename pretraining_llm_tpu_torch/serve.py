@@ -1,5 +1,5 @@
 """Serving entry point of the PyTorch port: the JAX package's
-``scripts/serve.py`` with one engine.
+``scripts/serve.py`` with its replicas in one process.
 
 Offline, a prompt file (one prompt a line) flows through
 ``generation.serving.ServingEngine``'s continuous batching, and each prompt gets one JSONL record with ``index``,
@@ -29,11 +29,26 @@ and the SLO engine runs unless ``--no-slo``::
         --tokenizer byte --temperature 0 --events build/events.jsonl --trace build/trace.json
     curl -s localhost:8000/v1/generate -d '{"prompt": "hi", "max_new_tokens": 16}'
 
-The fleet flags of ``scripts/serve.py`` (more than one replica, process
-replicas, roles, attach, leases, the journal, recovery, serving faults, the
-wedge watchdog and golden probes) are accepted by the parser and raise
-``NotImplementedError``: they wait for the fleet slice (ROADMAP Queue A
-item 6b).
+``--replicas N`` puts ``frontend.Router`` in front of N replicas in this
+process, each with its own engine, loop, admission and labelled registry,
+behind the same gateway: prefix-affinity routing, ejection and relaunch,
+drain and redrive. ``--replica_roles prefill,decode`` disaggregates
+prefill (the KV pages migrate to the decode replica), ``--journal_path``
+keeps the router's write-ahead journal and ``--recover`` replays it,
+``--serving_faults`` runs a drill (also with one replica),
+``--wedged_after_s`` ejects a replica whose turn hangs, and
+``--probe_interval_s`` re-runs golden probes per replica and quarantines
+one that diverges::
+
+    python -m pretraining_llm_tpu_torch.serve --model_path build/ck --http --port 8000 \\
+        --tokenizer byte --temperature 0 --replicas 2 --journal_path build/journal.jsonl \\
+        --probe_interval_s 0.5 --serving_faults corrupt_weights@req8:r1 --events build/events.jsonl
+    python -m pretraining_llm_tpu_torch.obs_report --fleet --integrity --strict build/events.jsonl
+
+Process replicas (``--replica_mode process``, ``--attach``,
+``--attach_token``, ``--lease_s`` and the process fault kinds) raise
+``NotImplementedError``: they wait for the process-replica slice (ROADMAP
+Queue A item 1, process replicas).
 """
 
 from __future__ import annotations
@@ -57,14 +72,25 @@ _HTTP_FLAGS = (
     ("--healthz_stale_after_s", float, "/healthz is 503 after this many seconds without a scheduler turn"),
     ("--weight_fingerprint_interval_s", float, "weight fingerprint refresh period on the loop thread; 0 = off"),
 )
-# Its fleet flags, refused until the fleet is ported: (flag, kind, refused
-# unless the value is this).
+# Its fleet flags: (flag, kind, help). None leaves the config's value.
 _FLEET_FLAGS = (
-    ("--replicas", int, 1), ("--replica_mode", str, "inproc"), ("--replica_roles", str, None),
-    ("--attach", str, None), ("--attach_token", str, None), ("--lease_s", float, None),
-    ("--journal_path", str, None), ("--serving_faults", str, None), ("--wedged_after_s", float, None),
-    ("--probe_interval_s", float, None), ("--probe_count", int, None), ("--probe_max_new", int, None),
+    ("--replicas", int, "replicas in this process behind the fleet router; 1 = one engine loop"),
+    ("--replica_roles", str, "(replicas > 1) comma-separated prefill|decode|both, one per replica or one for all "
+     "(default: both)"),
+    ("--journal_path", str, "write-ahead fleet journal JSONL"),
+    ("--serving_faults", str, "serving fault plan, e.g. 'replica_crash@req3:r0,slow_window@req5'"),
+    ("--wedged_after_s", float, "eject a replica with active requests and no scheduler turn for this long; 0 = off"),
+    ("--probe_interval_s", float, "(replicas > 1) golden-probe period; 0 = off"),
+    ("--probe_count", int, "distinct golden probes to pin"),
+    ("--probe_max_new", int, "tokens each probe decodes"),
 )
+# The process-replica flags, refused until process replicas are ported:
+# (flag, kind, refused unless the value is this).
+_PROCESS_FLAGS = (
+    ("--replica_mode", str, "inproc"), ("--attach", str, None), ("--attach_token", str, None),
+    ("--lease_s", float, None),
+)
+_PROCESS_ITEM = "ROADMAP Queue A item 1, process replicas"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -119,42 +145,76 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--slo_target", type=float, default=0.99, help="(--http) the objectives' success target")
     parser.add_argument("--slo_window_s", type=float, default=60.0,
                         help="(--http) rolling window of the live latency sketches")
-    parser.add_argument("--recover", action="store_true", help="(--http) fleet journal recovery (not ported)")
-    for flag, kind, _ in _FLEET_FLAGS:
-        parser.add_argument(flag, type=kind, default=None, help="(--http) fleet flag (not ported)")
+    parser.add_argument("--recover", action="store_true",
+                        help="(--http) replay --journal_path before taking traffic: journaled in-flight "
+                        "requests are redriven from their last committed frontier")
+    for flag, kind, text in _FLEET_FLAGS:
+        parser.add_argument(flag, type=kind, default=None,
+                            help=f"(--http) {text}" + ("" if "(default:" in text else " (default: config)"))
+    for flag, kind, _ in _PROCESS_FLAGS:
+        parser.add_argument(flag, type=kind, default=None, help=f"(--http) process replicas (not ported: {_PROCESS_ITEM})")
     return parser
 
 
 def _refuse_unported(args: argparse.Namespace) -> None:
-    named = [flag for flag, _, ok in _FLEET_FLAGS if getattr(args, flag[2:]) not in (None, ok)]
-    if args.recover:
-        named.append("--recover")
+    from pretraining_llm_tpu_torch.resilience.faults import PROCESS_SERVING_FAULT_KINDS, parse_serving_faults
+
+    named = [flag for flag, _, ok in _PROCESS_FLAGS if getattr(args, flag[2:]) not in (None, ok)]
+    if args.serving_faults:
+        # corrupt_kv_migration flips the serialized transfer, which in-process
+        # replicas migrate too; the other process kinds need a worker.
+        named += sorted({
+            f.kind for f in parse_serving_faults(args.serving_faults)
+            if f.kind in PROCESS_SERVING_FAULT_KINDS and f.kind != "corrupt_kv_migration"
+        })
     if named:
         raise NotImplementedError(
-            f"{', '.join(named)}: the serving fleet (replicas, router, journal, serving faults, "
-            "probes) is not ported to PyTorch yet; it waits for the fleet slice (ROADMAP Queue A item 6b)"
+            f"{', '.join(named)}: process replicas (worker processes, attach, leases and the process "
+            f"fault kinds) are not ported to PyTorch yet; they wait for {_PROCESS_ITEM}"
         )
 
 
-def _serve_http(args: argparse.Namespace, cfg: Any, eng: Any, enc: Any) -> None:
-    """The gateway over one engine until SIGINT or SIGTERM (the JAX CLI's
-    single-replica branch). SIGTERM drains first: no new requests, the
-    ones in flight finish (30 s at most), then the loop stops, the bus
-    closes and the trace is written."""
+def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, quantize: str) -> None:
+    """The gateway until SIGINT or SIGTERM (the JAX CLI's in-process
+    branches): one ``EngineLoop`` with ``--replicas 1``, else the fleet
+    ``Router`` over that many ``Replica``s, each building its own engine
+    with ``make_engine``. SIGTERM drains first: no new requests, the ones
+    in flight finish (30 s at most), then the loops stop, the bus closes
+    and the trace is written."""
     from pretraining_llm_tpu_torch.frontend.admission import AdmissionController
     from pretraining_llm_tpu_torch.frontend.engine_loop import EngineLoop
     from pretraining_llm_tpu_torch.frontend.gateway import ServingGateway
+    from pretraining_llm_tpu_torch.frontend.replica import Replica
+    from pretraining_llm_tpu_torch.frontend.router import Router
     from pretraining_llm_tpu_torch.observability.capacity import DecisionLog
     from pretraining_llm_tpu_torch.observability.events import EventBus
     from pretraining_llm_tpu_torch.observability.metrics import MetricsRegistry
     from pretraining_llm_tpu_torch.observability.slo import SLOEngine, default_slo_classes
     from pretraining_llm_tpu_torch.observability.spans import get_recorder
     from pretraining_llm_tpu_torch.observability.tracing import Tracer
+    from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector
 
     fc = cfg.frontend
 
     def pick(cli_val, cfg_val):
         return cfg_val if cli_val is None else cli_val
+
+    n_replicas = pick(args.replicas, fc.replicas)
+    if pick(args.replica_mode, fc.replica_mode) != "inproc":
+        raise NotImplementedError(f"replica_mode process is not ported to PyTorch yet; it waits for {_PROCESS_ITEM}")
+    fault_spec = pick(args.serving_faults, fc.serving_faults)
+    journal_path = pick(args.journal_path, fc.journal_path)
+    roles = [r.strip() for r in args.replica_roles.split(",") if r.strip()] if args.replica_roles else []
+    if roles:
+        if len(roles) == 1:
+            roles = roles * n_replicas
+        if len(roles) != n_replicas:
+            raise SystemExit(f"--replica_roles lists {len(roles)} roles for {n_replicas} replicas")
+        bad = [r for r in roles if r not in ("prefill", "decode", "both")]
+        if bad:
+            raise SystemExit(f"--replica_roles: unknown role(s) {bad}; expected prefill|decode|both")
+    if args.recover and not journal_path:
+        raise SystemExit("--recover needs --journal_path")
 
     # The SLO engine subscribes to the bus, so it makes one (in memory
     # without --events).
@@ -170,17 +230,49 @@ def _serve_http(args: argparse.Namespace, cfg: Any, eng: Any, enc: Any) -> None:
     if args.trace is not None and args.trace_sample is None:
         trace_sample = 1.0  # asking for an export implies sampling
     tracer = Tracer(get_recorder(), sample=trace_sample, seed=args.seed) if trace_sample > 0 else None
-    registry = MetricsRegistry(prefix="pllm_serving_", const_labels={"quant_dtype": eng.quantize})
-    admission = AdmissionController(
-        max_queue_depth=pick(args.max_queue_depth, fc.max_queue_depth),
-        max_outstanding_tokens=pick(args.max_outstanding_tokens, fc.max_outstanding_tokens),
-        retry_after_s=fc.retry_after_s, shed_infeasible=fc.shed_infeasible, registry=registry,
-    )
-    loop = EngineLoop(
-        eng, admission=admission, bus=bus, idle_wait_s=fc.idle_wait_s, tracer=tracer, registry=registry,
-        capacity_ring=fc.capacity_ring,
+    registry = MetricsRegistry(prefix="pllm_serving_", const_labels={"quant_dtype": quantize})
+    faults = ServingFaultInjector(fault_spec, bus=bus) if fault_spec else None
+
+    def make_admission(reg, scope=""):
+        return AdmissionController(
+            max_queue_depth=pick(args.max_queue_depth, fc.max_queue_depth),
+            max_outstanding_tokens=pick(args.max_outstanding_tokens, fc.max_outstanding_tokens),
+            retry_after_s=fc.retry_after_s, shed_infeasible=fc.shed_infeasible, registry=reg, scope=scope,
+        )
+
+    loop_kwargs = dict(
+        idle_wait_s=fc.idle_wait_s, capacity_ring=fc.capacity_ring,
         weight_fingerprint_interval_s=pick(args.weight_fingerprint_interval_s, fc.weight_fingerprint_interval_s),
-    ).start()
+    )
+    if n_replicas > 1:
+        replicas = [
+            Replica(
+                i, make_engine, bus=bus, tracer=tracer, registry_labels={"quant_dtype": quantize},
+                admission_factory=make_admission, fault_injector=faults, loop_kwargs=loop_kwargs,
+                role=roles[i] if roles else "both",
+            )
+            for i in range(n_replicas)
+        ]
+        loop = Router(
+            replicas, admission=make_admission(registry, scope="fleet"), bus=bus, registry=registry,
+            tracer=tracer, slo=slo, affinity_tokens=fc.affinity_tokens, spill_margin=fc.spill_margin,
+            wedged_after_s=pick(args.wedged_after_s, fc.wedged_after_s), eject_backoff_s=fc.eject_backoff_s,
+            eject_backoff_max_s=fc.eject_backoff_max_s, backoff_seed=args.seed,
+            redrive_max=fc.redrive_max_attempts, brownout_min_healthy_frac=fc.brownout_min_healthy_frac,
+            brownout_min_priority=fc.brownout_min_priority, brownout_max_deadline_s=fc.brownout_max_deadline_s,
+            probe_interval_s=pick(args.probe_interval_s, fc.probe_interval_s),
+            probe_count=pick(args.probe_count, fc.probe_count),
+            probe_max_new=pick(args.probe_max_new, fc.probe_max_new), journal_path=journal_path,
+            journal_rotate_bytes=int(fc.journal_rotate_mb * 1024 * 1024), recover=args.recover,
+        ).start()
+    else:
+        eng = make_engine()
+        if faults is not None:
+            eng.pipeline_tick = faults.wrap_tick(0, eng.pipeline_tick)
+            faults.attach_engine(0, eng)
+        loop = EngineLoop(
+            eng, admission=make_admission(registry), bus=bus, tracer=tracer, registry=registry, **loop_kwargs,
+        ).start()
     gateway = ServingGateway(
         loop, host=pick(args.host, fc.host), port=pick(args.port, fc.port), encode=enc.encode_ordinary,
         decode=enc.decode, default_deadline_s=pick(args.default_deadline_s, fc.default_deadline_s),
@@ -188,8 +280,9 @@ def _serve_http(args: argparse.Namespace, cfg: Any, eng: Any, enc: Any) -> None:
         retry_jitter_frac=fc.retry_jitter_frac, retry_jitter_seed=fc.retry_jitter_seed, slo=slo,
     )
     host, port = gateway._server.server_address[:2]
-    print(f"[serve] gateway listening on http://{host}:{port} — POST /v1/generate, GET /healthz, GET /readyz, "
-          "GET /metrics, GET /slo, GET /metricsz, GET /debug/requests, GET /debug/engine",
+    fleet = f" ({n_replicas} replicas)" if n_replicas > 1 else ""
+    print(f"[serve] gateway{fleet} listening on http://{host}:{port} — POST /v1/generate, GET /healthz, "
+          "GET /readyz, GET /metrics, GET /slo, GET /metricsz, GET /debug/requests, GET /debug/engine",
           file=sys.stderr, flush=True)
     # SIGTERM (the orchestrator's stop) takes the ^C path, after a drain.
     graceful = {"drain": False}
@@ -223,8 +316,9 @@ def _serve_http(args: argparse.Namespace, cfg: Any, eng: Any, enc: Any) -> None:
             extra = f" ({dropped} spans DROPPED)" if dropped else ""
             print(f"[serve] trace written to {path}{extra}", file=sys.stderr, flush=True)
         print(f"[serve] shut down — {loop.counters}", file=sys.stderr, flush=True)
-    if loop.failure is not None:
-        raise RuntimeError(f"the engine loop failed: {loop.failure!r}") from loop.failure
+    failure = getattr(loop, "failure", None)
+    if failure is not None:
+        raise RuntimeError(f"the engine loop failed: {failure!r}") from failure
 
 
 def main(argv: Optional[List[str]] = None) -> Optional[List[Dict[str, Any]]]:
@@ -260,23 +354,36 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[Dict[str, Any]]]:
     quantize = args.quantize or serving.quantize
     if quantize != "none":
         params = quantize_mod.quantize_params_for_serving(params, cfg.model)
-    eng = ServingEngine(
-        params, cfg.model,
-        max_batch=args.max_batch, n_blocks=args.n_blocks, block_size=args.block_size,
-        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
-        stop_token=args.stop_token, seed=args.seed, steps_per_sched=args.steps_per_sched,
-        pipeline_depth=args.pipeline_depth or serving.pipeline_depth,
-        admit_batch=args.admit_batch or serving.admit_batch,
-        prefix_cache=args.prefix_cache or serving.prefix_cache,
-        prefix_cache_min_blocks=args.prefix_cache_min_blocks or serving.prefix_cache_min_blocks,
-        prefill_chunk_tokens=args.prefill_chunk_tokens or serving.prefill_chunk_tokens,
-        kv_checksum=args.kv_checksum or serving.kv_checksum,
-        quantize=quantize, device=args.device, **spec,
-    )
+    if args.device != "cpu":
+        # Every replica's loop thread would otherwise build the kernel
+        # libraries at its first launch, each its own nvcc.
+        from pretraining_llm_tpu_torch.ops import _build
+
+        _build.build()
+
+    def make_engine() -> ServingEngine:
+        # A factory, not an engine: a fleet builds one engine per replica,
+        # and a crashed replica relaunches with a fresh one. The engines
+        # share ``params`` (quantized once above).
+        return ServingEngine(
+            params, cfg.model,
+            max_batch=args.max_batch, n_blocks=args.n_blocks, block_size=args.block_size,
+            temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
+            stop_token=args.stop_token, seed=args.seed, steps_per_sched=args.steps_per_sched,
+            pipeline_depth=args.pipeline_depth or serving.pipeline_depth,
+            admit_batch=args.admit_batch or serving.admit_batch,
+            prefix_cache=args.prefix_cache or serving.prefix_cache,
+            prefix_cache_min_blocks=args.prefix_cache_min_blocks or serving.prefix_cache_min_blocks,
+            prefill_chunk_tokens=args.prefill_chunk_tokens or serving.prefill_chunk_tokens,
+            kv_checksum=args.kv_checksum or serving.kv_checksum,
+            quantize=quantize, device=args.device, **spec,
+        )
+
     if args.http:
-        _serve_http(args, cfg, eng, enc)
+        _serve_http(args, cfg, make_engine, enc, quantize)
         return None
 
+    eng = make_engine()
     rids: Dict[int, int] = {}
     for i, text in enumerate(texts):
         try:

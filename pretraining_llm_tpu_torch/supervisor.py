@@ -55,7 +55,7 @@ def _log(record: dict) -> None:
 class _EventWriter:
     """Append supervisor events to the JSONL stream the trainer's EventBus
     writes (--events pointed at the run's events file), in the same record
-    shape (event/seq/t_wall/t_mono), so obs_report.py folds relaunches into
+    shape (event/seq/t_wall/t_mono), so ``obs_report`` folds relaunches into
     one timeline. Kept apart from observability/events.py so the supervisor
     stays stdlib-only. Every write is best effort: a full disk must not kill
     the relauncher."""

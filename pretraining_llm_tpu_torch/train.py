@@ -6,9 +6,21 @@ gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, llama3-1b-gqa, reference-3b,
 tiny), dotted overrides of any model, data or train field, file, mixture
 or synthetic data, ``--no-resume``, ``--steps`` and ``--obs-dir`` (the
 run's events, spans and Prometheus textfile under one directory, for
-``scripts/obs_report.py``). ``--compile-only`` is not ported. Runs on the
-GPU; ``--device cpu`` runs the plain PyTorch versions of the kernels on the
-CPU.
+``python -m pretraining_llm_tpu_torch.obs_report``) and ``--compile-only``.
+Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
+kernels on the CPU.
+
+``--compile-only`` sizes a preset before a run: it builds the kernel
+libraries, then prints one JSON line with the JAX script's keys.
+``arguments`` (the state: parameters, the preset's optimizer state, the
+step, the EMA copy if any; and one global batch of int32 tokens),
+``outputs`` (the updated state and the step's three fp32 metrics) and
+``aliased`` (the state, updated in place as JAX donates it) come from
+shapes alone. ``temps`` is measured on the card: the peak allocated during
+one full train step of the preset (every microbatch, synthetic tokens)
+less the state and the batch; on the CPU, which keeps no peak, it and the
+total are ``null``. When the step runs out of memory the line carries
+``"oom": true`` and the command exits 1.
 
 The exit code is the resilience contract the supervisor reads
 (``resilience/__init__.py``): 0 when the run completed, 43 after a SIGTERM
@@ -41,9 +53,13 @@ from __future__ import annotations
 
 import argparse
 import ast
+import json
 import os
 import sys
+import time
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from pretraining_llm_tpu_torch.config import get_preset, list_presets
 from pretraining_llm_tpu_torch.resilience import EXIT_ANOMALY, EXIT_PREEMPTED
@@ -72,11 +88,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                         help="'synthetic' trains on a generated Markov stream (no files needed)")
     parser.add_argument("--obs-dir", default="", metavar="DIR",
                         help="run telemetry under DIR: events.jsonl, spans.trace.json, metrics.prom "
-                             "(scripts/obs_report.py reads them); explicit obs.* overrides win")
+                             "(python -m pretraining_llm_tpu_torch.obs_report reads them); explicit obs.* "
+                             "overrides win")
     parser.add_argument("--no-resume", action="store_true", help="ignore existing checkpoints")
     parser.add_argument("--steps", type=int, default=None, help="override total steps")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="'cpu' runs the kernels' plain PyTorch versions")
+    parser.add_argument("--compile-only", action="store_true",
+                        help="build the kernels, print the per-device memory estimate (one JSON line) and exit")
     args = parser.parse_args(argv)
 
     overrides = parse_overrides(args.override)
@@ -88,6 +107,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     config = get_preset(args.preset).with_overrides(overrides)
     print(f"preset={config.name} device={args.device} params={config.model.num_params() / 1e6:.1f}M",
           flush=True)
+    if args.compile_only:
+        report = compile_only(config, args.device)
+        if report.get("oom"):
+            sys.exit(1)
+        return report
     trainer = Trainer(config, synthetic_data=args.data == "synthetic", resume=not args.no_resume,
                       device=args.device)
     final = trainer.train(steps=args.steps)
@@ -97,6 +121,91 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     if rc:
         sys.exit(rc)
     return final
+
+
+def _nbytes(tree: Any) -> int:
+    from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
+
+    return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
+
+
+def shape_bytes(config: Any) -> Dict[str, int]:
+    """{"state", "batch", "metrics"} bytes of one train step of ``config``,
+    from shapes: the state is ``init_train_state``'s tree (parameters,
+    optimizer state, step, EMA copy) built on the meta device, which
+    allocates nothing; the batch is x and y of int32 tokens; the metrics are
+    the step's three fp32 scalars."""
+    from pretraining_llm_tpu_torch.models import transformer
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    dtype = transformer.torch_dtype(config.model.param_dtype)
+
+    def fill(tree: Any) -> Any:
+        return {k: fill(s) if isinstance(s, dict) else torch.empty(s, dtype=dtype, device="meta")
+                for k, s in tree.items()}
+
+    params = fill(transformer.param_shapes(config.model))
+    state = {"params": params, "opt": opt.optimizer_init(params, config.train),
+             "step": torch.empty((), dtype=torch.int32, device="meta")}
+    if config.train.ema_decay > 0:
+        state["ema"] = opt.tree_map(lambda p: torch.empty_like(p, dtype=torch.float32), params)
+    b, t = config.train.batch_size, config.model.context_length
+    return {"state": _nbytes(state), "batch": 2 * b * t * 4, "metrics": 3 * 4}
+
+
+def compile_only(config: Any, device: str = "cuda") -> Dict[str, Any]:
+    """The ``--compile-only`` report of ``config`` (see the module
+    docstring), printed as one JSON line and returned. On the card one full
+    train step runs on a fresh random state and synthetic tokens; an
+    out-of-memory error there is the answer (``"oom": true``)."""
+    from pretraining_llm_tpu_torch.training import train_step as ts
+    from pretraining_llm_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        from pretraining_llm_tpu_torch.ops import _build
+
+        _build.build()
+    b, t = config.train.batch_size, config.model.context_length
+    sizes = shape_bytes(config)
+    state_b, batch_b, metrics_b = sizes["state"], sizes["batch"], sizes["metrics"]
+    compile_s = time.perf_counter() - t0
+    temps: Optional[int] = None
+    oom = False
+    if dev.type == "cuda":
+        try:
+            state = ts.init_train_state(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+            gen = torch.Generator(device=dev).manual_seed(1)
+            x = torch.randint(0, config.model.vocab_size, (b, t), generator=gen, device=dev, dtype=torch.int32)
+            y = torch.randint(0, config.model.vocab_size, (b, t), generator=gen, device=dev, dtype=torch.int32)
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            state, metrics = ts.build_train_step(config)(state, (x, y))
+            float(metrics["loss"])  # the step ran to its end
+            temps = torch.cuda.max_memory_allocated(dev) - state_b - batch_b
+        except torch.cuda.OutOfMemoryError:
+            oom = True
+    gib = 2**30
+
+    def g(n: Optional[int]) -> Optional[float]:
+        return None if n is None else round(n / gib, 3)
+
+    report: Dict[str, Any] = {
+        "compile_s": round(compile_s, 1),
+        "devices": 1,
+        "per_device_GiB": {
+            "arguments": g(state_b + batch_b),
+            "outputs": g(state_b + metrics_b),
+            "aliased (donated state, counted once)": g(state_b),
+            "temps": g(temps),
+            "total_peak_estimate": g(None if temps is None else state_b + batch_b + metrics_b + temps),
+        },
+    }
+    if oom:
+        report["oom"] = True
+    print(json.dumps(report), flush=True)
+    return report
 
 
 if __name__ == "__main__":

@@ -218,8 +218,10 @@ def test_trainer_eval_metrics_and_cli(tmp_path, capsys):
                        "--no-resume", "--override", f"train.checkpoint_dir={tmp_path / 'cli'}",
                        "train.log_interval=1", "train.save_final=False"])
     assert final["loss"] > 0 and "step 2" in capsys.readouterr().out
-    with pytest.raises(SystemExit):  # not ported: argparse refuses it (--obs-dir is ported)
-        tcli.main(["--preset", "tiny", "--device", "cpu", "--compile-only"])
+    # --compile-only is ported: the JAX script's JSON line, and no step runs.
+    report = tcli.main(["--preset", "tiny", "--device", "cpu", "--compile-only"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == report
+    assert set(report) == {"compile_s", "devices", "per_device_GiB"}
 
 
 @pytest.mark.parametrize("key,value", [("train.checkpoint_async", True), ("train.profile_dir", "p"),

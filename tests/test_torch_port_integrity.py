@@ -9,12 +9,23 @@ refcount state; a published page flipped between two bursts is caught at
 acquire, dropped and re-prefilled privately, with every stream equal to the
 cache-off run and to the JAX engine's under the same fault, at depths 1-3
 and under the synchronous scheduler; and no digest is taken while
-``kv_checksum`` is off. The tiny preset at fp32 (2 layers, d 32, V 256),
-seeded numpy weights (std 0.3) through ``models/bridge.py``.
+``kv_checksum`` is off.
+
+Mirrors the golden-probe and sentinel cases of ``tests/test_integrity.py``
+too: the probe prompts and the pinned set equal the JAX package's; the
+corruption drills (``corrupt_kv_page``, ``corrupt_weights``,
+``wrong_token``) hit only the engine they fire on; a forged token is
+redriven to bit-identical streams on both fleets; the probe sentinel
+quarantines the replica with the flipped page (the same replica on the
+JAX fleet), the fingerprint sentinel the replica with negated weights,
+and readiness and the debug view carry the integrity snapshot. The tiny
+preset at fp32 (2 layers, d 32, V 256), seeded numpy weights (std 0.3)
+through ``models/bridge.py``.
 """
 
 import dataclasses
 import functools
+import time
 
 import jax
 import jax.numpy as jnp
@@ -225,3 +236,303 @@ def test_kv_digest_never_runs_with_checksum_off(tparams, monkeypatch):
 def test_integrity_error_is_the_resilience_module_s():
     assert tserving.IntegrityError is integrity.IntegrityError
     assert issubclass(integrity.IntegrityError, RuntimeError)
+
+
+# -- golden probes, corruption drills and the fleet sentinel ----------------
+
+from pretraining_llm_tpu.frontend.replica import Replica as JaxReplica  # noqa: E402
+from pretraining_llm_tpu.frontend.router import Router as JaxRouter  # noqa: E402
+from pretraining_llm_tpu_torch.frontend.replica import Replica  # noqa: E402
+from pretraining_llm_tpu_torch.frontend.router import Router  # noqa: E402
+from pretraining_llm_tpu_torch.observability.events import EventBus  # noqa: E402
+from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector as TInjector  # noqa: E402
+
+WAIT = 120
+
+
+def _prompts(n, lengths=(5, 9, 14, 7, 11, 3, 16, 6)):
+    rng = np.random.default_rng(42)
+    return [rng.integers(0, CFG.vocab_size, size=int(lengths[i % len(lengths)])).tolist() for i in range(n)]
+
+
+def _factory(params, **kw):
+    kw = {"max_batch": 2, "n_blocks": N_BLOCKS, "block_size": BS, "steps_per_sched": 4, "pipeline_depth": 2, **kw}
+    return lambda: ServingEngine(params, CFG, temperature=0.0, device="cpu", **kw)
+
+
+def _jax_factory(params, **kw):
+    kw = {"max_batch": 2, "n_blocks": N_BLOCKS, "block_size": BS, "steps_per_sched": 4, "pipeline_depth": 2, **kw}
+    return lambda: JaxEngine(params, JCFG, temperature=0.0, **kw)
+
+
+def _fleet(factory, faults=None, bus=None, loop_kwargs=None, jax_side=False, **router_kw):
+    rep, router = (JaxReplica, JaxRouter) if jax_side else (Replica, Router)
+    reps = [rep(i, factory, bus=bus, fault_injector=faults, loop_kwargs=loop_kwargs) for i in range(2)]
+    router_kw.setdefault("eject_backoff_s", 0.1)
+    return router(reps, bus=bus, **router_kw)
+
+
+def _undisturbed(params, prompts, n_new, **kw):
+    eng = _factory(params, **kw)()
+    rids = {eng.submit(p, n_new): i for i, p in enumerate(prompts)}
+    return {rids[r]: t for r, t in eng.run().items()}
+
+
+def _wait(pred, timeout, msg):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.02)
+    raise AssertionError(f"timed out waiting for {msg}")
+
+
+def test_probes_refuse_sampling_engine(tparams):
+    """Bit-exact probes mean nothing against sampled decode: the router
+    refuses at start, before pinning a baseline."""
+    def sampling():
+        return ServingEngine(tparams, CFG, temperature=0.8, max_batch=2, n_blocks=N_BLOCKS, block_size=BS,
+                             device="cpu")
+
+    router = Router([Replica(0, sampling)], probe_interval_s=0.2)
+    try:
+        with pytest.raises(ValueError, match="temperature"):
+            router.start()
+    finally:
+        router.stop()
+
+
+def test_probe_prompts_match_jax():
+    a = integrity.probe_prompts(4, 9, CFG.vocab_size)
+    assert a == jintegrity.probe_prompts(4, 9, CFG.vocab_size) == integrity.probe_prompts(4, 9, CFG.vocab_size)
+    assert all(len(p) == 9 and p[:-1] == a[0][:-1] for p in a) and len({tuple(p) for p in a}) == 4
+    for args, match in (((0, 9, 256), "n_probes"), ((2, 1, 256), "probe_len")):
+        with pytest.raises(ValueError, match=match):
+            integrity.probe_prompts(*args)
+
+
+def test_build_probe_set_matches_jax(jparams, tparams):
+    """The pinned set from the port's reference ``generate`` equals the JAX
+    package's on the same weights (fp32: greedy argmax ties aside, which
+    these draws do not have), and the serving engine agrees with it."""
+    probes = integrity.build_probe_set(tparams, CFG, n_probes=2, probe_len=9, max_new=4)
+    want = jintegrity.build_probe_set(jparams, JCFG, n_probes=2, probe_len=9, max_new=4)
+    assert [(p.prompt, p.expected) for p in probes] == [(p.prompt, p.expected) for p in want]
+    assert probes == integrity.build_probe_set(tparams, CFG, n_probes=2, probe_len=9, max_new=4)
+    out = _undisturbed(tparams, [list(p.prompt) for p in probes], 4)
+    assert [out[i] for i in range(2)] == [list(p.expected) for p in probes]
+
+
+def test_corrupt_weights_hits_one_engine_only(tparams):
+    """Two engines on one parameter tree: ``corrupt_weights`` moves the
+    fingerprint of the engine it fires on and nothing else (the shared
+    tensors are untouched; the negated leaf is that engine's own copy)."""
+    a, b = _factory(tparams)(), _factory(tparams)()
+    fp0 = integrity.weight_fingerprint(a.params)
+    assert fp0 == integrity.weight_fingerprint(b.params) == integrity.weight_fingerprint(a.params)
+    before = [t.clone() for t in integrity._leaves(tparams)]
+    assert TInjector._fire_corrupt_weights(a)
+    assert integrity.weight_fingerprint(a.params) != fp0
+    assert integrity.weight_fingerprint(b.params) == fp0 == integrity.weight_fingerprint(tparams)
+    assert all(torch.equal(t, u) for t, u in zip(integrity._leaves(tparams), before))
+    changed = [i for i, (t, u) in enumerate(zip(integrity._leaves(a.params), before)) if not torch.equal(t, u)]
+    assert len(changed) == 1  # the largest float leaf (the first, in the JAX order, of the largest)
+    i = changed[0]
+    assert torch.equal(list(integrity._leaves(a.params))[i], -before[i])
+    assert before[i].numel() == max(t.numel() for t in before)
+
+
+def test_kv_block_digest_detects_page_flip(jparams, tparams):
+    """``corrupt_kv_page`` poisons the lowest cached block in place, the JAX
+    drill's target: only that page's digest moves."""
+    prompts = [list(range(16)) + [1, 2, 3]] * 2
+    eng, jeng = _factory(tparams, prefix_cache=True)(), _jax_factory(jparams, prefix_cache=True)()
+    for e in (eng, jeng):
+        for p in prompts:
+            e.submit(p, 6)
+        e.run()
+    cached = eng.prefix_cache.cached_block_ids()
+    assert cached and cached == jeng.prefix_cache.cached_block_ids()
+    before = {b: integrity.kv_block_digest(eng.pools, b) for b in cached}
+    assert TInjector._fire_corrupt_kv_page(eng)
+    after = {b: integrity.kv_block_digest(eng.pools, b) for b in cached}
+    assert [after[b] != before[b] for b in cached] == [b == cached[0] for b in cached]
+    assert not TInjector._fire_corrupt_kv_page(_factory(tparams, prefix_cache=True)())  # nothing cached yet
+
+
+def test_wrong_token_fails_engine_before_streaming(tparams):
+    eng = _factory(tparams, n_blocks=8)()
+    streamed = []
+    eng.on_token = lambda rid, tok: streamed.append(tok)
+    eng.submit(_prompts(1)[0], 6)
+    assert TInjector._fire_wrong_token(eng)
+    with pytest.raises(integrity.IntegrityError, match="invalid token"):
+        eng.run()
+    assert eng.stats.get("invalid_tokens", 0) == 1
+    assert all(0 <= t < CFG.vocab_size for t in streamed)
+
+
+def test_wrong_token_redrives_bit_identical(jparams, tparams):
+    """The guard turns a forged commit into an engine failure; the router
+    redrives and every stream equals the undisturbed one, on the port's
+    fleet as on the JAX fleet."""
+    prompts = _prompts(6)
+    n_new = 8
+    ref = _undisturbed(tparams, prompts, n_new)
+    events = []
+    bus = EventBus()
+    bus.subscribe(events.append)
+    router = _fleet(_factory(tparams), faults=TInjector("wrong_token@req1:r0", bus=bus), bus=bus)
+    with router:
+        results = [r.result(timeout=WAIT) for r in [router.submit(p, n_new) for p in prompts]]
+    jrouter = _fleet(_jax_factory(jparams), faults=ServingFaultInjector("wrong_token@req1:r0"), jax_side=True)
+    with jrouter:
+        jresults = [r.result(timeout=WAIT) for r in [jrouter.submit(p, n_new) for p in prompts]]
+    assert [(s, t) for s, t, _ in results] == [(s, t) for s, t, _ in jresults] == [
+        ("done", ref[i]) for i in range(len(prompts))]
+    assert router.counters["redrives"] >= 1 and jrouter.counters["redrives"] >= 1
+    kinds = [e.get("event") for e in events]
+    assert "integrity_invalid_token" in kinds and "fault_fired" in kinds
+    inv = next(e for e in events if e.get("event") == "integrity_invalid_token")
+    assert inv["token"] >= CFG.vocab_size
+
+
+def test_probe_sentinel_quarantines_corrupt_kv_page(jparams, tparams):
+    """The probes' shared cached page flipped on replica 0, kv_checksum off:
+    the sentinel quarantines replica 0 from probe divergence alone, no
+    client request is lost or wrong, and the integrity report (the port's
+    obs_report, equal to the JAX script's) attributes the detection. The
+    JAX fleet quarantines the same replica for the same reason."""
+    from pretraining_llm_tpu_torch import obs_report
+
+    prompts = _prompts(6)
+    n_new = 8
+    ref = _undisturbed(tparams, prompts, n_new, prefix_cache=True)
+    outcome = {}
+    for side in ("torch", "jax"):
+        events = []
+        bus = EventBus()
+        bus.subscribe(events.append)
+        if side == "torch":
+            faults, factory = TInjector("corrupt_kv_page@req1:r0", bus=bus), _factory(tparams, prefix_cache=True)
+        else:
+            faults, factory = ServingFaultInjector("corrupt_kv_page@req1:r0"), _jax_factory(jparams,
+                                                                                            prefix_cache=True)
+        router = _fleet(factory, faults=faults, bus=bus if side == "torch" else None, jax_side=side == "jax",
+                        probe_interval_s=0.05, probe_timeout_s=60.0)
+        with router:
+            _wait(lambda: (router.replicas[0].engine is not None
+                           and router.replicas[0].engine.prefix_cache.cached_block_ids()), 30.0,
+                  "probe prefix block published on r0")
+            results = [r.result(timeout=WAIT) for r in [router.submit(p, n_new) for p in prompts]]
+            _wait(lambda: router.counters["quarantines"] >= 1, 30.0, "quarantine")
+        assert [(s, t) for s, t, _ in results] == [("done", ref[i]) for i in range(len(prompts))]
+        assert router.counters["probes"] >= 1 and router.counters["probe_failures"] >= 1
+        quars = [d for d in router.decisions.tail() if d["decision"] == "quarantine"]
+        outcome[side] = (quars[0]["replica"], "probe divergence" in quars[0]["reason"])
+        if side == "torch":
+            seen = list(events)  # a probe thread may still emit after stop
+            report = obs_report.build_integrity_report(seen)
+            jreport = jintegrity_report().build_integrity_report(seen)
+            assert report == jreport
+            assert report["problems"] == [] and report["quarantines"] >= 1 and report["corruptions_fired"] >= 1
+            det = report["detections"]
+            assert det and det[0]["fault"] == "corrupt_kv_page" and det[0]["detected"]
+            snap = router._integrity_snapshot()
+            assert snap["enabled"] and snap["quarantines"] >= 1
+    assert outcome["torch"] == outcome["jax"] == (0, True)
+
+
+def jintegrity_report():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "obs_report_for_port_integrity", Path(__file__).resolve().parent.parent / "scripts" / "obs_report.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_weight_fingerprint_sentinel_quarantines(tparams):
+    """In-place weight corruption on replica 0: the loop's fingerprint
+    drifts and the sentinel quarantines; after the relaunch (fresh weights
+    from the factory: the corruption was that engine's own copy) every
+    stream is bit-identical again."""
+    prompts = _prompts(4)
+    n_new = 6
+    ref = _undisturbed(tparams, prompts, n_new)
+    events = []
+    bus = EventBus()
+    bus.subscribe(events.append)
+    router = _fleet(_factory(tparams), faults=TInjector("corrupt_weights@req1:r0", bus=bus), bus=bus,
+                    loop_kwargs=dict(weight_fingerprint_interval_s=0.05), probe_interval_s=0.2,
+                    probe_timeout_s=60.0)
+    with router:
+        for r in [router.submit(p, n_new) for p in prompts]:
+            assert r.result(timeout=WAIT)[0] == "done"  # the exposure window: no identity claim
+        _wait(lambda: router.counters["quarantines"] >= 1, 30.0, "quarantine")
+        _wait(lambda: all(rep.accepting for rep in router.replicas), 30.0, "relaunch")
+        results = [r.result(timeout=WAIT) for r in [router.submit(p, n_new) for p in prompts]]
+    assert [(s, t) for s, t, _ in results] == [("done", ref[i]) for i in range(len(prompts))]
+    assert any(e.get("event") == "integrity_weight_mismatch"
+               or (e.get("event") == "integrity_probe" and not e.get("ok", True)) for e in events)
+    assert integrity.weight_fingerprint(router.replicas[1].engine.params) == integrity.weight_fingerprint(tparams)
+    from pretraining_llm_tpu_torch import obs_report
+
+    report = obs_report.build_integrity_report(events)
+    assert report["quarantines"] >= 1 and report["corruptions_fired"] >= 1
+    assert report["detections"] and report["detections"][0]["detected"]
+
+
+def test_readyz_and_debug_surface_integrity(tparams):
+    router = _fleet(_factory(tparams), probe_interval_s=0.05, probe_timeout_s=60.0)
+    with router:
+        _wait(lambda: all(r["ok"] for r in router._integrity_snapshot()["replicas"].values())
+              and len(router._integrity_snapshot()["replicas"]) == 2, 30.0, "a passing probe on every replica")
+        ready = router.readiness()
+        dbg = router.debug_engine()
+    per = ready["integrity"]["replicas"]
+    assert set(per) == {"0", "1"} and all(s["ok"] is True and s["age_s"] >= 0.0 for s in per.values())
+    assert ready["integrity"]["quarantines"] == 0
+    assert dbg["fleet"]["integrity"]["probes_run"] >= 2
+    router2 = _fleet(_factory(tparams))
+    with router2:
+        assert "integrity" not in router2.readiness()
+        assert router2.counters["probes"] == 0
+
+
+def test_probes_pin_both_prefill_lanes():
+    """The router pins each probe through a prefix-cache miss (the cache
+    flushed first) and a hit (a second run), unanimous across replicas,
+    and keeps the hit's answer as an alternate where the lanes round
+    differently; replicas that disagree on either lane leave no baseline."""
+    import types
+
+    class Loop:
+        def __init__(self, answers):
+            self.answers = list(answers)
+
+        def submit(self, prompt, n, priority=0):
+            toks = self.answers.pop(0)
+            return types.SimpleNamespace(result=lambda timeout=None: ("done", list(toks), {}))
+
+        def run_on_loop(self, fn, timeout=None):
+            return fn()
+
+    flushes = []
+
+    def replica(i, answers):
+        cache = types.SimpleNamespace(flush=lambda: flushes.append(i) or 0)
+        return types.SimpleNamespace(index=i, loop=Loop(answers), engine=types.SimpleNamespace(prefix_cache=cache))
+
+    probe = integrity.GoldenProbe((5, 6, 7), (0, 0))
+    router = Router([replica(i, [(1, 2), (1, 3)]) for i in range(2)])
+    assert router._pin_serving_baseline([probe]) == [((1, 2), (1, 3))] and flushes == [0, 1]
+    same = Router([replica(i, [(4, 4), (4, 4)]) for i in range(2)])
+    assert same._pin_serving_baseline([probe]) == [((4, 4),)]
+    split = Router([replica(0, [(1, 2), (1, 3)]), replica(1, [(1, 2), (9, 9)])])
+    with pytest.raises(RuntimeError, match="disagree"):
+        split._pin_serving_baseline([probe])
+    pinned = integrity.GoldenProbe(probe.prompt, (1, 2), alternates=((1, 3),))
+    assert pinned.alternates == ((1, 3),) and integrity.GoldenProbe((1,), (2,)).alternates == ()

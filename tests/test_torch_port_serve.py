@@ -8,7 +8,9 @@ tiny JAX-written checkpoint in CPU mode, whose greedy JSONL ``output``
 fields equal those of ``scripts/serve.py``'s ``main()`` on the same
 checkpoint and tokenizer (byte), under the pipelined and the synchronous
 scheduler and with a draft checkpoint; scheduler flags left at 0 fall back
-to the checkpoint's ``serving`` section; the fleet flags raise.
+to the checkpoint's ``serving`` section; the process-replica flags and
+process fault kinds raise (the fleet in one process is
+``tests/test_torch_port_fleet.py``'s).
 A tiny byte-tokenizer model (2 layers, d 32, V 260) with seeded numpy
 weights (std 0.3).
 """
@@ -173,8 +175,15 @@ def test_serve_cli_falls_back_to_the_serving_section(ckpts, tmp_path, monkeypatc
     assert (seen["pipeline_depth"], seen["kv_checksum"], seen["quantize"]) == (1, True, "int8")
 
 
-@pytest.mark.parametrize("flags", [["--replicas", "2"], ["--replica_mode", "process"], ["--journal_path", "j"],
-                                   ["--serving_faults", "replica_crash@req3:r0"]])
+@pytest.mark.parametrize("flags", [["--attach", "127.0.0.1:9"], ["--replica_mode", "process"], ["--lease_s", "2"],
+                                   ["--serving_faults", "worker_kill@req3:r0"], ["--attach_token", "t"],
+                                   ["--serving_faults", "replica_crash@req1,partition@req2:r1"]])
 def test_serve_cli_refuses_the_online_flags(ckpts, flags):
-    with pytest.raises(NotImplementedError, match="the fleet slice"):
+    """Only what the process replicas bring is refused, naming the ROADMAP
+    item that ports them; ``corrupt_kv_migration`` runs in one process."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1, process replicas"):
         tserve.main(["--model_path", ckpts["target"], "--http", "--device", "cpu"] + flags)
+    tserve._refuse_unported(tserve._parser().parse_args(
+        ["--model_path", "m", "--replicas", "2", "--journal_path", "j", "--recover",
+         "--serving_faults", "replica_crash@req3:r0,corrupt_kv_migration@req1:r1", "--replica_roles",
+         "prefill,decode", "--probe_interval_s", "0.5"]))

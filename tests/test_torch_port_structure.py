@@ -425,3 +425,35 @@ def test_resilience_and_observability_modules_are_scanned():
     code = "import sys, pretraining_llm_tpu_torch.supervisor; assert 'torch' not in sys.modules, 'torch'"
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stderr
+
+
+FLEET_AND_TOOL_MODULES = (
+    "obs_report.py", "frontend/journal.py", "frontend/kv_transfer.py", "frontend/replica.py", "frontend/router.py",
+    "frontend/loadgen.py", "frontend/__init__.py", "resilience/faults.py", "resilience/integrity.py",
+    "generation/serving.py", "serve.py", "train.py",
+)
+
+
+def test_fleet_and_tool_modules_are_scanned():
+    """The fleet in one process (router, replicas, journal, KV transfer, the
+    serving faults and golden probes), the analyzer and ``train
+    --compile-only`` are among the sources that
+    ``test_port_imports_nothing_of_jax`` scans; none names a module of the
+    JAX package, and the analyzer imports neither torch nor numpy (it runs
+    where the training stack does not)."""
+    import subprocess
+    import sys
+
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(FLEET_AND_TOOL_MODULES) <= scanned
+    for rel in FLEET_AND_TOOL_MODULES:
+        text = (ROOT / "pretraining_llm_tpu_torch" / rel).read_text()
+        assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", ""), rel
+    code = ("import sys, pretraining_llm_tpu_torch.obs_report\n"
+            "assert not {'torch', 'numpy', 'jax'} & set(sys.modules), sorted({'torch', 'numpy', 'jax'} & set(sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    from pretraining_llm_tpu_torch import frontend
+
+    assert {"Router", "RouterRequest", "Replica", "ReplicaUnavailable", "FleetAction", "rolling_restart_plan",
+            "run_fleet_plan"} <= set(dir(frontend))
