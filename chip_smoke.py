@@ -114,8 +114,8 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           states;
   T4      ``Trainer.train`` on each single-card preset T1-T3 do not run,
           at full width and depth with its own remat policy (bf16
-          compute, fp32 params, AdamW, synthetic data, no checkpoints), 4
-          steps at the preset's global batch: gpt2-350m-dp (none, 32 x
+          compute, fp32 params, AdamW, synthetic data, no checkpoints), 3
+          steps (4 until PR 17) at the preset's global batch: gpt2-350m-dp (none, 32 x
           1024), gpt2-1p3b-fsdp (dots_saveable, 64 x 1024 in microbatches),
           llama-1b (dots_saveable, 32 x 2048, Dh 128 MHA: dQ + dK/dV) and
           the source's reference-3b (dots_saveable, 32 x 512, ReLU, no
@@ -174,8 +174,8 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           ``prefill,decode`` with ``kv_checksum``: chains migrated and
           adopted (digests checked at adoption and acquire), K3 on the
           decode replica, migration bytes and milliseconds; then
-          ``corrupt_kv_migration@req1:r1``: the page dropped, no stream
-          changed; (e) ``serve --http --replicas 2`` as a child with a
+          ``corrupt_kv_migration@req1:r1`` on H1's first 8 requests (32
+          until PR 17): the page dropped, no stream changed; (e) ``serve --http --replicas 2`` as a child with a
           journal, golden probes every 0.5 s and
           ``corrupt_weights@req8:r1``: traffic until replica 1 is
           quarantined and relaunched, then 16 of H1's requests held
@@ -186,6 +186,34 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           ``--capacity``, ``--strict``), ``--live`` against (e)'s server
           and ``--fleet --fleet-trace --integrity --strict`` on its files.
           K1, K2 and K3 launches are counted over each measured load.
+  P1      after F1, process replicas on the same weights: every worker is
+          the port's ``frontend.worker`` in its own process on the card,
+          run as ``python3 chip_smoke.py --p1-worker DIR ...`` (SIGUSR1
+          zeroes its launch counts, SIGUSR2 and its exit write them, with
+          the JAX modules it loaded, which must be none). (a) two spawned
+          workers behind the router under H1's load, beside F1's fleet
+          and H1's loop; (b) on that fleet, H1's load again with
+          ``worker_kill`` at replica 0's 5th submission of it (redrives,
+          the relaunch's seconds, the workers' idle allocated memory and
+          the card's memory outside the workers' reserves back within
+          5%); (e) then an upgrade of replica 0 onto ``corrupt_weights``
+          refused by the golden probes, and the old weights' streams,
+          while a fleet of three workers takes ``conn_drop`` (the worker
+          alive) and ``worker_stall`` (caught by an RPC timeout) on 16 of
+          H1's requests; (c) ``prefill,
+          decode`` workers over TCP with ``kv_checksum`` and
+          ``corrupt_kv_migration@req1:r1``: migration bytes, the
+          ``req.kv_migrate`` span, the snapshot, frame split, join and
+          adoption timed in the workers, K3 on the decode worker, the
+          flipped page rejected by digest; (d) two pre-spawned workers
+          (``--listen 127.0.0.1:0 --token``): a partition caught by a 2 s
+          lease (redrives), then one ejected by a 0.5 s wedge watchdog and
+          healed inside the lease (fenced frames, no duplicate token), by
+          fleet plans, then ``serve --http --replica_mode
+          process --attach`` on H1's load, SIGTERM (the workers park) and
+          a ``--recover`` restart that re-attaches and serves; (f) the
+          port's ``obs_report --fleet --fleet-trace --strict`` over its
+          files. Every stream is held against the offline engine's.
 
 The flash forward (K1) and the three backward kernels (one pass, dQ,
 dK/dV) have two routes: bf16 runs the tensor-core kernels
@@ -297,8 +325,13 @@ PARITY_LOSS_TOL = 0.02
 PARITY_EVAL_TOL = 0.01
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, **fields) -> None:
-    print(f"{phase}: " + json.dumps(fields, sort_keys=True), flush=True)
+    """One phase line; ``at_s`` is the seconds since the script started."""
+    print(f"{phase}: " + json.dumps({**fields, "at_s": round(time.perf_counter() - T_START, 1)}, sort_keys=True),
+          flush=True)
 
 
 def randn(shape, dtype, gen):
@@ -2014,10 +2047,16 @@ REF_LAYERS = 2  # the reference round trip's cut of reference-3b's 64 layers
 H1_STATE: dict = {}  # H1's offline reference streams and its loop's latencies, which F1 compares against
 
 
+def _jax_modules() -> list:
+    """The modules of JAX, Flax or the JAX package loaded into this process
+    (by path too, not only by an import statement)."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "pretraining_llm_tpu"))
+
+
 def assert_no_jax_modules(where: str) -> int:
     """0 when no module of JAX, Flax or the JAX package was ever loaded
-    into this process (a load by path, not only an import statement)."""
-    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "pretraining_llm_tpu"))
+    into this process."""
+    bad = _jax_modules()
     if bad:
         raise AssertionError(f"{where}: modules of JAX or the JAX package were loaded: {bad[:12]}")
     return 0
@@ -2556,6 +2595,8 @@ F1_FAULT_WEIGHTS = "corrupt_weights@req8:r1"
 F1_PROBE_S = 0.5
 F1_HTTP_REQUESTS = 16  # H1's first 16 requests, each stream held against the offline engine's
 F1_TRIGGER_MAX = 96  # requests sent at most to reach replica 1's 8th submission and its quarantine
+F1_CORRUPT_REQUESTS = 8  # the corrupt-migration load: H1's first 8 requests
+F1_TRIGGER_BATCH = 4  # trigger requests in flight together
 
 
 def obs_report_run(where: str, argv: list) -> tuple:
@@ -2704,7 +2745,6 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
     from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector
 
     params, model, schedule, prompts, want = _f1_model(serve_ckpts)
-    spec = LoadSpec(**H1_SPEC)
 
     def fleet(roles=None, faults=None, tracer=None, **engine_kw):
         bus, events = EventBus(), []
@@ -2726,13 +2766,14 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
                 raise AssertionError(f"F1: replicas not active: {[r.debug_snapshot() for r in router.replicas]}")
             time.sleep(0.02)
 
-    def measured(name, router):
+    def measured(name, router, n=len(schedule)):
+        """H1's load, or its first ``n`` requests."""
         reset_kernel_counts()
-        rep = run_engine_loop(router, spec)
+        rep = run_engine_loop(router, LoadSpec(**{**H1_SPEC, "n_requests": n}))
         torch.cuda.synchronize()
         launches = kernel_counts()
-        got = _check_done(name, rep, schedule)
-        cmp = compare_streams(name, params, model, prompts, want, got)
+        got = _check_done(name, rep, schedule[:n])
+        cmp = compare_streams(name, params, model, prompts[:n], want[:n], got)
         if launches["flash_fwd"] <= 0 or launches["flash_fwd_tc"] != launches["flash_fwd"] \
                 or launches["paged_decode"] <= 0:
             raise AssertionError(f"{name}: K1 on the tensor cores and K2 must both run: {launches}")
@@ -2757,6 +2798,7 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
         stop(router)
     del router
     _free_card()
+    P1_STATE.update(fleet=lat_c)
     log("F1_fleet", card=card, engine={**SERVE_ENGINE, "prefix_cache": True, "pipeline_depth": 2}, replicas=2,
         load=H1_SPEC, **lat_c, h1_loop=H1_STATE.get("loop"), submits_per_replica=per_replica, counters=counters_c,
         launches={k: n for k, n in paths["F1_fleet"].items() if n}, streams_vs_offline=cmp_c)
@@ -2782,6 +2824,7 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
     del router
     _free_card()
     redriven = sum(1 for o in rep_x.outcomes if o.redrives)
+    P1_STATE.update(crash={**_latency(rep_x), "relaunch_s": recovery, "redriven_requests": redriven})
     log("F1_crash", card=card, fault="replica_crash@req5:r0", **_latency(rep_x), counters=counters_x,
         redriven_requests=redriven, relaunch_s=recovery, memory_allocated_before=mem_before,
         memory_allocated_after_relaunch=mem_after, memory_after_over_before=mem_after / mem_before,
@@ -2821,6 +2864,11 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
     spans = [ev for ev in recorder.to_chrome_trace()["traceEvents"] if ev.get("name") == "req.kv_migrate"]
     mig_ms = sorted(ev["dur"] / 1e3 for ev in spans)
     mig_bytes = [e["bytes"] for e in migrations]
+    P1_STATE.update(disagg={
+        "migrations": len(migrations), "migrated_bytes_total": sum(mig_bytes),
+        "migration_ms": {"p50": mig_ms[len(mig_ms) // 2] if mig_ms else None, "n": len(mig_ms)},
+        "snapshot_and_adopt_ms": {name: {"p50": statistics.median(v), "n": len(v)} for name, v in legs_ms.items() if v},
+        **_latency(rep_d)})
     log("F1_disagg", card=card, roles="prefill,decode", **_latency(rep_d), counters=counters_d,
         decode_replica_stats={k: dstats.get(k, 0) for k in ("kv_pages_adopted", "kv_pages_rejected",
                                                             "kv_mismatches", "prefill_tokens")},
@@ -2838,7 +2886,9 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
 
     router, events = fleet(roles=["prefill", "decode"], faults="corrupt_kv_migration@req1:r1", kv_checksum=True)
     try:
-        rep_k, launches_k, got_k, cmp_k = measured("F1 corrupt migration", router)
+        # H1's first 8 requests: the first migration to the decode replica
+        # is the flipped one (cut from H1's 32 in PR 17 for chip_smoke's time).
+        rep_k, launches_k, got_k, cmp_k = measured("F1 corrupt migration", router, n=F1_CORRUPT_REQUESTS)
         counters_k = dict(router.counters)
         kstats = dict(router.replicas[1].engine.stats)
     finally:
@@ -2849,7 +2899,7 @@ def f1_fleet(serve_ckpts: dict, card: str) -> dict:
     log("F1_corrupt_migration", card=card, fault="corrupt_kv_migration@req1:r1", counters=counters_k,
         rejects=[{k: e.get(k) for k in ("frid", "replica", "rejected", "reason")} for e in rejects],
         decode_replica_stats={k: kstats.get(k, 0) for k in ("kv_pages_adopted", "kv_pages_rejected")},
-        streams_vs_offline=cmp_k, streams_equal_clean_disagg=got_k == got_d)
+        streams_vs_offline=cmp_k, streams_equal_clean_disagg=got_k == got_d[:F1_CORRUPT_REQUESTS])
     if counters_k["kv_migration_rejects"] < 1 or not rejects or rejects[0]["reason"] != "checksum_mismatch":
         raise AssertionError(f"F1 corrupt migration: the flipped page was not dropped: {counters_k} {rejects}")
     del params
@@ -2878,13 +2928,21 @@ def f1_http(serve_ckpts: dict, card: str) -> dict:
     recover = None
     try:
         base = _server_base(srv)
+        # Trigger traffic F1_TRIGGER_BATCH requests at a time (one at a time
+        # until PR 17), until replica 1 is quarantined.
         sent, quarantined, t_q = 0, 0, time.perf_counter()
         while sent < F1_TRIGGER_MAX and not quarantined:
-            sr = schedule[sent % len(schedule)]
-            code = _http(base, "/v1/generate", {"prompt": sr.prompt[:256], "max_new_tokens": 16})[0]
-            if code != 200:
-                raise AssertionError(f"F1 http: trigger request {sent} got {code}")
-            sent += 1
+            codes: list = []
+            batch = [threading.Thread(target=lambda sr=schedule[(sent + k) % len(schedule)]: codes.append(_http(
+                base, "/v1/generate", {"prompt": sr.prompt[:256], "max_new_tokens": 16})[0]), daemon=True)
+                for k in range(F1_TRIGGER_BATCH)]
+            for th in batch:
+                th.start()
+            for th in batch:
+                th.join(timeout=H1_WAIT)
+            if codes != [200] * F1_TRIGGER_BATCH:
+                raise AssertionError(f"F1 http: trigger requests {sent}-{sent + F1_TRIGGER_BATCH - 1} got {codes}")
+            sent += F1_TRIGGER_BATCH
             quarantined = json.loads(_http(base, "/readyz")[2])["integrity"]["quarantines"]
         deadline = time.monotonic() + 60
         while not quarantined and time.monotonic() < deadline:
@@ -2967,6 +3025,728 @@ def f1_http(serve_ckpts: dict, card: str) -> dict:
     del params
     _free_card()
     return paths["F1_http"]
+
+
+# ---------------------------------------------------------------------------
+# P1: process replicas (worker processes behind the router, attach, drills)
+# ---------------------------------------------------------------------------
+
+P1_DIR = SCRATCH / "p1"
+P1_CHILD = "--p1-worker"  # chip_smoke.py's child mode: the port's worker with its kernel counts recorded
+P1_TOKEN = "p1-attach-token"
+P1_LEASE_S = 2.0
+P1_FINGERPRINT_S = 5.0  # the attached workers pin their weight fingerprint; the router holds it against its own
+P1_DRILL_REQUESTS = 16  # the conn_drop, stall and partition loads: H1's first 16 requests
+P1_CHECK_REQUESTS = 8  # requests that warm the workers and check the old weights after the refused upgrade
+P1_RECOVER_REQUESTS = 4  # requests the recovered server answers, held against the offline streams
+P1_STATE: dict = {}  # F1's in-process fleet numbers, which P1 reports beside its own
+
+
+def p1_worker(argv: list) -> int:
+    """``python chip_smoke.py --p1-worker DIR [-m pretraining_llm_tpu_torch.frontend.worker]
+    <worker arguments>``: the port's worker (``frontend.worker.main``) with
+    its kernel launches recorded, as RemoteReplica spawns it (through
+    DIR/../worker.sh) or as a pre-spawned ``--listen`` worker. SIGUSR1 sets
+    the launch counts to 0 and writes DIR/<pid>.reset; SIGUSR2 writes
+    DIR/<pid>.load; the worker's exit (``os._exit``, its only way out)
+    writes DIR/<pid>.exit. Each record holds the counts, the modules of JAX
+    or the JAX package loaded (none may be) and the milliseconds of each KV
+    transfer step this worker ran (snapshot, frame split, frame join,
+    adoption)."""
+    import signal
+
+    from pretraining_llm_tpu_torch.frontend import kv_transfer, worker
+
+    out_dir, args = Path(argv[0]), argv[1:]
+    if args[:2] == ["-m", "pretraining_llm_tpu_torch.frontend.worker"]:
+        args = args[2:]
+    pid = os.getpid()
+    kv_ms: dict = {}
+    for name in ("snapshot_chain", "split_frames", "join_frames", "adopt_chain"):
+        def timed(*a, _fn=getattr(kv_transfer, name), _out=kv_ms.setdefault(name, []), **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                _out.append((time.perf_counter() - t) * 1e3)
+        setattr(kv_transfer, name, timed)
+
+    def record(suffix: str) -> None:
+        _write_json(str(out_dir / f"{pid}.{suffix}"),
+                    {"counts": kernel_counts(), "jax_modules": _jax_modules(), "kv_ms": kv_ms})
+
+    def reset(*_):
+        reset_kernel_counts()
+        for v in kv_ms.values():
+            v.clear()
+        _write_json(str(out_dir / f"{pid}.reset"), {})
+
+    signal.signal(signal.SIGUSR1, reset)
+    signal.signal(signal.SIGUSR2, lambda *_: record("load"))
+    real_exit = os._exit
+
+    def exit_(code):
+        try:
+            record("exit")
+        finally:
+            real_exit(code)
+
+    os._exit = exit_
+    return worker.main(args)
+
+
+def _p1_counts_dir() -> Path:
+    return P1_DIR / "counts"
+
+
+def _p1_wrapper() -> str:
+    """The interpreter RemoteReplica spawns its workers with: this script in
+    its ``--p1-worker`` mode."""
+    path = P1_DIR / "worker.sh"
+    path.write_text(f'#!/bin/sh\nexec "{sys.executable}" "{ROOT / "chip_smoke.py"}" {P1_CHILD} '
+                    f'"{_p1_counts_dir()}" "$@"\n')
+    path.chmod(0o755)
+    return str(path)
+
+
+def _p1_signal(pids: list, signum: int, suffix: str) -> list:
+    """Send ``signum`` to each worker and wait for the record its handler
+    writes (``p1_worker``)."""
+    paths = [_p1_counts_dir() / f"{pid}.{suffix}" for pid in pids]
+    for pid, path in zip(pids, paths):
+        path.unlink(missing_ok=True)
+        os.kill(pid, signum)
+    out, deadline = [], time.monotonic() + 60
+    for pid, path in zip(pids, paths):
+        while not path.exists():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"P1: worker {pid} wrote no {path.name} after signal {signum}")
+            time.sleep(0.02)
+        out.append(json.loads(path.read_text()))
+    return out
+
+
+def _p1_sum(records: list) -> dict:
+    total: dict = {}
+    for rec in records:
+        if rec.get("jax_modules"):
+            raise AssertionError(f"P1: a worker loaded modules of JAX or the JAX package: {rec['jax_modules'][:12]}")
+        for k, n in rec.get("counts", {}).items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _p1_pids(router) -> list:
+    return [r.proc.pid for r in router.replicas if r.proc is not None and r.proc.poll() is None]
+
+
+def _p1_measured(name: str, router, pids_fn, spec, params, model, want, schedule, before_read=None) -> tuple:
+    """One load through ``run_engine_loop`` on an idle fleet, with the
+    workers' kernel launches over that load alone (``before_read`` waits
+    for a relaunched worker first): (report, launches, streams, comparison,
+    worker records)."""
+    import signal
+
+    from pretraining_llm_tpu_torch.frontend.loadgen import run_engine_loop
+
+    _p1_signal(pids_fn(), signal.SIGUSR1, "reset")
+    rep = run_engine_loop(router, spec)
+    if before_read is not None:
+        before_read()
+    records = _p1_signal(pids_fn(), signal.SIGUSR2, "load")
+    launches = _p1_sum(records)
+    got = _check_done(name, rep, schedule)
+    cmp = compare_streams(name, params, model, [sr.prompt for sr in schedule], want[:len(schedule)], got)
+    return rep, launches, got, cmp, records
+
+
+def _p1_spec(target: str, **engine_kw) -> dict:
+    """The worker spec: T1's weights on the card, the engine F1's replicas
+    run (the serve CLI's defaults, greedy, the prefix cache)."""
+    return {"model_path": target, "device": "cuda",
+            "engine": {**SERVE_ENGINE, "temperature": 0.0, "prefix_cache": True, **engine_kw}}
+
+
+def _p1_fleet(target: str, bus, faults=None, roles=None, tracer=None, replica_kw=None, engine_kw=None, n=2,
+              **router_kw):
+    """``n`` spawned port workers (started side by side) behind a Router in
+    this process."""
+    import threading
+
+    from pretraining_llm_tpu_torch.frontend.remote_replica import RemoteReplica
+    from pretraining_llm_tpu_torch.frontend.router import Router
+
+    wrapper = _p1_wrapper()
+    reps = []
+    for i in range(n):
+        spec = _p1_spec(target, **(engine_kw or {}))
+        if roles:
+            spec["role"] = roles[i]
+        reps.append(RemoteReplica(i, spec, bus=bus, fault_injector=faults, python=wrapper, spawn_timeout_s=H1_WAIT,
+                                  recorder=tracer.recorder if tracer is not None else None, **(replica_kw or {})))
+    errors: list = []
+
+    def start(rep):
+        try:
+            rep.start()
+        except Exception as e:  # noqa: BLE001 (raised below)
+            errors.append(e)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=start, args=(r,), daemon=True) for r in reps]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=H1_WAIT + 60)
+    if errors or not all(r.alive for r in reps):
+        _p1_kill(reps)
+        raise AssertionError(f"P1: a worker did not start: {errors}")
+    start_s = time.perf_counter() - t0
+    router_kw.setdefault("eject_backoff_s", 0.1)
+    return Router(reps, bus=bus, tracer=tracer, **router_kw).start(), start_s
+
+
+def _p1_kill(reps) -> None:
+    for r in reps:
+        proc = r.proc
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def _p1_stop(router) -> None:
+    """Stop the router and its workers. A worker the router no longer
+    reaches (a dropped or stalled connection) would wait out the stop's
+    timeout on its own: it is terminated first."""
+    _p1_kill([r for r in router.replicas if not r._connected()])
+    router.stop(timeout=30)
+    _p1_kill(router.replicas)
+
+
+def _p1_settled(router, timeout: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not all(r.accepting for r in router.replicas):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"P1: replicas not active: {[r.debug_snapshot() for r in router.replicas]}")
+        time.sleep(0.05)
+
+
+def _p1_memory(router) -> dict:
+    """The card's memory with the fleet idle: each worker's allocated and
+    reserved bytes (its ``health_pull``), the card's used bytes, and what
+    is neither a worker's reserve nor this process's (the processes' CUDA
+    contexts and anything a dead worker left)."""
+    fh = router.fleet_health()
+    alloc = reserved = 0.0
+    for snap in fh["replicas"].values():
+        for dev in (snap.get("hbm") or {}).values():
+            alloc += dev["bytes_in_use"]
+            reserved += dev["bytes_reserved"]
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    used = total - free
+    return {"workers_allocated": alloc, "workers_reserved": reserved, "card_used": used,
+            "outside_reserves": used - reserved - torch.cuda.memory_reserved()}
+
+
+def run_p1(serve_ckpts: dict) -> dict:
+    """P1 (see the module docstring). Returns each measured load's worker
+    launches, for the kernels line."""
+    t_p1 = time.perf_counter()
+    card = phase_card()
+    shutil.rmtree(P1_DIR, ignore_errors=True)
+    _p1_counts_dir().mkdir(parents=True)
+    _free_card()
+    params, model, schedule, prompts, want = _f1_model(serve_ckpts)
+    paths = {}
+    try:
+        # p1_drills, (c)'s fleet and (d)'s workers start beside (e).
+        spawned, disagg_fleet, listen = p1_spawn(serve_ckpts, card, params, model, schedule, want)
+        paths.update(spawned)
+        try:
+            paths.update(p1_disagg(disagg_fleet, card, params, model, schedule, want))
+        except BaseException:
+            _p1_end_listeners(listen[0])
+            raise
+        paths.update(p1_attach(listen, serve_ckpts, card, params, model, schedule, want))
+    finally:
+        del params
+        _free_card()
+    records = [json.loads(p.read_text()) for p in sorted(_p1_counts_dir().glob("*.load"))
+               + sorted(_p1_counts_dir().glob("*.exit"))]
+    _p1_sum(records)  # no worker of any leg loaded JAX
+    exits = sorted(p.stem for p in _p1_counts_dir().glob("*.exit"))
+    log("P1", wall_s=time.perf_counter() - t_p1, card=card, worker_records=len(records), worker_exits=len(exits),
+        jax_modules_in_workers=[])
+    if not exits:
+        raise AssertionError("P1: no worker wrote its exit record")
+    return paths
+
+
+def p1_spawn(serve_ckpts: dict, card: str, params, model, schedule, want) -> dict:
+    """On one fleet of two spawned workers: (a) H1's load beside F1's fleet
+    and H1's loop; (b) H1's first 16 requests with ``worker_kill`` at
+    replica 0's 5th submission of them (redrives, the relaunch's seconds, the card's
+    memory back); (e) an upgrade of replica 0 onto ``corrupt_weights``,
+    refused by the golden probes, then the old weights' streams, while the
+    drill fleet of ``p1_drills`` runs beside it."""
+    import gc
+    import threading
+
+    from pretraining_llm_tpu_torch.frontend.loadgen import LoadSpec, build_schedule
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+    from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector
+
+    bus, events = EventBus(), []
+    bus.subscribe(events.append)
+    router, start_s = _p1_fleet(serve_ckpts["target"], bus, probe_interval_s=600.0)
+    paths = {}
+    drills: dict = {}
+    try:
+        rep_a, paths["P1_fleet"], got_a, cmp_a, _ = _p1_measured(
+            "P1 fleet", router, lambda: _p1_pids(router), LoadSpec(**H1_SPEC), params, model, want, schedule)
+        lat_a = _latency(rep_a)
+        counters_a = dict(router.counters)
+        per_replica = {r.index: r.submits for r in router.replicas}
+        clock = {r.index: r.clock_sync.snapshot() for r in router.replicas}
+        log("P1_fleet", card=card, engine={**SERVE_ENGINE, "prefix_cache": True, "pipeline_depth": 2}, replicas=2,
+            mode="process (spawned port workers)", load=H1_SPEC, **lat_a, worker_start_s=start_s,
+            f1_fleet_in_process=P1_STATE.get("fleet"), h1_loop=H1_STATE.get("loop"), submits_per_replica=per_replica,
+            counters=counters_a, clock_sync=clock,
+            launches={k: n for k, n in paths["P1_fleet"].items() if n}, streams_vs_offline=cmp_a)
+        _assert_routes("P1 fleet", paths["P1_fleet"], ragged=False)
+
+        # (b) the kill drill: the fault clock counts each replica's
+        # submissions, so replica 0's 5th of this load is its running count
+        # plus 5. Memory is read with both workers idle and warm, before the
+        # load and after the relaunched worker has served the same requests.
+        fault = f"worker_kill@req{router.replicas[0].submits + 5}:r0"
+        injector = ServingFaultInjector(fault, bus=bus)
+        for r in router.replicas:
+            r.faults = injector
+        warm = build_schedule(LoadSpec(**{**H1_SPEC, "n_requests": P1_CHECK_REQUESTS}))
+        gc.collect()
+        mem_before = _p1_memory(router)
+        old_pid = router.replicas[0].proc.pid
+        n_events = len(events)
+        rep_x, paths["P1_crash"], got_x, cmp_x, _ = _p1_measured(
+            "P1 crash", router, lambda: _p1_pids(router), LoadSpec(**{**H1_SPEC, "n_requests": P1_DRILL_REQUESTS}),
+            params, model, want, schedule[:P1_DRILL_REQUESTS], before_read=lambda: _p1_settled(router))
+        rep0 = router.replicas[0]
+        if rep0.generation < 2 or rep0.proc.pid == old_pid:
+            raise AssertionError(f"P1 crash: replica 0 was not relaunched: {rep0.debug_snapshot()}")
+        for r in [rep0.loop.submit(sr.prompt, sr.max_new) for sr in warm]:
+            r.result(timeout=H1_WAIT)
+        mem_after = _p1_memory(router)
+        counters_x = {k: router.counters[k] - counters_a.get(k, 0) for k in router.counters}
+        recovery = _replica_recovery_s(events[n_events:], 0)
+        for r in router.replicas:
+            r.faults = None
+        redriven = sum(1 for o in rep_x.outcomes if o.redrives)
+        ratio = {k: mem_after[k] / mem_before[k] for k in mem_before if mem_before[k]}
+        log("P1_crash", card=card, fault=fault, fault_in_this_load="worker_kill at replica 0's 5th submission",
+            **_latency(rep_x), counters=counters_x, redriven_requests=redriven, relaunch_s=recovery,
+            f1_crash_in_process=P1_STATE.get("crash"), memory_before=mem_before, memory_after_relaunch=mem_after,
+            memory_after_over_before=ratio, launches={k: n for k, n in paths["P1_crash"].items() if n},
+            streams_vs_offline=cmp_x)
+        if counters_x["redrives"] < 1 or counters_x["ejects"] != 1 or not recovery:
+            raise AssertionError(f"P1 crash: expected a redrive, one eject and a relaunch: {counters_x} {recovery}")
+        for k in ("workers_allocated", "outside_reserves"):
+            if abs(ratio[k] - 1.0) > 0.05:
+                raise AssertionError(f"P1 crash: {k} {mem_after[k]} after the relaunch against {mem_before[k]}")
+
+        # (e) the upgrade: replica 0 relaunched held on corrupt weights, vetted
+        # by the golden probes (built in the worker at start), refused, the old
+        # spec restored and re-vetted; then the old weights' streams. The drill
+        # fleet runs meanwhile in its own processes.
+        def run_drills():
+            try:
+                drills["paths"] = p1_drills(serve_ckpts, card, params, model, schedule, want)
+                drills["disagg"] = _p1_disagg_fleet(serve_ckpts)
+                drills["listen"] = _p1_listen_pair(serve_ckpts["target"])
+            except BaseException as e:  # noqa: BLE001 (raised below)
+                drills["error"] = e
+
+        drill_thread = threading.Thread(target=run_drills, name="p1-drills", daemon=True)
+        drill_thread.start()
+        t0 = time.perf_counter()
+        ok = router.upgrade_replica(0, {"corrupt_weights": True})
+        upgrade_s = time.perf_counter() - t0
+        _p1_settled(router)
+        reqs = [rep0.loop.submit(sr.prompt, sr.max_new) for sr in warm]
+        got_e = [list(r.result(timeout=H1_WAIT)[1]) for r in reqs]
+        cmp_e = compare_streams("P1 upgrade", params, model, [sr.prompt for sr in warm], want[:len(warm)], got_e)
+        counters_e = dict(router.counters)
+        ups = [e for e in events if e.get("event", "").startswith("upgrade")]
+        log("P1_upgrade", card=card, update={"corrupt_weights": True}, accepted=ok, upgrade_s=upgrade_s,
+            beside="the drill fleet's three workers", counters={k: counters_e[k] for k in (
+                "upgrades", "upgrades_refused", "probes", "probe_failures")},
+            spec_restored="corrupt_weights" not in rep0.spec, generation=rep0.generation,
+            upgrade_events=[e["event"] for e in ups], streams_after_on_replica0=cmp_e)
+        if ok is not False or counters_e["upgrades_refused"] != 1 or "corrupt_weights" in rep0.spec \
+                or rep0.state != "active":
+            raise AssertionError(f"P1 upgrade: the corrupt upgrade was not refused and rolled back: {counters_e}")
+        drill_thread.join(timeout=2 * H1_WAIT)
+        if drill_thread.is_alive():
+            raise AssertionError("P1 drills: the drill fleet did not finish")
+        if "error" in drills:
+            raise drills["error"]
+    except BaseException:
+        if "disagg" in drills:
+            _p1_stop(drills["disagg"][0])
+        if "listen" in drills:
+            _p1_end_listeners(drills["listen"][0])
+        raise
+    finally:
+        _p1_stop(router)
+    del router
+    _free_card()
+    return paths, drills["disagg"], drills["listen"]
+
+
+def p1_drills(serve_ckpts: dict, card: str, params, model, schedule, want) -> dict:
+    """(b) on a fleet of three spawned workers, on H1's first 16 requests:
+    ``conn_drop`` on replica 0 (redriven; the worker stays alive) and
+    ``worker_stall`` on replica 1 (caught by an RPC timeout), replica 2
+    serving what they drop."""
+    from pretraining_llm_tpu_torch.frontend.loadgen import LoadSpec, build_schedule
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+    from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector
+
+    bus, events = EventBus(), []
+    bus.subscribe(events.append)
+    fault = "conn_drop@req2:r0,worker_stall@req2:r1"
+    router, _ = _p1_fleet(serve_ckpts["target"], bus, faults=ServingFaultInjector(fault, bus=bus), n=3,
+                          replica_kw={"rpc_timeout_s": 3.0, "rpc_retries": 1}, eject_backoff_s=600.0)
+    drill_spec = LoadSpec(**{**H1_SPEC, "n_requests": P1_DRILL_REQUESTS})
+    drill_schedule = build_schedule(drill_spec)
+    try:
+        procs = [r.proc for r in router.replicas]
+        rep_d, _, got_d, cmp_d, _ = _p1_measured("P1 drills", router, lambda: _p1_pids(router), drill_spec, params,
+                                                 model, want, drill_schedule)
+        deadline = time.monotonic() + 60
+        while router.counters["ejects"] < 2 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        counters_d = dict(router.counters)
+        alive = [p.poll() is None for p in procs]
+        reps = router.replicas
+        timeouts = [r.registry.counter("worker_rpc_timeouts_total", "").value for r in reps]
+        lost = {e["replica"]: e.get("reason") for e in events if e.get("event") == "worker_conn_lost"}
+        states = [r.state for r in reps]
+    finally:
+        _p1_stop(router)
+    del router
+    _free_card()
+    log("P1_drills", card=card, fault=fault, replicas=3, **_latency(rep_d), counters=counters_d,
+        states_after=states, workers_alive_after=alive, rpc_timeouts=timeouts, conn_lost_reasons=lost,
+        redriven_requests=sum(1 for o in rep_d.outcomes if o.redrives), streams_vs_offline=cmp_d)
+    if counters_d["ejects"] < 2 or states[:2] != ["ejected", "ejected"] or not all(alive) \
+            or counters_d["redrives"] < 1:
+        raise AssertionError(f"P1 drills: both drilled workers ejected, alive, requests redriven: {counters_d} "
+                             f"{states} alive={alive}")
+    if "timed out" not in (lost.get(1) or "") or timeouts[1] < 1:
+        raise AssertionError(f"P1 drills: the stall was not caught by an RPC timeout: {lost} {timeouts}")
+    if lost.get(0) is None or "timed out" in lost[0]:
+        raise AssertionError(f"P1 drills: the dropped connection was not seen as lost: {lost}")
+    return {}
+
+
+P1_DISAGG_FAULT = "corrupt_kv_migration@req1:r1"
+
+
+def _p1_disagg_fleet(serve_ckpts: dict) -> tuple:
+    """(c)'s fleet, started (beside the upgrade of ``p1_spawn``): a prefill
+    and a decode worker with ``kv_checksum``, every request traced, the
+    first migration to the decode worker flipped in flight: (router, bus
+    events, span recorder)."""
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+    from pretraining_llm_tpu_torch.observability.spans import SpanRecorder
+    from pretraining_llm_tpu_torch.observability.tracing import Tracer
+    from pretraining_llm_tpu_torch.resilience.faults import ServingFaultInjector
+
+    bus, events = EventBus(), []
+    bus.subscribe(events.append)
+    recorder = SpanRecorder(max_events=400000)
+    router, _ = _p1_fleet(serve_ckpts["target"], bus, faults=ServingFaultInjector(P1_DISAGG_FAULT, bus=bus),
+                          roles=["prefill", "decode"], tracer=Tracer(recorder, sample=1.0, seed=SEED),
+                          engine_kw={"kv_checksum": True}, eject_backoff_s=600.0)
+    return router, events, recorder
+
+
+def p1_disagg(fleet: tuple, card: str, params, model, schedule, want) -> dict:
+    """(c) ``prefill,decode`` over TCP with ``kv_checksum`` on H1's load:
+    pages migrate between worker processes, K3 runs on the decode worker,
+    and the first migration to the decode worker is flipped in flight
+    (``corrupt_kv_migration@req1:r1``) and rejected by digest."""
+    from pretraining_llm_tpu_torch.frontend.loadgen import LoadSpec
+
+    router, events, recorder = fleet
+    fault = P1_DISAGG_FAULT
+    legs_ms: dict = {"fetch_kv_pages": [], "push_kv_pages": []}
+    for rep_, name in ((router.replicas[0], "fetch_kv_pages"), (router.replicas[1], "push_kv_pages")):
+        def timed(*a, _fn=getattr(rep_, name), _out=legs_ms[name], **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                _out.append((time.perf_counter() - t) * 1e3)
+        setattr(rep_, name, timed)
+    paths = {}
+    try:
+        rep_c, paths["P1_disagg"], got_c, cmp_c, records = _p1_measured(
+            "P1 disagg", router, lambda: _p1_pids(router), LoadSpec(**H1_SPEC), params, model, want, schedule)
+        counters_c = dict(router.counters)
+        dstats = router.replicas[1].loop.debug_engine().get("stats", {})
+    finally:
+        _p1_stop(router)
+    del router
+    _free_card()
+    migrations = [e for e in events if e.get("event") == "kv_migrate"]
+    rejects = [e for e in events if e.get("event") == "kv_migration_reject"]
+    spans = [ev for ev in recorder.to_chrome_trace()["traceEvents"] if ev.get("name") == "req.kv_migrate"]
+    mig_ms = sorted(ev["dur"] / 1e3 for ev in spans)
+    mig_bytes = [e["bytes"] for e in migrations]
+
+    def summary(v):
+        return {"p50": statistics.median(v), "max": max(v), "n": len(v)} if v else None
+
+    worker_ms = {role: {step: summary(ms) for step, ms in rec.get("kv_ms", {}).items() if ms}
+                 for role, rec in zip(("prefill", "decode"), records)}
+    log("P1_disagg", card=card, roles="prefill,decode", fault=fault, **_latency(rep_c), counters=counters_c,
+        decode_worker_stats={k: dstats.get(k, 0) for k in ("kv_pages_adopted", "kv_pages_rejected", "kv_mismatches",
+                                                           "prefill_tokens")},
+        migrations=len(migrations), migrated_bytes_total=sum(mig_bytes),
+        migrated_bytes_per_migration={"min": min(mig_bytes, default=0), "max": max(mig_bytes, default=0)},
+        migration_ms={"p50": mig_ms[len(mig_ms) // 2] if mig_ms else None, "max": mig_ms[-1] if mig_ms else None,
+                      "n": len(mig_ms)},
+        parent_legs_ms={name: summary(v) for name, v in legs_ms.items()}, worker_steps_ms=worker_ms,
+        f1_disagg_in_process=P1_STATE.get("disagg"),
+        rejects=[{k: e.get(k) for k in ("frid", "replica", "rejected", "reason")} for e in rejects],
+        launches={k: n for k, n in paths["P1_disagg"].items() if n}, streams_vs_offline=cmp_c)
+    if counters_c["kv_pages_migrated"] < 1 or dstats.get("kv_pages_adopted", 0) < 1 \
+            or paths["P1_disagg"]["ragged"] <= 0:
+        raise AssertionError(f"P1 disagg: no chain migrated and adopted, or K3 never ran on the decode worker: "
+                             f"{counters_c} {dstats} {paths['P1_disagg']}")
+    if counters_c["kv_migration_rejects"] < 1 or not rejects or rejects[0]["reason"] != "checksum_mismatch":
+        raise AssertionError(f"P1 disagg: the flipped page was not rejected by digest: {counters_c} {rejects}")
+    _assert_ragged_tensor_cores("P1 disagg", paths["P1_disagg"])
+    return paths
+
+
+def _p1_listen_worker(target: str, name: str) -> tuple:
+    """A pre-spawned worker (``--listen 127.0.0.1:0 --token``) through this
+    script's ``--p1-worker`` mode: (process, "host:port")."""
+    spec = {**_p1_spec(target), "loop": {"weight_fingerprint_interval_s": P1_FINGERPRINT_S}}
+    err = open(P1_DIR / f"{name}.stderr.txt", "w")
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), P1_CHILD, str(_p1_counts_dir()),
+                             "--spec-json", json.dumps(spec), "--listen", "127.0.0.1:0", "--token", P1_TOKEN],
+                            cwd=ROOT, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    line = proc.stdout.readline()
+    try:
+        port = int(json.loads(line)["worker"]["port"])
+    except (ValueError, KeyError, TypeError):
+        proc.kill()
+        raise AssertionError(f"P1: the {name} worker announced no port: {line!r}")
+    return proc, f"127.0.0.1:{port}"
+
+
+def _p1_listen_pair(target: str) -> tuple:
+    """Two pre-spawned workers, started side by side (beside the upgrade of
+    ``p1_spawn``): (processes, addresses, start seconds)."""
+    import threading
+
+    t0 = time.perf_counter()
+    starts: list = [None, None]
+
+    def spawn(i):
+        starts[i] = _p1_listen_worker(target, f"listen{i}")
+
+    threads = [threading.Thread(target=spawn, args=(i,), daemon=True) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=H1_WAIT)
+    workers = [s[0] for s in starts if s is not None]
+    if len(workers) != 2:
+        _p1_end_listeners(workers)
+        raise AssertionError("P1 attach: a listening worker did not announce its port")
+    return workers, [s[1] for s in starts], time.perf_counter() - t0
+
+
+def _p1_end_listeners(workers: list) -> None:
+    for w in workers:
+        if w.poll() is None:
+            w.terminate()  # drains, writes its exit record
+    for w in workers:
+        try:
+            w.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            w.kill()
+            w.wait()
+
+
+def p1_attach(listen: tuple, serve_ckpts: dict, card: str, params, model, schedule, want) -> dict:
+    """(d) two pre-spawned workers (``listen``, from ``_p1_listen_pair``): a
+    partition then a heal under the lease and the fence (a router in this
+    process), then ``serve --http --replica_mode process --attach`` on H1's
+    load, SIGTERM (the workers park), a ``--recover`` restart that
+    re-attaches and serves; (f) the port's ``obs_report --fleet
+    --fleet-trace --strict`` over the server's files."""
+    import signal
+
+    from pretraining_llm_tpu_torch.frontend.loadgen import FleetAction, LoadSpec, run_fleet_plan, run_http
+    from pretraining_llm_tpu_torch.frontend.remote_replica import RemoteReplica
+    from pretraining_llm_tpu_torch.frontend.router import Router
+    from pretraining_llm_tpu_torch.observability.events import EventBus
+
+    target = serve_ckpts["target"]
+    workers, addrs, start_s = listen
+    servers: list = []
+    paths = {}
+    try:
+        pids = [w.pid for w in workers]
+        log("P1_listen", card=card, workers=2, start_s=start_s, started="beside the upgrade")
+
+        # The partition drills, each on H1's first 16 requests in one burst
+        # and a fleet plan that blackholes worker 0's connection (no RST, no
+        # EOF) right after it. First the lease: the router hears nothing for
+        # 2 s and redrives worker 0's requests (the worker's own lease closes
+        # its end at the same time, and what it sent into the void goes with
+        # the connection). Then the fence: a router with a 0.5 s wedge
+        # watchdog ejects worker 0 and bumps its fence first, a fleet plan
+        # heals the connection inside the lease, and the frames worker 0
+        # streamed meanwhile arrive stamped with the old generation.
+        drill = schedule[:P1_DRILL_REQUESTS]
+        journal = P1_DIR / "journal.jsonl"
+        flags = ["--replica_mode", "process", "--replicas", "2", "--attach", ",".join(addrs), "--attach_token",
+                 P1_TOKEN, "--lease_s", str(P1_LEASE_S), "--journal_path", str(journal),
+                 "--weight_fingerprint_interval_s", str(P1_FINGERPRINT_S)]
+        out = {}
+        for leg, router_kw in (("lease", {}), ("fence", {"wedged_after_s": 0.5})):
+            bus, events = EventBus(), []
+            bus.subscribe(events.append)
+            reps = [RemoteReplica(i, {"attach": addrs[i], "token": P1_TOKEN}, bus=bus, lease_s=P1_LEASE_S,
+                                  spawn_timeout_s=H1_WAIT) for i in range(2)]
+            router = Router(reps, bus=bus, eject_backoff_s=600.0, **router_kw).start()
+            if leg == "fence":
+                # The serve CLI starts meanwhile: its connections wait in the
+                # workers' accept backlog until this router lets go.
+                srv = _start_server("attach", target, flags, root=P1_DIR)
+                servers.append(srv)
+            try:
+                t_p = time.perf_counter()
+                reqs = [router.submit(sr.prompt, sr.max_new) for sr in drill]
+                run_fleet_plan(router, [FleetAction(at_s=0.0, kind="partition", replica=0)]).join(timeout=60)
+                if leg == "fence":
+                    deadline = time.monotonic() + 60
+                    while router.counters["ejects"] < 1 and time.monotonic() < deadline:
+                        time.sleep(0.005)
+                    run_fleet_plan(router, [FleetAction(at_s=0.0, kind="heal", replica=0)]).join(timeout=60)
+                results = [r.result(timeout=H1_WAIT) for r in reqs]
+                burst_s = time.perf_counter() - t_p
+                bad = [(i, s, info) for i, (s, _, info) in enumerate(results) if s != "done"]
+                # No duplicate token: every stream holds exactly max_new tokens.
+                bad += [(i, len(t), sr.max_new) for i, ((_, t, _), sr) in enumerate(zip(results, drill))
+                        if len(t) != sr.max_new]
+                if bad:
+                    raise AssertionError(f"P1 partition ({leg}): requests not done with all their tokens: {bad[:4]}")
+                cmp_p = compare_streams(f"P1 partition ({leg})", params, model, [sr.prompt for sr in drill],
+                                        want[:len(drill)], [list(t) for _, t, _ in results])
+                deadline = time.monotonic() + 60
+                while router.counters["ejects"] < 1 and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                if leg == "lease":
+                    run_fleet_plan(router, [FleetAction(at_s=0.0, kind="heal", replica=0)]).join(timeout=60)
+                else:
+                    while reps[0]._c_fenced.value < 1 and time.monotonic() < deadline:
+                        time.sleep(0.05)
+                counters_p = dict(router.counters)
+                out[leg] = {"burst_s": burst_s, "counters": counters_p, "fence": reps[0].fence,
+                            "lease_expiries": reps[0]._c_lease.value, "fenced_frames_total": reps[0]._c_fenced.value,
+                            "redriven_requests": sum(1 for _, _, info in results if info.get("redrives")),
+                            "replica0_events": [e["event"] for e in events if e.get("replica") == 0
+                                                and not e["event"].startswith(("req", "cap", "fleet_req"))],
+                            "streams_vs_offline": cmp_p}
+            finally:
+                router.stop(timeout=60)
+        log("P1_partition", card=card, lease_s=P1_LEASE_S, requests=len(drill), **out)
+        lease, fence = out["lease"], out["fence"]
+        if lease["lease_expiries"] < 1 or lease["counters"]["redrives"] < 1:
+            raise AssertionError(f"P1 partition: the lease did not catch the partition: {lease}")
+        if fence["fenced_frames_total"] < 1 or fence["counters"]["redrives"] < 1 or fence["fence"] < 1:
+            raise AssertionError(f"P1 partition: no stale frame met the fence after the heal: {fence}")
+        if any(w.poll() is not None for w in workers):
+            raise AssertionError("P1 attach: a worker died in the partition drill")
+
+        # The serve CLI over the same workers: attach, token, lease, journal,
+        # fingerprints held against its own view of the checkpoint.
+        base = _server_base(srv)
+        _p1_signal(pids, signal.SIGUSR1, "reset")
+        rep_h = run_http(base, LoadSpec(**H1_SPEC), timeout_s=H1_WAIT)
+        records = _p1_signal(pids, signal.SIGUSR2, "load")
+        paths["P1_attach"] = _p1_sum(records)
+        got_h = _check_done("P1 attach", rep_h, schedule)
+        cmp_h = compare_streams("P1 attach", params, model, [sr.prompt for sr in schedule], want, got_h)
+        stopped = _stop_server(srv)
+        parked = all(w.poll() is None for w in workers)
+        log("P1_attach", card=card, module="pretraining_llm_tpu_torch.serve --http --replica_mode process --attach",
+            flags=flags, ready_s=srv.get("ready_s"), cold_request_s=srv.get("cold_request_s"), **_latency(rep_h),
+            server=stopped, workers_parked_after_sigterm=parked,
+            launches={k: n for k, n in paths["P1_attach"].items() if n}, streams_vs_offline=cmp_h)
+        # The drills above served the first 16 of these prompts on the same
+        # workers: their prefix caches hit, and the suffixes run K3.
+        _assert_routes("P1 attach", paths["P1_attach"], ragged=True)
+        if paths["P1_attach"]["flash_fwd_tc"] <= 0:
+            raise AssertionError(f"P1 attach: no admission ran K1: {paths['P1_attach']}")
+        if not parked:
+            raise AssertionError("P1 attach: SIGTERM of the router took a worker down")
+
+        # (f) the port's analyzer over the server's files: the worker spans on
+        # the router's timeline within their clock error bounds.
+        rc_f, text_f = obs_report_run("P1 obs_report fleet", [
+            "--json", "--strict", "--fleet", "--fleet-trace", "--trace", str(srv["dir"] / "trace.json"),
+            str(srv["dir"] / "events.jsonl")])
+        rep_f = json.loads(text_f)
+        ft = rep_f["fleet_trace"]
+        log("P1_obs_report", rc=rc_f, fleet={k: rep_f["fleet"][k] for k in ("n_submitted", "n_terminal",
+                                                                              "lost_requests", "statuses")},
+            fleet_trace={k: ft.get(k) for k in ("n_requests", "n_worker_spans", "n_unaligned", "n_stray_spans",
+                                                "max_clock_err_s", "problems")})
+        if rc_f != 0 or ft["n_worker_spans"] < 1 or ft["n_unaligned"] or rep_f["fleet"]["lost_requests"]:
+            raise AssertionError(f"P1 obs_report: {text_f[-3000:]}")
+
+        # The router restarted on its journal: re-attaches the parked workers,
+        # replays nothing, serves.
+        rec = _start_server("recover", target, flags + ["--recover"], root=P1_DIR)
+        servers.append(rec)
+        rbase = _server_base(rec)
+        check = schedule[:P1_RECOVER_REQUESTS]
+        bodies = [_http(rbase, "/v1/generate", {"prompt": sr.prompt, "max_new_tokens": sr.max_new}) for sr in check]
+        if any(b[0] != 200 for b in bodies):
+            raise AssertionError(f"P1 recover: {[b[0] for b in bodies]}")
+        cmp_r = compare_streams("P1 recover", params, model, [sr.prompt for sr in check], want[:len(check)],
+                                [json.loads(b[2])["tokens"] for b in bodies])
+        rec["proc"].send_signal(signal.SIGTERM)
+        rc_r = rec["proc"].wait(timeout=H1_WAIT)
+        rec["err"].close()
+        err_r = (rec["dir"] / "stderr.txt").read_text()
+        log("P1_recover", card=card, exit=rc_r, ready_s=rec.get("ready_s"), streams_vs_offline=cmp_r,
+            workers_parked_after_sigterm=all(w.poll() is None for w in workers))
+        if rc_r != 0 or "'journal_replays': 0" not in err_r:
+            raise AssertionError(f"P1 recover: exit {rc_r}: {err_r[-3000:]}")
+    finally:
+        for srv in servers:
+            if srv["proc"].poll() is None:
+                srv["proc"].kill()
+                srv["proc"].wait()
+            srv["err"].close()
+        _p1_end_listeners(workers)
+    return paths
 
 
 # ---------------------------------------------------------------------------
@@ -3744,7 +4524,7 @@ def run_parity() -> dict:
 # Phases added with the presets, remat and trainer-option slice.
 T4_PRESETS = (  # (preset, the microbatches tried first: the JAX preset's, or 2 where one pass cannot fit)
     ("gpt2-350m-dp", 1), ("gpt2-1p3b-fsdp", 2), ("llama-1b", 2), ("reference-3b", 2))
-T4_STEPS = 4
+T4_STEPS = 3  # 4 until PR 17, cut for chip_smoke's time
 T4_PEAKS: dict = {}  # preset -> (peak bytes, microbatches) of its T4 run, which F1's compile-only estimate meets
 CARD_BYTES = 80e9  # the card's 80 GB
 RECOMPUTES_K1 = ("full", "dots_saveable", "save_attn")  # remat policies under which K1 reruns in the backward
@@ -4555,9 +5335,9 @@ def run_d1() -> dict:
 
 def _h1_launches(serving_paths: dict, key: str) -> int:
     """A kernel's launches over H1's three servers (in-process loop, serve
-    CLI, chunked serve CLI) and F1's fleet loads, added to the main path's
-    in the kernels line."""
-    return sum(n.get(key, 0) for name, n in serving_paths.items() if name.startswith(("H1", "F1")))
+    CLI, chunked serve CLI), F1's fleet loads and P1's worker processes'
+    loads, added to the main path's in the kernels line."""
+    return sum(n.get(key, 0) for name, n in serving_paths.items() if name.startswith(("H1", "F1", "P1")))
 
 
 def time_kernels(launches, prefill_shapes, errs, launches_g1, serving_paths):
@@ -5340,6 +6120,7 @@ def main() -> int:
     run_trainer_options()
     train_paths["D1"] = run_d1()
     serving_paths.update(run_f1(serve_ckpts))
+    serving_paths.update(run_p1(serve_ckpts))
     shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
@@ -5360,4 +6141,6 @@ if __name__ == "__main__":
         sys.exit(d1_child(sys.argv[2:]))
     if sys.argv[1:2] == [H1_CHILD]:
         sys.exit(h1_child(sys.argv[2:]))
+    if sys.argv[1:2] == [P1_CHILD]:
+        sys.exit(p1_worker(sys.argv[2:]))
     sys.exit(main())

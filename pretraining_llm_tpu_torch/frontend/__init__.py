@@ -1,5 +1,5 @@
 """Online serving front end: the request-lifecycle layer over ServingEngine
-(the JAX package's ``frontend/`` with its replicas in one process).
+(the JAX package's ``frontend/``).
 
 The engine (generation/serving.py) is a scheduler: it knows rows, pages
 and windows, but nothing about arrival, waiting clients, deadlines or
@@ -29,12 +29,20 @@ load. This package adds the online half:
                  probes and disaggregated prefill;
   journal      — the router's write-ahead journal, replayed by --recover;
   kv_transfer  — KV pages of a cached prefix serialized, framed, verified
-                 and adopted into another replica's pool.
+                 and adopted into another replica's pool;
+  wire         — length-prefixed JSON frames, the worker socket protocol;
+  worker       — one replica in a process of its own behind a socket
+                 (``python -m pretraining_llm_tpu_torch.frontend.worker``),
+                 spawned by its parent or started with ``--listen``;
+  remote_replica — the parent's side of a worker, presented to the router
+                 as a replica: timeouts, retries, leases, fencing, clock
+                 sync, KV-page fetch and push, the process fault drills.
 
 ``python -m pretraining_llm_tpu_torch.serve --http`` wires them over one
-engine, or with ``--replicas N`` over N replicas in this process. Process
-replicas (the JAX package's ``worker``, ``wire`` and ``remote_replica``)
-are not ported yet.
+engine, with ``--replicas N`` over N replicas in this process, or with
+``--replica_mode process`` over worker processes. ``WorkerServer`` is
+imported from ``frontend.worker`` itself: the package must not import the
+module that ``python -m`` runs.
 """
 
 from pretraining_llm_tpu_torch.frontend.admission import (  # noqa: F401
@@ -64,4 +72,14 @@ from pretraining_llm_tpu_torch.frontend.replica import (  # noqa: F401
 from pretraining_llm_tpu_torch.frontend.router import (  # noqa: F401
     Router,
     RouterRequest,
+)
+from pretraining_llm_tpu_torch.frontend.remote_replica import RemoteReplica  # noqa: F401
+from pretraining_llm_tpu_torch.frontend.wire import (  # noqa: F401
+    MAX_FRAME_BYTES,
+    PROTO_VERSION,
+    ConnectionLost,
+    ProtocolError,
+    encode_frame,
+    recv_frame,
+    send_frame,
 )

@@ -1,5 +1,6 @@
 """Fleet router: one serving surface over N engine replicas (the JAX
-package's ``frontend/router.py``; its process replicas are not ported).
+package's ``frontend/router.py``), in this process (``frontend/replica.py``)
+or in worker processes (``frontend/remote_replica.py``).
 
 The router duck-types the EngineLoop surface the gateway consumes
 (``submit``/``cancel``/``metrics``/``last_turn_age_s``/``readiness``/
@@ -1424,12 +1425,10 @@ class Router:
         for probe in probes:
             per_probe: List[Tuple[int, Tuple[Tuple[int, ...], ...]]] = []
             for rep in live:
-                cache = getattr(rep.engine, "prefix_cache", None)
-                if cache is not None:
-                    rep.loop.run_on_loop(cache.flush, timeout=self.probe_timeout_s)
+                cached = self._flush_prefix_cache(rep)
                 answers = tuple(
                     self._startup_probe(rep, probe)
-                    for _ in range(2 if cache is not None else 1)
+                    for _ in range(2 if cached else 1)
                 )
                 per_probe.append((rep.index, answers))
             base = per_probe[0][1]
@@ -1442,6 +1441,20 @@ class Router:
                 )
             expected.append(tuple(dict.fromkeys(base)))
         return expected
+
+    def _flush_prefix_cache(self, rep: Replica) -> bool:
+        """Empty ``rep``'s prefix cache, if it has one (False if not): on
+        the loop thread of an in-process engine, through the worker's
+        ``prefix_flush`` op for a process replica (whose engine facade
+        holds no cache of its own)."""
+        cache = getattr(rep.engine, "prefix_cache", None)
+        if cache is not None:
+            rep.loop.run_on_loop(cache.flush, timeout=self.probe_timeout_s)
+            return True
+        if getattr(rep.engine, "has_prefix_cache", False):
+            rep.engine.flush_prefix_cache(timeout=self.probe_timeout_s)
+            return True
+        return False
 
     def _startup_probe(self, rep: Replica, probe: Any) -> Tuple[int, ...]:
         attempt = rep.loop.submit(

@@ -26,5 +26,8 @@ for the online server (the JAX package's ``observability/``).
 Everything is host-side; nothing here syncs the device between log
 boundaries. ``python -m pretraining_llm_tpu_torch.obs_report`` reads the
 JSONL this package writes.
-The fleet's clock sync (``clocksync.py``) is not ported.
+  - clocksync.py the min-RTT offset estimator that maps a worker
+                process's span timestamps onto the router's clock.
 """
+
+from pretraining_llm_tpu_torch.observability.clocksync import ClockSync  # noqa: F401

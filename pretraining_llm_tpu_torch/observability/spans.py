@@ -18,8 +18,8 @@ Spans nest per-thread: each records its thread id and stack depth, and the
 "X" (complete) Chrome events reconstruct the nesting from time containment.
 ``record`` takes a completed span with explicit timestamps, optionally on
 a named virtual track: the request tracer (``tracing.py``) records each
-request's spans there. (The fleet workers' span export, ``drain`` in the
-JAX package, waits for the fleet.)
+request's spans there. ``drain`` pops them all for a worker process's
+span export.
 """
 
 from __future__ import annotations
@@ -94,6 +94,17 @@ class SpanRecorder:
                 )
             else:
                 self._dropped += 1
+
+    def drain(self) -> Tuple[List[Tuple[str, float, float, int, int, Dict[str, Any]]], int]:
+        """Pop every recorded span plus the drop count accumulated since
+        the last drain. This is the worker-side export path: the bounded
+        ``_events`` list doubles as the span-export buffer, spans ship
+        exactly once, and resetting the drop counter makes the returned
+        count an increment the parent can feed a monotonic counter."""
+        with self._lock:
+            events, self._events = self._events, []
+            dropped, self._dropped = self._dropped, 0
+        return events, dropped
 
     # -- aggregate views ----------------------------------------------
 

@@ -1,5 +1,5 @@
 """Serving entry point of the PyTorch port: the JAX package's
-``scripts/serve.py`` with its replicas in one process.
+``scripts/serve.py``.
 
 Offline, a prompt file (one prompt a line) flows through
 ``generation.serving.ServingEngine``'s continuous batching, and each prompt gets one JSONL record with ``index``,
@@ -45,10 +45,27 @@ one that diverges::
         --probe_interval_s 0.5 --serving_faults corrupt_weights@req8:r1 --events build/events.jsonl
     python -m pretraining_llm_tpu_torch.obs_report --fleet --integrity --strict build/events.jsonl
 
-Process replicas (``--replica_mode process``, ``--attach``,
-``--attach_token``, ``--lease_s`` and the process fault kinds) raise
-``NotImplementedError``: they wait for the process-replica slice (ROADMAP
-Queue A item 1, process replicas).
+``--replica_mode process`` runs each replica in a worker process of its
+own (``python -m pretraining_llm_tpu_torch.frontend.worker``, which loads
+``--model_path`` itself on ``--device``) behind a socket: the same router,
+with a kill -9, a dropped connection or a wedged worker as real faults
+(``worker_kill``, ``conn_drop``, ``worker_stall``, ``partition``,
+``wire_delay``) and rolling weight upgrades. ``--attach host:port,...``
+attaches to workers started beforehand with ``--listen`` and ``--token``
+instead of spawning them, ``--attach_token`` presents the token and
+``--lease_s`` is the heartbeat lease after which a silent worker parks and
+its requests are redriven::
+
+    python -m pretraining_llm_tpu_torch.frontend.worker --listen 127.0.0.1:7001 --token s3cret \\
+        --spec-json '{"model_path": "build/ck", "engine": {"prefix_cache": true}}'
+    python -m pretraining_llm_tpu_torch.serve --model_path build/ck --http --port 8000 --tokenizer byte \\
+        --temperature 0 --replica_mode process --replicas 2 --attach 127.0.0.1:7001,127.0.0.1:7002 \\
+        --attach_token s3cret --lease_s 2 --journal_path build/journal.jsonl
+
+With ``--attach`` and ``--weight_fingerprint_interval_s`` > 0 the router
+refuses a worker whose weight fingerprint is not this checkpoint's (the
+workers must pin fingerprints too: ``"loop": {"weight_fingerprint_interval_s": ...}``
+in their spec).
 """
 
 from __future__ import annotations
@@ -83,14 +100,12 @@ _FLEET_FLAGS = (
     ("--probe_interval_s", float, "(replicas > 1) golden-probe period; 0 = off"),
     ("--probe_count", int, "distinct golden probes to pin"),
     ("--probe_max_new", int, "tokens each probe decodes"),
+    ("--attach", str, "(replica_mode process) attach to workers started with --listen instead of spawning them: "
+     "host:port,... one address per replica (default: config frontend.worker_attach)"),
+    ("--attach_token", str, "shared secret of the attach handshake, the workers' --token"),
+    ("--lease_s", float, "heartbeat lease: a worker that hears nothing from the router for this long parks and the "
+     "router redrives its requests; 0 = off"),
 )
-# The process-replica flags, refused until process replicas are ported:
-# (flag, kind, refused unless the value is this).
-_PROCESS_FLAGS = (
-    ("--replica_mode", str, "inproc"), ("--attach", str, None), ("--attach_token", str, None),
-    ("--lease_s", float, None),
-)
-_PROCESS_ITEM = "ROADMAP Queue A item 1, process replicas"
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -151,36 +166,23 @@ def _parser() -> argparse.ArgumentParser:
     for flag, kind, text in _FLEET_FLAGS:
         parser.add_argument(flag, type=kind, default=None,
                             help=f"(--http) {text}" + ("" if "(default:" in text else " (default: config)"))
-    for flag, kind, _ in _PROCESS_FLAGS:
-        parser.add_argument(flag, type=kind, default=None, help=f"(--http) process replicas (not ported: {_PROCESS_ITEM})")
+    parser.add_argument("--replica_mode", default=None, choices=["inproc", "process"],
+                        help="(--http) 'inproc' = replicas in this process; 'process' = one worker process per "
+                        "replica behind a socket (default: config)")
     return parser
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    from pretraining_llm_tpu_torch.resilience.faults import PROCESS_SERVING_FAULT_KINDS, parse_serving_faults
-
-    named = [flag for flag, _, ok in _PROCESS_FLAGS if getattr(args, flag[2:]) not in (None, ok)]
-    if args.serving_faults:
-        # corrupt_kv_migration flips the serialized transfer, which in-process
-        # replicas migrate too; the other process kinds need a worker.
-        named += sorted({
-            f.kind for f in parse_serving_faults(args.serving_faults)
-            if f.kind in PROCESS_SERVING_FAULT_KINDS and f.kind != "corrupt_kv_migration"
-        })
-    if named:
-        raise NotImplementedError(
-            f"{', '.join(named)}: process replicas (worker processes, attach, leases and the process "
-            f"fault kinds) are not ported to PyTorch yet; they wait for {_PROCESS_ITEM}"
-        )
-
-
-def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, quantize: str) -> None:
-    """The gateway until SIGINT or SIGTERM (the JAX CLI's in-process
-    branches): one ``EngineLoop`` with ``--replicas 1``, else the fleet
+def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, quantize: str,
+                fingerprint: Any) -> None:
+    """The gateway until SIGINT or SIGTERM (the JAX CLI's branches): one
+    ``EngineLoop`` with ``--replicas 1`` in this process, else the fleet
     ``Router`` over that many ``Replica``s, each building its own engine
-    with ``make_engine``. SIGTERM drains first: no new requests, the ones
-    in flight finish (30 s at most), then the loops stop, the bus closes
-    and the trace is written."""
+    with ``make_engine``, or with ``--replica_mode process`` over that many
+    ``RemoteReplica``s (worker processes, or attached workers).
+    ``fingerprint()`` is the served weights' fingerprint, which attached
+    workers must match. SIGTERM drains first: no new requests, the ones in
+    flight finish (30 s at most), then the loops stop, the bus closes and
+    the trace is written."""
     from pretraining_llm_tpu_torch.frontend.admission import AdmissionController
     from pretraining_llm_tpu_torch.frontend.engine_loop import EngineLoop
     from pretraining_llm_tpu_torch.frontend.gateway import ServingGateway
@@ -200,9 +202,11 @@ def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, 
         return cfg_val if cli_val is None else cli_val
 
     n_replicas = pick(args.replicas, fc.replicas)
-    if pick(args.replica_mode, fc.replica_mode) != "inproc":
-        raise NotImplementedError(f"replica_mode process is not ported to PyTorch yet; it waits for {_PROCESS_ITEM}")
+    replica_mode = pick(args.replica_mode, fc.replica_mode)
     fault_spec = pick(args.serving_faults, fc.serving_faults)
+    attach = pick(args.attach, fc.worker_attach)
+    attach_token = pick(args.attach_token, fc.attach_token)
+    lease_s = pick(args.lease_s, fc.lease_s)
     journal_path = pick(args.journal_path, fc.journal_path)
     roles = [r.strip() for r in args.replica_roles.split(",") if r.strip()] if args.replica_roles else []
     if roles:
@@ -213,6 +217,12 @@ def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, 
         bad = [r for r in roles if r not in ("prefill", "decode", "both")]
         if bad:
             raise SystemExit(f"--replica_roles: unknown role(s) {bad}; expected prefill|decode|both")
+    attach_addrs = [a.strip() for a in attach.split(",")] if attach else []
+    if attach_addrs:
+        if replica_mode != "process":
+            raise SystemExit("--attach needs --replica_mode process")
+        if len(attach_addrs) != n_replicas:
+            raise SystemExit(f"--attach lists {len(attach_addrs)} addresses for {n_replicas} replicas")
     if args.recover and not journal_path:
         raise SystemExit("--recover needs --journal_path")
 
@@ -231,7 +241,6 @@ def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, 
         trace_sample = 1.0  # asking for an export implies sampling
     tracer = Tracer(get_recorder(), sample=trace_sample, seed=args.seed) if trace_sample > 0 else None
     registry = MetricsRegistry(prefix="pllm_serving_", const_labels={"quant_dtype": quantize})
-    faults = ServingFaultInjector(fault_spec, bus=bus) if fault_spec else None
 
     def make_admission(reg, scope=""):
         return AdmissionController(
@@ -244,16 +253,8 @@ def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, 
         idle_wait_s=fc.idle_wait_s, capacity_ring=fc.capacity_ring,
         weight_fingerprint_interval_s=pick(args.weight_fingerprint_interval_s, fc.weight_fingerprint_interval_s),
     )
-    if n_replicas > 1:
-        replicas = [
-            Replica(
-                i, make_engine, bus=bus, tracer=tracer, registry_labels={"quant_dtype": quantize},
-                admission_factory=make_admission, fault_injector=faults, loop_kwargs=loop_kwargs,
-                role=roles[i] if roles else "both",
-            )
-            for i in range(n_replicas)
-        ]
-        loop = Router(
+    def make_router(replicas: List[Any]) -> Any:
+        return Router(
             replicas, admission=make_admission(registry, scope="fleet"), bus=bus, registry=registry,
             tracer=tracer, slo=slo, affinity_tokens=fc.affinity_tokens, spill_margin=fc.spill_margin,
             wedged_after_s=pick(args.wedged_after_s, fc.wedged_after_s), eject_backoff_s=fc.eject_backoff_s,
@@ -265,7 +266,82 @@ def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, 
             probe_max_new=pick(args.probe_max_new, fc.probe_max_new), journal_path=journal_path,
             journal_rotate_bytes=int(fc.journal_rotate_mb * 1024 * 1024), recover=args.recover,
         ).start()
+
+    if replica_mode == "process":
+        # One worker process per replica. The workers load the checkpoint
+        # themselves (the same load, cast and quantize as above, on the
+        # same device); the fault plan splits into engine kinds (in the
+        # worker spec, fired inside its scheduler) and process kinds
+        # (worker_kill, conn_drop, ... fired by this process, the only
+        # party that can kill a worker or cut its connection).
+        from pretraining_llm_tpu_torch.frontend.remote_replica import RemoteReplica
+        from pretraining_llm_tpu_torch.resilience.faults import split_serving_plan
+
+        if args.draft_model_path:
+            raise SystemExit("--replica_mode process does not support speculative serving (--draft_model_path): "
+                             "draft params cannot ride a JSON worker spec")
+        engine_plan, process_plan = split_serving_plan(fault_spec) if fault_spec else ("", "")
+        serving = cfg.serving
+        worker_spec = dict(
+            model_path=args.model_path, ema=bool(args.ema), quantize=quantize, device=args.device,
+            engine=dict(
+                max_batch=args.max_batch, n_blocks=args.n_blocks, block_size=args.block_size,
+                temperature=args.temperature, top_k=args.top_k, top_p=args.top_p, min_p=args.min_p,
+                stop_token=args.stop_token, seed=args.seed, steps_per_sched=args.steps_per_sched,
+                pipeline_depth=args.pipeline_depth or serving.pipeline_depth,
+                admit_batch=args.admit_batch or serving.admit_batch,
+                prefix_cache=args.prefix_cache or serving.prefix_cache,
+                prefix_cache_min_blocks=args.prefix_cache_min_blocks or serving.prefix_cache_min_blocks,
+                prefill_chunk_tokens=args.prefill_chunk_tokens or serving.prefill_chunk_tokens,
+                kv_checksum=args.kv_checksum or serving.kv_checksum,
+            ),
+            admission=dict(
+                max_queue_depth=pick(args.max_queue_depth, fc.max_queue_depth),
+                max_outstanding_tokens=pick(args.max_outstanding_tokens, fc.max_outstanding_tokens),
+                retry_after_s=fc.retry_after_s, shed_infeasible=fc.shed_infeasible,
+            ),
+            loop=loop_kwargs, serving_faults=engine_plan,
+        )
+        # An attached worker must serve this checkpoint: with fingerprints
+        # on, its hello's fingerprint is held against this process's own,
+        # taken on the same device from the same cast (and quantized) tree.
+        expect = fingerprint() if attach_addrs and loop_kwargs["weight_fingerprint_interval_s"] > 0 else None
+
+        def rep_spec(i: int) -> Dict[str, Any]:
+            spec = dict(worker_spec)
+            if roles:
+                spec["role"] = roles[i]
+            if attach_addrs:
+                spec["attach"] = attach_addrs[i]
+                if attach_token:
+                    spec["token"] = attach_token
+                if expect is not None:
+                    spec["expect_fingerprint"] = expect
+            return spec
+
+        # Every RemoteReplica shares the tracer's recorder (or the process
+        # default): the workers' spans land in the router's buffer, so one
+        # export at shutdown holds the merged trace.
+        proc_faults = ServingFaultInjector(process_plan, bus=bus) if process_plan else None
+        loop = make_router([
+            RemoteReplica(
+                i, rep_spec(i), bus=bus, registry_labels={"quant_dtype": quantize}, fault_injector=proc_faults,
+                backoff_seed=args.seed, lease_s=lease_s, recorder=tracer.recorder if tracer is not None else None,
+            )
+            for i in range(n_replicas)
+        ])
+    elif n_replicas > 1:
+        faults = ServingFaultInjector(fault_spec, bus=bus) if fault_spec else None
+        loop = make_router([
+            Replica(
+                i, make_engine, bus=bus, tracer=tracer, registry_labels={"quant_dtype": quantize},
+                admission_factory=make_admission, fault_injector=faults, loop_kwargs=loop_kwargs,
+                role=roles[i] if roles else "both",
+            )
+            for i in range(n_replicas)
+        ])
     else:
+        faults = ServingFaultInjector(fault_spec, bus=bus) if fault_spec else None
         eng = make_engine()
         if faults is not None:
             eng.pipeline_tick = faults.wrap_tick(0, eng.pipeline_tick)
@@ -324,7 +400,6 @@ def _serve_http(args: argparse.Namespace, cfg: Any, make_engine: Any, enc: Any, 
 def main(argv: Optional[List[str]] = None) -> Optional[List[Dict[str, Any]]]:
     parser = _parser()
     args = parser.parse_args(argv)
-    _refuse_unported(args)
     if not args.http and not args.input_file:
         parser.error("--input_file is required unless --http is set")
 
@@ -380,7 +455,9 @@ def main(argv: Optional[List[str]] = None) -> Optional[List[Dict[str, Any]]]:
         )
 
     if args.http:
-        _serve_http(args, cfg, make_engine, enc, quantize)
+        from pretraining_llm_tpu_torch.resilience.integrity import weight_fingerprint
+
+        _serve_http(args, cfg, make_engine, enc, quantize, lambda: weight_fingerprint(params))
         return None
 
     eng = make_engine()

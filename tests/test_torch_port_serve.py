@@ -9,8 +9,8 @@ fields equal those of ``scripts/serve.py``'s ``main()`` on the same
 checkpoint and tokenizer (byte), under the pipelined and the synchronous
 scheduler and with a draft checkpoint; scheduler flags left at 0 fall back
 to the checkpoint's ``serving`` section; the process-replica flags and
-process fault kinds raise (the fleet in one process is
-``tests/test_torch_port_fleet.py``'s).
+process fault kinds reach the process branch (the fleets themselves are
+``tests/test_torch_port_fleet.py``'s and ``test_torch_port_process_fleet.py``'s).
 A tiny byte-tokenizer model (2 layers, d 32, V 260) with seeded numpy
 weights (std 0.3).
 """
@@ -33,6 +33,7 @@ from pretraining_llm_tpu.training import checkpoint as jckpt
 from pretraining_llm_tpu_torch import config as tcfg
 from pretraining_llm_tpu_torch import serve as tserve
 from pretraining_llm_tpu_torch.generation import serving as tserving
+from pretraining_llm_tpu_torch.resilience import faults as tfaults
 
 ROOT = Path(__file__).resolve().parent.parent
 MODEL = dict(vocab_size=260, context_length=64, d_model=32, n_heads=4, n_layers=2, compute_dtype="float32")
@@ -178,12 +179,48 @@ def test_serve_cli_falls_back_to_the_serving_section(ckpts, tmp_path, monkeypatc
 @pytest.mark.parametrize("flags", [["--attach", "127.0.0.1:9"], ["--replica_mode", "process"], ["--lease_s", "2"],
                                    ["--serving_faults", "worker_kill@req3:r0"], ["--attach_token", "t"],
                                    ["--serving_faults", "replica_crash@req1,partition@req2:r1"]])
-def test_serve_cli_refuses_the_online_flags(ckpts, flags):
-    """Only what the process replicas bring is refused, naming the ROADMAP
-    item that ports them; ``corrupt_kv_migration`` runs in one process."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1, process replicas"):
-        tserve.main(["--model_path", ckpts["target"], "--http", "--device", "cpu"] + flags)
-    tserve._refuse_unported(tserve._parser().parse_args(
-        ["--model_path", "m", "--replicas", "2", "--journal_path", "j", "--recover",
-         "--serving_faults", "replica_crash@req3:r0,corrupt_kv_migration@req1:r1", "--replica_roles",
-         "prefill,decode", "--probe_interval_s", "0.5"]))
+def test_serve_cli_refuses_the_online_flags(ckpts, flags, monkeypatch):
+    """The process-replica flags parse and reach the process branch (the
+    name is kept from when they were refused): each builds
+    ``RemoteReplica``s with the worker spec the JAX CLI builds, the port's
+    device in it, the process fault kinds in the parent's injector and the
+    engine kinds in the spec. ``--attach`` without process mode, a wrong
+    address count and a draft checkpoint exit as in JAX."""
+    from pretraining_llm_tpu_torch.frontend import remote_replica
+
+    built = []
+
+    class Reached(Exception):
+        pass
+
+    class Spy:
+        def __init__(self, index, spec, **kw):
+            built.append((index, spec, kw))
+            if len(built) == 2:
+                raise Reached
+
+    monkeypatch.setattr(remote_replica, "RemoteReplica", Spy)
+    common = ["--model_path", ckpts["target"], "--http", "--device", "cpu", "--replicas", "2", "--max_batch", "2"]
+    process = [] if "--replica_mode" in flags else ["--replica_mode", "process"]
+    if flags[0] == "--attach":
+        with pytest.raises(SystemExit, match="needs --replica_mode process"):
+            tserve.main(common + flags)
+        with pytest.raises(SystemExit, match="lists 1 addresses for 2 replicas"):
+            tserve.main(common + process + flags)
+        flags = ["--attach", "127.0.0.1:9,127.0.0.1:10"]
+    with pytest.raises(Reached):
+        tserve.main(common + process + flags)
+    (i0, spec, kw), (i1, spec1, _) = built
+    assert (i0, i1) == (0, 1)
+    assert spec["model_path"] == ckpts["target"] and spec["device"] == "cpu" and spec["engine"]["max_batch"] == 2
+    assert set(spec) >= {"model_path", "ema", "quantize", "device", "engine", "admission", "loop", "serving_faults"}
+    if flags[0] == "--attach":
+        assert (spec["attach"], spec1["attach"]) == ("127.0.0.1:9", "127.0.0.1:10")
+    if flags[0] == "--lease_s":
+        assert kw["lease_s"] == 2.0
+    plan = flags[1] if flags[0] == "--serving_faults" else ""
+    engine_plan, process_plan = tfaults.split_serving_plan(plan) if plan else ("", "")
+    assert spec["serving_faults"] == engine_plan
+    assert (kw["fault_injector"] is None) == (not process_plan)
+    with pytest.raises(SystemExit, match="speculative"):
+        tserve.main(common + ["--replica_mode", "process", "--draft_model_path", ckpts["draft"]])

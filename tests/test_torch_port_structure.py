@@ -430,13 +430,15 @@ def test_resilience_and_observability_modules_are_scanned():
 FLEET_AND_TOOL_MODULES = (
     "obs_report.py", "frontend/journal.py", "frontend/kv_transfer.py", "frontend/replica.py", "frontend/router.py",
     "frontend/loadgen.py", "frontend/__init__.py", "resilience/faults.py", "resilience/integrity.py",
-    "generation/serving.py", "serve.py", "train.py",
+    "generation/serving.py", "serve.py", "train.py", "frontend/wire.py", "frontend/worker.py",
+    "frontend/remote_replica.py", "observability/clocksync.py",
 )
 
 
 def test_fleet_and_tool_modules_are_scanned():
     """The fleet in one process (router, replicas, journal, KV transfer, the
-    serving faults and golden probes), the analyzer and ``train
+    serving faults and golden probes), its process replicas (wire, worker,
+    remote replica, clock sync), the analyzer and ``train
     --compile-only`` are among the sources that
     ``test_port_imports_nothing_of_jax`` scans; none names a module of the
     JAX package, and the analyzer imports neither torch nor numpy (it runs
@@ -456,4 +458,8 @@ def test_fleet_and_tool_modules_are_scanned():
     from pretraining_llm_tpu_torch import frontend
 
     assert {"Router", "RouterRequest", "Replica", "ReplicaUnavailable", "FleetAction", "rolling_restart_plan",
-            "run_fleet_plan"} <= set(dir(frontend))
+            "run_fleet_plan", "RemoteReplica", "encode_frame", "send_frame", "recv_frame",
+            "ConnectionLost", "ProtocolError", "PROTO_VERSION", "MAX_FRAME_BYTES"} <= set(dir(frontend))
+    # A process replica spawns the port's worker, never the JAX package's.
+    text = (ROOT / "pretraining_llm_tpu_torch" / "frontend" / "remote_replica.py").read_text()
+    assert '"pretraining_llm_tpu_torch.frontend.worker"' in text
