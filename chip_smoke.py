@@ -112,8 +112,9 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           losses and every parameter's gradient held against its
           all-torch-ops twin (chunked head, naive attention) on T3's own
           states;
-  T4      ``Trainer.train`` on each single-card preset T1-T3 do not run,
-          at full width and depth with its own remat policy (bf16
+  T4      ``Trainer.train`` on each preset T1-T3 do not run, on a
+          one-device mesh, at full width and cut depth (6, 6, 6 and 32
+          layers) with its own remat policy (bf16
           compute, fp32 params, AdamW, synthetic data, no checkpoints), 3
           steps (4 until PR 17) at the preset's global batch: gpt2-350m-dp (none, 32 x
           1024), gpt2-1p3b-fsdp (dots_saveable, 64 x 1024 in microbatches),
@@ -125,8 +126,8 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           tokens/s, MFU, peak memory, losses and launches; the launches
           must be the exact counts of the one-pass or split backward on
           the tensor cores, K1 twice a layer where the policy recomputes it;
-  M1      ``Trainer.train`` on moe-8x350m at full width and depth (24
-          layers, d 1024, 8 experts, top-2, 1.77B params, 0.56B active),
+  M1      ``Trainer.train`` on moe-8x350m (``mesh.expert=1``) at full
+          width and 8 of its 24 layers (d 1024, 8 experts, top-2),
           4 steps at 32 x 1024 in the microbatches that fit: step ms,
           tokens/s, MFU on the active FLOPs, peak memory, the router's aux
           term per step, dropped (token, choice) pairs per layer at step
@@ -134,13 +135,13 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           of 256 tokens, 64 greedy tokens) and ``evaluate`` (4 batches)
           from its weights, and 8 cached greedy steps (nothing dropped)
           against one uncached forward of the same tokens;
-  R       the remat sweep: llama3-1b-gqa at its 22 layers, batch 2 x
-          2048, under each of the seven policies from one init: step-1 loss
-          and every gradient leaf against remat none's (the bf16 bar; bit
-          equality reported), then 3 steps: step ms, peak memory, K1
-          launches per step (22, or 44 under full, dots_saveable and
-          save_attn); full's peak below none's;
-  O       gpt2-124m at full size, 10 steps under AdamW, Adafactor and
+  R       the remat sweep: llama3-1b-gqa at 6 of its 22 layers, batch 2 x
+          2048, under each of the seven policies
+          from one init: step-1 loss and every gradient leaf against remat
+          none's (the bf16 bar; bit equality reported), then 3 steps: step
+          ms, peak memory, K1 launches per step (6, or 12 under full,
+          dots_saveable and save_attn); full's peak below none's;
+  O       gpt2-124m at full width and 6 of its 12 layers, 10 steps under AdamW, Adafactor and
           Muon: finite, falling losses; then the trainer's options on a
           2-layer gpt2-width model: ``checkpoint_async`` (the step-3
           checkpoint and a resume from it bit for bit as the synchronous
@@ -148,8 +149,8 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           ``debug_nans`` (a NaN weight raises ``FloatingPointError``) and a
           3:1 mixture of ``data/parity``'s files with ``data.prefetch=2``
           (the batches the steps got equal the unprefetched iterator's);
-  D1      the drills: gpt2-124m at full width and depth (T1's model and
-          data, through the native batcher), 32 steps with a log line every
+  D1      the drills: gpt2-124m at full width and 6 of its 12 layers
+          (T1's data, through the native batcher), 32 steps with a log line every
           4 and a checkpoint every 8, anomaly detection, a 10 s watchdog
           and telemetry on: a clean run of the train CLI; the same command
           under the port's supervisor with SIGTERM after step 12 and a hang
@@ -161,9 +162,10 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           Prometheus textfile's lint and the Chrome trace. The CLI children
           run ``python3 chip_smoke.py --d1-child COUNTS <train arguments>``,
           which records each child's kernel launches.
-  F1      after D1, on T1's step-30 weights (H1's): (b) ``train
-          --compile-only`` as child processes for gpt2-124m and
-          reference-3b (T4's microbatches), whose total estimate must lie
+  F1      after H1 and D1, on T1's step-30 weights (H1's): (b) in the
+          training lane after T4, ``train --compile-only`` as child
+          processes for gpt2-124m and reference-3b (T4's microbatches and
+          depth, ``mesh.fsdp=1``), whose total estimate must lie
           within 5% of T4's measured peak; (c) two full-width gpt2-124m
           replicas in this process behind ``frontend.Router`` (engine
           defaults, prefix cache on) under H1's load through
@@ -214,6 +216,15 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           a ``--recover`` restart that re-attaches and serves; (f) the
           port's ``obs_report --fleet --fleet-trace --strict`` over its
           files. Every stream is held against the offline engine's.
+
+The phases run in two lanes. After the CE checks, a child process
+(``python3 chip_smoke.py --lane DIR T_START``, ``TrainingLane``) runs the
+training phases that need nothing of the serving ones (D1, X1, T4, F1's
+compile-only, M1, R, O and the parity run), while this process runs the
+other checks, paths 1-5, T1, G1, H1, F1's fleet, T2 and T3. Each process keeps
+its own scratch dir, and the lane's output is printed when it is joined.
+P1, which reads the card's used memory, and every timing of the kernels
+line run after the join, with the card to themselves.
 
 The flash forward (K1) and the three backward kernels (one pass, dQ,
 dK/dV) have two routes: bf16 runs the tensor-core kernels
@@ -281,6 +292,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -309,7 +321,11 @@ SEED = 0
 DEVICE = "cuda"  # the card; the phases take their tensors from here
 ROOT = Path(__file__).resolve().parent
 PARITY_DIR = ROOT / "data" / "parity"
-SCRATCH = ROOT / "build" / "chip_smoke"  # git-ignored; the train paths' checkpoints, removed at the end
+SCRATCH_ROOT = ROOT / "build" / "chip_smoke"  # git-ignored; the phases' checkpoints, removed at the end
+LANE = "--lane"  # chip_smoke.py's child mode: the training lane (``lane_main``)
+# Each process of the two lanes keeps its own scratch dir (T1 clears this
+# process's at its start).
+SCRATCH = SCRATCH_ROOT / ("lane" if sys.argv[1:2] == [LANE] else "main")
 
 # Training bars. Card vs CPU at fp32 (TF32 off): losses within 1e-4
 # relative, first-step gradients within 1e-3 of each leaf's largest |g|
@@ -2075,7 +2091,6 @@ def h1_child(argv: list) -> int:
     SIGUSR2 writes the counts to COUNTS.load, so the parent brackets one
     load on an idle server. The whole process's counts go to COUNTS once
     the server has drained and stopped."""
-    import signal
 
     from pretraining_llm_tpu_torch import serve
 
@@ -2276,7 +2291,6 @@ def _server_base(srv: dict) -> str:
 def _stop_server(srv: dict) -> dict:
     """SIGTERM, the exit code, the drain line, the trace's request trees
     and the events' terminals."""
-    import signal
 
     from pretraining_llm_tpu_torch.observability.tracing import check_trace_tree, group_request_spans
 
@@ -2323,7 +2337,6 @@ def _child_counts(srv: dict, signum: int, suffix: str) -> dict:
 def _measured(srv: dict, base: str, spec) -> tuple:
     """One load through ``run_http`` on an idle server, with the server's
     kernel launches over that load alone: (report, launches)."""
-    import signal
 
     from pretraining_llm_tpu_torch.frontend.loadgen import run_http
 
@@ -2590,7 +2603,7 @@ def run_h1(serve_ckpts: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 F1_DIR = SCRATCH / "f1"
-F1_D1_OBS = F1_DIR / "d1_obs"  # D1's clean run's telemetry, copied before D1 removes its dir
+F1_D1_OBS = SCRATCH_ROOT / "d1_obs"  # D1's clean run's telemetry (the training lane's), copied before D1 removes its dir
 F1_FAULT_WEIGHTS = "corrupt_weights@req8:r1"
 F1_PROBE_S = 0.5
 F1_HTTP_REQUESTS = 16  # H1's first 16 requests, each stream held against the offline engine's
@@ -2660,13 +2673,13 @@ def f1_obs_report(live_base: str = "", live_events: str = "") -> dict:
 
 def f1_compile_only() -> dict:
     """(b) ``train --compile-only`` as child processes, gpt2-124m and
-    reference-3b at T4's microbatches; reference-3b's estimate within 5% of
-    T4's measured peak in this run."""
+    reference-3b at T4's microbatches and depth, on a one-device mesh;
+    reference-3b's estimate within 5% of T4's measured peak in this run."""
     out = {}
     for preset in ("gpt2-124m", "reference-3b"):
-        over = []
+        over = ["--override", *(f"{k}={v}" for k, v in one_device_mesh(preset).items())]
         if preset in T4_PEAKS:
-            over = ["--override", f"train.microbatches={T4_PEAKS[preset][1]}"]
+            over += [f"train.microbatches={T4_PEAKS[preset][1]}", f"model.n_layers={T4_LAYERS[preset]}"]
         t0 = time.perf_counter()
         res = subprocess.run([sys.executable, "-m", "pretraining_llm_tpu_torch.train", "--preset", preset,
                               "--compile-only", *over], cwd=ROOT, capture_output=True, text=True, timeout=900)
@@ -2684,6 +2697,14 @@ def f1_compile_only() -> dict:
     if abs(est / peak - 1.0) > 0.05:
         raise AssertionError(f"F1 compile-only: reference-3b's estimate {est} is not within 5% of T4's peak {peak}")
     return out
+
+
+def run_f1_compile_only() -> None:
+    """F1 (b), in the training lane after T4, whose peaks it meets."""
+    t0 = time.perf_counter()
+    card = phase_card()
+    _free_card()
+    log("F1_compile_only", card=card, reports=f1_compile_only(), phase_s=time.perf_counter() - t0)
 
 
 def _replica_recovery_s(events: list, replica: int) -> list:
@@ -2708,10 +2729,6 @@ def run_f1(serve_ckpts: dict) -> dict:
     card = phase_card()
     F1_DIR.mkdir(parents=True, exist_ok=True)
     _free_card()
-    # (b) first: reference-3b's step needs nearly the whole card.
-    t0 = time.perf_counter()
-    compile_only = f1_compile_only()
-    log("F1_compile_only", card=card, reports=compile_only, phase_s=time.perf_counter() - t0)
     paths = f1_fleet(serve_ckpts, card)
     paths["F1_http"] = f1_http(serve_ckpts, card)
     log("F1", wall_s=time.perf_counter() - t_f1, card=card)
@@ -2913,7 +2930,6 @@ def f1_http(serve_ckpts: dict, card: str) -> dict:
     relaunched, then 16 requests held against the offline engine; SIGTERM,
     the journal, a ``--recover`` start; (a) the analyzer. Returns the
     launches of the 16 requests' load."""
-    import signal
     import threading
 
     from pretraining_llm_tpu_torch.frontend.journal import FleetJournal
@@ -3053,7 +3069,6 @@ def p1_worker(argv: list) -> int:
     or the JAX package loaded (none may be) and the milliseconds of each KV
     transfer step this worker ran (snapshot, frame split, frame join,
     adoption)."""
-    import signal
 
     from pretraining_llm_tpu_torch.frontend import kv_transfer, worker
 
@@ -3145,7 +3160,6 @@ def _p1_measured(name: str, router, pids_fn, spec, params, model, want, schedule
     workers' kernel launches over that load alone (``before_read`` waits
     for a relaunched worker first): (report, launches, streams, comparison,
     worker records)."""
-    import signal
 
     from pretraining_llm_tpu_torch.frontend.loadgen import run_engine_loop
 
@@ -3597,7 +3611,6 @@ def p1_attach(listen: tuple, serve_ckpts: dict, card: str, params, model, schedu
     load, SIGTERM (the workers park), a ``--recover`` restart that
     re-attaches and serves; (f) the port's ``obs_report --fleet
     --fleet-trace --strict`` over the server's files."""
-    import signal
 
     from pretraining_llm_tpu_torch.frontend.loadgen import FleetAction, LoadSpec, run_fleet_plan, run_http
     from pretraining_llm_tpu_torch.frontend.remote_replica import RemoteReplica
@@ -3987,14 +4000,24 @@ def check_doc_isolation() -> None:
         raise AssertionError("documents are not isolated on the card")
 
 
+def one_device_mesh(preset: str) -> dict:
+    """The overrides that state a one-device mesh for ``preset``: each axis
+    its mesh fixes above 1 set to 1 (otherwise the preset needs that many
+    ranks, as the JAX preset needs that many devices)."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    mesh = get_preset(preset).mesh
+    return {f"mesh.{a}": 1 for a in ("fsdp", "tensor", "seq", "expert", "pipe") if getattr(mesh, a) > 1}
+
+
 def train_config(preset: str, overrides: dict):
-    """``preset`` with no eval, checkpoint or final save unless
-    ``overrides`` ask, a log line (and so a loss) every step, checkpoints
-    under SCRATCH."""
+    """``preset`` on a one-device mesh with no eval, checkpoint or final
+    save unless ``overrides`` ask, a log line (and so a loss) every step,
+    checkpoints under SCRATCH."""
     from pretraining_llm_tpu_torch.config import get_preset
 
     base = {"train.eval_interval": 0, "train.checkpoint_interval": 0, "train.save_final": False,
-            "train.log_interval": 1, "train.checkpoint_dir": str(SCRATCH / preset)}
+            "train.log_interval": 1, "train.checkpoint_dir": str(SCRATCH / preset), **one_device_mesh(preset)}
     return get_preset(preset).with_overrides({**base, **overrides})
 
 
@@ -4525,10 +4548,16 @@ def run_parity() -> dict:
 T4_PRESETS = (  # (preset, the microbatches tried first: the JAX preset's, or 2 where one pass cannot fit)
     ("gpt2-350m-dp", 1), ("gpt2-1p3b-fsdp", 2), ("llama-1b", 2), ("reference-3b", 2))
 T4_STEPS = 3  # 4 until PR 17, cut for chip_smoke's time
+# T4's depth: each preset's first layers (widths untouched), cut from 24,
+# 24, 22 and 64 for chip_smoke's time (PERF.md §4).
+# reference-3b keeps 32: F1's compile-only estimate misses a Trainer run's
+# peak by a fixed ~1.4 GB, which must stay within 5% of that peak.
+T4_LAYERS = {"gpt2-350m-dp": 6, "gpt2-1p3b-fsdp": 6, "llama-1b": 6, "reference-3b": 32}
 T4_PEAKS: dict = {}  # preset -> (peak bytes, microbatches) of its T4 run, which F1's compile-only estimate meets
 CARD_BYTES = 80e9  # the card's 80 GB
 RECOMPUTES_K1 = ("full", "dots_saveable", "save_attn")  # remat policies under which K1 reruns in the backward
 R_STEPS = 3
+R_LAYERS = 6  # llama3-1b-gqa's first 6 of 22 layers, cut for chip_smoke's time (PERF.md §4)
 
 
 def _no_checkpoint_dir() -> str:
@@ -4555,8 +4584,8 @@ def _route_check(name: str, launches: dict, one_pass: bool, layers: int, k1_per_
 
 
 def run_t4() -> dict:
-    """T4: ``Trainer.train`` on each single-card preset that T1-T3 do not
-    run, at full width and depth with the preset's own remat policy, bf16
+    """T4: ``Trainer.train`` on each preset that T1-T3 do not
+    run, at full width and T4_LAYERS' depth with the preset's own remat policy, bf16
     compute, fp32 params and AdamW, for T4_STEPS steps at the preset's
     global batch on synthetic data, no checkpoints. The global batch runs
     as the preset's microbatches, or twice as many after an out-of-memory
@@ -4567,13 +4596,14 @@ def run_t4() -> dict:
 
     out = {}
     for preset, micro in T4_PRESETS:
-        model = get_preset(preset).model
         batch = get_preset(preset).train.batch_size
         t0 = time.perf_counter()
         tried = []
         while True:
             cfg = train_config(preset, {"train.train_steps": T4_STEPS, "train.microbatches": micro,
+                                        "model.n_layers": T4_LAYERS[preset],
                                         "train.checkpoint_dir": _no_checkpoint_dir()})
+            model = cfg.model
             try:
                 trainer, recs, launches, wall, peak = train_run(cfg, T4_STEPS, synthetic_data=True, resume=False)
                 del trainer
@@ -4606,6 +4636,7 @@ def run_t4() -> dict:
 
 
 M1_STEPS = 4
+M1_LAYERS = 8  # moe-8x350m's first 8 of 24 layers, cut for chip_smoke's time (PERF.md §4)
 M1_MICRO = 4  # microbatches tried first: 8 x 1024 tokens each, 4 routing groups of 2048
 M1_PROMPTS = (8, 256)  # generate from the step-4 weights: rows x prompt tokens (equal lengths: MoE)
 M1_NEW_TOKENS = 64
@@ -4713,8 +4744,8 @@ def m1_decode_check(params, model, prompts) -> dict:
 
 
 def run_m1() -> dict:
-    """M1: ``Trainer.train`` on moe-8x350m at full width and depth (24
-    layers, d 1024, 16 heads, d_ff 4096, 8 experts, top-2, capacity factor
+    """M1: ``Trainer.train`` on moe-8x350m at full width, M1_LAYERS of its
+    24 layers (d 1024, 16 heads, d_ff 4096, 8 experts, top-2, capacity factor
     1.25, routing groups of 2048 tokens, V 50304, T 1024, tied head,
     ``dots_saveable``, bf16 compute, fp32 params, AdamW), M1_STEPS steps at
     the preset's global batch of 32 x 1024 synthetic tokens in M1_MICRO
@@ -4744,6 +4775,7 @@ def run_m1() -> dict:
         while True:
             records.clear()
             cfg = train_config(preset, {"train.train_steps": M1_STEPS, "train.microbatches": micro,
+                                        "model.n_layers": M1_LAYERS,
                                         "train.checkpoint_dir": _no_checkpoint_dir()})
             try:
                 trainer, recs, launches, wall, peak = train_run(cfg, M1_STEPS, synthetic_data=True, resume=False)
@@ -4760,6 +4792,7 @@ def run_m1() -> dict:
             micro *= 2
             if batch % micro:
                 raise AssertionError(f"M1: no microbatch count fits: {tried}")
+    model = cfg.model
     layers = model.n_layers
     per_step = micro * layers
     if len(records) != M1_STEPS * per_step:
@@ -4817,7 +4850,7 @@ def run_m1() -> dict:
 
 
 def run_remat_sweep() -> dict:
-    """R: llama3-1b-gqa at its full 22 layers, batch 2 x 2048, bf16, under
+    """R: llama3-1b-gqa at R_LAYERS of its 22 layers, batch 2 x 2048, bf16, under
     each remat policy from the same init: the step-1 loss and gradients
     (``compute_grads``) against remat "none"'s, within BF16_ROW_RTOL of
     each leaf's largest |g| (and whether every bit is equal), then R_STEPS
@@ -4830,7 +4863,8 @@ def run_remat_sweep() -> dict:
     from pretraining_llm_tpu_torch.training import train_step as ts
 
     t_phase = time.perf_counter()
-    cfg0 = train_config("llama3-1b-gqa", {"train.batch_size": 2, "train.train_steps": 100})
+    cfg0 = train_config("llama3-1b-gqa", {"train.batch_size": 2, "train.train_steps": 100,
+                                          "model.n_layers": R_LAYERS})
     model = cfg0.model
     init = ts.init_train_state(cfg0, SEED, device=DEVICE)
     rng = np.random.default_rng(SEED + 30)
@@ -4895,16 +4929,18 @@ def run_remat_sweep() -> dict:
 
 
 OPT_STEPS = 10
+OPT_LAYERS = 6  # gpt2-124m's first 6 of 12 layers, cut for chip_smoke's time (PERF.md §4)
 
 
 def run_optimizers() -> dict:
-    """gpt2-124m at full width and depth, ``Trainer.train`` for OPT_STEPS
+    """gpt2-124m at full width and OPT_LAYERS' depth, ``Trainer.train`` for OPT_STEPS
     steps under each optimizer (batch 12, synthetic data, lr 6e-4 after a
     one-step warmup): finite losses, the last below the first."""
     t0 = time.perf_counter()
     out = {}
     for name in ("adamw", "adafactor", "muon"):
-        cfg = train_config("gpt2-124m", {"train.optimizer": name, "train.train_steps": OPT_STEPS})
+        cfg = train_config("gpt2-124m", {"train.optimizer": name, "train.train_steps": OPT_STEPS,
+                                         "model.n_layers": OPT_LAYERS})
         trainer, recs, launches, wall, peak = train_run(cfg, OPT_STEPS, synthetic_data=True, resume=False)
         del trainer
         _free_card()
@@ -5023,6 +5059,7 @@ def run_trainer_options() -> None:
 
 D1_PRESET = "gpt2-124m"
 D1_STEPS = 32
+D1_LAYERS = 6  # gpt2-124m's first 6 of 12 layers, cut for chip_smoke's time (PERF.md §4)
 D1_DIR = SCRATCH / "d1"
 D1_WATCHDOG_S = 10
 D1_ROLLBACK_STEPS = 16  # the rollback run (c): past the restored step and one more checkpoint
@@ -5030,14 +5067,15 @@ D1_CHILD = "--d1-child"  # chip_smoke.py's child mode: the train CLI with its ke
 
 
 def d1_argv(tag: str, *overrides: str) -> list:
-    """The train CLI's arguments of D1's run ``tag``: T1's model and data
-    (gpt2-124m, batch 12, T 1024, bf16, ``data/parity`` through the native
-    batcher), 32 steps, a log line every 4, a checkpoint every 8, anomaly
+    """The train CLI's arguments of D1's run ``tag``: T1's model cut to
+    D1_LAYERS layers and T1's data (gpt2-124m's widths, batch 12, T 1024,
+    bf16, ``data/parity`` through the native batcher), 32 steps, a log line every 4, a checkpoint every 8, anomaly
     detection, a 10 s watchdog, telemetry under the run's ``obs`` dir with
     a device memory sample every 2 log boundaries."""
     run = D1_DIR / tag
     return ["--preset", D1_PRESET, "--device", DEVICE, "--obs-dir", str(run / "obs"), "--override",
-            f"train.train_steps={D1_STEPS}", "train.log_interval=4", "train.checkpoint_interval=8",
+            f"train.train_steps={D1_STEPS}", f"model.n_layers={D1_LAYERS}", "train.log_interval=4",
+            "train.checkpoint_interval=8",
             "train.eval_interval=0", f"train.checkpoint_dir={run / 'ck'}",
             f"data.train_path={PARITY_DIR / 'train.bin'}", f"data.val_path={PARITY_DIR / 'val.bin'}",
             "resilience.anomaly_detection=True", f"resilience.watchdog_timeout_s={D1_WATCHDOG_S}",
@@ -5332,6 +5370,357 @@ def run_d1() -> dict:
     shutil.copytree(D1_DIR / "clean" / "obs", F1_D1_OBS, dirs_exist_ok=True)
     shutil.rmtree(D1_DIR, ignore_errors=True)
     return total
+
+# ---------------------------------------------------------------------------
+# X1: parallelism on the card, over a real NCCL world of one rank
+# ---------------------------------------------------------------------------
+
+X1_PRESETS = ("gpt2-8k-sp", "gpt2-8k-gqa")
+X1_STEPS = 3
+X1_MICRO = 4  # 8 x 8192 tokens as 4 microbatches of 2 rows: naive attention's scores are (2, 12, 8192, 8192) fp32
+X1_ATTN = (1, 8192, 12, 64)  # (B, T, H, Dh) of the direct ring and Ulysses calls
+X1_DIR = SCRATCH / "x1"
+X1_CHILD = "--x1-child"
+X1_RESHARD = "--x1-reshard"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _torchrun(n: int, *args: str) -> list:
+    """``torch.distributed.run`` of ``n`` local ranks on a free localhost
+    port (the launcher sets RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and
+    MASTER_PORT, which ``initialize_distributed`` reads)."""
+    return [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", str(n),
+            "--master_addr", "127.0.0.1", "--master_port", str(_free_port()), *args]
+
+
+def x1_train_argv(preset: str) -> list:
+    """The train CLI's arguments of X1's run of ``preset``: full width and
+    depth, one seq rank (``mesh.seq=1``), X1_STEPS steps at the preset's
+    batch of 8 x 8192 synthetic tokens in X1_MICRO microbatches, a log
+    line every step; the sp run saves its final state."""
+    run = X1_DIR / preset
+    return ["--preset", preset, "--data", "synthetic", "--no-resume", "--override", "mesh.seq=1",
+            f"train.train_steps={X1_STEPS}", f"train.microbatches={X1_MICRO}", "train.log_interval=1",
+            "train.eval_interval=0", "train.checkpoint_interval=0", f"train.checkpoint_dir={run / 'ck'}",
+            f"train.metrics_path={run / 'metrics.jsonl'}", f"train.save_final={preset == X1_PRESETS[0]}"]
+
+
+def x1_child(argv: list) -> int:
+    """``python -m torch.distributed.run --nproc_per_node N chip_smoke.py
+    --x1-child OUT -- <train arguments> [-- <train arguments> ...]``: the
+    port's train CLI for each argument list in this rank (NCCL, one card a
+    rank), each run's peak memory, wall seconds and kernel launches, the
+    process group's backend and size, written to OUT (``OUT.<rank>`` when
+    N > 1); rank 0 also writes each run's first-step loss and gradients,
+    as the train step computed them before the clip, to ``OUT.first<i>.pt``."""
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch import train
+    from pretraining_llm_tpu_torch.parallel.mesh import initialize_distributed
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    compute_grads = ts.compute_grads
+    first: dict = {}
+
+    def recording(*args, **kwargs):
+        loss, grads = compute_grads(*args, **kwargs)
+        if not first and dist.get_rank() == 0:
+            first.update(loss=float(loss), grads={"/".join(p): g.detach().cpu() for p, g in opt.tree_leaves(grads)})
+        return loss, grads
+
+    ts.compute_grads = recording
+
+    out_path, rest = argv[0], argv[1:]
+    runs, cur = [], None
+    for a in rest:
+        if a == "--":
+            cur = []
+            runs.append(cur)
+        else:
+            cur.append(a)
+    initialize_distributed("cuda")
+    results = []
+    for i, args in enumerate(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        first.clear()
+        t0 = time.perf_counter()
+        final = train.main(args)
+        torch.cuda.synchronize()
+        results.append({"final": final, "wall_s": time.perf_counter() - t0,
+                        "peak_bytes": torch.cuda.max_memory_allocated(), "launches": kernel_counts()})
+        if first:
+            torch.save(first, f"{out_path}.first{i}.pt")
+        _free_card()
+    world, me = dist.get_world_size(), dist.get_rank()
+    _write_json(out_path if world == 1 else f"{out_path}.{me}",
+                {"runs": results, "backend": dist.get_backend(), "world": world, "rank": me,
+                 "device": torch.cuda.get_device_name(), "jax_modules": _jax_modules()})
+    dist.destroy_process_group()
+    return assert_no_jax_modules("X1 child")
+
+
+def x1_reshard(argv: list) -> int:
+    """``python -m torch.distributed.run --nproc_per_node 2 chip_smoke.py
+    --x1-reshard SRC DST PRESET``: two gloo ranks on the CPU load the
+    checkpoint SRC, keep their blocks on an fsdp-2 mesh and write them as
+    the sharded checkpoint DST."""
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    src, dst, preset = argv
+    torch.set_num_threads(2)
+    pmesh.initialize_distributed("cpu")
+    cfg = get_preset(preset).with_overrides({"mesh.seq": 1, "mesh.fsdp": 2})
+    mesh = pmesh.build_mesh(cfg.mesh, "cpu")
+    template = ts.state_template(cfg)
+    state, extra = ckpt.load_checkpoint(src, template)
+    local = {"data_rng": extra.pop("data_rng")} if "data_rng" in extra else None
+    ckpt.save_checkpoint(dst, int(extra["step"]), ts.shard_train_state(state, mesh), extra=extra,
+                         local_extra=local, layout=ts.checkpoint_layout(template, mesh))
+    dist.destroy_process_group()
+    return assert_no_jax_modules("X1 reshard")
+
+
+def x1_attention(card: str) -> dict:
+    """X1 (a): a six-axis ``DeviceMesh`` over an NCCL world of one rank;
+    ``ring_attention`` (contiguous and zigzag: one seq rank, so the zigzag
+    branch runs its four half-chunk modes) and ``ulysses_attention`` (its
+    all-to-alls over NCCL, the flash route inside) at B 1, T 8192, H 12,
+    Dh 64, bf16, MHA and G 3: outputs and q/k/v gradients against the flash
+    route on the same inputs, each row within BF16_ROW_RTOL of its largest
+    |reference|."""
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.config import MeshConfig
+    from pretraining_llm_tpu_torch.ops.flash_attention import flash_attention
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+    from pretraining_llm_tpu_torch.parallel.ring_attention import ring_attention
+    from pretraining_llm_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = pmesh.build_mesh(MeshConfig(data=1), "cuda")
+    backend, shape = dist.get_backend(), pmesh.mesh_shape(mesh)
+    if backend != "nccl" or mesh.device_type != "cuda" or len(shape) != 6:
+        raise AssertionError(f"X1: mesh {shape} on {mesh.device_type} over {backend}, expected six axes over NCCL")
+    b, t, h, d = X1_ATTN
+    gen = torch.Generator().manual_seed(SEED + 50)
+    calls = {"ring_contiguous": lambda q, k, v: ring_attention(q, k, v, mesh, layout="contiguous"),
+             "ring_zigzag": lambda q, k, v: ring_attention(q, k, v, mesh, layout="zigzag"),
+             "ulysses": lambda q, k, v: ulysses_attention(q, k, v, mesh)}
+    out = {}
+    for g in (h, 3):
+        q, do = randn((b, t, h, d), torch.bfloat16, gen), randn((b, t, h, d), torch.bfloat16, gen)
+        k, v = randn((b, t, g, d), torch.bfloat16, gen), randn((b, t, g, d), torch.bfloat16, gen)
+
+        def run(fn):
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            o = fn(*leaves)
+            return (o.detach(),) + torch.autograd.grad(o, leaves, do)
+
+        ref = run(lambda q, k, v: flash_attention(q, k, v))
+        for name, fn in calls.items():
+            got = run(fn)
+            uses = {n: row_tol_use(x, y, BF16_ROW_RTOL) for n, x, y in zip(("o", "dq", "dk", "dv"), got, ref)}
+            errs = {n: max_err(x, y) for n, x, y in zip(("o", "dq", "dk", "dv"), got, ref)}
+            fwd_ms = time_ms(lambda: fn(q, k, v), n=3, warmup=1)
+            key = f"{name} G={g}"
+            out[key] = {"tol_use": uses, "max_abs_err": errs, "fwd_ms": fwd_ms}
+            log("X1_attention", card=card, call=name, B=b, T=t, H=h, G=g, Dh=d, dtype="bf16",
+                bar="BF16_ROW_RTOL per row vs the flash route", tol_use=uses, max_abs_err=errs, fwd_ms=fwd_ms)
+            if not all(u <= 1.0 for u in uses.values()):
+                raise AssertionError(f"X1 {key} disagrees with the flash route: {uses}")
+        del q, k, v, do, ref
+        _free_card()
+    dist.destroy_process_group()
+    return out
+
+
+def x1_flash_step(preset: str, naive: dict) -> dict:
+    """X1 (b): the first step of ``preset``'s X1 run again in this process,
+    from the trainer's init and first synthetic batch, with
+    ``attention_impl="flash"`` (K1, and the dQ and dK/dV kernels at T
+    8192), held against the CLI's own first step (``naive``: its loss and
+    gradients, one seq rank, JAX's naive attention): losses within
+    NAIVE_LOSS_TOL, every gradient leaf within ``trajectory.T3_GRAD_RTOL``
+    (2%) of its largest |g|, T3's bar on a bf16 twin's gradients."""
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.data import loader as data_loader
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+    from pretraining_llm_tpu_torch.utils import trajectory
+
+    cfg = get_preset(preset).with_overrides({"mesh.seq": 1, "train.microbatches": X1_MICRO,
+                                             "model.attention_impl": "flash"})
+    state = ts.init_train_state(cfg, cfg.train.seed, device=DEVICE)
+    xb, yb = next(data_loader.synthetic_iterator(cfg.model.vocab_size, cfg.model.context_length,
+                                                  cfg.train.batch_size, cfg.data.sample_seed))
+    batch = (torch.from_numpy(xb).to(DEVICE), torch.from_numpy(yb).to(DEVICE))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_f, grads_f = ts.compute_grads(state, batch, cfg)
+    torch.cuda.synchronize()
+    flash_s = time.perf_counter() - t0
+    worst, worst_leaf, sq = 0.0, "", 0.0
+    for path, gf in opt.tree_leaves(grads_f):
+        gn = naive["grads"]["/".join(path)].to(DEVICE).float()
+        use = (gn - gf.float()).abs().max().item() / (trajectory.T3_GRAD_RTOL * gn.abs().max().item())
+        sq += float(gn.square().sum())
+        if use > worst:
+            worst, worst_leaf = use, "/".join(path)
+    out = {"loss_naive": naive["loss"], "loss_flash": float(loss_f), "loss_tol": NAIVE_LOSS_TOL,
+           "grad_rtol": trajectory.T3_GRAD_RTOL, "grad_tol_use": worst,
+           "grad_worst_leaf": worst_leaf, "grad_norm_naive": sq ** 0.5,
+           "grad_norm_flash": float(opt.global_norm(grads_f)), "flash_step_s": flash_s}
+    del state, grads_f
+    _free_card()
+    if abs(out["loss_naive"] - out["loss_flash"]) > NAIVE_LOSS_TOL or worst > 1.0:
+        raise AssertionError(f"X1 {preset}: the CLI's first step and the flash step disagree: {out}")
+    return out
+
+
+def _x1_leaves(tree) -> dict:
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    return {"/".join(p): t.detach().cpu() for p, t in opt.tree_leaves(tree)}
+
+
+def run_x1() -> dict:
+    """X1: the data, fsdp and seq parallelism of the port on the card.
+    (a) ``x1_attention``; (b) ``gpt2-8k-sp`` and ``gpt2-8k-gqa`` at full
+    width and depth through the train CLI as a torchrun world of one rank
+    over NCCL (``x1_child``): X1_STEPS steps each, step ms, tokens/s and
+    peak memory; each one's first step held against the flash route's in
+    this process (``x1_flash_step``); (c) as soon as the sp run's final
+    checkpoint is published, two gloo ranks on the CPU write it again as a
+    sharded checkpoint (``x1_reshard``), beside the CLI's gqa run; this
+    process restores the single-rank checkpoint onto the card bit for bit,
+    then the sharded one, with the same leaves. Returns the launches of
+    (a) and (b)'s in-process steps: K1, dQ and dK/dV must all run."""
+    from pretraining_llm_tpu_torch.config import get_preset
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    card = phase_card()
+    shutil.rmtree(X1_DIR, ignore_errors=True)
+    for preset in X1_PRESETS:
+        (X1_DIR / preset).mkdir(parents=True)
+    reset_kernel_counts()
+    attn = x1_attention(card)
+    launches = kernel_counts()
+
+    # (b) the train CLI, one torchrun rank over NCCL; (c) the reshard
+    # starts once the sp run's checkpoint is published.
+    child_out = X1_DIR / "child.json"
+    src = X1_DIR / X1_PRESETS[0] / "ck" / f"step-{X1_STEPS}"
+    dst = X1_DIR / "sharded"
+    argv = _torchrun(1, str(ROOT / "chip_smoke.py"), X1_CHILD, str(child_out),
+                     *(a for p in X1_PRESETS for a in ("--", *x1_train_argv(p))))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    t0 = time.perf_counter()
+    child_err = open(X1_DIR / "child.err", "w")
+    child_proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.DEVNULL, stderr=child_err)
+    reshard = None
+    restored: dict = {}
+    try:
+        while child_proc.poll() is None and time.perf_counter() - t0 < 600:
+            if reshard is None and (src / "metadata.json").exists():
+                restored["reshard_started_s"] = time.perf_counter() - t0
+                reshard = subprocess.Popen(_torchrun(2, str(ROOT / "chip_smoke.py"), X1_RESHARD, str(src),
+                                                     str(dst), X1_PRESETS[0]), cwd=ROOT, env=env,
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            time.sleep(0.5)
+        if child_proc.poll() is None:
+            raise AssertionError("X1 train CLI: still running after 600 s")
+        child_s = time.perf_counter() - t0
+        child_err.close()
+        if child_proc.returncode != 0:
+            err = (X1_DIR / "child.err").read_text()
+            raise AssertionError(f"X1 train CLI: exit {child_proc.returncode}: {err[-4000:]}")
+        child = json.loads(child_out.read_text())
+        if child["backend"] != "nccl" or child["world"] != 1 or child["jax_modules"]:
+            raise AssertionError(f"X1 train CLI: {child['backend']} world {child['world']}, "
+                                 f"JAX {child['jax_modules']}")
+        reset_kernel_counts()
+        for i, (preset, run) in enumerate(zip(X1_PRESETS, child["runs"])):
+            model = get_preset(preset).model
+            recs = [json.loads(line) for line in (X1_DIR / preset / "metrics.jsonl").read_text().splitlines()]
+            recs = [r for r in recs if "loss" in r]
+            losses = [r["loss"] for r in recs]
+            naive = torch.load(f"{child_out}.first{i}.pt")
+            first = x1_flash_step(preset, naive)
+            log("X1_train", card=card, preset=preset, layers=model.n_layers, d=model.d_model, H=model.n_heads,
+                G=model.kv_heads, T=model.context_length, batch=get_preset(preset).train.batch_size,
+                microbatches=X1_MICRO, mesh="world of one rank over NCCL (mesh.seq=1)",
+                attention="naive (seq 1)", remat=model.remat,
+                tokens_per_step=get_preset(preset).train.batch_size * model.context_length, losses=losses,
+                step_ms=[r.get("step_ms") for r in recs], tokens_per_sec=[r.get("tokens_per_sec") for r in recs],
+                wall_s=run["wall_s"], max_memory_allocated_bytes=run["peak_bytes"],
+                cli_launches={k: v for k, v in run["launches"].items() if v}, first_step=first)
+            if len(losses) != X1_STEPS or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"X1 {preset}: expected {X1_STEPS} finite losses, got {losses}")
+            if losses[0] != naive["loss"]:
+                raise AssertionError(f"X1 {preset}: the CLI logged {losses[0]}, its first step computed "
+                                     f"{naive['loss']}")
+            if any(run["launches"][k] for k in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq", "flash_bwd_dkv")):
+                raise AssertionError(f"X1 {preset}: the world-of-one run (naive attention) launched flash "
+                                     f"kernels: {run['launches']}")
+        launches = {k: launches[k] + n for k, n in kernel_counts().items()}
+
+        cfg = get_preset(X1_PRESETS[0]).with_overrides({"mesh.seq": 1})
+        want, _ = ckpt.load_checkpoint(str(src), ts.state_template(cfg))
+        want = _x1_leaves(want)
+        for tag, path in (("single", src), ("sharded", None)):
+            if path is None:
+                if reshard is None:
+                    raise AssertionError(f"X1: no checkpoint {src} to reshard")
+                out, _ = reshard.communicate(timeout=600)
+                restored["reshard_done_s"] = time.perf_counter() - t0
+                if reshard.returncode != 0:
+                    raise AssertionError(f"X1 reshard: exit {reshard.returncode}: {out[-3000:]}")
+                meta = json.loads((dst / f"step-{X1_STEPS}" / "metadata.json").read_text())
+                sharded = [m["name"] for m in meta["manifest"] if m["sharded"]]
+                if meta["n_processes"] != 2 or not sharded:
+                    raise AssertionError(f"X1 reshard: {meta['n_processes']} processes, sharded {sharded}")
+                path = dst / f"step-{X1_STEPS}"
+            t1 = time.perf_counter()
+            trainer = Trainer(cfg.with_overrides({"train.checkpoint_dir": str(path.parent)}), device=DEVICE,
+                              resume=True, synthetic_data=True, logger=MetricsLogger("", stream=sys.stderr))
+            got = _x1_leaves(trainer.state)
+            differing = [n for n, x in want.items() if not torch.equal(got[n], x)]
+            restored[tag] = {"step": trainer.start_step, "leaves": len(got), "differing": differing,
+                             "restore_s": time.perf_counter() - t1}
+            del trainer, got
+            _free_card()
+            if restored[tag]["step"] != X1_STEPS or differing:
+                raise AssertionError(f"X1 restore ({tag}): {restored[tag]}")
+    finally:
+        for proc in (child_proc, reshard):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    log("X1", card=card, attention=attn, restored=restored, sharded_leaves=len(sharded), child_s=child_s,
+        launches={k: v for k, v in launches.items() if v}, phase_s=time.perf_counter() - t_phase)
+    if not (launches["flash_fwd_tc"] and launches["flash_bwd_dq_tc"]
+            and launches["flash_bwd_dkv_tc"]) or launches["flash_bwd_fused"]:
+        raise AssertionError(f"X1: K1, dQ and dK/dV must run at T 8192 (no one pass): {launches}")
+    return launches
+
 
 def _h1_launches(serving_paths: dict, key: str) -> int:
     """A kernel's launches over H1's three servers (in-process loop, serve
@@ -6072,6 +6461,88 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
     return dict(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
+# ---------------------------------------------------------------------------
+# The two lanes
+# ---------------------------------------------------------------------------
+
+# The training lane's phases, which need nothing of the serving phases, in
+# this order (D1 first: F1 reads its telemetry); each one's result is its
+# kernel launches (by path) or None.
+LANE_PHASES = (("D1", run_d1), ("X1", run_x1), ("T4", run_t4), ("F1_compile_only", run_f1_compile_only),
+               ("M1", run_m1), ("R", run_remat_sweep), ("O", run_optimizers), ("O_options", run_trainer_options),
+               ("parity", run_parity))
+LANE_DIR = SCRATCH_ROOT / "lane_results"
+LANE_TIMEOUT_S = 900
+
+
+def lane_main(argv: list) -> int:
+    """``python3 chip_smoke.py --lane DIR T_START``: the training lane's
+    phases in this process, each one's result written to DIR/<name>.json as
+    it ends; ``at_s`` counts from the parent's T_START (both read the
+    system's monotonic clock)."""
+    global T_START
+    out_dir, T_START = Path(argv[0]), float(argv[1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for name, fn in LANE_PHASES:
+        _write_json(str(out_dir / f"{name}.json"), fn())
+    return assert_no_jax_modules("training lane")
+
+
+class TrainingLane:
+    """The training lane in a child process (``lane_main``), beside the
+    serving phases in this one. Its standard output goes to a file and is
+    printed here when it is joined; its standard error is this process's.
+    P1 and the kernel timings run only after the join: P1 reads the card's
+    used memory, and a timing wants the card to itself."""
+
+    def __init__(self) -> None:
+        shutil.rmtree(LANE_DIR, ignore_errors=True)
+        LANE_DIR.mkdir(parents=True)
+        self.t0 = time.perf_counter()
+        self.out = open(LANE_DIR / "stdout", "w")
+        self.proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), LANE, str(LANE_DIR),
+                                      repr(T_START)], cwd=ROOT, stdout=self.out, start_new_session=True)
+
+    def _failed(self, what: str) -> AssertionError:
+        tail = (LANE_DIR / "stdout").read_text()[-3000:]
+        return AssertionError(f"training lane: {what} (exit {self.proc.poll()}); its last output:\n{tail}")
+
+    def result(self, name: str):
+        """Phase ``name``'s result, waiting for it while the lane runs."""
+        path = LANE_DIR / f"{name}.json"
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                raise self._failed(f"ended before {name}")
+            if time.perf_counter() - self.t0 > LANE_TIMEOUT_S:
+                raise self._failed(f"no {name} after {LANE_TIMEOUT_S} s")
+            time.sleep(0.5)
+        return json.loads(path.read_text())
+
+    def join(self) -> dict:
+        """Every phase's result, once the lane has exited 0; its output
+        printed here."""
+        t_wait = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(1.0, LANE_TIMEOUT_S - (t_wait - self.t0)))
+        except subprocess.TimeoutExpired:
+            raise self._failed(f"still running after {LANE_TIMEOUT_S} s") from None
+        self.out.close()
+        print((LANE_DIR / "stdout").read_text(), end="", flush=True)
+        if rc != 0:
+            raise self._failed("failed")
+        out = {name: self.result(name) for name, _ in LANE_PHASES}
+        log("training_lane", wall_s=time.perf_counter() - self.t0, waited_s=time.perf_counter() - t_wait)
+        return out
+
+    def stop(self) -> None:
+        """End the lane and every process it started, if it still runs."""
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.out.close()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6088,40 +6559,42 @@ def main() -> int:
           flush=True)
 
     phase_card()
+    shutil.rmtree(SCRATCH_ROOT, ignore_errors=True)
     phase_build()
     errs = {"flash_fwd": check_flash(), **check_paged(), **check_ragged()}
     check_flash_bwd()
-    fp32_wide = check_ce()
-    check_misaligned()
-    check_model_card_vs_cpu()
-    check_model_chunked_card_vs_cpu()
-    check_generate_card_vs_cpu()
-    check_train_card_vs_cpu()
-    check_moe_card_vs_cpu()
-    check_doc_isolation()
-    launches1, prefill_shapes, streams1 = run_main_path()
-    launches2, eng2 = run_path2()
-    launches3, _ = run_path3()
-    serving_paths = {"path4": run_path4(streams1),
-                     "checksum": run_checksum([eng2.finished[r] for r in range(len(eng2.finished))])}
-    launches_t1 = run_train_path1()
-    launches_g1 = run_g1()  # on T1's checkpoint, before SCRATCH goes
-    serve_ckpts = save_serving_checkpoints()  # T1's weights, before SCRATCH goes
-    p5 = run_path5(serve_ckpts)
-    serving_paths.update(path5=p5[0], path5_llama=run_path5_llama())
-    run_serve_cli(serve_ckpts, p5)
-    serving_paths.update(run_h1(serve_ckpts))
-    train_paths = {"T1": launches_t1, "T2": run_train_path2(), "parity": run_parity(),
-                   "T3": run_train_path3()}
-    train_paths.update(run_t4())
-    train_paths.update(run_m1())
-    train_paths.update(run_remat_sweep())
-    train_paths.update(run_optimizers())
-    run_trainer_options()
-    train_paths["D1"] = run_d1()
-    serving_paths.update(run_f1(serve_ckpts))
+    fp32_wide = check_ce()  # times the fp32 route: before the training lane starts
+    lane = TrainingLane()
+    try:
+        check_misaligned()
+        check_model_card_vs_cpu()
+        check_model_chunked_card_vs_cpu()
+        check_generate_card_vs_cpu()
+        check_train_card_vs_cpu()
+        check_moe_card_vs_cpu()
+        check_doc_isolation()
+        launches1, prefill_shapes, streams1 = run_main_path()
+        launches2, eng2 = run_path2()
+        launches3, _ = run_path3()
+        serving_paths = {"path4": run_path4(streams1),
+                         "checksum": run_checksum([eng2.finished[r] for r in range(len(eng2.finished))])}
+        launches_t1 = run_train_path1()
+        launches_g1 = run_g1()  # on T1's checkpoint, before SCRATCH goes
+        serve_ckpts = save_serving_checkpoints()  # T1's weights, before SCRATCH goes
+        p5 = run_path5(serve_ckpts)
+        serving_paths.update(path5=p5[0], path5_llama=run_path5_llama())
+        run_serve_cli(serve_ckpts, p5)
+        serving_paths.update(run_h1(serve_ckpts))
+        lane.result("D1")  # F1's analyzer reads D1's telemetry
+        serving_paths.update(run_f1(serve_ckpts))
+        launches_t2, launches_t3 = run_train_path2(), run_train_path3()  # on this side: the lane is longer
+        lanes = lane.join()
+    finally:
+        lane.stop()
     serving_paths.update(run_p1(serve_ckpts))
-    shutil.rmtree(SCRATCH, ignore_errors=True)
+    train_paths = {"T1": launches_t1, "T2": launches_t2, "parity": lanes["parity"], "T3": launches_t3,
+                   **lanes["T4"], **lanes["M1"], **lanes["R"], **lanes["O"], "D1": lanes["D1"], "X1": lanes["X1"]}
+    shutil.rmtree(SCRATCH_ROOT, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
     del eng2
@@ -6143,4 +6616,10 @@ if __name__ == "__main__":
         sys.exit(h1_child(sys.argv[2:]))
     if sys.argv[1:2] == [P1_CHILD]:
         sys.exit(p1_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [X1_CHILD]:
+        sys.exit(x1_child(sys.argv[2:]))
+    if sys.argv[1:2] == [X1_RESHARD]:
+        sys.exit(x1_reshard(sys.argv[2:]))
+    if sys.argv[1:2] == [LANE]:
+        sys.exit(lane_main(sys.argv[2:]))
     sys.exit(main())

@@ -2,15 +2,18 @@
 
 Copies of the JAX package's ``ModelConfig``, ``DataConfig``,
 ``TrainConfig``, ``ResilienceConfig``, ``ObservabilityConfig``,
-``ServingConfig`` and ``FrontendConfig`` (same field names, defaults and validation), so that one
+``ServingConfig``, ``FrontendConfig`` and ``MeshConfig`` (same field names, defaults and validation), so that one
 kwargs dict builds the config of either package, and ``Config`` with those
-sections and ``with_overrides``, plus the presets the port runs: every JAX preset that
-needs no ring attention, sequence parallelism or second device (MoE
-included), with its model and train sections field for field and no mesh
-section. A JAX preset's ``batch_size`` is its global batch; one device runs
-it whole, in ``train.microbatches`` where one pass does not fit (the mean
-of the microbatches' gradients is the batch's). The port keeps its own
-copy rather than importing the JAX package's module.
+sections and ``with_overrides``, plus every preset of the JAX package with
+its model, mesh and train sections field for field. A preset's
+``batch_size`` is its global batch: its rows go over the mesh's data and
+fsdp ranks (``parallel/``), and one rank runs it whole, in
+``train.microbatches`` where one pass does not fit (the mean of the
+microbatches' gradients is the batch's). A preset whose mesh fixes an axis
+above 1 (``fsdp=4``) needs that many ranks, as the JAX package needs that
+many devices: a single-device run of it states a one-device mesh
+(``--override mesh.fsdp=1``). The port keeps its own copy rather than
+importing the JAX package's module.
 
 Several model fields are tuning knobs of the XLA/TPU program
 (``flash_heads_major``, ``scan_unroll``, ``decode_unroll_layers``,
@@ -35,8 +38,8 @@ Prometheus sinks) are the JAX package's, field for field, and so is
 ``FrontendConfig`` (the online gateway's knobs; its fleet fields are
 refused by ``serve --http`` until the fleet is ported). Options that change
 what is computed but are not ported yet are refused where they would be
-used (``models.transformer.check_ported``); the mesh section is refused by
-``Config.with_overrides``.
+used (``models.transformer.check_ported``: ``pipeline_stages`` > 1; the
+mesh's tensor, expert and pipe axes above 1 in ``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -312,6 +315,45 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # Data
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# Mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh of ranks: (data, fsdp, tensor, seq, expert, pipe) axes,
+    the JAX package's ``MeshConfig`` field for field (``parallel/mesh.py``
+    builds it over ``torch.distributed`` ranks where JAX builds it over
+    devices). Axes of size 1 cost nothing; ``data=-1`` absorbs all remaining
+    ranks."""
+
+    data: int = -1
+    fsdp: int = 1
+    tensor: int = 1
+    seq: int = 1
+    expert: int = 1
+    pipe: int = 1
+
+    axis_names: Tuple[str, ...] = ("data", "fsdp", "tensor", "seq", "expert", "pipe")
+
+    def sizes(self, n_devices: int) -> Tuple[int, ...]:
+        fixed = self.fsdp * self.tensor * self.seq * self.expert * self.pipe
+        data = self.data
+        if data == -1:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by fsdp*tensor*seq*expert*pipe={fixed}"
+                )
+            data = n_devices // fixed
+        if data * fixed != n_devices:
+            raise ValueError(
+                f"mesh {data}x{self.fsdp}x{self.tensor}x{self.seq}"
+                f"x{self.expert}x{self.pipe} != {n_devices} devices"
+            )
+        return (data, self.fsdp, self.tensor, self.seq, self.expert, self.pipe)
 
 
 @dataclass(frozen=True)
@@ -826,18 +868,16 @@ class FrontendConfig:
 # Top-level
 # ---------------------------------------------------------------------------
 
-# Sections of the JAX package's Config that the port does not have yet.
-_UNPORTED_SECTIONS = ("mesh",)
-_SECTIONS = ("model", "data", "train", "resilience", "obs", "serving", "frontend")
+_SECTIONS = ("model", "mesh", "data", "train", "resilience", "obs", "serving", "frontend")
 
 
 @dataclass(frozen=True)
 class Config:
-    """A named configuration: model, data, train, resilience, obs, serving
-    and frontend sections. The JAX package's ``Config`` also carries a mesh
-    section, which is not ported."""
+    """A named configuration: model, mesh, data, train, resilience, obs,
+    serving and frontend sections, the JAX package's ``Config``."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
@@ -848,17 +888,12 @@ class Config:
 
     def with_overrides(self, overrides: Dict[str, Any]) -> "Config":
         """Apply dotted-path overrides, e.g. {"model.n_layers": 4}. Unknown
-        keys raise ``KeyError``; a section of the JAX package's config that
-        the port lacks raises ``NotImplementedError``."""
+        keys raise ``KeyError``."""
         sections: Dict[str, Dict[str, Any]] = {}
         top: Dict[str, Any] = {}
         for key, value in overrides.items():
             if "." in key:
                 section, fname = key.split(".", 1)
-                if section in _UNPORTED_SECTIONS:
-                    raise NotImplementedError(
-                        f"config section {section!r} (override {key!r}) is not ported to PyTorch yet"
-                    )
                 if section not in _SECTIONS:
                     raise KeyError(f"unknown config section {section!r} in override {key!r}")
                 sections.setdefault(section, {})[fname] = value
@@ -881,12 +916,12 @@ class Config:
     @staticmethod
     def from_dict(raw: Dict[str, Any]) -> "Config":
         """The config a checkpoint's metadata stores (``extra["config"]``,
-        written by either package's trainer). The section the port lacks
-        (mesh) is ignored: it changes nothing that a single-device forward
-        computes. A checkpoint written before a section existed gets its
-        defaults."""
+        written by either package's trainer). A checkpoint written before a
+        section existed gets its defaults."""
         return Config(
             model=ModelConfig(**raw["model"]),
+            mesh=MeshConfig(**{k: tuple(v) if k == "axis_names" else v
+                               for k, v in raw.get("mesh", {}).items()}),
             data=DataConfig(**raw.get("data", {})),
             train=TrainConfig(**raw.get("train", {})),
             resilience=ResilienceConfig(**raw.get("resilience", {})),
@@ -944,24 +979,25 @@ _register(
     train=TrainConfig(batch_size=12, train_steps=5000, lr=6e-4, eval_interval=250, eval_iters=20),
 )
 
-# GPT-2 350M (the JAX preset trains it data-parallel; one device here runs
-# its global batch).
+# GPT-2 350M, data-parallel over every rank.
 _register(
     "gpt2-350m-dp",
     _gpt2_model(
         context_length=1024, d_model=1024, n_heads=16, n_layers=24,
         attention_impl="flash",
     ),
+    mesh=MeshConfig(data=-1),
     train=TrainConfig(batch_size=32, lr=3e-4),
 )
 
-# GPT-2 1.3B (FSDP-sharded in JAX; one device here, its two microbatches).
+# GPT-2 1.3B, parameters and optimizer state sharded over 8 fsdp ranks.
 _register(
     "gpt2-1p3b-fsdp",
     _gpt2_model(
         context_length=1024, d_model=2048, n_heads=16, n_layers=24,
         remat="dots_saveable", attention_impl="flash",
     ),
+    mesh=MeshConfig(data=-1, fsdp=8),
     train=TrainConfig(batch_size=64, lr=2e-4, microbatches=2),
 )
 
@@ -978,7 +1014,45 @@ _register(
         remat="dots_saveable",
         attention_impl="flash",
     ),
+    mesh=MeshConfig(data=-1, fsdp=4),
     train=TrainConfig(batch_size=32, lr=3e-4, weight_decay=0.1),
+)
+
+# 8k-context pretraining: RoPE, ring attention in the zigzag layout over 4
+# seq ranks, sequence parallel, the save_attn remat policy.
+_register(
+    "gpt2-8k-sp",
+    _gpt2_model(
+        context_length=8192,
+        d_model=768,
+        n_heads=12,
+        n_layers=12,
+        pos_embed="rope",
+        attention_impl="ring",
+        sequence_parallel=True,
+        remat="save_attn",
+    ),
+    mesh=MeshConfig(data=-1, seq=4),
+    train=TrainConfig(batch_size=8, lr=3e-4),
+)
+
+# The 8k preset with grouped-query attention: 12 query heads over 3 KV
+# heads.
+_register(
+    "gpt2-8k-gqa",
+    _gpt2_model(
+        context_length=8192,
+        d_model=768,
+        n_heads=12,
+        n_kv_heads=3,
+        n_layers=12,
+        pos_embed="rope",
+        attention_impl="ring",
+        sequence_parallel=True,
+        remat="save_attn",
+    ),
+    mesh=MeshConfig(data=-1, seq=4),
+    train=TrainConfig(batch_size=8, lr=3e-4),
 )
 
 # The source's own model: 3.16B parameters, ReLU MLP, no attention output
@@ -1002,6 +1076,7 @@ _register(
         remat="dots_saveable",
         attention_impl="flash",
     ),
+    mesh=MeshConfig(data=-1, fsdp=4),
     train=TrainConfig(batch_size=32, train_steps=200_000, lr=1e-4, eval_interval=1000, eval_iters=250),
 )
 
@@ -1020,18 +1095,20 @@ _register(
         attention_impl="flash",
         remat="dots_saveable",
     ),
+    mesh=MeshConfig(data=-1, fsdp=4),
     train=TrainConfig(batch_size=32, lr=3e-4, weight_decay=0.1),
 )
 
-# MoE: 8 experts, top-2 routing, at GPT-2 350M's widths (the JAX preset
-# shards the experts over an 'expert' mesh axis; one device here runs the
-# global batch, in ``train.microbatches`` where it must).
+# MoE: 8 experts, top-2 routing, at GPT-2 350M's widths, the experts over
+# 4 'expert' ranks (an axis the port does not shard yet: one rank runs it
+# with ``mesh.expert=1``, the global batch in ``train.microbatches``).
 _register(
     "moe-8x350m",
     _gpt2_model(
         context_length=1024, d_model=1024, n_heads=16, n_layers=24,
         n_experts=8, experts_per_token=2, remat="dots_saveable", attention_impl="flash",
     ),
+    mesh=MeshConfig(data=-1, expert=4),
     train=TrainConfig(batch_size=32, lr=3e-4),
 )
 

@@ -1556,6 +1556,20 @@ class Router:
         self, rep: Replica, attempt: FrontendRequest, probe: Any,
         generation: int,
     ) -> None:
+        # The replica's probe stays outstanding until its verdict has been
+        # acted on. A probe started between a divergence and its
+        # quarantine would run on the same wrong weights and could end
+        # after the eject: a divergence that no quarantine answers.
+        try:
+            self._probe_verdict(rep, attempt, probe, generation)
+        finally:
+            with self._probe_lock:
+                self._probe_inflight.discard(rep.index)
+
+    def _probe_verdict(
+        self, rep: Replica, attempt: FrontendRequest, probe: Any,
+        generation: int,
+    ) -> None:
         try:
             status, tokens, _info = attempt.result(
                 timeout=self.probe_timeout_s
@@ -1571,9 +1585,6 @@ class Router:
                     loop.cancel(attempt)
                 except Exception:
                     pass
-        finally:
-            with self._probe_lock:
-                self._probe_inflight.discard(rep.index)
         ok = status == "done" and (
             tuple(tokens) == tuple(probe.expected)
             or tuple(tokens) in getattr(probe, "alternates", ())

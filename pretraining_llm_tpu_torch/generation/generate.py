@@ -94,7 +94,8 @@ def generate(
     returns the fp32 logits (B, max_new_tokens, V) each token was drawn
     from."""
     if mesh is not None:
-        raise NotImplementedError("generate(mesh=...) (sharded decode) is not ported to PyTorch yet")
+        raise NotImplementedError("generate(mesh=...) (sharded decode) is not ported to PyTorch yet "
+                                  "(ROADMAP Queue A, parallelism slice 19)")
     transformer.check_ported(cfg)
     if cfg.doc_mask_token >= 0:
         # Document masking is a training structure; one generation is one
@@ -189,7 +190,8 @@ def generate(
 
 
 def shard_params_for_inference(params: Any, mesh: Any) -> Any:
-    raise NotImplementedError("shard_params_for_inference (meshes) is not ported to PyTorch yet")
+    raise NotImplementedError("shard_params_for_inference (meshes) is not ported to PyTorch yet "
+                              "(ROADMAP Queue A, parallelism slice 19)")
 
 
 # ---------------------------------------------------------------------------

@@ -221,7 +221,8 @@ class ServingEngine:
         device: DeviceLike = None,
     ):
         if mesh is not None:
-            raise NotImplementedError("ServingEngine(mesh=...) (sharded serving) is not ported to PyTorch yet")
+            raise NotImplementedError("ServingEngine(mesh=...) (sharded serving) is not ported to PyTorch yet "
+                                      "(ROADMAP Queue A, parallelism slice 19)")
         if cfg.n_experts:
             # The JAX engine's rule: pad slots inside a prefill bucket would
             # compete for expert capacity.

@@ -48,11 +48,16 @@ import torch
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.models import layers, moe
 from pretraining_llm_tpu_torch.ops import remat
-from pretraining_llm_tpu_torch.ops.attention import naive_attention
+from pretraining_llm_tpu_torch.ops.attention import multihead_attention, naive_attention
 from pretraining_llm_tpu_torch.ops.cuda_paged import paged_decode_attention, paged_kv_mask
 from pretraining_llm_tpu_torch.ops.cuda_ragged import ragged_paged_attention
 from pretraining_llm_tpu_torch.ops.flash_attention import blockwise_attention, flash_attention
 from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
+from pretraining_llm_tpu_torch.parallel.mesh import axis_size, coordinate
+from pretraining_llm_tpu_torch.parallel.ring_attention import ring_supports_grouped
+from pretraining_llm_tpu_torch.parallel.sharding import current_mesh
+from pretraining_llm_tpu_torch.parallel.ulysses import ulysses_supports_grouped
+from pretraining_llm_tpu_torch.parallel.zigzag import zigzag_perm
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 Params = Dict[str, Any]
@@ -87,17 +92,20 @@ class PagedInfo(NamedTuple):
 def check_ported(cfg: ModelConfig) -> None:
     """Refuse the options that change what the model computes but are not
     ported to PyTorch yet."""
-    unported = []
-    if cfg.attention_impl in ("ring", "ulysses"):
-        unported.append(f"attention_impl={cfg.attention_impl!r}")
     if cfg.pipeline_stages > 1:
-        unported.append("pipeline_stages > 1")
-    if cfg.sequence_parallel:
-        unported.append("sequence_parallel")
-    if unported:
         raise NotImplementedError(
-            "not ported to PyTorch yet: " + ", ".join(unported)
+            "not ported to PyTorch yet: pipeline_stages > 1 (ROADMAP Queue A, "
+            "parallelism slice 19: tensor, expert, pipe)"
         )
+
+
+def sequence_shards(cfg: ModelConfig, mesh: Any) -> int:
+    """How many seq ranks split each row's tokens under ``mesh``: the seq
+    axis when the attention is ring or Ulysses over it, else 1 (the seq
+    ranks then compute the same full rows, as JAX's global view does)."""
+    if mesh is None or cfg.attention_impl not in ("ring", "ulysses"):
+        return 1
+    return axis_size(mesh, "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -342,13 +350,15 @@ def _attention_block(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]], positions: torch.Tensor,
     kv: Optional[Params], paged: Optional[PagedInfo],
     segments: Optional[torch.Tensor] = None, cache_index: int = 0,
-    pad_offsets: Optional[torch.Tensor] = None,
+    pad_offsets: Optional[torch.Tensor] = None, zigzag: bool = False,
 ) -> torch.Tensor:
     """Pre-LN attention sub-block: x + attn(ln1(x)). ``kv`` (one layer's
     dense cache or pools) is written in place. ``segments`` (B, T) int32
     document ids confine the uncached self-attention to each document.
     ``pad_offsets`` (B,) left-pads of ragged rows in a dense cache: RoPE
-    takes the rows' logical positions, causality and writes the slots."""
+    takes the rows' logical positions, causality and writes the slots.
+    ``zigzag`` declares x the rank's chunks of the zigzag layout (ring
+    attention)."""
     cdt = torch_dtype(cfg.compute_dtype)
     b, t, _ = x.shape
     h = layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps)
@@ -390,6 +400,15 @@ def _attention_block(
     elif cfg.attention_impl == "flash":
         out = flash_attention(q, k, v, window=window, block_q=cfg.flash_block_q,
                               block_kv=cfg.flash_block_kv, segments=segments)
+    elif cfg.attention_impl in ("ring", "ulysses"):
+        supports = ring_supports_grouped if cfg.attention_impl == "ring" else ulysses_supports_grouped
+        if not supports(current_mesh(), cfg.n_heads, cfg.kv_heads):
+            rep = cfg.n_heads // cfg.kv_heads
+            k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        out = multihead_attention(
+            q, k, v, impl=cfg.attention_impl, block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
+            ring_layout="zigzag" if zigzag else "contiguous", segments=segments, window=window,
+        )
     else:
         out = naive_attention(q, k, v, causal=True, window=window, segments=segments)
 
@@ -595,6 +614,7 @@ def forward(
     return_pre_logits: bool = False,
     pad_offsets: Optional[torch.Tensor] = None,
     return_aux: bool = False,
+    zigzag: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache), and with
     ``return_aux=True`` a third value: the MoE router's load-balance loss
@@ -615,7 +635,12 @@ def forward(
     and causality stay on slots and the pad slots are masked. A pool from
     ``make_paged_kv_pool`` with ``paged`` is paged attention: T query
     tokens per row at slots seq..seq+T-1, of which ``paged.q_lens`` (when
-    given) are real. Caches are updated in place and returned."""
+    given) are real. Caches are updated in place and returned.
+
+    Under a mesh with sequence-parallel attention (``loss_fn``), tokens are
+    the rank's sequence chunk and ``positions`` (T,) their global
+    positions; ``zigzag=True`` declares the chunk-pair layout of
+    ``parallel.zigzag``."""
     check_ported(cfg)
     cdt = torch_dtype(cfg.compute_dtype)
     b, t = tokens.shape
@@ -668,7 +693,7 @@ def forward(
         rope = layers.rope_table(cfg.context_length, cfg.head_dim, cfg.rope_theta, device)
 
     def layer_body(x: torch.Tensor, blk: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        x = _attention_block(blk, x, cfg, rope, positions, None, None, segments)
+        x = _attention_block(blk, x, cfg, rope, positions, None, None, segments, zigzag=zigzag)
         return _mlp_block(blk, x, cfg)
 
     # Training wraps each layer in the remat policy; cached and no-grad
@@ -881,8 +906,45 @@ def loss_fn(
     (``_chunked_ce``). z-loss (``cfg.z_loss_coef``) and, for a MoE model,
     ``cfg.router_aux_coef`` times the router's load-balance loss are part of
     the training objective only: ``include_aux=False`` (eval) reports pure
-    cross-entropy."""
-    out = forward(params, tokens, cfg, return_pre_logits=True, return_aux=bool(cfg.n_experts))
+    cross-entropy.
+
+    Under an active mesh (``parallel.sharding.activation_mesh``) tokens and
+    targets are this rank's rows of the global batch (its data x fsdp
+    block), every column, and the result is this rank's part of the global
+    mean: summed over the ranks that split the tokens (data, fsdp, and seq
+    when ``sequence_shards`` > 1) it is the mean. With ring or Ulysses
+    attention over n seq ranks the rank keeps its n-th of the columns; with
+    ring attention in the zigzag layout the columns are first permuted into
+    the balanced chunk-pair layout (``parallel.zigzag``; mean CE is
+    permutation invariant), or, when T is not divisible by 2n, kept
+    contiguous with a warning, as the JAX package does."""
+    mesh = current_mesh()
+    n_seq = sequence_shards(cfg, mesh)
+    positions = None
+    zigzag = False
+    if n_seq > 1:
+        t = tokens.shape[1]
+        if t % n_seq:
+            raise ValueError(f"seq_len={t} must divide by the seq axis ({n_seq})")
+        perm = None
+        if cfg.attention_impl == "ring" and cfg.ring_layout == "zigzag":
+            if t % (2 * n_seq) == 0:
+                perm = torch.from_numpy(zigzag_perm(t, n_seq)).to(tokens.device)
+                zigzag = True
+            else:
+                warnings.warn(
+                    f"ring_layout='zigzag' configured but seq_len={t} is not "
+                    f"divisible by 2*seq_axis={2 * n_seq}; falling back to the "
+                    "imbalanced contiguous ring layout (utilization ~(n+1)/2n).",
+                    stacklevel=2,
+                )
+        tl = t // n_seq
+        lo = coordinate(mesh)["seq"] * tl
+        positions = (perm if perm is not None else torch.arange(t, device=tokens.device))[lo:lo + tl]
+        tokens = tokens[:, positions]
+        targets = targets[:, positions]
+    out = forward(params, tokens, cfg, positions=positions, zigzag=zigzag, return_pre_logits=True,
+                  return_aux=bool(cfg.n_experts))
     w_out, bias = _lm_head_weights(params, cfg)
     loss = _chunked_ce(
         out[0], w_out, bias, targets.long(), cfg,
@@ -890,4 +952,6 @@ def loss_fn(
     )
     if cfg.n_experts and include_aux:
         loss = loss + cfg.router_aux_coef * out[2]
+    if mesh is not None:
+        loss = loss / (axis_size(mesh, "data") * axis_size(mesh, "fsdp") * n_seq)
     return loss

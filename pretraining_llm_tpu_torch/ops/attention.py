@@ -7,6 +7,9 @@ attends its shared KV head; K/V are never repeated), causal masking by
 position arithmetic, an optional sliding window, a ``kv_mask`` of
 (B, Tk) or per query (B, Tq, Tk), and document ``segments``. Rows whose
 every key is masked by ``kv_mask`` give zeros, not NaN.
+
+``multihead_attention`` is the JAX module's dispatch for the
+sequence-parallel ring and Ulysses paths of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -72,3 +75,56 @@ def naive_attention(
         probs = probs.masked_fill(dead[:, None, None, :, None], 0.0)
     out = torch.einsum("bgrqk,bkgd->bqgrd", probs.to(v.dtype).float(), v.float())
     return out.reshape(b, tq, h, dh).to(q.dtype)
+
+
+def multihead_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    impl: str,
+    causal: bool = True,
+    block_q: int = 0,
+    block_kv: int = 0,
+    ring_layout: str = "contiguous",
+    segments: Optional[torch.Tensor] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """The sequence-parallel branch of the JAX package's
+    ``multihead_attention``: ``impl`` 'ring' or 'ulysses'.
+
+    They go to ``parallel.ring_attention`` and ``parallel.ulysses`` over
+    the active mesh's 'seq' ranks (``parallel.sharding.current_mesh()``),
+    q/k/v being the rank's sequence shards. Without a seq axis above 1
+    they take the naive path, the correct single-shard form.
+    ``ring_layout="zigzag"`` asserts the caller already permuted the
+    sequence (``models.transformer.loss_fn`` does). The model's other
+    implementations and its cached decode dispatch in
+    ``models.transformer._attention_block``."""
+    if impl not in ("ring", "ulysses"):
+        raise ValueError(f"impl must be 'ring' or 'ulysses', got {impl!r}")
+    if window:
+        raise ValueError(
+            "sliding-window attention is not supported by the "
+            "ring/ulysses sequence-parallel attention paths"
+        )
+    if segments is not None:
+        # Config validation forbids doc_mask with these impls; this is
+        # the backstop.
+        raise ValueError(
+            "segments (document masking) is not supported by the "
+            "ring/ulysses sequence-parallel attention paths"
+        )
+    from pretraining_llm_tpu_torch.parallel.mesh import axis_size
+    from pretraining_llm_tpu_torch.parallel.sharding import current_mesh
+
+    mesh = current_mesh()
+    if mesh is None or axis_size(mesh, "seq") == 1:
+        return naive_attention(q, k, v, causal=causal)
+    if impl == "ring":
+        from pretraining_llm_tpu_torch.parallel.ring_attention import ring_attention
+
+        return ring_attention(q, k, v, mesh, causal=causal, layout=ring_layout, block_kv=block_kv or 512)
+    from pretraining_llm_tpu_torch.parallel.ulysses import ulysses_attention
+
+    return ulysses_attention(q, k, v, mesh, causal=causal, block_q=block_q, block_kv=block_kv)

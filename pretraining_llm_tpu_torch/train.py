@@ -1,14 +1,21 @@
 """Training entry point of the PyTorch port.
 
 The flag names of the JAX package's ``scripts/train.py`` for what is
-ported: a preset (every single-device preset of the JAX package: gpt2-124m,
-gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, llama3-1b-gqa, reference-3b,
-tiny), dotted overrides of any model, data or train field, file, mixture
+ported: a preset (every preset of the JAX package: gpt2-124m,
+gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, gpt2-8k-sp, gpt2-8k-gqa,
+llama3-1b-gqa, moe-8x350m, reference-3b, tiny), dotted overrides of any model, data or train field, file, mixture
 or synthetic data, ``--no-resume``, ``--steps`` and ``--obs-dir`` (the
 run's events, spans and Prometheus textfile under one directory, for
 ``python -m pretraining_llm_tpu_torch.obs_report``) and ``--compile-only``.
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions of the
 kernels on the CPU.
+
+Under ``torchrun`` every process is one rank of the preset's mesh (the
+``mesh`` section; ``parallel/``): NCCL over one card per rank, or gloo
+with ``--device cpu``. A preset whose mesh fixes an axis above 1 needs that
+many ranks; one rank runs it with a one-device mesh (``--override
+mesh.fsdp=1`` for an fsdp preset, ``mesh.seq=1`` for the 8k presets,
+``mesh.expert=1`` for moe-8x350m). Rank 0 prints and logs.
 
 ``--compile-only`` sizes a preset before a run: it builds the kernel
 libraries, then prints one JSON line with the JAX script's keys.
@@ -20,7 +27,9 @@ shapes alone. ``temps`` is measured on the card: the peak allocated during
 one full train step of the preset (every microbatch, synthetic tokens)
 less the state and the batch; on the CPU, which keeps no peak, it and the
 total are ``null``. When the step runs out of memory the line carries
-``"oom": true`` and the command exits 1.
+``"oom": true`` and the command exits 1. On a mesh the sizes are one
+rank's (its blocks of the sharded leaves, its rows of the batch) and
+``devices`` is the number of ranks.
 
 The exit code is the resilience contract the supervisor reads
 (``resilience/__init__.py``): 0 when the run completed, 43 after a SIGTERM
@@ -34,7 +43,11 @@ Examples::
     python -m pretraining_llm_tpu_torch.train --preset tiny --data synthetic \\
         --override train.train_steps=100
     python -m pretraining_llm_tpu_torch.train --preset reference-3b --data synthetic \\
-        --override model.remat=full
+        --override model.remat=full mesh.fsdp=1
+    torchrun --nproc_per_node 4 -m pretraining_llm_tpu_torch.train --preset gpt2-8k-sp \\
+        --data synthetic --override train.train_steps=3
+    torchrun --nproc_per_node 2 -m pretraining_llm_tpu_torch.train --device cpu --preset tiny \\
+        --data synthetic --override mesh.fsdp=2 train.train_steps=20
     python -m pretraining_llm_tpu_torch.train --preset gpt2-124m --override \\
         train.optimizer=muon train.checkpoint_async=True train.profile_dir=build/prof \\
         data.train_path=data/parity/train.bin:3,data/parity/val.bin:1
@@ -97,6 +110,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     parser.add_argument("--compile-only", action="store_true",
                         help="build the kernels, print the per-device memory estimate (one JSON line) and exit")
     args = parser.parse_args(argv)
+    from pretraining_llm_tpu_torch.parallel.mesh import initialize_distributed, rank
+
+    initialize_distributed(args.device)
+    host0 = rank() == 0
 
     overrides = parse_overrides(args.override)
     if args.obs_dir:
@@ -105,8 +122,9 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                            ("obs.prometheus_path", "metrics.prom")):
             overrides.setdefault(key, os.path.join(args.obs_dir, fname))
     config = get_preset(args.preset).with_overrides(overrides)
-    print(f"preset={config.name} device={args.device} params={config.model.num_params() / 1e6:.1f}M",
-          flush=True)
+    if host0:
+        print(f"preset={config.name} device={args.device} params={config.model.num_params() / 1e6:.1f}M",
+              flush=True)
     if args.compile_only:
         report = compile_only(config, args.device)
         if report.get("oom"):
@@ -115,7 +133,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     trainer = Trainer(config, synthetic_data=args.data == "synthetic", resume=not args.no_resume,
                       device=args.device)
     final = trainer.train(steps=args.steps)
-    print("final:", final, f"exit_reason={trainer.exit_reason}", flush=True)
+    if host0:
+        print("final:", final, f"exit_reason={trainer.exit_reason}", flush=True)
     rc = {"preempted": EXIT_PREEMPTED, "anomaly_budget": EXIT_ANOMALY,
           "anomaly_no_checkpoint": EXIT_ANOMALY}.get(trainer.exit_reason, 0)
     if rc:
@@ -129,12 +148,13 @@ def _nbytes(tree: Any) -> int:
     return sum(t.numel() * t.element_size() for _, t in tree_leaves(tree))
 
 
-def shape_bytes(config: Any) -> Dict[str, int]:
+def shape_bytes(config: Any, mesh: Any = None) -> Dict[str, int]:
     """{"state", "batch", "metrics"} bytes of one train step of ``config``,
     from shapes: the state is ``init_train_state``'s tree (parameters,
     optimizer state, step, EMA copy) built on the meta device, which
     allocates nothing; the batch is x and y of int32 tokens; the metrics are
-    the step's three fp32 scalars."""
+    the step's three fp32 scalars. On a ``mesh``, one rank's: its blocks of
+    the sharded leaves and its rows of the batch."""
     from pretraining_llm_tpu_torch.models import transformer
     from pretraining_llm_tpu_torch.training import optimizer as opt
 
@@ -150,6 +170,12 @@ def shape_bytes(config: Any) -> Dict[str, int]:
     if config.train.ema_decay > 0:
         state["ema"] = opt.tree_map(lambda p: torch.empty_like(p, dtype=torch.float32), params)
     b, t = config.train.batch_size, config.model.context_length
+    if mesh is not None:
+        from pretraining_llm_tpu_torch.parallel.mesh import axis_size
+        from pretraining_llm_tpu_torch.training import train_step as ts
+
+        state = ts.shard_train_state(state, mesh)
+        b //= axis_size(mesh, "data") * axis_size(mesh, "fsdp")
     return {"state": _nbytes(state), "batch": 2 * b * t * 4, "metrics": 3 * 4}
 
 
@@ -158,30 +184,36 @@ def compile_only(config: Any, device: str = "cuda") -> Dict[str, Any]:
     docstring), printed as one JSON line and returned. On the card one full
     train step runs on a fresh random state and synthetic tokens; an
     out-of-memory error there is the answer (``"oom": true``)."""
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
     from pretraining_llm_tpu_torch.training import train_step as ts
     from pretraining_llm_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    if dev.type == "cuda" and pmesh.world_size() > 1:
+        dev = torch.device("cuda", torch.cuda.current_device())
     t0 = time.perf_counter()
     if dev.type == "cuda":
         from pretraining_llm_tpu_torch.ops import _build
 
         _build.build()
-    b, t = config.train.batch_size, config.model.context_length
-    sizes = shape_bytes(config)
+    mesh = pmesh.build_mesh(config.mesh, dev.type) if pmesh.needs_mesh(config.mesh) else None
+    sizes = shape_bytes(config, mesh)
+    b = sizes["batch"] // (2 * 4 * config.model.context_length)
+    t = config.model.context_length
     state_b, batch_b, metrics_b = sizes["state"], sizes["batch"], sizes["metrics"]
     compile_s = time.perf_counter() - t0
     temps: Optional[int] = None
     oom = False
     if dev.type == "cuda":
         try:
-            state = ts.init_train_state(config, torch.Generator(device=dev).manual_seed(0), device=dev)
+            state = ts.init_train_state(config, torch.Generator(device=dev).manual_seed(0), device=dev,
+                                        mesh=mesh)
             gen = torch.Generator(device=dev).manual_seed(1)
             x = torch.randint(0, config.model.vocab_size, (b, t), generator=gen, device=dev, dtype=torch.int32)
             y = torch.randint(0, config.model.vocab_size, (b, t), generator=gen, device=dev, dtype=torch.int32)
             torch.cuda.synchronize(dev)
             torch.cuda.reset_peak_memory_stats(dev)
-            state, metrics = ts.build_train_step(config)(state, (x, y))
+            state, metrics = ts.build_train_step(config, mesh)(state, (x, y))
             float(metrics["loss"])  # the step ran to its end
             temps = torch.cuda.max_memory_allocated(dev) - state_b - batch_b
         except torch.cuda.OutOfMemoryError:
@@ -193,7 +225,7 @@ def compile_only(config: Any, device: str = "cuda") -> Dict[str, Any]:
 
     report: Dict[str, Any] = {
         "compile_s": round(compile_s, 1),
-        "devices": 1,
+        "devices": pmesh.world_size(),
         "per_device_GiB": {
             "arguments": g(state_b + batch_b),
             "outputs": g(state_b + metrics_b),
@@ -204,7 +236,8 @@ def compile_only(config: Any, device: str = "cuda") -> Dict[str, Any]:
     }
     if oom:
         report["oom"] = True
-    print(json.dumps(report), flush=True)
+    if pmesh.rank() == 0:
+        print(json.dumps(report), flush=True)
     return report
 
 

@@ -1,8 +1,7 @@
 """Checkpoints in the JAX package's format: one ``.npy`` per leaf and a
 ``metadata.json``, written atomically, with exact resume.
 
-An own copy of the single-process part of ``pretraining_llm_tpu/training/
-checkpoint.py``:
+An own copy of ``pretraining_llm_tpu/training/checkpoint.py``:
 
   - each state leaf is ``<dir>/step-<N>/<name>.npy``, named by its
     ``__``-joined path (``opt__mu__blocks__attn__wqkv``);
@@ -27,6 +26,19 @@ reverse: same names, same ``.npy`` bytes. A bf16 leaf is written as the
 JAX package writes it (numpy has no bfloat16: the ``.npy`` holds raw
 2-byte records, ``<V2``, and the manifest says ``bfloat16``); the checksum
 covers the manifest's dtype name. Leaves load as CPU tensors.
+
+Several ranks (``parallel/``; a rank is the JAX package's process) call
+``save_checkpoint`` together, with barriers where JAX has them: rank 0
+makes ``tmp-<N>``; every rank writes its ``local.p<rank>.json`` and, for
+each leaf that ``layout`` names as sharded, its block when it holds the
+replica-0 copy, as ``<name>.p<rank>_0.npy`` beside a ``.idx`` file with
+the block's [start, stop) per dimension; rank 0 writes the replicated
+leaves, then ``metadata.json`` (``n_processes``, the manifest: a sharded
+leaf's global shape and ``"sharded": true``, no checksum) and publishes
+the directory. ``load_checkpoint`` reassembles a sharded leaf from every
+block file it finds, whichever package and mesh wrote them, so a
+checkpoint restores onto any mesh or onto one device; ``restore_latest``
+adopts a step only when every rank loaded it.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 
 from pretraining_llm_tpu_torch.observability.spans import span as _span
+from pretraining_llm_tpu_torch.parallel.mesh import all_ranks_agree, barrier, rank, world_size
 from pretraining_llm_tpu_torch.training.optimizer import tree_leaves
 
 _TORCH_DTYPES = {
@@ -101,9 +115,7 @@ def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _save_leaf(tmp: str, name: str, leaf: Any) -> Dict[str, Any]:
-    arr, dtype_name = _to_numpy(leaf)
-    path = os.path.join(tmp, f"{name}.npy")
+def _write_npy(path: str, arr: np.ndarray, dtype_name: str) -> None:
     if dtype_name == "bfloat16":
         # The header numpy writes for an ml_dtypes bfloat16 array: raw
         # little-endian 2-byte records.
@@ -113,40 +125,79 @@ def _save_leaf(tmp: str, name: str, leaf: Any) -> Dict[str, Any]:
             f.write(np.ascontiguousarray(arr).tobytes())
     else:
         np.save(path, arr)
+
+
+def _save_leaf(tmp: str, name: str, leaf: Any) -> Dict[str, Any]:
+    arr, dtype_name = _to_numpy(leaf)
+    _write_npy(os.path.join(tmp, f"{name}.npy"), arr, dtype_name)
     return {
         "name": name, "shape": list(arr.shape), "dtype": dtype_name, "sharded": False,
         "checksum": array_digest(arr, dtype_name),
     }
 
 
+class ShardedLeaf:
+    """How one rank holds a sharded leaf: the global ``shape``, its block
+    (a slice per dimension) and whether it writes that block (the
+    replica-0 holder)."""
+
+    def __init__(self, shape: Sequence[int], index: Sequence[slice], write: bool) -> None:
+        self.shape, self.index, self.write = tuple(int(s) for s in shape), tuple(index), bool(write)
+
+
+def _save_shard(tmp: str, name: str, leaf: Any, info: ShardedLeaf, rank: int) -> Dict[str, Any]:
+    arr, dtype_name = _to_numpy(leaf)
+    if info.write:
+        fname = f"{name}.p{rank}_0.npy"
+        _write_npy(os.path.join(tmp, fname), arr, dtype_name)
+        with open(os.path.join(tmp, fname + ".idx"), "w") as f:
+            json.dump([[int(sl.start), int(sl.stop)] for sl in info.index], f)
+    return {"name": name, "shape": list(info.shape), "dtype": dtype_name, "sharded": True}
+
+
 def save_checkpoint(
     directory: str, step: int, state: Any, *, extra: Optional[Dict[str, Any]] = None,
     local_extra: Optional[Dict[str, Any]] = None, keep: int = 3,
+    layout: Optional[Dict[str, ShardedLeaf]] = None,
 ) -> str:
-    """Write ``<directory>/step-<step>/`` atomically; returns its path."""
+    """Write ``<directory>/step-<step>/`` atomically; returns its path.
+    With several ranks every rank calls it (the barriers are inside);
+    ``layout`` maps a sharded leaf's name to this rank's ``ShardedLeaf``
+    (``state`` then holds the rank's blocks). ``extra`` is written once,
+    by rank 0; ``local_extra`` by every rank, as ``local.p<rank>.json``."""
+    me, n_proc = rank(), world_size()
+    layout = layout or {}
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f"tmp-{step}")
     final = os.path.join(directory, f"step-{step}")
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if me == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+    barrier()
     with _span("checkpoint/write_leaves"):
-        manifest = _map_leaves(lambda name, leaf: _save_leaf(tmp, name, leaf), _flatten_with_names(state))
+        items = [(name, leaf) for name, leaf in _flatten_with_names(state) if me == 0 or name in layout]
+        manifest = _map_leaves(
+            lambda name, leaf: (_save_shard(tmp, name, leaf, layout[name], me) if name in layout
+                                else _save_leaf(tmp, name, leaf)), items)
     if local_extra:
-        with open(os.path.join(tmp, "local.p0.json"), "w") as f:
+        with open(os.path.join(tmp, f"local.p{me}.json"), "w") as f:
             json.dump(local_extra, f)
-    meta = {
-        "step": int(step), "format_version": 2, "n_processes": 1,
-        "manifest": manifest, "extra": extra or {},
-    }
-    with open(os.path.join(tmp, "metadata.json"), "w") as f:
-        json.dump(meta, f, indent=2)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
-    _prune(directory, keep)
+    barrier()
+    if me == 0:
+        meta = {
+            "step": int(step), "format_version": 2, "n_processes": n_proc,
+            "manifest": manifest, "extra": extra or {},
+        }
+        with open(os.path.join(tmp, "metadata.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
+        _prune(directory, keep)
+    barrier()
     return final
 
 
@@ -196,35 +247,59 @@ def restore_latest(
     loads. ``before_step`` tries only steps below it (a rollback digging
     past a poisoned checkpoint); ``loader(path, template)`` defaults to
     ``load_checkpoint``."""
-    gc_partial(directory)
+    if rank() == 0:
+        gc_partial(directory)
+    barrier()
     load = loader or load_checkpoint
     steps = sorted(_list_steps(directory), reverse=True)
     if before_step is not None:
         steps = [s for s in steps if s < before_step]
     for step in steps:
         path = os.path.join(directory, f"step-{step}")
+        result = None
         try:
-            state, extra = load(path, state_template)
+            result = load(path, state_template)
         except Exception as e:  # corrupt/truncated/missing pieces: fall back
             if on_skip is not None:
                 on_skip(path, e)
-            continue
-        return state, extra, step
+        # A step some rank cannot load is adopted by none (a split restore
+        # would deadlock at the next collective).
+        if all_ranks_agree(result is not None):
+            state, extra = result
+            return state, extra, step
     return None
+
+
+def _assemble(path: str, entry: Dict[str, Any]) -> np.ndarray:
+    """A sharded leaf from every ``<name>.p<i>_<k>.npy`` block in ``path``."""
+    name = entry["name"]
+    dtype_name = entry["dtype"]
+    arr = np.empty(entry["shape"], dtype=np.dtype("V2") if dtype_name == "bfloat16" else np.dtype(dtype_name))
+    pattern = re.compile(re.escape(name) + r"\.p\d+_\d+\.npy")
+    found = False
+    for fname in sorted(os.listdir(path)):
+        if pattern.fullmatch(fname):
+            with open(os.path.join(path, fname + ".idx")) as f:
+                slices = tuple(slice(a, b) for a, b in json.load(f))
+            block = np.load(os.path.join(path, fname))
+            arr[slices] = block.view(arr.dtype) if dtype_name == "bfloat16" else block
+            found = True
+    if not found:
+        raise FileNotFoundError(f"no shard files for leaf {name} in {path}")
+    return arr
 
 
 def _load_leaf(path: str, entry: Dict[str, Any]) -> torch.Tensor:
     name = entry["name"]
     if entry.get("sharded"):
-        raise NotImplementedError(
-            f"leaf {name} of {path} is sharded across processes; multi-process "
-            "checkpoints are not ported to PyTorch yet"
-        )
-    arr = np.load(os.path.join(path, f"{name}.npy"))
-    dtype_name = entry.get("dtype", str(arr.dtype))
-    expected = entry.get("checksum")
-    if expected is not None and array_digest(arr, dtype_name) != expected:
-        raise IntegrityError(f"checksum mismatch for {name} (corrupted checkpoint leaf)")
+        arr = _assemble(path, entry)
+        dtype_name = entry["dtype"]
+    else:
+        arr = np.load(os.path.join(path, f"{name}.npy"))
+        dtype_name = entry.get("dtype", str(arr.dtype))
+        expected = entry.get("checksum")
+        if expected is not None and array_digest(arr, dtype_name) != expected:
+            raise IntegrityError(f"checksum mismatch for {name} (corrupted checkpoint leaf)")
     if dtype_name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy()).view(torch.bfloat16)
     if dtype_name not in _TORCH_DTYPES:
@@ -234,11 +309,12 @@ def _load_leaf(path: str, entry: Dict[str, Any]) -> torch.Tensor:
 
 def load_checkpoint(path: str, state_template: Any) -> Tuple[Any, Dict[str, Any]]:
     """Restore a tree shaped like ``state_template`` (tensors, or anything
-    with a ``shape``) from ``path``. Returns (tree of CPU tensors, extra),
-    with ``local.p0.json`` merged into extra."""
+    with a ``shape``: the global shapes) from ``path``. Returns (tree of
+    full CPU tensors, extra), with this rank's ``local.p<rank>.json``
+    merged into extra."""
     with open(os.path.join(path, "metadata.json")) as f:
         meta = json.load(f)
-    local_path = os.path.join(path, "local.p0.json")
+    local_path = os.path.join(path, f"local.p{rank()}.json")
     if os.path.exists(local_path):
         with open(local_path) as f:
             meta.setdefault("extra", {}).update(json.load(f))

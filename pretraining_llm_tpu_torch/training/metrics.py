@@ -81,9 +81,10 @@ class Throughput:
     """Throughput/MFU over log windows: ``tick`` per step, ``window`` right
     after a device sync, ``reset_clock`` after off-path work (eval, save)."""
 
-    def __init__(self, model_cfg: ModelConfig, device: torch.device) -> None:
+    def __init__(self, model_cfg: ModelConfig, device: torch.device, n_devices: int = 1) -> None:
         self.flops_per_token = model_cfg.flops_per_token()
-        self.peak = device_peak_flops(device)
+        peak = device_peak_flops(device)
+        self.peak = None if peak is None else peak * n_devices  # MFU over every rank's device
         self._last_time: Optional[float] = None
         self._tokens = 0
         self._steps = 0

@@ -111,10 +111,13 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        norm_fn: Callable[[Tree], torch.Tensor] = global_norm) -> Tuple[Tree, torch.Tensor]:
     """Scales every leaf of ``grads`` in place by min(1, max_norm / (norm +
-    1e-9)); returns (grads, norm)."""
-    norm = global_norm(grads)
+    1e-9)); returns (grads, norm). ``norm_fn`` computes the norm (under a
+    mesh, the train step's, which counts every shard of a sharded leaf
+    once)."""
+    norm = norm_fn(grads)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for _, g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))

@@ -1,7 +1,6 @@
-"""The single-device train step: grads -> clip -> optimizer -> metrics.
+"""The train step: grads -> clip -> optimizer -> metrics.
 
-Counterpart of ``pretraining_llm_tpu/training/train_step.py`` on one
-device. The state is a plain dict {'params', 'opt', 'step'} (+ 'ema'), the
+Counterpart of ``pretraining_llm_tpu/training/train_step.py``. The state is a plain dict {'params', 'opt', 'step'} (+ 'ema'), the
 same tree as the JAX package's, so checkpoints of either package restore
 in the other. PyTorch runs eagerly: ``loss.backward()`` takes the place of
 ``jax.value_and_grad`` and a Python loop over microbatches the place of the
@@ -9,17 +8,46 @@ in the other. PyTorch runs eagerly: ``loss.backward()`` takes the place of
 Where JAX donates the state, the port updates it in place: the backward
 adds into one gradient tree, the clip scales it, and the optimizer writes
 the parameters and its state where they are (``training/optimizer.py``).
+
+On a mesh (``build_train_step(cfg, mesh)``, ``parallel/``) each rank runs
+the step on its rows of the global batch (and, with ring or Ulysses
+attention, its share of the columns; ``models.transformer.loss_fn``) and
+holds its block of every leaf that ``state_pspec_tree`` shards over fsdp
+(JAX's spec tree: parameters, AdamW's moments and the EMA alike;
+``shard_train_state``). Where JAX's one SPMD program gets its collectives
+from XLA, ``MeshPlan`` issues them:
+
+  - a sharded parameter is all-gathered over the fsdp ranks for use
+    (``_GatherShard``, once per microbatch, outside the layers' remat
+    regions) and its gradient reduce-scattered back in the backward;
+  - the loss is each rank's part of the global token mean, so the
+    gradient is a partial sum: sharded leaves are then summed over the
+    data (and seq) ranks, replicated leaves over every rank that split the
+    tokens; nothing averages by the world size;
+  - the global norm sums a sharded leaf's squares over its fsdp shards
+    once (replicas hold the same block);
+  - AdamW and the EMA update each rank's blocks in place. Adafactor and
+    Muon run only on unsharded leaves (a data or seq mesh); on fsdp shards
+    they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+import contextlib
+import warnings
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from pretraining_llm_tpu_torch.config import Config
 from pretraining_llm_tpu_torch.models import transformer
+from pretraining_llm_tpu_torch.parallel.mesh import axis_group, check_ported_axes, coordinate, mesh_shape, world_size
+from pretraining_llm_tpu_torch.parallel.sharding import (
+    activation_mesh, is_sharded, local_slices, param_pspec_tree, shard_leaf, split_count,
+)
 from pretraining_llm_tpu_torch.training import optimizer as opt
+from pretraining_llm_tpu_torch.training.checkpoint import ShardedLeaf
 from pretraining_llm_tpu_torch.utils import debug
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -29,13 +57,18 @@ Batch = Tuple[torch.Tensor, torch.Tensor]
 
 def init_train_state(
     cfg: Config, generator: Union[torch.Generator, int, None] = None, *, device: DeviceLike = None,
+    mesh: Any = None,
 ) -> TrainState:
     """Fresh params (``transformer.init_params`` from ``generator``, by
     default ``cfg.train.seed``), the zero state of ``train.optimizer``, step
-    0, and an fp32 EMA copy of the params when ``train.ema_decay`` > 0."""
+    0, and an fp32 EMA copy of the params when ``train.ema_decay`` > 0. On
+    a ``mesh`` every rank draws the same full parameters and keeps its
+    blocks; the optimizer state is made from the blocks."""
     dev = resolve_device(device)
     seed = cfg.train.seed if generator is None else generator
     params = transformer.init_params(cfg.model, seed, device=dev)
+    if mesh is not None:
+        params = _shard_tree(params, param_pspec_tree(params), mesh)
     state: TrainState = {
         "params": params,
         "opt": opt.optimizer_init(params, cfg.train),
@@ -44,6 +77,76 @@ def init_train_state(
     if cfg.train.ema_decay > 0:
         state["ema"] = opt.tree_map(lambda p: p.detach().to(torch.float32, copy=True), params)
     return state
+
+
+def state_pspec_tree(state: TrainState, pipeline: bool = False, *, tensor_size: int = 1) -> Any:
+    """Specs for the full train state (moments mirror params), JAX's tree:
+    Adafactor's factored statistics are replicated, Muon's and AdamW's
+    per-leaf state is sharded like its parameter."""
+    kw = {"tensor_size": tensor_size}
+    pspecs = param_pspec_tree(state["params"], pipeline, **kw)
+    if "v" in state["opt"]:
+        opt_pspecs = {"v": opt.tree_map(lambda x: (), state["opt"]["v"]), "count": ()}
+    elif "s" in state["opt"]:
+        opt_pspecs = {"s": {k: _mirror(pspecs[k], state["opt"]["s"][k]) for k in pspecs}, "count": ()}
+    else:
+        opt_pspecs = {
+            "mu": param_pspec_tree(state["opt"]["mu"], pipeline, **kw),
+            "nu": param_pspec_tree(state["opt"]["nu"], pipeline, **kw),
+            "count": (),
+        }
+    out = {"params": pspecs, "opt": opt_pspecs, "step": ()}
+    if "ema" in state:
+        out["ema"] = param_pspec_tree(state["ema"], pipeline, **kw)
+    return out
+
+
+def _mirror(spec_tree: Any, state_tree: Any) -> Any:
+    """Muon's per-leaf state dicts ({"m"} or {"mu", "nu"}) under each
+    parameter's spec."""
+    if isinstance(spec_tree, dict):
+        return {k: _mirror(spec_tree[k], state_tree[k]) for k in spec_tree}
+    return {k: spec_tree for k in state_tree}
+
+
+def _shard_tree(tree: Any, specs: Any, mesh: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    return shard_leaf(tree, specs, mesh)
+
+
+def shard_train_state(state: TrainState, mesh: Any, cfg: Optional[Config] = None) -> TrainState:
+    """Each leaf of a full train state replaced by this rank's block under
+    ``state_pspec_tree`` (leaves that are not split stay as they are)."""
+    del cfg  # the pipeline's baked layout is not ported
+    return _shard_tree(state, state_pspec_tree(state), mesh)
+
+
+def state_template(cfg: Config) -> TrainState:
+    """The full train state's tree as meta tensors: its global shapes for a
+    checkpoint template, nothing allocated."""
+    params = _meta(transformer.param_shapes(cfg.model))
+    state: TrainState = {"params": params, "opt": opt.optimizer_init(params, cfg.train),
+                         "step": torch.empty((), device="meta")}
+    if cfg.train.ema_decay > 0:
+        state["ema"] = params
+    return state
+
+
+def checkpoint_layout(template: TrainState, mesh: Any) -> Optional[Dict[str, Any]]:
+    """{leaf name: ``checkpoint.ShardedLeaf``} of a state of ``template``'s
+    global shapes on ``mesh``: this rank's block of each sharded leaf, which
+    it writes when it holds the replica-0 copy (coordinate 0 on every axis
+    that does not split the leaf). None when nothing is sharded."""
+    coord = coordinate(mesh)
+    layout = {}
+    for (path, leaf), (_, spec) in zip(opt.tree_leaves(template), _spec_leaves(state_pspec_tree(template))):
+        if not is_sharded(spec, mesh):
+            continue
+        used = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+        write = all(c == 0 for a, c in coord.items() if a not in used)
+        layout["__".join(path)] = ShardedLeaf(leaf.shape, local_slices(spec, tuple(leaf.shape), mesh), write)
+    return layout or None
 
 
 def _grad_leaves(params: Any, grads: Any) -> Any:
@@ -65,31 +168,43 @@ def _grad_leaves(params: Any, grads: Any) -> Any:
 
 
 def loss_and_grads(params: Any, x: torch.Tensor, y: torch.Tensor, cfg: Config,
-                   grads: Optional[Any] = None) -> Tuple[torch.Tensor, Any]:
+                   grads: Optional[Any] = None, plan: Optional["MeshPlan"] = None) -> Tuple[torch.Tensor, Any]:
     """(loss, grads) of one microbatch. The backward adds into ``grads`` (a
     tree like ``params``; fresh zeros by default) in place. Under
     ``train.grad_dtype="bfloat16"`` each fp32 grad leaf is rounded to bf16
-    once after the backward (a new tree)."""
+    once after the backward (a new tree). With a ``plan`` the loss and the
+    gradients are this rank's parts (``MeshPlan``)."""
     if grads is None:
         grads = opt.tree_map(torch.zeros_like, params)
-    loss = transformer.loss_fn(_grad_leaves(params, grads), x, y, cfg.model)
+    leaves = _grad_leaves(params, grads)
+    if plan is not None:
+        leaves = plan.gather(leaves)
+    loss = transformer.loss_fn(leaves, x, y, cfg.model)
     loss.backward()
     if cfg.train.grad_dtype == "bfloat16":
         grads = opt.tree_map(lambda g: g.to(torch.bfloat16) if g.dtype == torch.float32 else g, grads)
     return loss.detach(), grads
 
 
-def compute_grads(state: TrainState, batch: Batch, cfg: Config) -> Tuple[torch.Tensor, Any]:
+def compute_grads(state: TrainState, batch: Batch, cfg: Config,
+                  plan: Optional["MeshPlan"] = None) -> Tuple[torch.Tensor, Any]:
     """Mean loss and mean grads over ``train.microbatches`` slices of the
     batch. fp32 grads: every microbatch's backward adds into one tree, in
     microbatch order (the JAX package's zeros + g1 + g2 ..., bit for bit),
     then divides in place. bf16 grads: each microbatch's grads are rounded
-    to bf16 and summed in a bf16 accumulator, as in the JAX package."""
+    to bf16 and summed in a bf16 accumulator, as in the JAX package. With
+    a ``plan`` the batch is this rank's rows, and the loss and gradients
+    are summed over the ranks after the last microbatch."""
     x, y = batch
     n_micro = cfg.train.microbatches
     if n_micro == 1:
-        return loss_and_grads(state["params"], x, y, cfg)
+        loss, grads = loss_and_grads(state["params"], x, y, cfg, plan=plan)
+        if plan is not None:
+            loss, grads = plan.reduce_loss(loss), plan.reduce_grads(grads)
+        return loss, grads
     b = x.shape[0]
+    if b % n_micro:
+        raise ValueError(f"this rank's {b} rows do not split into {n_micro} microbatches")
     xm = x.reshape(n_micro, b // n_micro, -1)
     ym = y.reshape(n_micro, b // n_micro, -1)
     bf16 = cfg.train.grad_dtype == "bfloat16"
@@ -100,29 +215,33 @@ def compute_grads(state: TrainState, batch: Batch, cfg: Config) -> Tuple[torch.T
     )
     for i in range(n_micro):
         if bf16:
-            loss, grads = loss_and_grads(state["params"], xm[i], ym[i], cfg)
+            loss, grads = loss_and_grads(state["params"], xm[i], ym[i], cfg, plan=plan)
             grad_sum = opt.tree_map(torch.add, grad_sum, grads)
         else:
-            loss, grad_sum = loss_and_grads(state["params"], xm[i], ym[i], cfg, grad_sum)
+            loss, grad_sum = loss_and_grads(state["params"], xm[i], ym[i], cfg, grad_sum, plan=plan)
         loss_sum = loss_sum + loss
+    if plan is not None:
+        loss_sum, grad_sum = plan.reduce_loss(loss_sum), plan.reduce_grads(grad_sum)
     with torch.no_grad():
         for _, g in opt.tree_leaves(grad_sum):
             g.div_(n_micro)
     return loss_sum / n_micro, grad_sum
 
 
-def train_step(state: TrainState, batch: Batch, cfg: Config) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+def train_step(state: TrainState, batch: Batch, cfg: Config,
+               plan: Optional["MeshPlan"] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step. Returns (new state, {'loss', 'grad_norm', 'lr'})."""
     tcfg = cfg.train
-    loss, grads = compute_grads(state, batch, cfg)
+    loss, grads = compute_grads(state, batch, cfg, plan)
     if debug.nan_checks_enabled():
         debug.check_finite(f"train step {int(state['step'])}",
                            [("loss", loss)] + [("grad " + "/".join(p), g) for p, g in opt.tree_leaves(grads)])
     with torch.no_grad():
+        norm_fn = opt.global_norm if plan is None else plan.global_norm
         if tcfg.grad_clip > 0:
-            grads, grad_norm = opt.clip_by_global_norm(grads, tcfg.grad_clip)
+            grads, grad_norm = opt.clip_by_global_norm(grads, tcfg.grad_clip, norm_fn)
         else:
-            grad_norm = opt.global_norm(grads)
+            grad_norm = norm_fn(grads)
         lr = opt.learning_rate(state["step"], tcfg)
         new_params, new_opt = opt.optimizer_update(grads, state["opt"], state["params"], lr, tcfg)
         new_state: TrainState = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
@@ -134,23 +253,210 @@ def train_step(state: TrainState, batch: Batch, cfg: Config) -> Tuple[TrainState
     return new_state, {"loss": loss, "grad_norm": grad_norm, "lr": lr}
 
 
-def build_train_step(cfg: Config) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+def build_train_step(cfg: Config, mesh: Any = None
+                     ) -> Callable[[TrainState, Batch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, (x, y))``, x and y (B, T) int tensors on the state's
     device, B = ``train.batch_size``. The step updates ``state``'s tensors
-    in place and returns them in a new dict."""
-    return lambda state, batch: train_step(state, batch, cfg)
+    in place and returns them in a new dict. On a ``mesh`` the state is
+    ``shard_train_state``'s and x, y are this rank's rows (every column);
+    the metrics are the global step's."""
+    if mesh is None:
+        return lambda state, batch: train_step(state, batch, cfg)
+    plan = MeshPlan(cfg, mesh)
+
+    def step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        plan.check_state(state)
+        with plan.active():
+            return train_step(state, batch, cfg, plan)
+
+    return step
 
 
-def build_eval_loop(cfg: Config) -> Callable[[TrainState, Batch], torch.Tensor]:
+def build_eval_loop(cfg: Config, mesh: Any = None) -> Callable[[TrainState, Batch], torch.Tensor]:
     """Mean eval loss (pure cross-entropy, ``include_aux=False``) over
-    stacked batches (x, y), each (N, B, T)."""
+    stacked batches (x, y), each (N, B, T); on a ``mesh`` this rank's rows
+    of each batch, the loss summed over the ranks."""
+    plan = None if mesh is None else MeshPlan(cfg, mesh)
 
     @torch.no_grad()
     def eval_many(state: TrainState, batches: Batch) -> torch.Tensor:
         xs, ys = batches
+        params = state["params"] if plan is None else plan.gather_full(state["params"])
         total = torch.zeros((), dtype=torch.float32, device=xs.device)
-        for x, y in zip(xs, ys):
-            total = total + transformer.loss_fn(state["params"], x, y, cfg.model, include_aux=False)
+        with contextlib.nullcontext() if plan is None else plan.active():
+            for x, y in zip(xs, ys):
+                total = total + transformer.loss_fn(params, x, y, cfg.model, include_aux=False)
+        if plan is not None:
+            total = plan.reduce_loss(total)
         return total / xs.shape[0]
 
     return eval_many
+
+
+# ---------------------------------------------------------------------------
+# The collectives of a step on a mesh
+# ---------------------------------------------------------------------------
+
+
+def _all_gather(shard: torch.Tensor, dim: int, group: Any, n: int) -> torch.Tensor:
+    x = shard.movedim(dim, 0).contiguous()
+    out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(full: torch.Tensor, dim: int, group: Any, n: int) -> torch.Tensor:
+    x = full.movedim(dim, 0).contiguous()
+    out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    with warnings.catch_warnings():  # newer torch names a successor that older torch lacks
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim)
+
+
+class _GatherShard(torch.autograd.Function):
+    """A parameter block all-gathered along ``dim`` over the fsdp group;
+    the backward reduce-scatters (sums) the full gradient back to the
+    block, so the rank's block gradient sums every fsdp rank's
+    contribution."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, group, n):
+        ctx.meta = (dim, group, n)
+        return _all_gather(shard, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, n = ctx.meta
+        return _reduce_scatter(g, dim, group, n), None, None, None
+
+
+class MeshPlan:
+    """What one rank does to run the JAX package's global step on ``mesh``:
+    which leaves are fsdp blocks (and along which dim), and the process
+    groups the loss and gradients are summed over (``parallel.mesh``)."""
+
+    def __init__(self, cfg: Config, mesh: Any) -> None:
+        shape = mesh_shape(mesh)
+        check_ported_axes(shape)
+        if cfg.model.n_experts and world_size() > 1:
+            raise NotImplementedError(
+                "a MoE model on several ranks (the router's statistics over the global batch, "
+                "expert parallelism) is not ported to PyTorch yet (ROADMAP Queue A, parallelism "
+                "slice 19: tensor, expert, pipe)"
+            )
+        self.cfg, self.mesh = cfg, mesh
+        self.n_seq = transformer.sequence_shards(cfg.model, mesh)
+        shapes = self.full_shapes = transformer.param_shapes(cfg.model)
+        specs = param_pspec_tree(_meta(shapes))
+        # {leaf path: the dim split over fsdp} of the parameter tree.
+        self.fsdp_dims: Dict[Tuple[str, ...], int] = {}
+        for path, spec in _spec_leaves(specs):
+            dims = [d for d, e in enumerate(spec) if split_count(e, mesh) > 1]
+            if dims:
+                self.fsdp_dims[path] = dims[0]
+        if self.fsdp_dims and cfg.train.optimizer != "adamw":
+            raise NotImplementedError(
+                f"train.optimizer={cfg.train.optimizer!r} on fsdp-sharded leaves is not ported to "
+                "PyTorch yet (ROADMAP Queue A, parallelism slice 19); use adamw or mesh.fsdp=1"
+            )
+        token_axes = ("data", "fsdp") + (("seq",) if self.n_seq > 1 else ())
+        self.fsdp = axis_group(mesh, ("fsdp",))
+        self.tokens = axis_group(mesh, token_axes)  # replicated leaves, the loss
+        self.rest = axis_group(mesh, tuple(a for a in token_axes if a != "fsdp"))  # fsdp blocks
+
+    def active(self) -> Any:
+        return activation_mesh(self.mesh)
+
+    def check_state(self, state: TrainState) -> None:
+        """Refuse a full (unsharded) state: a mesh step takes blocks."""
+        for path in list(self.fsdp_dims)[:1]:
+            if tuple(_get(state["params"], path).shape) == tuple(_get(self.full_shapes, path)):
+                raise ValueError(
+                    f"params/{'/'.join(path)} is the full leaf; a mesh step takes "
+                    "shard_train_state's blocks")
+
+    def _gather_leaf(self, leaf: torch.Tensor, dim: int) -> torch.Tensor:
+        return _GatherShard.apply(leaf, dim, self.fsdp.group, self.fsdp.size)
+
+    def gather(self, leaves: Any) -> Any:
+        """The differentiable full parameters from ``_grad_leaves``' tree
+        (its blocks entry a per-layer list)."""
+        out = {}
+        for k, v in leaves.items():
+            if k == "blocks":
+                out[k] = [self._gather_tree(layer, ("blocks",), -1) for layer in v]
+            else:
+                out[k] = self._gather_tree(v, (k,), 0)
+        return out
+
+    def _gather_tree(self, tree: Any, path: Tuple[str, ...], shift: int) -> Any:
+        if isinstance(tree, dict):
+            return {k: self._gather_tree(v, path + (k,), shift) for k, v in tree.items()}
+        dim = self.fsdp_dims.get(path)
+        return tree if dim is None else self._gather_leaf(tree, dim + shift)
+
+    def gather_full(self, params: Any) -> Any:
+        """Full parameters (no gradient), for eval."""
+        def walk(tree: Any, path: Tuple[str, ...]) -> Any:
+            if isinstance(tree, dict):
+                return {k: walk(v, path + (k,)) for k, v in tree.items()}
+            dim = self.fsdp_dims.get(path)
+            return tree if dim is None else _all_gather(tree, dim, self.fsdp.group, self.fsdp.size)
+
+        return walk(params, ())
+
+    def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        if self.tokens.group is None:
+            return loss
+        loss = loss.detach().clone()
+        dist.all_reduce(loss, group=self.tokens.group)
+        return loss
+
+    @torch.no_grad()
+    def reduce_grads(self, grads: Any) -> Any:
+        """Sum the partial gradients: fsdp blocks over the data (and seq)
+        ranks, replicated leaves over every rank that split the tokens."""
+        for path, g in opt.tree_leaves(grads):
+            grp = self.rest if path in self.fsdp_dims else self.tokens
+            if grp.group is not None:
+                dist.all_reduce(g, group=grp.group)
+        return grads
+
+    @torch.no_grad()
+    def global_norm(self, grads: Any) -> torch.Tensor:
+        """sqrt of the sum of squares of the global gradient: a block's
+        squares summed over the fsdp ranks once, replicated leaves once."""
+        device = opt.tree_leaves(grads)[0][1].device
+        rep = torch.zeros((), dtype=torch.float32, device=device)
+        sharded = torch.zeros((), dtype=torch.float32, device=device)
+        for path, g in opt.tree_leaves(grads):
+            sq = g.float().square().sum()
+            if path in self.fsdp_dims:
+                sharded = sharded + sq
+            else:
+                rep = rep + sq
+        if self.fsdp_dims and self.fsdp.group is not None:
+            dist.all_reduce(sharded, group=self.fsdp.group)
+        return torch.sqrt(rep + sharded)
+
+
+def _meta(shapes: Any) -> Any:
+    return {k: _meta(v) if isinstance(v, dict) else torch.empty(v, device="meta") for k, v in shapes.items()}
+
+
+def _spec_leaves(specs: Any, path: Tuple[str, ...] = ()) -> List[Tuple[Tuple[str, ...], Any]]:
+    out: List[Tuple[Tuple[str, ...], Any]] = []
+    for k in sorted(specs):
+        v = specs[k]
+        if isinstance(v, dict):
+            out += _spec_leaves(v, path + (k,))
+        else:
+            out.append((path + (k,), v))
+    return out
+
+
+def _get(tree: Any, path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree

@@ -39,7 +39,18 @@ Observability (``observability/``, the ``obs`` section): run events,
 spans around restore, save and eval, goodput in every log record, device
 memory samples and build telemetry, through ``ObservabilityHub``.
 
-Not ported (listed in ROADMAP): meshes and multi-process runs.
+Meshes (``parallel/``), as the JAX trainer runs them: the mesh comes from
+``config.mesh`` (``needs_mesh``/``build_mesh``, one process per rank under
+``torchrun``); the state is ``train_step.shard_train_state``'s blocks. Each
+node (torchrun's group rank, JAX's process) draws its rows of the global
+batch with the JAX trainer's per-process seed (``sample_seed + 7919 *
+node``) and each rank keeps its data x fsdp block of them, every column (a
+one-node run on N ranks reads the global batches of a one-process run);
+``loss_fn`` takes the rank's seq share. Logging, run events and telemetry
+are rank 0's; checkpoints are written by every rank (sharded leaves in
+blocks) and restored onto any mesh; a SIGTERM on any rank stops every rank
+at the same log boundary; ``checkpoint_async`` and the watchdog's
+emergency checkpoint are single-process only, as in JAX.
 """
 
 from __future__ import annotations
@@ -59,8 +70,8 @@ import torch
 
 from pretraining_llm_tpu_torch.config import Config
 from pretraining_llm_tpu_torch.data import loader as data_loader
-from pretraining_llm_tpu_torch.models import transformer
 from pretraining_llm_tpu_torch.observability.hub import ObservabilityHub
+from pretraining_llm_tpu_torch.parallel import mesh as pmesh
 from pretraining_llm_tpu_torch.training import checkpoint as ckpt
 from pretraining_llm_tpu_torch.training import optimizer as opt
 from pretraining_llm_tpu_torch.training import train_step as ts
@@ -117,25 +128,39 @@ class Trainer:
         resume: bool = True,
         logger: Optional[MetricsLogger] = None,
         device: DeviceLike = None,
+        mesh: Any = None,
     ) -> None:
         self.config = config
         if config.train.debug_nans:
             debug.enable_nan_checks()
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None and pmesh.world_size() > 1:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if pmesh.world_size() > 1 and pmesh.mesh_device_type() != self.device.type:
+            raise RuntimeError(
+                f"the process group's backend ({pmesh.mesh_device_type()} collectives) does not "
+                f"match the device {self.device}: NCCL drives the cards, gloo the CPU")
+        self.mesh = mesh if mesh is not None else (
+            pmesh.build_mesh(config.mesh, self.device.type) if pmesh.needs_mesh(config.mesh) else None)
+        self.is_host0 = pmesh.rank() == 0
         self._owns_logger = logger is None
-        self.logger = logger or MetricsLogger(config.train.metrics_path)
+        if logger is None:
+            logger = (MetricsLogger(config.train.metrics_path) if self.is_host0
+                      else MetricsLogger("", stream=open(os.devnull, "w")))
+        self.logger = logger
         # Run events, spans, goodput, device memory and build telemetry; the
-        # file sinks are the obs section's.
-        self.obs = ObservabilityHub(config.obs)
-        self.step_fn = ts.build_train_step(config)
-        self.eval_loop = ts.build_eval_loop(config)
-        self.throughput = Throughput(config.model, self.device)
+        # file sinks are the obs section's, rank 0's.
+        self.obs = ObservabilityHub(config.obs, is_host0=self.is_host0)
+        self.step_fn = ts.build_train_step(config, self.mesh)
+        self.eval_loop = ts.build_eval_loop(config, self.mesh)
+        self.throughput = Throughput(config.model, self.device, pmesh.world_size())
         self._synthetic_data = synthetic_data
         mcfg, dcfg, tcfg = config.model, config.data, config.train
+        self._rows = self._row_block()
         if train_iterator is None:
             if synthetic_data:
                 train_iterator = data_loader.synthetic_iterator(
-                    mcfg.vocab_size, mcfg.context_length, tcfg.batch_size, dcfg.sample_seed)
+                    mcfg.vocab_size, mcfg.context_length, self._node_batch, self._node_seed(dcfg.sample_seed))
             else:
                 train_iterator = self._make_iterator(dcfg.train_path, dcfg.sample_seed)
         self.train_iterator = train_iterator
@@ -176,7 +201,8 @@ class Trainer:
                 "step": self.start_step,
             })
         else:
-            self.state = ts.init_train_state(config, tcfg.seed, device=self.device)
+            self.state = ts.init_train_state(config, tcfg.seed, device=self.device, mesh=self.mesh)
+        self._ckpt_layout = self._checkpoint_layout()
         # Set by the SIGTERM handler; the loop checkpoints and stops at the
         # next log boundary.
         self._stop_requested = False
@@ -194,36 +220,65 @@ class Trainer:
         self._train_stream: Optional[torch.cuda.Stream] = None
         self._profiler: Optional[StepProfiler] = None
 
+    def _row_block(self) -> slice:
+        """This rank's rows of its node's batch: the batch is cut into
+        data x fsdp blocks in mesh order (``batch_pspec``); a node draws
+        ``batch_size / nodes`` rows, and a rank's block must lie in its
+        node's."""
+        b = self.config.train.batch_size
+        n_nodes = pmesh.node_count()
+        if b % n_nodes:
+            raise ValueError(f"batch_size={b} must divide by the number of nodes={n_nodes}")
+        self._node_batch = b // n_nodes
+        if self.mesh is None:
+            return slice(0, self._node_batch)
+        shape, coord = pmesh.mesh_shape(self.mesh), pmesh.coordinate(self.mesh)
+        n = shape["data"] * shape["fsdp"]
+        if b % n:
+            raise ValueError(f"batch_size={b} must divide by data x fsdp={n}")
+        rows = b // n
+        lo = (coord["data"] * shape["fsdp"] + coord["fsdp"]) * rows - pmesh.node_index() * self._node_batch
+        if not 0 <= lo <= self._node_batch - rows:
+            raise ValueError("a rank's batch rows must lie within its node's rows")
+        return slice(lo, lo + rows)
+
+    def _node_seed(self, seed: int) -> int:
+        """The JAX trainer's per-process seed, per node."""
+        return seed + 7919 * pmesh.node_index()
+
     def _make_iterator(self, path: str, seed: int) -> Iterator[HostBatch]:
         """File batches: the native gatherer for a single file when
         ``data.use_native_batcher`` (and the library builds), else the numpy
-        sampler (mixtures, no compiler), as the JAX trainer chooses."""
-        dcfg, tcfg, mcfg = self.config.data, self.config.train, self.config.model
+        sampler (mixtures, no compiler), as the JAX trainer chooses. The
+        node's rows only; several nodes would each read a shard of the
+        token stream, which the port's samplers do not cut yet."""
+        if pmesh.node_count() > 1:
+            raise NotImplementedError(
+                "file data on several nodes (each node's shard of the token stream) is not ported "
+                "to PyTorch yet; use --data synthetic")
+        dcfg, mcfg = self.config.data, self.config.model
+        batch = self._node_batch
         if dcfg.use_native_batcher and not data_loader.is_mixture(path):
             from pretraining_llm_tpu_torch.data.native_batcher import NativeBatchIterator
 
             try:
-                return NativeBatchIterator(path, tcfg.batch_size, mcfg.context_length, seed=seed)
+                return NativeBatchIterator(path, batch, mcfg.context_length, seed=seed)
             except (RuntimeError, ValueError):
                 pass  # no compiler, or a file it cannot map: the numpy sampler says why
-        return data_loader.get_batch_iterator(path, tcfg.batch_size, mcfg.context_length, seed=seed)
+        return data_loader.get_batch_iterator(path, batch, mcfg.context_length, seed=seed)
+
+    def _checkpoint_layout(self) -> Optional[Dict[str, Any]]:
+        """The sharded leaves' layout of this rank's checkpoint writes
+        (``train_step.checkpoint_layout``; None without a mesh)."""
+        if self.mesh is None:
+            return None
+        return ts.checkpoint_layout(self._state_template(), self.mesh)
 
     # --- restore / rollback plumbing ----------------------------------
     def _state_template(self) -> Dict[str, Any]:
-        """The train state's tree as meta tensors: shapes for a checkpoint
-        template, nothing allocated."""
-        def meta(tree: Dict[str, Any]) -> Dict[str, Any]:
-            return {k: meta(v) if isinstance(v, dict) else torch.empty(v, device="meta")
-                    for k, v in tree.items()}
-
-        params = meta(transformer.param_shapes(self.config.model))
-        scalar = torch.empty((), device="meta")
-        state: Dict[str, Any] = {
-            "params": params, "opt": opt.optimizer_init(params, self.config.train), "step": scalar,
-        }
-        if self.config.train.ema_decay > 0:
-            state["ema"] = params
-        return state
+        """The train state's tree as meta tensors (``train_step.
+        state_template``)."""
+        return ts.state_template(self.config)
 
     def _checkpoint_loader(self, path: str, template: Any) -> Tuple[Any, Dict[str, Any]]:
         """``load_checkpoint`` with the JAX trainer's EMA fallback: a
@@ -245,6 +300,8 @@ class Trainer:
         frontier; returns the restored step. A live state of the same tree
         is overwritten in place, so every reference to its tensors sees the
         restored values."""
+        if self.mesh is not None:
+            state = ts.shard_train_state(state, self.mesh)
         live = getattr(self, "state", None)
         new = dict(opt.tree_leaves(state))
         old = dict(opt.tree_leaves(live)) if live is not None else {}
@@ -273,11 +330,13 @@ class Trainer:
         for _ in range(n):
             next(self.train_iterator)
 
-    def _put(self, batch: HostBatch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Host batch -> device tensors (pinned memory, non-blocking copy
-        on a card)."""
+    def _put(self, batch: HostBatch, axis: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Host batch (the node's rows) -> this rank's rows (along ``axis``)
+        as device tensors (pinned memory, non-blocking copy on a card)."""
+        rows = (slice(None),) * axis + (self._rows,)
+
         def one(a: np.ndarray) -> torch.Tensor:
-            t = torch.from_numpy(np.ascontiguousarray(a))
+            t = torch.from_numpy(np.ascontiguousarray(a[rows]))
             if self.device.type == "cuda":
                 return t.pin_memory().to(self.device, non_blocking=True)
             return t
@@ -319,7 +378,7 @@ class Trainer:
         eval_seed = dcfg.sample_seed + EVAL_SEED_OFFSET
         if self._synthetic_data:
             return data_loader.synthetic_iterator(
-                mcfg.vocab_size, mcfg.context_length, tcfg.batch_size, eval_seed)
+                mcfg.vocab_size, mcfg.context_length, self._node_batch, self._node_seed(eval_seed))
         return self._make_iterator(dcfg.val_path, eval_seed)
 
     def evaluate(self, iters: Optional[int] = None) -> float:
@@ -336,7 +395,7 @@ class Trainer:
                 xs, ys = zip(*(next(it) for _ in range(iters)))
                 batch = (np.stack(xs), np.stack(ys))
                 self._eval_batch_cache[iters] = batch
-        return float(self.eval_loop(self.state, self._put(batch)))
+        return float(self.eval_loop(self.state, self._put(batch, axis=1)))
 
     def save(self, step: int, *, sync: bool = False) -> Optional[str]:
         """Write a checkpoint of this step. With ``train.checkpoint_async``
@@ -377,11 +436,11 @@ class Trainer:
     def _save_impl(self, step: int, *, sync: bool = False) -> Optional[str]:
         kwargs = self._save_kwargs(step, self._frontier())
         directory = self.config.train.checkpoint_dir
-        if self.config.train.checkpoint_async and not sync:
+        if self.config.train.checkpoint_async and not sync and pmesh.world_size() == 1:
             self._writer.save(directory, step, self.state, **kwargs)
             return None
         self.join_pending_save()  # never two writes into the directory at once
-        return ckpt.save_checkpoint(directory, step, self.state, **kwargs)
+        return ckpt.save_checkpoint(directory, step, self.state, layout=self._ckpt_layout, **kwargs)
 
     def join_pending_save(self) -> None:
         """Wait for an async checkpoint write in flight; raise
@@ -399,7 +458,10 @@ class Trainer:
         ``emergency_save_skipped`` and writes nothing. Everything runs on a
         thread that is abandoned after ``EMERGENCY_SAVE_TIMEOUT_S`` (a wedged
         device blocks the copy; an abandoned ``tmp-<step>`` is invisible and
-        collected by the next restore)."""
+        collected by the next restore). Several ranks save collectively and
+        a wedge is usually collective, so only a single process saves."""
+        if pmesh.world_size() > 1:
+            return
         if not self._writer.idle(timeout=10.0):
             self.logger.log({"event": "emergency_save_skipped", "step": self._completed_step,
                              "why": "async checkpoint write still running"})
@@ -446,6 +508,12 @@ class Trainer:
             return signal.signal(signal.SIGTERM, handler)
         except ValueError:
             return Trainer._NOT_INSTALLED
+
+    def _stop_synced(self) -> bool:
+        """Whether any rank was asked to stop: a SIGTERM may reach one rank
+        first, and every rank must enter the collective save together.
+        Called at log boundaries only."""
+        return pmesh.all_ranks_agree(self._stop_requested, any_of=True)
 
     def train(self, steps: Optional[int] = None) -> Dict[str, float]:
         """Train until the state's step reaches ``steps`` (default
@@ -510,7 +578,7 @@ class Trainer:
                     watchdog.heartbeat()  # the first beat arms it
 
                 at_log = step % tcfg.log_interval == 0 or step == total
-                if at_log and self._stop_requested:
+                if at_log and self._stop_synced():
                     preempted = True
                     self.exit_reason = "preempted"
                     self.obs.bus.emit("preempt", step=step)

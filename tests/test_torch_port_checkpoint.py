@@ -262,8 +262,9 @@ def test_config_overrides():
         cfg.with_overrides({"train.nope": 1})
     with pytest.raises(KeyError, match="unknown config section"):
         cfg.with_overrides({"nope.x": 1})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cfg.with_overrides({"mesh.fsdp": 2})
+    assert cfg.with_overrides({"mesh.fsdp": 2}).mesh == tcfg.MeshConfig(fsdp=2)
+    with pytest.raises(KeyError, match="unknown config key mesh.nope"):
+        cfg.with_overrides({"mesh.nope": 2})
     with pytest.raises(ValueError, match="grad_dtype"):
         tcfg.TrainConfig(grad_dtype="int8")
     with pytest.raises(ValueError, match="microbatches"):

@@ -54,11 +54,13 @@ def test_compile_only_prints_the_jax_keys_on_the_cpu(capsys):
 
 def test_compile_only_sizes_a_full_preset_without_allocating(monkeypatch, capsys):
     """reference-3b's state is sized from shapes on the meta device: no
-    parameter is drawn or allocated on the CPU."""
+    parameter is drawn or allocated on the CPU. The preset's mesh shards
+    it over 4 fsdp ranks; one process states a one-device mesh."""
     calls = []
     real = torch.randn
     monkeypatch.setattr(torch, "randn", lambda *a, **k: calls.append(a) or real(*a, **k))
-    report = train_cli.main(["--preset", "reference-3b", "--compile-only", "--device", "cpu"])
+    report = train_cli.main(["--preset", "reference-3b", "--compile-only", "--device", "cpu",
+                             "--override", "mesh.fsdp=1"])
     assert calls == []
     cfg = get_preset("reference-3b")
     n = cfg.model.num_params()

@@ -502,6 +502,45 @@ def test_readyz_and_debug_surface_integrity(tparams):
         assert router2.counters["probes"] == 0
 
 
+def test_no_probe_starts_between_a_divergence_and_its_quarantine():
+    """A health tick that lands while a diverged probe's quarantine is
+    still pending starts no second probe on that replica: it would run on
+    the same wrong weights and could end after the eject, a divergence no
+    quarantine answers (``obs_report --strict`` refuses it)."""
+    import types
+
+    submits = {0: 0, 1: 0}
+
+    class Loop:
+        draining = False
+        weight_fingerprint0 = weight_fingerprint = None
+
+        def __init__(self, index, tokens):
+            self.index, self.tokens = index, tokens
+
+        def submit(self, prompt, n, priority=0):
+            submits[self.index] += 1
+            return types.SimpleNamespace(result=lambda timeout=None: ("done", list(self.tokens), {}), trace=None)
+
+    probe = integrity.GoldenProbe((5, 6, 7), (1, 2))
+    reps = [types.SimpleNamespace(index=i, loop=Loop(i, toks), state="active", generation=1)
+            for i, toks in ((0, (9, 9)), (1, (1, 2)))]
+    router = Router(reps, probe_interval_s=0.5, probe_set=[probe])
+    quarantined = []
+
+    def quarantine(rep, reason, trace_id):
+        router._sentinel_tick(router._next_probe_at + 1.0)  # a health tick inside the window
+        quarantined.append((rep.index, reason, submits[0]))
+        rep.state = "ejected"
+
+    router._quarantine = quarantine
+    router._probe_inflight.add(0)
+    router._probe_pump(reps[0], reps[0].loop.submit(probe.prompt, 2), probe, 1)
+    assert quarantined == [(0, "probe divergence", 1)] and submits[1] == 1
+    _wait(lambda: not router._probe_inflight, 10.0, "every probe's verdict")
+    assert router.counters["probe_failures"] == 1
+
+
 def test_probes_pin_both_prefill_lanes():
     """The router pins each probe through a prefix-cache miss (the cache
     flushed first) and a hit (a second run), unanimous across replicas,

@@ -1,7 +1,7 @@
 """The port's presets against the JAX package's.
 
 Each preset the port registers equals the JAX preset of the same name, field
-for field, in its model and train sections (the port has no mesh section).
+for field, in its model, mesh and train sections.
 A copy of each of the presets added for single-device training
 (gpt2-350m-dp, gpt2-1p3b-fsdp, llama-1b, reference-3b, moe-8x350m), shrunk
 to 2 layers and narrow widths but keeping its own activation, norm,
@@ -39,7 +39,7 @@ GRAD_RTOL = 1e-4
 def test_preset_equals_jax_preset(name):
     port, ref = tcfg.get_preset(name), jcfg.get_preset(name)
     assert port.name == ref.name == name
-    for section in ("model", "data", "train"):
+    for section in ("model", "mesh", "data", "train"):
         assert dataclasses.asdict(getattr(port, section)) == dataclasses.asdict(getattr(ref, section)), section
     assert port.model.num_params() == ref.model.num_params()
 

@@ -116,8 +116,8 @@ def test_resilience_and_obs_sections_are_ported():
     assert dataclasses.asdict(got.resilience) == dataclasses.asdict(want.resilience)
     assert dataclasses.asdict(got.obs) == dataclasses.asdict(want.obs)
     assert tcfg.Config.from_dict(dataclasses.asdict(want)).resilience == got.resilience
-    with pytest.raises(NotImplementedError, match="mesh"):
-        got.with_overrides({"mesh.data": 1})
+    assert dataclasses.asdict(got.with_overrides({"mesh.data": 1}).mesh) == dataclasses.asdict(
+        want.with_overrides({"mesh.data": 1}).mesh)
     fover = {"frontend.port": 1, "frontend.trace_sample": 0.5}
     assert dataclasses.asdict(got.with_overrides(fover).frontend) == dataclasses.asdict(
         want.with_overrides(fover).frontend)

@@ -76,8 +76,7 @@ def test_serving_overrides_and_from_dict():
     assert (cfg.serving.pipeline_depth, cfg.serving.kv_checksum, cfg.serving.quantize) == (3, True, "int8-kv")
     with pytest.raises(KeyError, match="serving.nope"):
         cfg.with_overrides({"serving.nope": 1})
-    with pytest.raises(NotImplementedError, match="mesh"):
-        cfg.with_overrides({"mesh.data": 1})
+    assert cfg.with_overrides({"mesh.data": 1}).mesh == tcfg.MeshConfig(data=1)
     fover = {"frontend.port": 1, "frontend.max_queue_depth": 4}
     assert dataclasses.asdict(cfg.with_overrides(fover).frontend) == dataclasses.asdict(
         jcfg.get_preset("tiny").with_overrides(fover).frontend)

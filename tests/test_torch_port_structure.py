@@ -228,11 +228,18 @@ def test_unported_engine_options_raise(kw):
     (dict(attention_impl="ulysses"), "ulysses"),
 ])
 def test_unported_model_options_raise(kw, name):
+    """Ring and Ulysses attention and sequence parallelism are ported
+    (``parallel/``): on one process, with no seq axis, the model takes them
+    and computes JAX's degenerate form, the naive model, bit for bit. Only
+    pipeline stages still raise."""
     cfg = dataclasses.replace(TINY, **kw)
-    with pytest.raises(NotImplementedError, match=name):
-        transformer.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        transformer.forward({}, torch.zeros(1, 2, dtype=torch.long), cfg)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    tokens = torch.arange(8, dtype=torch.long)[None]
+    got, _ = transformer.forward(params, tokens, cfg)
+    want, _ = transformer.forward(params, tokens, dataclasses.replace(TINY, attention_impl="naive"))
+    assert torch.equal(got, want), name
+    with pytest.raises(NotImplementedError, match="pipeline_stages"):
+        transformer.forward(params, tokens, dataclasses.replace(TINY, pipeline_stages=2))
 
 
 @pytest.mark.parametrize("key,value,name", [
@@ -274,8 +281,12 @@ def test_unported_forward_paths_raise():
     _, cache = transformer.forward(params, tokens[:, :4], TINY, kv_cache=cache, cache_index=0)
     chunk, _ = transformer.forward(params, tokens[:, 4:], TINY, kv_cache=cache, cache_index=4)
     torch.testing.assert_close(chunk, full[:, 4:], rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ring"):
-        transformer.forward(params, tokens, dataclasses.replace(TINY, attention_impl="ring"), kv_cache=cache,
+    # A cached call with ring attention takes the dense path, as in JAX.
+    ring, _ = transformer.forward(params, tokens[:, 4:], dataclasses.replace(TINY, attention_impl="ring"),
+                                  kv_cache=cache, cache_index=4)
+    torch.testing.assert_close(ring, full[:, 4:], rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="pipeline_stages"):
+        transformer.forward(params, tokens, dataclasses.replace(TINY, pipeline_stages=2), kv_cache=cache,
                             cache_index=4)
 
 
@@ -366,13 +377,13 @@ def test_bpe_build_writes_only_under_build(tmp_path, monkeypatch):
     assert listing() == before
 
 
-PORT_PRESETS = ("gpt2-124m", "gpt2-1p3b-fsdp", "gpt2-350m-dp", "llama-1b", "llama3-1b-gqa", "moe-8x350m",
-                "reference-3b", "tiny")
+PORT_PRESETS = ("gpt2-124m", "gpt2-1p3b-fsdp", "gpt2-350m-dp", "gpt2-8k-gqa", "gpt2-8k-sp", "llama-1b",
+                "llama3-1b-gqa", "moe-8x350m", "reference-3b", "tiny")
 
 
 def test_presets_and_config_validation():
-    """The port registers the eight single-device presets of the JAX
-    package, MoE's included; the ring attention presets stay out."""
+    """The port registers every preset of the JAX package, MoE's and the
+    two 8k ring attention presets included."""
     assert tuple(list_presets()) == PORT_PRESETS
     gpt2 = get_preset("gpt2-124m").model
     assert (gpt2.vocab_size, gpt2.d_model, gpt2.n_heads, gpt2.head_dim, gpt2.n_layers) == (50304, 768, 12, 64, 12)
@@ -463,3 +474,17 @@ def test_fleet_and_tool_modules_are_scanned():
     # A process replica spawns the port's worker, never the JAX package's.
     text = (ROOT / "pretraining_llm_tpu_torch" / "frontend" / "remote_replica.py").read_text()
     assert '"pretraining_llm_tpu_torch.frontend.worker"' in text
+
+
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "parallel/zigzag.py",
+                    "parallel/ring_attention.py", "parallel/ulysses.py")
+
+
+@pytest.mark.parametrize("helper", ["_torch_ranks.py", "_torch_parallel_cases.py"])
+def test_parallel_modules_and_rank_helpers_are_scanned(helper):
+    """The parallelism modules are among the sources that
+    ``test_port_imports_nothing_of_jax`` scans; the gloo ranks of the
+    multi-rank tests run modules that import nothing of JAX either."""
+    scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
+    assert set(PARALLEL_MODULES) <= scanned
+    test_port_imports_nothing_of_jax(ROOT / "tests" / helper)
