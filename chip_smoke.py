@@ -162,6 +162,23 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           Prometheus textfile's lint and the Chrome trace. The CLI children
           run ``python3 chip_smoke.py --d1-child COUNTS <train arguments>``,
           which records each child's kernel launches.
+  X2      in the training lane, its ranks started before X1 and running
+          beside it, held against a world of one after it: the tensor and
+          expert axes on the card. One H100 holds one NCCL rank, so two
+          ranks share it
+          over a gloo group whose collectives take the CUDA tensors
+          (``--x2-child``; each probes the collectives on CUDA tensors
+          first). gpt2-124m at full width and depth at tensor 2 (6 of 12
+          heads a rank): the first step's loss and every gradient leaf,
+          assembled from the ranks' blocks, against the world of one on the
+          card at T3's ``trajectory.T3_GRAD_RTOL``, then 3 AdamW steps at 4 x
+          1024 with K1 and the one pass on 6 heads a rank; moe-8x350m at
+          M1's 8 layers at expert 2 (4 experts a rank), 2 steps, the first
+          loss against ``mesh.expert=1``'s; ``ServingEngine(mesh=)`` at
+          tensor 2 on path 1's requests (K1, K2 on 6 KV heads a rank) and
+          on the shared-prefix requests with 256-token chunks, the prefix
+          cache and int8-kv pools (K3): both ranks' streams equal, each
+          row the world of one's up to its first near tie;
   F1      after H1 and D1, on T1's step-30 weights (H1's): (b) in the
           training lane after T4, ``train --compile-only`` as child
           processes for gpt2-124m and reference-3b (T4's microbatches and
@@ -219,8 +236,8 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
 
 The phases run in two lanes. After the CE checks, a child process
 (``python3 chip_smoke.py --lane DIR T_START``, ``TrainingLane``) runs the
-training phases that need nothing of the serving ones (D1, X1, T4, F1's
-compile-only, M1, R, O and the parity run), while this process runs the
+training phases that need nothing of the serving ones (D1, X1, X2, T4,
+F1's compile-only, M1, R, O and the parity run), while this process runs the
 other checks, paths 1-5, T1, G1, H1, F1's fleet, T2 and T3. Each process keeps
 its own scratch dir, and the lane's output is printed when it is joined.
 P1, which reads the card's used memory, and every timing of the kernels
@@ -1889,6 +1906,12 @@ def run_path5(paths: dict) -> tuple:
     return launches, prompts, want, got
 
 
+def path5_llama_prompts(vocab_size: int) -> list:
+    """Path 5's llama requests: 8 prompts of 64-400 random tokens."""
+    rng = np.random.default_rng(SEED + 32)
+    return [rng.integers(0, vocab_size, size=n).tolist() for n in rng.integers(64, 401, size=8)]
+
+
 def run_path5_llama() -> dict:
     """Path 5 on full-depth llama3-1b-gqa (22 layers, random weights from
     the seed, bf16): 8 requests of 64-400 random tokens, 32 greedy tokens,
@@ -1905,8 +1928,7 @@ def run_path5_llama() -> dict:
     params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
     d_cfg = dataclasses.replace(cfg, n_layers=2)
     d_params = _first_blocks(params, 2)
-    rng = np.random.default_rng(SEED + 32)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in rng.integers(64, 401, size=8)]
+    prompts = path5_llama_prompts(cfg.vocab_size)
     runs = {}
     for name, kw in (("target_only", {}), ("spec", dict(draft_params=d_params, draft_cfg=d_cfg, spec_k=SPEC_K))):
         eng = ServingEngine(params, cfg, device=DEVICE, **SERVE_ENGINE, **kw)
@@ -5722,6 +5744,538 @@ def run_x1() -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# X2: the tensor and expert axes on the card, two ranks sharing it over gloo
+# ---------------------------------------------------------------------------
+
+X2_DIR = SCRATCH / "x2"
+X2_CHILD = "--x2-child"
+X2_STEPS = 3
+X2_BATCH = 4  # gpt2-124m rows of 1024 tokens a step
+X2_MOE_STEPS = 2
+X2_MOE_BATCH = 8  # moe-8x350m rows of 1024 tokens a step (4 routing groups of 2048)
+X2_MOE_LOSS_RTOL = 1e-3  # the JAX package's own bar for its expert mesh's loss at bf16 (test_moe.py)
+X2_LOGPROBS = 4  # top logprobs the int8-kv reference keeps, for its near-tie checks
+X2_TIMEOUT_S = 420
+
+
+def x2_train_config():
+    """X2's training run: gpt2-124m at full width and depth on a tensor-2
+    mesh, X2_BATCH x 1024 synthetic tokens a step."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    return get_preset("gpt2-124m").with_overrides({"mesh.tensor": 2, "train.batch_size": X2_BATCH})
+
+
+def x2_moe_config():
+    """X2's expert run: moe-8x350m at full width, M1's M1_LAYERS layers, on
+    an expert-2 mesh, X2_MOE_BATCH x 1024 synthetic tokens a step."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    return get_preset("moe-8x350m").with_overrides({
+        "mesh.expert": 2, "model.n_layers": M1_LAYERS, "train.batch_size": X2_MOE_BATCH})
+
+
+def x2_batch(cfg):
+    from pretraining_llm_tpu_torch.data import loader as data_loader
+
+    xb, yb = next(data_loader.synthetic_iterator(cfg.model.vocab_size, cfg.model.context_length,
+                                                  cfg.train.batch_size, cfg.data.sample_seed))
+    return torch.from_numpy(xb).to(DEVICE), torch.from_numpy(yb).to(DEVICE)
+
+
+def x2_serving_lanes():
+    """The two serving lanes: (name, model config, engine arguments,
+    prompts). "x2_serve": path 1's 16 requests, monolithic admissions (K1)
+    and paged decode (K2); "x2_serve_int8": the shared-prefix requests with
+    256-token chunks, the prefix cache and int8-kv pools (K3 only)."""
+    import dataclasses
+
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    cfg = dataclasses.replace(get_preset("gpt2-124m").model, paged_attention_impl="kernel")
+    base = dict(max_batch=8, n_blocks=256, block_size=64, steps_per_sched=8, device=DEVICE)
+    return [("x2_serve", cfg, base, main_path_requests(cfg.vocab_size)),
+            ("x2_serve_int8", cfg, dict(base, prefill_chunk_tokens=256, prefix_cache=True, quantize="int8-kv"),
+             shared_prefix_requests(cfg.vocab_size))]
+
+
+def _x2_probe() -> dict:
+    """Each collective X2's ranks issue, on CUDA tensors, straight into
+    gloo: "ok" with a right result, else the error's first line."""
+    import torch.distributed as dist
+
+    me, n = dist.get_rank(), dist.get_world_size()
+    calls = {
+        "all_reduce": lambda x: dist.all_reduce(x) or x,
+        "all_reduce_max": lambda x: dist.all_reduce(x, op=dist.ReduceOp.MAX) or x,
+        "all_gather_into_tensor": lambda x: _x2_gather(x, n),
+        "reduce_scatter_tensor": lambda x: _x2_scatter(x, n),
+        "broadcast": lambda x: dist.broadcast(x, 0) or x,
+    }
+    want = {"all_reduce": [float(sum(range(n)))] * 2, "all_reduce_max": [float(n - 1)] * 2,
+            "all_gather_into_tensor": [float(r) for r in range(n) for _ in range(2)],
+            "reduce_scatter_tensor": [float(sum(range(n)))], "broadcast": [0.0, 0.0]}
+    out = {}
+    for name, call in calls.items():
+        x = torch.full((2,), float(me), device=DEVICE)
+        try:
+            got = call(x)
+            torch.cuda.synchronize()
+            out[name] = "ok" if got.cpu().tolist() == want[name] else f"wrong result {got.cpu().tolist()}"
+        except RuntimeError as exc:
+            out[name] = str(exc).splitlines()[0][:200]
+    return out
+
+
+def _x2_gather(x, n):
+    import warnings
+
+    import torch.distributed as dist
+
+    out = torch.empty(n * x.numel(), device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(out, x)
+    return out
+
+
+def _x2_scatter(x, n):
+    import warnings
+
+    import torch.distributed as dist
+
+    out = torch.empty(x.numel() // n, device=x.device)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.reduce_scatter_tensor(out, x)
+    return out
+
+
+@contextlib.contextmanager
+def _x2_flash_heads(heads: list):
+    """Record the query and KV head counts of every flash call (K1 and its
+    backward run on these heads)."""
+    from pretraining_llm_tpu_torch.ops import flash_attention as fa
+
+    orig = fa.FlashAttention
+
+    class Recording:
+        @staticmethod
+        def apply(q, k, v, h, g, *rest):
+            heads.append((int(h), int(g)))
+            return orig.apply(q, k, v, h, g, *rest)
+
+    fa.FlashAttention = Recording
+    try:
+        yield
+    finally:
+        fa.FlashAttention = orig
+
+
+def _x2_blocks(tree, cfg, mesh) -> dict:
+    """{leaf: (this rank's block on the CPU, its [start, stop) per dim)}
+    of a parameter-shaped tree."""
+    from pretraining_llm_tpu_torch.models import transformer
+    from pretraining_llm_tpu_torch.parallel.sharding import local_slices, param_pspec_tree
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    shapes = {"/".join(p): tuple(s.shape) for p, s in opt.tree_leaves(_x2_meta(transformer.param_shapes(cfg.model)))}
+    specs = dict(_x2_spec_leaves(param_pspec_tree(_x2_meta(transformer.param_shapes(cfg.model)), tensor_size=2)))
+    out = {}
+    for path, g in opt.tree_leaves(tree):
+        name = "/".join(path)
+        sl = local_slices(specs[name], shapes[name], mesh)
+        out[name] = (g.detach().float().cpu(), [(s.start, s.stop) for s in sl])
+    return out
+
+
+def _x2_meta(shapes):
+    return {k: _x2_meta(v) if isinstance(v, dict) else torch.empty(v, device="meta") for k, v in shapes.items()}
+
+
+def _x2_spec_leaves(specs, path=()):
+    for k in sorted(specs):
+        if isinstance(specs[k], dict):
+            yield from _x2_spec_leaves(specs[k], path + (k,))
+        else:
+            yield "/".join(path + (k,)), specs[k]
+
+
+def x2_child(argv: list) -> int:
+    """``python3 chip_smoke.py --x2-child DIR RANK PORT``: one of X2's two
+    ranks. It joins a gloo group of two on 127.0.0.1:PORT itself (the
+    port's ``initialize_distributed`` is then a no-op), with its tensors on
+    the one card, and runs (a) gpt2-124m at tensor 2: the first step's loss
+    and gradient blocks (to DIR/grads<RANK>.pt), then X2_STEPS AdamW steps
+    with their launches and flash head counts; (b) moe-8x350m at expert 2:
+    X2_MOE_STEPS steps; (c) ``ServingEngine(mesh=)`` at tensor 2 on both
+    serving lanes. Its results go to DIR/rank<RANK>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.config import MeshConfig
+    from pretraining_llm_tpu_torch.generation.generate import shard_params_for_inference
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    out_dir, rank, port = Path(argv[0]), int(argv[1]), int(argv[2])
+    torch.set_num_threads(2)  # beside the two lanes' processes on the machine's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=X2_TIMEOUT_S))
+    pmesh.initialize_distributed(DEVICE)  # a no-op: the group exists
+    res: dict = {"probe": _x2_probe(), "backend": dist.get_backend()}
+
+    # (a) gpt2-124m, tensor 2.
+    cfg = x2_train_config()
+    mesh = pmesh.build_mesh(cfg.mesh, DEVICE)
+    res["mesh"] = {"shape": pmesh.mesh_shape(mesh), "device_type": pmesh.mesh_device_type(),
+                   "collective_device": str(pmesh.collective_device())}
+    batch = x2_batch(cfg)
+    state = ts.init_train_state(cfg, cfg.train.seed, device=DEVICE, mesh=mesh)
+    plan = ts.MeshPlan(cfg, mesh)
+    with plan.active():
+        loss, grads = ts.compute_grads(state, batch, cfg, plan)
+    torch.save({"loss": float(loss), "grads": _x2_blocks(grads, cfg, mesh)}, out_dir / f"grads{rank}.pt")
+    del grads
+    step = ts.build_train_step(cfg, mesh)
+    heads: list = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    losses, step_ms = [], []
+    with _x2_flash_heads(heads):
+        for _ in range(X2_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    res["train"] = {"losses": losses, "step_ms": step_ms, "launches": kernel_counts(),
+                    "flash_heads": sorted(set(heads)), "peak_bytes": torch.cuda.max_memory_allocated(),
+                    "tokens_per_sec": [X2_BATCH * cfg.model.context_length / (ms / 1e3) for ms in step_ms],
+                    "wqkv_block": list(state["params"]["blocks"]["attn"]["wqkv"].shape)}
+    del state, step, plan
+    _free_card()
+
+    # (b) moe-8x350m, expert 2.
+    mcfg = x2_moe_config()
+    emesh = pmesh.build_mesh(mcfg.mesh, DEVICE)
+    mbatch = x2_batch(mcfg)
+    state = ts.init_train_state(mcfg, mcfg.train.seed, device=DEVICE, mesh=emesh)
+    step = ts.build_train_step(mcfg, emesh)
+    reset_kernel_counts()
+    losses, step_ms = [], []
+    for _ in range(X2_MOE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, mbatch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    res["moe"] = {"losses": losses, "step_ms": step_ms, "launches": kernel_counts(),
+                  "experts_held": int(state["params"]["blocks"]["mlp"]["experts"]["w1"].shape[1])}
+    del state, step
+    _free_card()
+
+    # (c) ServingEngine(mesh=) at tensor 2.
+    smesh = pmesh.build_mesh(MeshConfig(tensor=2), DEVICE)
+    res["serve"] = {}
+    for name, scfg, kw, prompts in x2_serving_lanes():
+        params = bridge.cast_params_for_inference(transformer.init_params(scfg, SEED, device=DEVICE), scfg)
+        eng = ServingEngine(shard_params_for_inference(params, smesh), scfg, mesh=smesh, **kw)
+        del params
+        rids = [eng.submit(p, 64) for p in prompts]
+        torch.cuda.synchronize()
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        finished = eng.run(pipeline=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats
+        res["serve"][name] = {
+            "streams": [finished[r] for r in rids], "launches": kernel_counts(), "wall_s": wall,
+            "pool_heads": int(eng.pools["layers"][0]["k_pool"].shape[2]),
+            "decode_tokens_per_s": (st["tokens"] - st["admissions"]) / st["decode_s"],
+            "prefix_cache_hit_tokens": st.get("prefix_cache_hit_tokens", 0)}
+        del eng
+        _free_card()
+    res["jax_modules"] = _jax_modules()
+    _write_json(str(out_dir / f"rank{rank}.json"), res)
+    dist.destroy_process_group()
+    return assert_no_jax_modules("X2 child")
+
+
+XSERVE_CHILD = "--xserve-child"
+
+
+def xserve_child(argv: list) -> int:
+    """``python -m torch.distributed.run --nproc_per_node N chip_smoke.py
+    --xserve-child OUT PRESET``: ``ServingEngine(mesh=)`` at tensor N (NCCL,
+    one card a rank; no mesh for N 1) on PRESET at full depth with random
+    weights from the seed, path 5's 8 llama prompts, LLAMA_SPEC_NEW_TOKENS
+    greedy tokens each at the serve CLI's engine settings through the
+    synchronous scheduler (which times its prefill and decode), twice, on a
+    fresh engine each (cold, then warm): each rank's streams, wall, prefill
+    and decode tokens/s and launches of each run, its peak memory and pool
+    heads, written to OUT (``OUT.<rank>`` when N > 1)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.config import MeshConfig, get_preset
+    from pretraining_llm_tpu_torch.generation.generate import shard_params_for_inference
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+
+    out_path, preset = argv
+    pmesh.initialize_distributed("cuda")
+    world, me = pmesh.world_size(), pmesh.rank()
+    cfg = dataclasses.replace(get_preset(preset).model, paged_attention_impl="kernel")
+    params = bridge.cast_params_for_inference(transformer.init_params(cfg, SEED, device=DEVICE), cfg)
+    mesh = pmesh.build_mesh(MeshConfig(tensor=world), "cuda") if world > 1 else None
+    if mesh is not None:
+        params = shard_params_for_inference(params, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = path5_llama_prompts(cfg.vocab_size)
+    runs = []
+    for _ in ("cold", "warm"):  # a fresh engine each; the second finds the kernels, GEMMs and NCCL set up
+        eng = ServingEngine(params, cfg, device=DEVICE, mesh=mesh, **SERVE_ENGINE)
+        rids = [eng.submit(p, LLAMA_SPEC_NEW_TOKENS) for p in prompts]
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        out = eng.run(pipeline=False)  # the synchronous scheduler, which times its prefill and decode
+        torch.cuda.synchronize()
+        st = eng.stats
+        decode_tokens = st["tokens"] - st["admissions"]
+        runs.append({"streams": [out[r] for r in rids], "wall_s": time.perf_counter() - t0,
+                     "prefill_tokens_per_s": st["prefill_tokens"] / st["prefill_s"],
+                     "decode_tokens": decode_tokens, "decode_tokens_per_s": decode_tokens / st["decode_s"],
+                     "launches": kernel_counts()})
+    _write_json(out_path if world == 1 else f"{out_path}.{me}", {
+        "preset": preset, "world": world, "rank": me, "backend": dist.get_backend() if world > 1 else None,
+        "cold": runs[0], "warm": runs[1], "peak_bytes": torch.cuda.max_memory_allocated(),
+        "pool_heads": int(eng.pools["layers"][0]["k_pool"].shape[2]),
+        "device": torch.cuda.get_device_name(), "jax_modules": _jax_modules()})
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return assert_no_jax_modules("serving child")
+
+
+def _x2_references(card: str) -> dict:
+    """The world of one on the card, in the lane while the ranks run: the
+    gpt2-124m first step's loss and gradients, the moe-8x350m first loss at
+    ``mesh.expert=1``, and each serving lane's streams (the int8-kv lane
+    with its top logprobs)."""
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge, transformer
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    ref: dict = {}
+    cfg = x2_train_config().with_overrides({"mesh.tensor": 1})
+    state = ts.init_train_state(cfg, cfg.train.seed, device=DEVICE)
+    loss, grads = ts.compute_grads(state, x2_batch(cfg), cfg)
+    ref["train"] = {"loss": float(loss), "grads": {"/".join(p): g.detach() for p, g in opt.tree_leaves(grads)}}
+    del state
+    mcfg = x2_moe_config().with_overrides({"mesh.expert": 1})
+    state = ts.init_train_state(mcfg, mcfg.train.seed, device=DEVICE)
+    x, y = x2_batch(mcfg)
+    with torch.no_grad():
+        ref["moe_loss"] = float(transformer.loss_fn(state["params"], x, y, mcfg.model))
+    del state
+    _free_card()
+    ref["serve"] = {}
+    for name, scfg, kw, prompts in x2_serving_lanes():
+        params = bridge.cast_params_for_inference(transformer.init_params(scfg, SEED, device=DEVICE), scfg)
+        lp = X2_LOGPROBS if kw.get("quantize") else 0
+        eng = ServingEngine(params, scfg, logprobs_k=lp, **kw)
+        rids = [eng.submit(p, 64) for p in prompts]
+        finished = eng.run(pipeline=False)
+        ref["serve"][name] = {"streams": [finished[r] for r in rids], "params": params, "cfg": scfg,
+                              "prompts": prompts, "logprobs": [eng.logprobs.get(r) for r in rids] if lp else None}
+        del eng
+    return ref
+
+
+def _x2_compare_int8(name, ref, got) -> dict:
+    """The int8-kv lane's rows against the world of one's up to the first
+    token where they part; there the two tokens must be a near tie of the
+    reference's own int8-kv logits: both among its top X2_LOGPROBS, their
+    logprobs within BF16_ROW_RTOL of the largest |logit| of one uncached
+    bf16 forward at that position (``compare_streams``' bar)."""
+    from pretraining_llm_tpu_torch.models import transformer
+
+    exact, compared, ties = 0, 0, []
+    for i, (p, w, g, lps) in enumerate(zip(ref["prompts"], ref["streams"], got, ref["logprobs"])):
+        j = next((j for j, (a, b) in enumerate(zip(w, g)) if a != b), None)
+        if len(w) != len(g):
+            raise AssertionError(f"{name}: row {i} has {len(g)} tokens, the reference {len(w)}")
+        if j is None:
+            exact += 1
+            compared += len(w)
+            continue
+        compared += j
+        with torch.no_grad():
+            logits, _ = transformer.forward(ref["params"], torch.tensor([list(p) + w[:j]], device=DEVICE), ref["cfg"])
+        row = logits[0, -1].float()
+        bar = BF16_ROW_RTOL * row.abs().max().item()
+        if lps[j] is None:  # a token the admission's prefill sampled: no logprobs, the forward's logits
+            gap = (row[w[j]] - row[g[j]]).abs().item()
+        else:
+            values, ids = list(lps[j][0]), list(lps[j][1])
+            if w[j] not in ids or g[j] not in ids:
+                raise AssertionError(f"{name}: row {i} parts at step {j} outside the reference's top {X2_LOGPROBS}")
+            gap = abs(values[ids.index(w[j])] - values[ids.index(g[j])])
+        ties.append({"row": i, "step": j, "gap": gap, "bar": bar})
+        if not gap <= bar:
+            raise AssertionError(f"{name}: row {i} parts at step {j}, where the logprobs are {gap} apart (> {bar})")
+    return {"rows": len(got), "exact_rows": exact, "compared_tokens": compared, "near_ties": ties}
+
+
+_X2_RANKS: dict = {}  # the running ranks of X2, from start_x2 to run_x2
+
+
+def start_x2() -> None:
+    """Start X2's two ranks (``x2_child``), two torch threads each, so that
+    they run beside X1 in the training lane; ``run_x2`` collects them."""
+    shutil.rmtree(X2_DIR, ignore_errors=True)
+    X2_DIR.mkdir(parents=True)
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    errs = [open(X2_DIR / f"rank{r}.err", "w") for r in range(2)]
+    _X2_RANKS.update(t0=time.perf_counter(), errs=errs, procs=[
+        subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), X2_CHILD, str(X2_DIR), str(r), str(port)],
+                         cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=errs[r]) for r in range(2)])
+
+
+def run_x2() -> dict:
+    """X2: the tensor and expert axes on the card. One H100 holds one NCCL
+    rank, so two ranks share it over a gloo group, whose collectives take
+    the CUDA tensors (``x2_child``). (a) gpt2-124m at full width and depth
+    at tensor 2 (6 of 12 heads a rank): the first step's loss and every
+    gradient leaf, assembled from the ranks' blocks, against the world of
+    one on the card at ``trajectory.T3_GRAD_RTOL``; X2_STEPS AdamW steps,
+    K1 and the one-pass backward on 6 heads a rank. (b) moe-8x350m at
+    M1_LAYERS layers at expert 2: X2_MOE_STEPS steps, the first loss
+    within X2_MOE_LOSS_RTOL of ``mesh.expert=1``'s. (c)
+    ``ServingEngine(mesh=)`` at tensor 2, path 1's requests (K1, K2 on 6 KV
+    heads a rank) and the chunked, prefix-cached int8-kv lane (K3): both
+    ranks' streams equal, and each row the world of one's up to its first
+    near tie. The ranks start with X1 (``start_x2``: they run beside it);
+    this phase holds them against the world of one. Returns rank 0's
+    launches of each part."""
+    from pretraining_llm_tpu_torch.utils import trajectory
+
+    if not _X2_RANKS:
+        start_x2()
+    t_phase, procs, errs = _X2_RANKS.pop("t0"), _X2_RANKS.pop("procs"), _X2_RANKS.pop("errs")
+    card = phase_card()
+    try:
+        ref = _x2_references(card)
+        t0 = time.perf_counter()
+        for r, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, X2_TIMEOUT_S - (time.perf_counter() - t_phase)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"X2 rank {r}: still running after {X2_TIMEOUT_S} s") from None
+            errs[r].close()
+            if proc.returncode != 0:
+                raise AssertionError(f"X2 rank {r}: exit {proc.returncode}: "
+                                     f"{(X2_DIR / f'rank{r}.err').read_text()[-4000:]}")
+        waited_s = time.perf_counter() - t0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    ranks = [json.loads((X2_DIR / f"rank{r}.json").read_text()) for r in range(2)]
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["jax_modules"] or res["mesh"]["device_type"] != DEVICE:
+            raise AssertionError(f"X2 rank {r}: {res['backend']}, {res['mesh']}, JAX {res['jax_modules']}")
+        if any(v != "ok" for v in res["probe"].values()):
+            raise AssertionError(f"X2 rank {r}: gloo refused a collective on CUDA tensors: {res['probe']}")
+
+    # (a) The first step's gradients, assembled from the two ranks' blocks.
+    firsts = [torch.load(X2_DIR / f"grads{r}.pt") for r in range(2)]
+    worst, worst_leaf = 0.0, ""
+    for name, want in ref["train"]["grads"].items():
+        full = torch.full(want.shape, float("nan"), device=DEVICE)
+        for first in firsts:
+            block, sl = first["grads"][name]
+            full[tuple(slice(a, b) for a, b in sl)] = block.to(DEVICE)
+        if torch.isnan(full).any():
+            raise AssertionError(f"X2: the ranks' blocks of {name} leave a hole")
+        use = (full - want.float()).abs().max().item() / (trajectory.T3_GRAD_RTOL * want.float().abs().max().item())
+        if use > worst:
+            worst, worst_leaf = use, name
+    train = [res["train"] for res in ranks]
+    first = {"loss_world_of_one": ref["train"]["loss"], "loss_ranks": [f["loss"] for f in firsts],
+             "loss_tol": NAIVE_LOSS_TOL, "grad_rtol": trajectory.T3_GRAD_RTOL, "grad_tol_use": worst,
+             "grad_worst_leaf": worst_leaf}
+    del ref["train"], firsts
+    _free_card()
+    # (b) The expert run.
+    moe = [res["moe"] for res in ranks]
+    ref_moe = ref["moe_loss"]
+    moe_use = abs(moe[0]["losses"][0] - ref_moe) / (X2_MOE_LOSS_RTOL * abs(ref_moe))
+    # (c) The serving lanes.
+    serve = {}
+    for name, lane in ref["serve"].items():
+        got = [res["serve"][name] for res in ranks]
+        if got[0]["streams"] != got[1]["streams"]:
+            raise AssertionError(f"X2 {name}: the two ranks hold different tokens")
+        if lane["logprobs"] is None:
+            cmp = compare_streams(f"X2 {name}", lane["params"], lane["cfg"], lane["prompts"], lane["streams"],
+                                  got[0]["streams"])
+        else:
+            cmp = _x2_compare_int8(f"X2 {name}", lane, got[0]["streams"])
+        serve[name] = {**{k: v for k, v in got[0].items() if k != "streams"}, "vs_world_of_one": cmp}
+    del ref
+    _free_card()
+    log("X2", card=card, mesh="two ranks sharing the card over gloo (CUDA tensors)", probe=ranks[0]["probe"],
+        mesh_info=ranks[0]["mesh"],
+        train={"preset": "gpt2-124m", "layers": 12, "mesh": "tensor 2", "batch": X2_BATCH, "T": 1024,
+               "losses": [t["losses"] for t in train], "step_ms": [t["step_ms"] for t in train],
+               "tokens_per_sec": [t["tokens_per_sec"] for t in train],
+               "peak_bytes": [t["peak_bytes"] for t in train], "flash_heads": [t["flash_heads"] for t in train],
+               "wqkv_block": train[0]["wqkv_block"],
+               "launches": [{k: v for k, v in t["launches"].items() if v} for t in train], "first_step": first},
+        moe={"preset": "moe-8x350m", "layers": M1_LAYERS, "mesh": "expert 2", "batch": X2_MOE_BATCH,
+             "losses": [m["losses"] for m in moe], "step_ms": [m["step_ms"] for m in moe],
+             "experts_held": [m["experts_held"] for m in moe], "loss_expert1": ref_moe,
+             "loss_rtol": X2_MOE_LOSS_RTOL, "loss_tol_use": moe_use,
+             "launches": {k: v for k, v in moe[0]["launches"].items() if v}},
+        serve=serve, waited_s=waited_s, phase_s=time.perf_counter() - t_phase)
+    if worst > 1.0 or any(abs(f - first["loss_world_of_one"]) > NAIVE_LOSS_TOL for f in first["loss_ranks"]):
+        raise AssertionError(f"X2: tensor-2 gpt2-124m's first step disagrees with the world of one: {first}")
+    if moe_use > 1.0 or moe[0]["losses"] != moe[1]["losses"]:
+        raise AssertionError(f"X2: expert-2 moe-8x350m's first loss {moe[0]['losses']} against "
+                             f"{ref_moe} at expert 1")
+    for t in train:
+        if t["flash_heads"] != [[6, 6]] or t["losses"] != train[0]["losses"]:
+            raise AssertionError(f"X2: flash heads {t['flash_heads']} (want 6 a rank), losses {t['losses']}")
+        n = t["launches"]
+        if n["flash_fwd_tc"] != 12 * X2_STEPS or n["flash_bwd_fused_tc"] != 12 * X2_STEPS:
+            raise AssertionError(f"X2: K1 and the one pass must launch 12 a step on the tensor cores: {n}")
+    mono, q8 = serve["x2_serve"], serve["x2_serve_int8"]
+    if mono["pool_heads"] != 6 or q8["pool_heads"] != 6:
+        raise AssertionError(f"X2: the pools hold {mono['pool_heads']} / {q8['pool_heads']} heads, not 6 a rank")
+    if not (mono["launches"]["flash_fwd_tc"] and mono["launches"]["paged_split"]) or mono["launches"]["ragged"]:
+        raise AssertionError(f"X2 x2_serve: K1 and K2 (split) must run, K3 not: {mono['launches']}")
+    if not q8["launches"]["ragged"] or q8["launches"]["paged_decode"] or not q8["prefix_cache_hit_tokens"]:
+        raise AssertionError(f"X2 x2_serve_int8: K3 only, with prefix hits: {q8}")
+    return {"X2_train": ranks[0]["train"]["launches"], "X2_moe": ranks[0]["moe"]["launches"],
+            "X2_serve": mono["launches"], "X2_serve_int8": q8["launches"]}
+
+
+
 def _h1_launches(serving_paths: dict, key: str) -> int:
     """A kernel's launches over H1's three servers (in-process loop, serve
     CLI, chunked serve CLI), F1's fleet loads and P1's worker processes'
@@ -6468,7 +7022,8 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
 # The training lane's phases, which need nothing of the serving phases, in
 # this order (D1 first: F1 reads its telemetry); each one's result is its
 # kernel launches (by path) or None.
-LANE_PHASES = (("D1", run_d1), ("X1", run_x1), ("T4", run_t4), ("F1_compile_only", run_f1_compile_only),
+LANE_PHASES = (("D1", run_d1), ("X2_start", start_x2), ("X1", run_x1), ("X2", run_x2), ("T4", run_t4),
+               ("F1_compile_only", run_f1_compile_only),
                ("M1", run_m1), ("R", run_remat_sweep), ("O", run_optimizers), ("O_options", run_trainer_options),
                ("parity", run_parity))
 LANE_DIR = SCRATCH_ROOT / "lane_results"
@@ -6592,8 +7147,10 @@ def main() -> int:
     finally:
         lane.stop()
     serving_paths.update(run_p1(serve_ckpts))
+    serving_paths.update(X2_serve=lanes["X2"]["X2_serve"], X2_serve_int8=lanes["X2"]["X2_serve_int8"])
     train_paths = {"T1": launches_t1, "T2": launches_t2, "parity": lanes["parity"], "T3": launches_t3,
-                   **lanes["T4"], **lanes["M1"], **lanes["R"], **lanes["O"], "D1": lanes["D1"], "X1": lanes["X1"]}
+                   **lanes["T4"], **lanes["M1"], **lanes["R"], **lanes["O"], "D1": lanes["D1"], "X1": lanes["X1"],
+                   "X2": lanes["X2"]["X2_train"], "X2_moe": lanes["X2"]["X2_moe"]}
     shutil.rmtree(SCRATCH_ROOT, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
@@ -6620,6 +7177,10 @@ if __name__ == "__main__":
         sys.exit(x1_child(sys.argv[2:]))
     if sys.argv[1:2] == [X1_RESHARD]:
         sys.exit(x1_reshard(sys.argv[2:]))
+    if sys.argv[1:2] == [X2_CHILD]:
+        sys.exit(x2_child(sys.argv[2:]))
+    if sys.argv[1:2] == [XSERVE_CHILD]:
+        sys.exit(xserve_child(sys.argv[2:]))
     if sys.argv[1:2] == [LANE]:
         sys.exit(lane_main(sys.argv[2:]))
     sys.exit(main())

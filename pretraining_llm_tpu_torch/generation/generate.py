@@ -19,8 +19,16 @@ as the JAX package's decode is plain XLA.
 load a checkpoint of either package (``load_model_for_inference``), cast
 the matmul weights once (``cast_params_for_inference``), encode, generate,
 decode. ``generate_text_speculative`` decodes with a draft checkpoint
-(``generation/speculative.py``). Sharded decode (``mesh``,
-``shard_params_for_inference``) is not ported.
+(``generation/speculative.py``).
+
+Sharded decode: ``shard_params_for_inference(params, mesh)`` gives each
+rank its blocks under the training partition rules (the JAX package's,
+with the mesh's tensor size), and ``generate(..., mesh=)`` runs every rank
+through the same loop on the same rows: fsdp blocks are gathered once for
+use, the tensor-parallel layers issue their collectives as in training,
+the head's logits are gathered over 'tensor' before sampling, and every
+rank samples from the same seeded generator, so all ranks hold the same
+tokens.
 """
 
 from __future__ import annotations
@@ -39,6 +47,12 @@ from pretraining_llm_tpu_torch.data.tokenizer import get_tokenizer
 from pretraining_llm_tpu_torch.generation.sampling import sample_logits
 from pretraining_llm_tpu_torch.models import transformer
 from pretraining_llm_tpu_torch.models.bridge import cast_params_for_inference
+from pretraining_llm_tpu_torch.models.quantize import scale_shape
+from pretraining_llm_tpu_torch.parallel.mesh import axis_group, axis_size
+from pretraining_llm_tpu_torch.parallel.sharding import (
+    _entry_axes, activation_mesh, is_sharded, param_pspec, param_pspec_tree, shard_leaf, shard_tree,
+)
+from pretraining_llm_tpu_torch.parallel.tensor import gather_dim
 from pretraining_llm_tpu_torch.training import checkpoint as ckpt
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -92,10 +106,15 @@ def generate(
     ended by a device synchronize) and the tokens each one computed (the
     real prompt tokens; rows x decode forwards). ``return_logits`` also
     returns the fp32 logits (B, max_new_tokens, V) each token was drawn
-    from."""
+    from. ``mesh``: every rank runs the call with its blocks of the
+    parameters (``shard_params_for_inference``'s, or full ones, which are
+    cut to them) and the same arguments, and returns the same tokens."""
     if mesh is not None:
-        raise NotImplementedError("generate(mesh=...) (sharded decode) is not ported to PyTorch yet "
-                                  "(ROADMAP Queue A, parallelism slice 19)")
+        local = mesh_params(params, cfg, mesh)
+        with activation_mesh(mesh, rows_split=False):
+            return generate(local, cfg, prompt_tokens, max_new_tokens, seed, temperature=temperature,
+                            top_k=top_k, top_p=top_p, min_p=min_p, prompt_lengths=prompt_lengths,
+                            stop_token=stop_token, stats=stats, return_logits=return_logits)
     transformer.check_ported(cfg)
     if cfg.doc_mask_token >= 0:
         # Document masking is a training structure; one generation is one
@@ -190,8 +209,51 @@ def generate(
 
 
 def shard_params_for_inference(params: Any, mesh: Any) -> Any:
-    raise NotImplementedError("shard_params_for_inference (meshes) is not ported to PyTorch yet "
-                              "(ROADMAP Queue A, parallelism slice 19)")
+    """This rank's blocks of the full ``params`` under the training
+    partition rules (TP/FSDP, int8 ``_scale`` leaves with their weights)
+    at the mesh's tensor size: the pieces that the JAX package's
+    ``NamedSharding``s give the device at the rank's coordinates."""
+    return shard_tree(params, param_pspec_tree(params, tensor_size=axis_size(mesh, "tensor")), mesh)
+
+
+def _full_shape(shapes: Any, path: Tuple[str, ...]) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(the full shape of the leaf at ``path``, the shape its spec rule
+    reads): an int8 ``_scale`` leaf's are its weight's with the contracted
+    axes collapsed, and its weight's."""
+    name = path[-1]
+    base = name[:-len("_scale")] if name.endswith("_scale") and path[-2] in ("attn", "mlp") else name
+    tree = shapes
+    for k in path[:-1] + (base,):
+        tree = tree[k]
+    full = tuple(tree)
+    return (scale_shape(base, full) if base != name else full), full
+
+
+def mesh_params(params: Any, cfg: ModelConfig, mesh: Any) -> Any:
+    """The parameters a rank's sharded forward takes: its tensor and
+    expert blocks, with fsdp blocks all-gathered. Each leaf may come full
+    (it is cut to the rank's block) or as ``shard_params_for_inference``'s
+    block (its fsdp dims are gathered)."""
+    shapes = transformer.param_shapes(cfg)
+    tp = axis_size(mesh, "tensor")
+    fsdp = axis_group(mesh, ("fsdp",))
+
+    def walk(tree: Any, path: Tuple[str, ...]) -> Any:
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        full, rule_shape = _full_shape(shapes, path)
+        spec = param_pspec(path, len(full), shape=rule_shape, tensor_size=tp)
+        if not is_sharded(spec, mesh):
+            return tree
+        if tuple(tree.shape) == full:  # a full leaf: the rank's block, whole over fsdp
+            keep = tuple(tuple(a for a in _entry_axes(e) if a != "fsdp") or None for e in spec)
+            return shard_leaf(tree, keep, mesh, "/".join(path))
+        for d, entry in enumerate(spec):
+            if "fsdp" in _entry_axes(entry) and fsdp.size > 1:
+                tree = gather_dim(tree, d, fsdp)
+        return tree
+
+    return walk(params, ())
 
 
 # ---------------------------------------------------------------------------

@@ -72,27 +72,43 @@ the reap already holds. ``cancel`` drops a waiting request, or flushes the
 in-flight windows and then releases a running one's row and blocks.
 ``health_gauges`` reads host state only.
 
-Not ported: sharded serving (``mesh``) raises ``NotImplementedError``. MoE
-models raise the JAX engine's ``ValueError`` (it serves none). Migration
+Sharded serving (``mesh``): every rank builds the engine with the same
+arguments and submits the same requests, so every rank runs the same
+scheduler over the same rows. The parameters are the rank's tensor blocks
+(``generate.shard_params_for_inference``'s, or full ones cut to them; fsdp
+blocks are gathered once), int8 weights are quantized on those blocks
+(``models/quantize.py``), and the pools hold the rank's kv_heads/tp heads,
+scale pages included (JAX's head split of the pools). The forwards run the
+tensor-parallel layers (``models/transformer.py``): K1, K2 and K3 launch
+on each rank's heads, where the JAX package's GSPMD replicates its
+``pallas_call``s; the logits are gathered over 'tensor', so every rank
+samples the same tokens. Where kv_heads does not divide tp the pools are
+replicated, with the JAX engine's warning. MoE models raise the JAX
+engine's ``ValueError`` (it serves none). Migration
 blocks (``reserve_migration_blocks``) wait for the fleet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
+import warnings
 from collections import deque
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.generation import paged, speculative
+from pretraining_llm_tpu_torch.generation.generate import mesh_params
 from pretraining_llm_tpu_torch.generation.prefix_cache import PrefixCache
 from pretraining_llm_tpu_torch.models import quantize as quantize_mod
 from pretraining_llm_tpu_torch.models import transformer
 from pretraining_llm_tpu_torch.observability import spans as _spans
+from pretraining_llm_tpu_torch.parallel.sharding import activation_mesh
+from pretraining_llm_tpu_torch.parallel.tensor import tensor_group
 from pretraining_llm_tpu_torch.resilience import integrity
 from pretraining_llm_tpu_torch.resilience.integrity import IntegrityError
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -220,9 +236,6 @@ class ServingEngine:
         logprobs_k: int = 0,
         device: DeviceLike = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("ServingEngine(mesh=...) (sharded serving) is not ported to PyTorch yet "
-                                      "(ROADMAP Queue A, parallelism slice 19)")
         if cfg.n_experts:
             # The JAX engine's rule: pad slots inside a prefill bucket would
             # compete for expert capacity.
@@ -291,6 +304,13 @@ class ServingEngine:
             if leaf.device.type != self.device.type:
                 raise ValueError(f"{name} lie on {leaf.device}, the engine runs on {self.device}")
         self.quantize = quantize
+        self.mesh = mesh
+        tensor = None
+        if mesh is not None:
+            params = mesh_params(params, cfg, mesh)
+            if self.spec_k:
+                self.draft_params = mesh_params(self.draft_params, self.draft_cfg, mesh)
+            tensor = tensor_group(mesh)
         if quantize != "none":
             if quantize == "int8-kv" and cfg.kv_cache_dtype != "int8":
                 cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
@@ -298,10 +318,10 @@ class ServingEngine:
                     self.draft_cfg = dataclasses.replace(self.draft_cfg, kv_cache_dtype="int8")
             # Pre-quantized trees pass through; float trees are quantized here.
             if not quantize_mod.is_quantized(params):
-                params = quantize_mod.quantize_params_for_serving(params, cfg)
+                params = quantize_mod.quantize_params_for_serving(params, cfg, tensor)
             if self.spec_k and not quantize_mod.is_quantized(self.draft_params):
                 self.draft_params = quantize_mod.quantize_params_for_serving(
-                    self.draft_params, self.draft_cfg
+                    self.draft_params, self.draft_cfg, tensor
                 )
         self.params = params
         self.cfg = cfg
@@ -338,11 +358,23 @@ class ServingEngine:
         self.kv_checksum = bool(kv_checksum)
 
         def build_pool(pool_cfg: ModelConfig) -> transformer.KVCache:
+            # Sharded serving: the pools hold the rank's kv_heads/tp heads
+            # (every leaf carries kv_heads at axis -2, scale pages too).
+            tp = 1 if tensor is None else tensor.size
+            if tp > 1 and pool_cfg.kv_heads % tp:
+                warnings.warn(
+                    f"serving KV pool: kv_heads={pool_cfg.kv_heads} not "
+                    f"divisible by tensor={tp}; pool REPLICATED over the "
+                    f"tensor axis ({tp}x KV HBM per shard). Choose tp "
+                    f"dividing kv_heads.",
+                    stacklevel=2,
+                )
             # bf16 scale pages for int8-kv; fp32 for an int8 pool set directly.
-            return transformer.make_paged_kv_pool(
-                pool_cfg, n_blocks, block_size, device=self.device,
-                scale_dtype=torch.bfloat16 if quantize == "int8-kv" else None,
-            )
+            with activation_mesh(mesh, rows_split=False):
+                return transformer.make_paged_kv_pool(
+                    pool_cfg, n_blocks, block_size, device=self.device,
+                    scale_dtype=torch.bfloat16 if quantize == "int8-kv" else None,
+                )
 
         self.pools = build_pool(cfg)
         # The draft pool has the target's block structure: the same table
@@ -616,7 +648,7 @@ class ServingEngine:
         round) -> reap. A no-op when nothing is running or waiting.
         Forwards run under ``torch.inference_mode()``: params fresh from
         training (leaves that require grad) record no graph."""
-        with torch.inference_mode():
+        with self._device_work():
             self._admit()
             chunked = self._dispatch_prefill_chunks(defer=False)
             decoded = self._step_decode() if self._n_decode_rows() else False
@@ -646,7 +678,7 @@ class ServingEngine:
         reap windows beyond the queue depth. Returns True while device work
         remains dispatched or runnable."""
         depth = self.pipeline_depth
-        with torch.inference_mode():
+        with self._device_work():
             self._admit(defer=True)
             # Chunks go before the decode dispatch: their writes are
             # committed prompt data, earlier in stream order than this
@@ -679,6 +711,13 @@ class ServingEngine:
             while len(self._inflight) > depth or (self._inflight and not self.n_active):
                 self._reap_window(self._inflight.popleft())
         return bool(self._inflight) or self.has_work()
+
+    @contextlib.contextmanager
+    def _device_work(self) -> Iterator[None]:
+        """The forwards' context: inference mode, and on a mesh the mesh
+        the tensor-parallel layers read (every rank runs the same rows)."""
+        with torch.inference_mode(), activation_mesh(self.mesh, rows_split=False):
+            yield
 
     # -- decode -------------------------------------------------------------
 

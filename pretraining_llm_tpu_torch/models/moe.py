@@ -20,6 +20,22 @@ bit for bit. Gate weights and the combine sum are fp32 and rounded once to
 h's dtype on every device: the JAX module's form on the CPU (``ddt``); on
 the TPU it rounds the gates to bf16.
 
+On a mesh (``parallel.sharding.activation_mesh``) the port issues what
+GSPMD gives the JAX module. The tokens are replicated over the expert ranks
+of a data group (JAX's batch spec has no 'expert' entry): every expert
+rank routes the same tokens alike and runs its E/ep experts' FFNs on its
+slots, the dispatched input passes ``copy_to_group`` and the combined
+output is summed over the expert (and tensor) ranks. Where the data x
+fsdp ranks split the rows (a train or eval step) the routing groups are
+the global batch's: the router's logits are all-gathered over those
+ranks, every rank routes the whole batch as the JAX module does, and
+keeps its tokens' decisions, so capacity drops and the load-balance loss
+are the global batch's. A rank's slots are its experts' over the groups
+its tokens touch (a group that spans ranks leaves the other ranks' slots
+empty). With a tensor axis each expert FFN is column- then row-parallel
+over it, and ``b2`` is added on tensor rank 0 only (its gradient is then
+summed over 'tensor' by the train step).
+
 No kernel: the JAX module reaches no ``pl.pallas_call``. The expert
 products are ``torch.bmm`` in the compute dtype (fp32 accumulation, one
 rounding), as the JAX einsums with ``preferred_element_type=f32`` then
@@ -35,6 +51,9 @@ import torch
 from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.models import layers
 from pretraining_llm_tpu_torch.ops import remat
+from pretraining_llm_tpu_torch.parallel.mesh import coordinate
+from pretraining_llm_tpu_torch.parallel.sharding import current_mesh, rows_split
+from pretraining_llm_tpu_torch.parallel.tensor import copy_to_group, gather_rows, layer_group, sum_over_group
 
 Params = Dict[str, Any]
 
@@ -138,24 +157,40 @@ def moe_mlp(mlp: Params, h: torch.Tensor, cfg: ModelConfig, *, decode: bool = Fa
 
     ``decode=True`` (a cached forward of one token per row) routes the call
     as one group with capacity = its token count, so no token is dropped and
-    a row's output does not depend on the rows batched with it."""
+    a row's output does not depend on the rows batched with it. On a mesh,
+    h is the rank's rows and the aux loss the global batch's."""
     cdt = getattr(torch, cfg.compute_dtype)  # "float32", "bfloat16", "float16"
     b, t, d = h.shape
     n = b * t
     e, k = cfg.n_experts, cfg.experts_per_token
-    g = 1 if decode else _group_count(n, cfg.moe_group_size)
-    sg = n // g
+    mesh = current_mesh()
+    tokens = layer_group(mesh, ("data", "fsdp")) if rows_split() and not decode else None
+    ranks = layer_group(mesh, ("tensor", "expert"))  # partial outputs, summed
+    n_all = n * (1 if tokens is None else tokens.size)
+    g = 1 if decode else _group_count(n_all, cfg.moe_group_size)
+    sg = n_all // g
     capacity = sg if decode else expert_capacity(cfg, sg)
     x = h.reshape(n, d)
-    logits = (x.float() @ mlp["router"].float()).reshape(g, sg, e)
-    r = route(logits, cfg, capacity)
+    logits = gather_rows(x.float() @ mlp["router"].float(), tokens)
+    r = route(logits.reshape(g, sg, e), cfg, capacity)
+    # This rank's tokens are rows [t0, t0 + n) of the routed batch.
+    t0 = 0 if tokens is None else tokens.index * n
+    idx, gate, pos, keep = (a.reshape(n_all, k)[t0:t0 + n] for a in (r.idx, r.gate, r.pos, r.keep))
 
     # Slot m = expert * (G * C) + group * C + position: the JAX layout of
-    # the (E, G * C, D) expert batch. Token i = group * S + s.
-    m_slots = e * g * capacity
-    groups = torch.arange(g, device=h.device)[:, None, None]
-    slot = r.idx * (g * capacity) + groups * capacity + r.pos
-    slot_of = torch.where(r.keep, slot, torch.full_like(slot, m_slots)).reshape(n, k)
+    # the (E, G * C, D) expert batch (token i = group * S + s), over this
+    # rank's experts and the groups its tokens touch.
+    ex = mlp["experts"]
+    e_loc = ex["w2"].shape[0]
+    e0 = coordinate(mesh)["expert"] * e_loc if e_loc < e else 0
+    g_lo = t0 // sg
+    g_n = (t0 + n - 1) // sg - g_lo + 1
+    m_slots = e_loc * g_n * capacity
+    group = torch.div(t0 + torch.arange(n, device=h.device), sg, rounding_mode="floor") - g_lo
+    local = idx - e0
+    mine = keep & (local >= 0) & (local < e_loc)
+    slot = local * (g_n * capacity) + group[:, None] * capacity + pos
+    slot_of = torch.where(mine, slot, torch.full_like(slot, m_slots))
     # The inverse maps: each slot's token (n: empty) and (token, choice)
     # (n * k: empty). Dropped choices scatter into the extra last entry,
     # which is cut off, so no step waits for a count of kept choices.
@@ -165,11 +200,10 @@ def moe_mlp(mlp: Params, h: torch.Tensor, cfg: ModelConfig, *, decode: bool = Fa
     choice_of = torch.full((m_slots + 1,), n * k, dtype=torch.long, device=h.device)
     choice_of = choice_of.scatter(0, slot_of.reshape(-1), choices)[:m_slots]
 
-    xin = _RowGather.apply(x.to(cdt), token_of, slot_of).reshape(e, g * capacity, d)
-    ex = mlp["experts"]
+    xin = _RowGather.apply(copy_to_group(x.to(cdt), ranks), token_of, slot_of).reshape(e_loc, g_n * capacity, d)
     if cfg.activation == "swiglu":
         f = ex["w2"].shape[1]
-        gates = torch.bmm(xin, ex["w1"].to(cdt).reshape(e, d, 2 * f)).reshape(e, -1, 2, f)
+        gates = torch.bmm(xin, ex["w1"].to(cdt).reshape(e_loc, d, 2 * f)).reshape(e_loc, -1, 2, f)
         if "b1" in ex:
             gates = gates + ex["b1"].to(cdt)[:, None]
         act = torch.nn.functional.silu(gates[..., 0, :])
@@ -182,10 +216,10 @@ def moe_mlp(mlp: Params, h: torch.Tensor, cfg: ModelConfig, *, decode: bool = Fa
         with remat.site("mlp_hidden"):
             hidden = layers.activation_fn(cfg.activation, hidden)
     out = torch.bmm(hidden, ex["w2"].to(cdt))
-    if "b2" in ex:
+    if "b2" in ex and (mesh is None or coordinate(mesh)["tensor"] == 0):
         out = out + ex["b2"].to(cdt)[:, None]
 
     picked = _RowGather.apply(out.reshape(m_slots, d), slot_of, choice_of)  # (N, k, D)
-    weights = (r.gate * r.keep).reshape(n, k, 1)
-    y = (weights * picked.float()).sum(dim=1)
+    weights = copy_to_group(gate * keep, ranks).reshape(n, k, 1)
+    y = sum_over_group((weights * picked.float()).sum(dim=1), ranks)
     return y.to(h.dtype).reshape(b, t, d), r.aux.mean()

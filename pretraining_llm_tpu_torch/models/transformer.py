@@ -26,6 +26,20 @@ Dh)) — so ``models.bridge`` maps one tree onto the other leaf for leaf.
     prefill and prefix-cache suffixes) through the ragged kernel, the rest
     through the paged kernel; "gather" through the plain gather path.
 
+Under an active mesh with a tensor axis (``parallel.sharding.
+activation_mesh``) each rank holds its blocks of the Megatron layers
+(``parallel/sharding.py``'s rules) and the layers issue the collectives
+that GSPMD inserts for the JAX package (``parallel/tensor.py``):
+column-parallel ``wqkv``/``wq``/``wkv`` give the rank its H/tp query heads
+(and G/tp KV heads; where G does not divide tp, ``wkv`` is replicated and
+the rank takes its heads' K/V), attention runs on those heads (the flash
+kernels on the card), the row-parallel ``wo`` and ``w2`` products are
+summed over the tensor ranks before ``bo``/``b2``; the embedding, the head
+and its losses are vocabulary-parallel, and ``forward``'s logits are
+gathered over the vocabulary. A cached call whose KV pool is replicated
+(G not dividing tp) gathers the query heads and attends over the whole
+pool, as JAX's replicated ``pallas_call`` does, then keeps its heads.
+
 int8 serving weights (``models/quantize.py``) are dequantized at each use
 site (``_weight``). A model with ``n_experts`` runs ``models/moe.py``'s MLP
 in every block, and its forward can return the router's load-balance loss
@@ -56,6 +70,9 @@ from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
 from pretraining_llm_tpu_torch.parallel.mesh import axis_size, coordinate
 from pretraining_llm_tpu_torch.parallel.ring_attention import ring_supports_grouped
 from pretraining_llm_tpu_torch.parallel.sharding import current_mesh
+from pretraining_llm_tpu_torch.parallel.tensor import (
+    copy_to_group, gather_dim, gather_last, sum_over_group, tensor_group, vocab_embed, vocab_label, vocab_lse,
+)
 from pretraining_llm_tpu_torch.parallel.ulysses import ulysses_supports_grouped
 from pretraining_llm_tpu_torch.parallel.zigzag import zigzag_perm
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -95,7 +112,7 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.pipeline_stages > 1:
         raise NotImplementedError(
             "not ported to PyTorch yet: pipeline_stages > 1 (ROADMAP Queue A, "
-            "parallelism slice 19: tensor, expert, pipe)"
+            "parallelism slice 20: the pipe axis)"
         )
 
 
@@ -216,6 +233,16 @@ def init_params(
 # ---------------------------------------------------------------------------
 
 
+def rank_kv_heads(cfg: ModelConfig) -> int:
+    """The KV heads a rank's cache or pool holds: kv_heads/tp under an
+    active tensor mesh where tp divides kv_heads, else all of them (JAX's
+    head split of the pools, replicated where it does not divide)."""
+    tp = tensor_group(current_mesh())
+    if tp is not None and cfg.kv_heads % tp.size == 0:
+        return cfg.kv_heads // tp.size
+    return cfg.kv_heads
+
+
 def _kv_fields(cfg: ModelConfig, shape: Tuple[int, ...], names: Tuple[str, ...],
                dtype: Any, scale_dtype: Any, what: str) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """{name: (shape, dtype)} of a cache's K/V fields, plus per-(slot, head)
@@ -247,12 +274,14 @@ def make_kv_cache(
     ``kv_cache_dtype='int8'`` (then k/v hold int8 codes). ``dtype`` (a
     torch dtype or its name) overrides the compute dtype of an exact
     cache. The port keeps the stacked layout for either
-    ``decode_cache_layout``: the layouts hold the same values."""
+    ``decode_cache_layout``: the layouts hold the same values. Under an
+    active tensor mesh the cache holds the rank's heads
+    (``rank_kv_heads``)."""
     if max_length > cfg.context_length:
         raise ValueError(
             f"kv cache max_length={max_length} exceeds context_length={cfg.context_length}"
         )
-    shape = (cfg.n_layers, batch_size, max_length, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch_size, max_length, rank_kv_heads(cfg), cfg.head_dim)
     fields = _kv_fields(cfg, shape, ("k", "v", "k_scale", "v_scale"), dtype, None, "make_kv_cache")
     dev = resolve_device(device)
     return {name: torch.zeros(s, dtype=dt, device=dev) for name, (s, dt) in fields.items()}
@@ -271,13 +300,15 @@ def make_paged_kv_pool(
     also has {'k_scale_pool', 'v_scale_pool'} (n_blocks, block_size,
     kv_heads, 1) of ``scale_dtype``: fp32 by default, bf16 for
     ``quantize='int8-kv'`` serving, where a slot takes Dh + 2 bytes per
-    head against 2 * Dh for bf16 (about 1.94x the blocks at Dh 64)."""
+    head against 2 * Dh for bf16 (about 1.94x the blocks at Dh 64).
+    Under an active tensor mesh the pools hold the rank's heads
+    (``rank_kv_heads``)."""
     if n_blocks < 2:
         raise ValueError("need n_blocks >= 2 (block 0 is the idle scratch)")
     if block_size % 8:
         raise ValueError(f"block_size must be a multiple of 8, got {block_size}")
     check_ported(cfg)
-    shape = (n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    shape = (n_blocks, block_size, rank_kv_heads(cfg), cfg.head_dim)
     fields = _kv_fields(
         cfg, shape, ("k_pool", "v_pool", "k_scale_pool", "v_scale_pool"), dtype, scale_dtype,
         "make_paged_kv_pool",
@@ -361,7 +392,8 @@ def _attention_block(
     attention)."""
     cdt = torch_dtype(cfg.compute_dtype)
     b, t, _ = x.shape
-    h = layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps)
+    tp = tensor_group(current_mesh())
+    h = copy_to_group(layers.apply_norm(cfg.norm, blk["ln1"], x, cfg.norm_eps), tp)
     attn = blk["attn"]
     # The "qkv" remat tag: a policy that keeps it keeps these products.
     if "wqkv" in attn:
@@ -393,6 +425,15 @@ def _attention_block(
         k = layers.apply_rope(k, cos, sin, rope_pos)
 
     window = cfg.sliding_window
+    # G not dividing tp: ``wkv`` is replicated and k/v hold all G heads.
+    kv_replicated = tp is not None and cfg.kv_heads % tp.size != 0
+    hl = q.shape[2]
+    if kv is not None and kv_replicated:
+        # The pool or cache holds every KV head on every rank: attend with
+        # all query heads (gathered), keep the rank's.
+        q = gather_dim(q, 2, tp)
+    elif kv_replicated:
+        k, v = _local_kv_heads(k, v, cfg, tp, hl)
     if kv is not None and "k_pool" in kv:
         out = _paged_attention(q, k, v, kv, paged, cfg, cdt)
     elif kv is not None:
@@ -403,7 +444,7 @@ def _attention_block(
     elif cfg.attention_impl in ("ring", "ulysses"):
         supports = ring_supports_grouped if cfg.attention_impl == "ring" else ulysses_supports_grouped
         if not supports(current_mesh(), cfg.n_heads, cfg.kv_heads):
-            rep = cfg.n_heads // cfg.kv_heads
+            rep = q.shape[2] // k.shape[2]
             k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
         out = multihead_attention(
             q, k, v, impl=cfg.attention_impl, block_q=cfg.flash_block_q, block_kv=cfg.flash_block_kv,
@@ -412,12 +453,33 @@ def _attention_block(
     else:
         out = naive_attention(q, k, v, causal=True, window=window, segments=segments)
 
+    if kv is not None and kv_replicated:
+        out = out[:, :, tp.index * hl:(tp.index + 1) * hl]
     if cfg.use_output_proj:
         out = _mm(out.reshape(b, t, -1), _weight(attn, "wo", cdt).reshape(-1, cfg.d_model), cdt)
+        out = _row_parallel_sum(out, tp)
         out = out + attn["bo"].to(cdt)
     else:
-        out = out.reshape(b, t, cfg.n_heads * cfg.head_dim)
+        out = gather_last(out.reshape(b, t, hl * cfg.head_dim), tp)
     return x + out.to(x.dtype)
+
+
+def _row_parallel_sum(out: torch.Tensor, tp: Any) -> torch.Tensor:
+    """The sum over the tensor ranks of a row-parallel product's partial
+    outputs, in fp32, rounded once to their dtype."""
+    if tp is None:
+        return out
+    return sum_over_group(out.float(), tp).to(out.dtype)
+
+
+def _local_kv_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, tp: Any,
+                    hl: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rank's per-query-head K/V from all G KV heads, when G does not
+    divide tp: its query heads do not map onto whole groups, so each takes
+    its group's head (a copy per query head)."""
+    rep = cfg.n_heads // cfg.kv_heads
+    heads = torch.div(tp.index * hl + torch.arange(hl, device=k.device), rep, rounding_mode="floor")
+    return k.index_select(2, heads), v.index_select(2, heads)
 
 
 def _materialize_cache(kv: Params, lo: int, hi: int, cdt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -574,6 +636,8 @@ def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig, decode: bool = Fa
     if cfg.n_experts:
         out, aux = moe.moe_mlp(mlp, h, cfg, decode=decode)
         return x + out.to(x.dtype), aux
+    tp = tensor_group(current_mesh())
+    h = copy_to_group(h, tp)
     if cfg.activation == "swiglu":
         gates = _mm(h, _weight(mlp, "w1", cdt), cdt)  # (B, T, 2, f)
         if "b1" in mlp:
@@ -587,7 +651,7 @@ def _mlp_block(blk: Params, x: torch.Tensor, cfg: ModelConfig, decode: bool = Fa
             hidden = hidden + mlp["b1"].to(cdt)
         with remat.site("mlp_hidden"):
             hidden = layers.activation_fn(cfg.activation, hidden)
-    out = _mm(hidden, _weight(mlp, "w2", cdt), cdt)
+    out = _row_parallel_sum(_mm(hidden, _weight(mlp, "w2", cdt), cdt), tp)
     if "b2" in mlp:
         out = out + mlp["b2"].to(cdt)
     return x + out.to(x.dtype), None
@@ -678,7 +742,8 @@ def forward(
         is_sep = (tokens == cfg.doc_mask_token).to(torch.int32)
         segments = (torch.cumsum(is_sep, dim=1, dtype=torch.int32) - is_sep).contiguous()
 
-    x = params["tok_embed"]["embedding"][tokens].to(cdt)
+    tp = tensor_group(current_mesh())
+    x = vocab_embed(params["tok_embed"]["embedding"], tokens, tp, cdt)
     rope = None
     if cfg.pos_embed == "learned":
         pos_table = params["pos_embed"]["embedding"]
@@ -718,7 +783,7 @@ def forward(
         out = x
     else:
         w_out, bias = _lm_head_weights(params, cfg)
-        out = _head_logits32(x, w_out.to(cdt), bias, cdt)
+        out = gather_last(_head_logits32(copy_to_group(x, tp), w_out.to(cdt), bias, cdt), tp)
     if not return_aux:
         return out, kv_cache
     if aux_total is None:
@@ -766,17 +831,21 @@ class _LseSavedCE(torch.autograd.Function):
     custom VJP): the forward keeps each chunk's logits only transiently and
     saves the (S,) logsumexp; the backward recomputes a chunk's logits and
     forms softmax = exp(logits - lse) in one pass. z-loss adds z * lse^2
-    per token (its gradient scales p by 1 + 2 z lse)."""
+    per token (its gradient scales p by 1 + 2 z lse). With a tensor group
+    ``grp`` the head is vocabulary-parallel: ``w_out`` and ``bias`` are the
+    rank's V/tp columns, ``ts_`` the targets shifted into them, and the lse
+    and label logit combine over the group (``parallel.tensor``); the
+    input gradient is the rank's part."""
 
     @staticmethod
-    def forward(ctx, xs, w_out, bias, ts_, cdt, z):
+    def forward(ctx, xs, w_out, bias, ts_, cdt, z, grp=None):
         wc = w_out.to(cdt)
         total = torch.zeros((), dtype=torch.float32, device=xs.device)
         lses = []
         for xc, tc in zip(xs, ts_):
             logits = _head_logits32(xc, wc, bias, cdt)
-            lse = torch.logsumexp(logits, dim=-1)
-            label = logits.gather(1, tc[:, None])[:, 0]
+            lse = vocab_lse(logits, grp)
+            label = vocab_label(logits, tc, grp)
             chunk = (lse - label).sum()
             if z:
                 chunk = chunk + z * lse.square().sum()
@@ -807,19 +876,20 @@ class _LseSavedCE(torch.autograd.Function):
                 db = db + dlogits.sum(0)
         return (
             torch.stack(dxs), dw.to(w_out.dtype),
-            None if bias is None else db.to(bias.dtype), None, None, None,
-        )
+            None if bias is None else db.to(bias.dtype), None, None, None, None,
+        )[:len(ctx.needs_input_grad)]
 
 
 class _DenseLseCE(torch.autograd.Function):
     """Sum of per-token CE with the compute-dtype logits saved (the JAX
-    ``_dense_lse_ce`` custom VJP): the backward recomputes no logits."""
+    ``_dense_lse_ce`` custom VJP): the backward recomputes no logits.
+    ``grp`` as in ``_LseSavedCE``."""
 
     @staticmethod
-    def forward(ctx, x, w_out, bias, ts_, cdt, z):
+    def forward(ctx, x, w_out, bias, ts_, cdt, z, grp=None):
         logits = _head_logits32(x, w_out.to(cdt), bias, cdt)
-        lse = torch.logsumexp(logits, dim=-1)
-        label = logits.gather(1, ts_[:, None])[:, 0]
+        lse = vocab_lse(logits, grp)
+        label = vocab_label(logits, ts_, grp)
         total = (lse - label).sum()
         if z:
             total = total + z * lse.square().sum()
@@ -838,7 +908,7 @@ class _DenseLseCE(torch.autograd.Function):
         dx = dlogits @ w_out.to(cdt).float().T
         dw = x.to(cdt).float().T @ dlogits
         db = None if bias is None else dlogits.sum(0).to(bias.dtype)
-        return dx.to(x.dtype), dw.to(w_out.dtype), db, None, None, None
+        return (dx.to(x.dtype), dw.to(w_out.dtype), db, None, None, None, None)[:len(ctx.needs_input_grad)]
 
 
 _CE_CHUNK_BYTES = 512 * 1024 * 1024  # target fp32 logits per chunk
@@ -874,28 +944,40 @@ def _chunked_ce(
     """Mean cross-entropy over (B, T) targets through the configured head:
     ``ce_impl="chunked"`` (lse saved, logits recomputed per chunk), "dense"
     (compute-dtype logits saved) or "fused" (the fused CE kernels, no
-    logits; ``ops/fused_ce.py``). A biased head asked for "fused" warns and
-    takes the chunked head, as the JAX package does."""
+    logits; ``ops/fused_ce.py``; on a data, fsdp or expert mesh each rank's
+    rows). A biased head, or a mesh that shards the tensor, seq or pipe
+    axis, asked for "fused" warns and takes the chunked head, as the JAX
+    package does. On a tensor mesh ``w_out``/``bias`` are the rank's
+    vocabulary columns and the head is vocabulary-parallel."""
     cdt = torch_dtype(cfg.compute_dtype)
     b, t, d = hidden.shape
     s = b * t
+    mesh = current_mesh()
     if cfg.ce_impl == "fused":
-        if bias is None:
+        mesh_split = any(axis_size(mesh, ax) > 1 for ax in ("tensor", "seq", "pipe"))
+        if bias is None and not mesh_split:
             losses = fused_cross_entropy(
                 hidden.to(cdt).reshape(s, d).contiguous(), w_out.to(cdt), targets.reshape(s)
             )
             return losses.mean()
+        why = ("the lm_head has a bias" if bias is not None
+               else "the mesh shards tensor/seq/pipe axes the kernel can't express")
         warnings.warn(
-            "ce_impl='fused' degraded to chunked CE: the lm_head has a bias. "
-            "Drop lm_head_bias to get the fused kernel.",
+            f"ce_impl='fused' degraded to chunked CE: {why}. "
+            "Drop lm_head_bias / use a data+fsdp-only mesh to get the "
+            "fused kernel.",
             stacklevel=3,
         )
+    tp = tensor_group(mesh)
+    if tp is not None:
+        hidden = copy_to_group(hidden, tp)
+        targets = targets - tp.index * w_out.shape[1]
     if cfg.ce_impl == "dense":
-        return _DenseLseCE.apply(hidden.reshape(s, d), w_out, bias, targets.reshape(s), cdt, z) / s
+        return _DenseLseCE.apply(hidden.reshape(s, d), w_out, bias, targets.reshape(s), cdt, z, tp) / s
     n_chunks = _ce_chunks(s, cfg.vocab_size)
     xs = hidden.reshape(n_chunks, s // n_chunks, d)
     ts_ = targets.reshape(n_chunks, s // n_chunks)
-    return _LseSavedCE.apply(xs, w_out, bias, ts_, cdt, z) / s
+    return _LseSavedCE.apply(xs, w_out, bias, ts_, cdt, z, tp) / s
 
 
 def loss_fn(
@@ -917,7 +999,9 @@ def loss_fn(
     ring attention in the zigzag layout the columns are first permuted into
     the balanced chunk-pair layout (``parallel.zigzag``; mean CE is
     permutation invariant), or, when T is not divisible by 2n, kept
-    contiguous with a warning, as the JAX package does."""
+    contiguous with a warning, as the JAX package does. The tensor and
+    expert ranks of a data group hold the same rows and compute the same
+    loss; nothing divides by their count."""
     mesh = current_mesh()
     n_seq = sequence_shards(cfg, mesh)
     positions = None

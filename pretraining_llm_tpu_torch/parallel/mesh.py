@@ -9,15 +9,19 @@ order (sized by ``MeshConfig``):
 
   data   - pure data parallelism (gradient all-reduce)
   fsdp   - data parallelism + parameter/optimizer-state sharding
-  tensor - Megatron-style tensor parallelism   (not ported yet)
+  tensor - Megatron-style tensor parallelism (``parallel/tensor.py``)
   seq    - sequence/context parallelism (ring attention, Ulysses)
-  expert - expert parallelism                   (not ported yet)
+  expert - expert parallelism (``models/moe.py``)
   pipe   - pipeline parallelism                 (not ported yet)
 
 The bootstrap is the reference's own (``scripts/train_transformer.py``:
 ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` from the launcher, here
 ``torchrun``): NCCL with ``cuda:LOCAL_RANK`` on the cards, gloo only when
-the caller asked for the CPU. Rank r sits at the mesh coordinates of
+the caller asked for the CPU. A process group the caller made itself is
+taken as it is: two ranks can share one card over gloo, whose collectives
+then take the CUDA tensors (``mesh_device_type`` says where the ranks'
+tensors live, which under gloo is what ``build_mesh`` was told). Rank r
+sits at the mesh coordinates of
 ``arange(world).reshape(sizes)``, the device order of the JAX mesh, so a
 rank holds the shard that the JAX mesh gives the device at the same
 coordinates (``parallel/sharding.py``).
@@ -39,10 +43,17 @@ import torch.distributed as dist
 from pretraining_llm_tpu_torch.config import MeshConfig
 
 # Axes whose sharding the port does not implement yet.
-UNPORTED_AXES = ("tensor", "expert", "pipe")
-# Process groups the train step uses, created by ``build_mesh``.
+UNPORTED_AXES = ("pipe",)
+# Process groups the train step, the layers and sharded inference use,
+# created by ``build_mesh``: the token axes, the tensor and expert axes and
+# their combinations (a leaf's squares in the global norm are summed over
+# the axes that split it).
 _STEP_GROUPS = (("fsdp",), ("seq",), ("data",), ("data", "fsdp"), ("data", "seq"),
-                ("data", "fsdp", "seq"))
+                ("data", "fsdp", "seq"), ("tensor",), ("expert",), ("tensor", "expert"),
+                ("fsdp", "tensor"), ("fsdp", "expert"), ("fsdp", "tensor", "expert"))
+# Where the ranks' tensors live under gloo: "cpu" unless ``build_mesh`` was
+# given a CUDA device.
+_GLOO_TENSORS = "cpu"
 
 
 def initialize_distributed(device: Any = None) -> None:
@@ -91,11 +102,22 @@ def node_count() -> int:
     return max(1, world_size() // max(1, int(os.environ.get("LOCAL_WORLD_SIZE", world_size()))))
 
 
+def backend() -> Optional[str]:
+    """The default process group's backend, or None without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_backend()
+    return None
+
+
 def mesh_device_type() -> str:
-    """"cuda" under NCCL, "cpu" under gloo (or no process group)."""
-    if dist.is_available() and dist.is_initialized() and dist.get_backend() == "nccl":
+    """Where the ranks' tensors live: "cuda" under NCCL; under gloo the
+    device type ``build_mesh`` was last given ("cpu" by default, "cuda"
+    for ranks that share a card over gloo); "cpu" without a process
+    group."""
+    name = backend()
+    if name == "nccl":
         return "cuda"
-    return "cpu"
+    return _GLOO_TENSORS if name == "gloo" else "cpu"
 
 
 def needs_mesh(mesh_config: MeshConfig) -> bool:
@@ -116,7 +138,7 @@ def check_ported_axes(shape: Mapping[str, int]) -> None:
     if over:
         raise NotImplementedError(
             "mesh axes " + ", ".join(over) + " are not ported to PyTorch yet "
-            "(ROADMAP Queue A, parallelism slice 19: tensor, expert, pipe)"
+            "(ROADMAP Queue A, parallelism slice 20: the pipe axis)"
         )
 
 
@@ -135,16 +157,23 @@ def build_mesh(mesh_config: MeshConfig, device_type: Optional[str] = None) -> An
     order and names. ``device_type`` defaults to the process group's
     ("cuda" under NCCL); a single process without a group gets a world of
     one. Sizes that do not multiply to the world raise ``ValueError`` as
-    ``MeshConfig.sizes`` does; a tensor, expert or pipe axis above 1
-    raises ``NotImplementedError``."""
+    ``MeshConfig.sizes`` does; a pipe axis above 1 raises
+    ``NotImplementedError``. Under gloo ``device_type`` "cuda" declares
+    that the ranks' tensors live on a card (``mesh_device_type``); the
+    ``DeviceMesh`` itself is then the CPU layout of the ranks, since the
+    port's collectives run on its own groups (``axis_group``)."""
+    global _GLOO_TENSORS
     from torch.distributed.device_mesh import init_device_mesh
 
     sizes = mesh_config.sizes(world_size())
     check_ported_axes(dict(zip(mesh_config.axis_names, sizes)))
     if not dist.is_initialized():
         _world_of_one(device_type or "cpu")
+    if backend() == "gloo" and device_type is not None:
+        _GLOO_TENSORS = torch.device(device_type).type
     device_type = device_type or mesh_device_type()
-    mesh = init_device_mesh(device_type, sizes, mesh_dim_names=tuple(mesh_config.axis_names))
+    layout_type = "cpu" if backend() == "gloo" else device_type
+    mesh = init_device_mesh(layout_type, sizes, mesh_dim_names=tuple(mesh_config.axis_names))
     for axes in _STEP_GROUPS:
         axis_group(mesh, axes)
     return mesh
@@ -164,7 +193,10 @@ def mesh_shape(mesh: Any) -> Dict[str, int]:
         return {}
     if isinstance(mesh, Mapping):
         return dict(mesh)
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    shape = mesh.__dict__.get("_axis_sizes")
+    if shape is None:  # DeviceMesh.mesh builds its rank tensor anew on each read
+        shape = mesh.__dict__["_axis_sizes"] = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(shape)
 
 
 def axis_size(mesh: Any, axis: str) -> int:
@@ -223,8 +255,9 @@ def _prod(shape: Sequence[int], dims: Sequence[int]) -> int:
 
 
 def collective_device() -> torch.device:
-    """Where a small tensor for a collective lives: the current card under
-    NCCL, the CPU under gloo."""
+    """Where a small tensor for a collective lives: the current card when
+    the ranks' tensors live on cards (``mesh_device_type``), else the
+    CPU."""
     if mesh_device_type() == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
@@ -243,7 +276,7 @@ def all_ranks_agree(flag: bool, *, any_of: bool = False) -> bool:
 def barrier() -> None:
     """Every rank reaches this point (a no-op for a single process)."""
     if world_size() > 1:
-        if mesh_device_type() == "cuda":
+        if backend() == "nccl":
             dist.barrier(device_ids=[torch.cuda.current_device()])
         else:
             dist.barrier()

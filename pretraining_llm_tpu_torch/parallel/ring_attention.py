@@ -309,9 +309,10 @@ def ring_attention(
     layout: str = "contiguous",
     block_kv: int = 512,
 ) -> torch.Tensor:
-    """The rank's shards q (B, T/n, H, Dh), k/v (B, T/n, G, Dh) with G | H
-    -> its output shard (B, T/n, H, Dh), over the ``seq_axis`` ranks of
-    ``mesh``. With ``layout="zigzag"`` (causal only, as in JAX) the caller
+    """The rank's shards q (B, T/n, H/tp, Dh), k/v (B, T/n, G/tp, Dh) with
+    G | H -> its output shard (B, T/n, H/tp, Dh), over the ``seq_axis``
+    ranks of ``mesh`` (tp the ``head_axis`` size: the heads are split by
+    tensor, and the head counts in JAX's checks are the global ones). With ``layout="zigzag"`` (causal only, as in JAX) the caller
     permuted the sequence with ``parallel.zigzag.zigzag_perm`` and fed the
     matching positions. ``batch_axes`` is JAX's argument and changes
     nothing here (each rank holds its rows already)."""
@@ -319,7 +320,8 @@ def ring_attention(
     n = mesh_shape(mesh)[seq_axis]
     if layout == "zigzag" and q.shape[1] % 2 != 0:
         raise ValueError("zigzag layout needs an even per-device sequence length")
-    h, g = q.shape[2], k.shape[2]
+    tp = mesh_shape(mesh).get(head_axis, 1) if head_axis else 1
+    h, g = q.shape[2] * tp, k.shape[2] * tp
     if h % g != 0:
         raise ValueError(f"kv heads ({g}) must divide query heads ({h})")
     if g < h and not ring_supports_grouped(mesh, h, g, seq_axis=seq_axis, head_axis=head_axis):

@@ -10,14 +10,18 @@ slowest), the entries of JAX's ``PartitionSpec``. ``param_pspec`` and
   - FSDP/ZeRO-3: every large matrix shards one dimension over 'fsdp'
     (parameters and AdamW's moments: the spec tree is reused for both);
   - Megatron TP: heads, the MLP hidden dim and the vocabulary over
-    'tensor' (not ported yet: ``parallel/mesh.py`` refuses a tensor axis
-    above 1, so those entries split nothing);
+    'tensor' (the layers' collectives are ``parallel/tensor.py``'s); the
+    MoE experts' leading dim over 'expert';
   - norm scales and biases are replicated.
 
 Where JAX lets XLA place each leaf, the port places it itself:
 ``local_slices`` is the rank's slice of a leaf under a spec, the block the
-JAX mesh gives the device at the same coordinates; it stands for JAX's
-``named_sharding_tree``, which has no counterpart here.
+JAX mesh gives the device at the same coordinates, for a leaf split over
+one axis or over several at once (``wqkv`` is fsdp x tensor, an expert's
+``w1`` expert x fsdp x tensor); it stands for JAX's
+``named_sharding_tree``, which has no counterpart here. Where a dimension
+does not divide its axes, JAX pads the shards and the port raises
+``ValueError`` naming the leaf and the axes.
 
 ``activation_mesh``/``current_mesh`` install the mesh the model reads
 (ring and Ulysses attention, the zigzag layout of ``loss_fn``). JAX's
@@ -218,12 +222,13 @@ def is_sharded(spec: Spec, mesh: Any) -> bool:
 
 
 def local_slices(spec: Spec, shape: Tuple[int, ...], mesh: Any,
-                 coord: Optional[Dict[str, int]] = None) -> Tuple[slice, ...]:
+                 coord: Optional[Dict[str, int]] = None, name: str = "a leaf") -> Tuple[slice, ...]:
     """This rank's block of a leaf of ``shape`` under ``spec``: dimension d
     is cut into ``split_count`` equal blocks, and the rank takes the block
     of its coordinates on the entry's axes (the first axis slowest), as a
     ``NamedSharding`` does. ``coord`` (default: this rank's on ``mesh``)
-    names other coordinates; a dimension that does not divide raises."""
+    names other coordinates; a dimension that does not divide raises
+    ``ValueError`` naming ``name`` and the axes."""
     shape = tuple(int(s) for s in shape)
     sizes = mesh_shape(mesh)
     if coord is None:
@@ -236,7 +241,10 @@ def local_slices(spec: Spec, shape: Tuple[int, ...], mesh: Any,
             out.append(slice(0, dim))
             continue
         if dim % n:
-            raise ValueError(f"dimension {d} of size {dim} does not split {n} ways (spec {spec})")
+            raise ValueError(
+                f"{name}: dimension {d} of size {dim} does not split evenly over mesh axis "
+                f"{'x'.join(_entry_axes(entry))} ({n} ways; spec {spec}); the port shards only even "
+                "splits")
         k = 0
         for a in _entry_axes(entry):
             k = k * sizes.get(a, 1) + coord.get(a, 0)
@@ -245,12 +253,20 @@ def local_slices(spec: Spec, shape: Tuple[int, ...], mesh: Any,
     return tuple(out)
 
 
-def shard_leaf(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
+def shard_leaf(x: torch.Tensor, spec: Spec, mesh: Any, name: str = "a leaf") -> torch.Tensor:
     """This rank's block of the full leaf ``x`` (a fresh contiguous tensor
     when it is a part; ``x`` itself when the spec splits nothing)."""
     if not is_sharded(spec, mesh):
         return x
-    return x[local_slices(spec, tuple(x.shape), mesh)].contiguous().clone()
+    return x[local_slices(spec, tuple(x.shape), mesh, name=name)].contiguous().clone()
+
+
+def shard_tree(tree: Any, specs: Any, mesh: Any, path: Tuple[str, ...] = ()) -> Any:
+    """Each leaf of a nested dict replaced by this rank's block under the
+    matching spec of ``specs``."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh, path + (k,)) for k, v in tree.items()}
+    return shard_leaf(tree, specs, mesh, "/".join(path))
 
 
 # ---------------------------------------------------------------------------
@@ -261,17 +277,28 @@ def shard_leaf(x: torch.Tensor, spec: Spec, mesh: Any) -> torch.Tensor:
 # ``current_mesh()`` is None and every path is the single-rank one.
 
 _CURRENT_MESH: Optional[Any] = None
+_ROWS_SPLIT = True
 
 
 @contextlib.contextmanager
-def activation_mesh(mesh: Optional[Any]) -> Iterator[None]:
-    global _CURRENT_MESH
-    prev, _CURRENT_MESH = _CURRENT_MESH, mesh
+def activation_mesh(mesh: Optional[Any], *, rows_split: bool = True) -> Iterator[None]:
+    """Install ``mesh`` for the model. ``rows_split`` says whether the
+    ranks of a data x fsdp group hold different rows (a train or eval
+    step: the MoE router's statistics then span the ranks) or the same
+    ones (sharded inference: every rank runs the same rows)."""
+    global _CURRENT_MESH, _ROWS_SPLIT
+    prev = _CURRENT_MESH, _ROWS_SPLIT
+    _CURRENT_MESH, _ROWS_SPLIT = mesh, rows_split
     try:
         yield
     finally:
-        _CURRENT_MESH = prev
+        _CURRENT_MESH, _ROWS_SPLIT = prev
 
 
 def current_mesh() -> Optional[Any]:
     return _CURRENT_MESH
+
+
+def rows_split() -> bool:
+    """Whether the active mesh's data x fsdp ranks hold different rows."""
+    return _CURRENT_MESH is not None and _ROWS_SPLIT

@@ -18,6 +18,12 @@ is causal, so a non-causal call (or ``use_flash=False``) runs
 ``naive_attention``. GQA: q and k/v exchange independently (H/n and G/n
 heads per rank); the contiguous head split is group-aligned, so rank j's
 query heads cover exactly its KV groups.
+
+With a tensor axis (``head_axis``) the heads are split by tensor first,
+then by seq: the rank's shards carry its H/tp query heads and G/tp KV
+heads (the model expands K/V per query head where G does not split over
+tensor x seq), and the head counts in JAX's checks and messages are the
+global ones, H = tp x the shard's heads.
 """
 
 from __future__ import annotations
@@ -127,16 +133,17 @@ def ulysses_attention(
     block_q: int = 0,
     block_kv: int = 0,
 ) -> torch.Tensor:
-    """The rank's shards q (B, T/n, H, Dh), k/v (B, T/n, G, Dh) with G | H
-    -> its output shard (B, T/n, H, Dh), over the ``seq_axis`` ranks of
-    ``mesh``. ``batch_axes`` is JAX's argument and changes nothing here."""
+    """The rank's shards q (B, T/n, H/tp, Dh), k/v (B, T/n, G/tp, Dh) with
+    G | H -> its output shard (B, T/n, H/tp, Dh), over the ``seq_axis``
+    ranks of ``mesh`` (tp the ``head_axis`` size). ``batch_axes`` is JAX's
+    argument and changes nothing here."""
     del batch_axes
     shape = mesh_shape(mesh)
     n = shape[seq_axis]
-    h, g = q.shape[2], k.shape[2]
+    tp = shape.get(head_axis, 1) if head_axis else 1
+    h, g = q.shape[2] * tp, k.shape[2] * tp
     if h % g != 0:
         raise ValueError(f"kv heads ({g}) must divide query heads ({h})")
-    tp = shape.get(head_axis, 1) if head_axis else 1
     h_local = h // tp
     if h_local % n != 0:
         raise ValueError(

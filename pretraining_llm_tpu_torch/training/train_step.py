@@ -12,40 +12,47 @@ the parameters and its state where they are (``training/optimizer.py``).
 On a mesh (``build_train_step(cfg, mesh)``, ``parallel/``) each rank runs
 the step on its rows of the global batch (and, with ring or Ulysses
 attention, its share of the columns; ``models.transformer.loss_fn``) and
-holds its block of every leaf that ``state_pspec_tree`` shards over fsdp
-(JAX's spec tree: parameters, AdamW's moments and the EMA alike;
-``shard_train_state``). Where JAX's one SPMD program gets its collectives
-from XLA, ``MeshPlan`` issues them:
+holds its block of every leaf that ``state_pspec_tree`` shards over fsdp,
+tensor or expert (JAX's spec tree: parameters, AdamW's moments and the
+EMA alike; ``shard_train_state``). The tensor and expert ranks of a data
+group hold the same rows; the layers' own collectives (``parallel/
+tensor.py``) make their blocks' gradients whole. Where JAX's one SPMD
+program gets its collectives from XLA, ``MeshPlan`` issues the rest:
 
-  - a sharded parameter is all-gathered over the fsdp ranks for use
+  - an fsdp-sharded parameter is all-gathered over the fsdp ranks for use
     (``_GatherShard``, once per microbatch, outside the layers' remat
     regions) and its gradient reduce-scattered back in the backward;
+    tensor and expert blocks stay the rank's own;
   - the loss is each rank's part of the global token mean, so the
-    gradient is a partial sum: sharded leaves are then summed over the
-    data (and seq) ranks, replicated leaves over every rank that split the
-    tokens; nothing averages by the world size;
-  - the global norm sums a sharded leaf's squares over its fsdp shards
+    gradient is a partial sum over the token axes (data, fsdp, and seq
+    when it splits the tokens), never over tensor or expert: fsdp blocks
+    are summed over the other token axes, every other leaf over all of
+    them. Leaves replicated over 'tensor' (norms, ``bo``, ``b2``) come
+    out equal on every tensor rank; the two whose gradient is partial
+    there, a replicated GQA ``wkv``/``bkv`` (G not dividing tp) and the
+    experts' ``b2``, are also summed over 'tensor'. Nothing averages by
+    the world size;
+  - the global norm sums each leaf's squares over the axes that split it,
     once (replicas hold the same block);
   - AdamW and the EMA update each rank's blocks in place. Adafactor and
-    Muon run only on unsharded leaves (a data or seq mesh); on fsdp shards
-    they raise ``NotImplementedError``.
+    Muon run only on unsharded leaves (a data or seq mesh); on fsdp,
+    tensor or expert blocks they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
-import torch.distributed as dist
 
 from pretraining_llm_tpu_torch.config import Config
 from pretraining_llm_tpu_torch.models import transformer
-from pretraining_llm_tpu_torch.parallel.mesh import axis_group, check_ported_axes, coordinate, mesh_shape, world_size
+from pretraining_llm_tpu_torch.parallel.mesh import axis_group, axis_size, check_ported_axes, coordinate, mesh_shape
 from pretraining_llm_tpu_torch.parallel.sharding import (
-    activation_mesh, is_sharded, local_slices, param_pspec_tree, shard_leaf, split_count,
+    _entry_axes, activation_mesh, is_sharded, local_slices, param_pspec_tree, shard_tree,
 )
+from pretraining_llm_tpu_torch.parallel.tensor import all_gather_into, all_reduce, reduce_scatter_into
 from pretraining_llm_tpu_torch.training import optimizer as opt
 from pretraining_llm_tpu_torch.training.checkpoint import ShardedLeaf
 from pretraining_llm_tpu_torch.utils import debug
@@ -68,7 +75,7 @@ def init_train_state(
     seed = cfg.train.seed if generator is None else generator
     params = transformer.init_params(cfg.model, seed, device=dev)
     if mesh is not None:
-        params = _shard_tree(params, param_pspec_tree(params), mesh)
+        params = shard_tree(params, param_pspec_tree(params, tensor_size=axis_size(mesh, "tensor")), mesh)
     state: TrainState = {
         "params": params,
         "opt": opt.optimizer_init(params, cfg.train),
@@ -109,17 +116,12 @@ def _mirror(spec_tree: Any, state_tree: Any) -> Any:
     return {k: spec_tree for k in state_tree}
 
 
-def _shard_tree(tree: Any, specs: Any, mesh: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _shard_tree(v, specs[k], mesh) for k, v in tree.items()}
-    return shard_leaf(tree, specs, mesh)
-
-
 def shard_train_state(state: TrainState, mesh: Any, cfg: Optional[Config] = None) -> TrainState:
     """Each leaf of a full train state replaced by this rank's block under
-    ``state_pspec_tree`` (leaves that are not split stay as they are)."""
+    ``state_pspec_tree`` at the mesh's tensor size (leaves that are not
+    split stay as they are)."""
     del cfg  # the pipeline's baked layout is not ported
-    return _shard_tree(state, state_pspec_tree(state), mesh)
+    return shard_tree(state, state_pspec_tree(state, tensor_size=axis_size(mesh, "tensor")), mesh)
 
 
 def state_template(cfg: Config) -> TrainState:
@@ -140,12 +142,14 @@ def checkpoint_layout(template: TrainState, mesh: Any) -> Optional[Dict[str, Any
     that does not split the leaf). None when nothing is sharded."""
     coord = coordinate(mesh)
     layout = {}
-    for (path, leaf), (_, spec) in zip(opt.tree_leaves(template), _spec_leaves(state_pspec_tree(template))):
+    specs = state_pspec_tree(template, tensor_size=axis_size(mesh, "tensor"))
+    for (path, leaf), (_, spec) in zip(opt.tree_leaves(template), _spec_leaves(specs)):
         if not is_sharded(spec, mesh):
             continue
-        used = {a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e)}
+        used = {a for e in spec for a in _entry_axes(e)}
         write = all(c == 0 for a, c in coord.items() if a not in used)
-        layout["__".join(path)] = ShardedLeaf(leaf.shape, local_slices(spec, tuple(leaf.shape), mesh), write)
+        name = "__".join(path)
+        layout[name] = ShardedLeaf(leaf.shape, local_slices(spec, tuple(leaf.shape), mesh, name=name), write)
     return layout or None
 
 
@@ -301,17 +305,13 @@ def build_eval_loop(cfg: Config, mesh: Any = None) -> Callable[[TrainState, Batc
 def _all_gather(shard: torch.Tensor, dim: int, group: Any, n: int) -> torch.Tensor:
     x = shard.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=group)
-    return out.movedim(0, dim)
+    return all_gather_into(out, x, group).movedim(0, dim)
 
 
 def _reduce_scatter(full: torch.Tensor, dim: int, group: Any, n: int) -> torch.Tensor:
     x = full.movedim(dim, 0).contiguous()
     out = torch.empty((x.shape[0] // n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
-    with warnings.catch_warnings():  # newer torch names a successor that older torch lacks
-        warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
-    return out.movedim(0, dim)
+    return reduce_scatter_into(out, x, group).movedim(0, dim)
 
 
 class _GatherShard(torch.autograd.Function):
@@ -333,44 +333,54 @@ class _GatherShard(torch.autograd.Function):
 
 class MeshPlan:
     """What one rank does to run the JAX package's global step on ``mesh``:
-    which leaves are fsdp blocks (and along which dim), and the process
-    groups the loss and gradients are summed over (``parallel.mesh``)."""
+    which leaves are fsdp blocks (and along which dim), which axes split
+    each leaf, and the process groups the loss and each gradient are
+    summed over (``parallel.mesh``)."""
 
     def __init__(self, cfg: Config, mesh: Any) -> None:
         shape = mesh_shape(mesh)
         check_ported_axes(shape)
-        if cfg.model.n_experts and world_size() > 1:
-            raise NotImplementedError(
-                "a MoE model on several ranks (the router's statistics over the global batch, "
-                "expert parallelism) is not ported to PyTorch yet (ROADMAP Queue A, parallelism "
-                "slice 19: tensor, expert, pipe)"
-            )
         self.cfg, self.mesh = cfg, mesh
         self.n_seq = transformer.sequence_shards(cfg.model, mesh)
-        shapes = self.full_shapes = transformer.param_shapes(cfg.model)
-        specs = param_pspec_tree(_meta(shapes))
-        # {leaf path: the dim split over fsdp} of the parameter tree.
-        self.fsdp_dims: Dict[Tuple[str, ...], int] = {}
-        for path, spec in _spec_leaves(specs):
-            dims = [d for d, e in enumerate(spec) if split_count(e, mesh) > 1]
-            if dims:
-                self.fsdp_dims[path] = dims[0]
-        if self.fsdp_dims and cfg.train.optimizer != "adamw":
+        if cfg.model.n_experts and self.n_seq > 1:
             raise NotImplementedError(
-                f"train.optimizer={cfg.train.optimizer!r} on fsdp-sharded leaves is not ported to "
-                "PyTorch yet (ROADMAP Queue A, parallelism slice 19); use adamw or mesh.fsdp=1"
-            )
+                "a MoE model with sequence-sharded attention (the routing groups over the seq ranks' "
+                "columns) is not ported to PyTorch yet (ROADMAP Queue A, parallelism slice 20)")
+        shapes = self.full_shapes = transformer.param_shapes(cfg.model)
+        tp = shape.get("tensor", 1)
+        specs = param_pspec_tree(_meta(shapes), tensor_size=tp)
         token_axes = ("data", "fsdp") + (("seq",) if self.n_seq > 1 else ())
+        # {leaf path: the dim split over fsdp}, {leaf path: the axes that
+        # split it}, {leaf path: the group its gradient is summed over}.
+        self.fsdp_dims: Dict[Tuple[str, ...], int] = {}
+        self.split_axes: Dict[Tuple[str, ...], Tuple[str, ...]] = {}
+        self.grad_groups: Dict[Tuple[str, ...], Any] = {}
+        for path, spec in _spec_leaves(specs):
+            axes = tuple(a for e in spec for a in _entry_axes(e) if shape.get(a, 1) > 1)
+            if axes:
+                self.split_axes[path] = axes
+            if "fsdp" in axes:
+                self.fsdp_dims[path] = next(d for d, e in enumerate(spec) if "fsdp" in _entry_axes(e))
+            summed = tuple(a for a in token_axes if a not in axes)
+            if tp > 1 and "tensor" not in axes and (
+                    path[-1] in ("wkv", "bkv") or ("experts" in path and path[-1] == "b2")):
+                summed += ("tensor",)  # partial on each tensor rank
+            self.grad_groups[path] = axis_group(mesh, summed)
+        if self.split_axes and cfg.train.optimizer != "adamw":
+            raise NotImplementedError(
+                f"train.optimizer={cfg.train.optimizer!r} on fsdp-, tensor- or expert-sharded leaves is not "
+                "ported to PyTorch yet (ROADMAP Queue A, parallelism slice 20); use adamw, or a data or "
+                "seq mesh")
         self.fsdp = axis_group(mesh, ("fsdp",))
-        self.tokens = axis_group(mesh, token_axes)  # replicated leaves, the loss
-        self.rest = axis_group(mesh, tuple(a for a in token_axes if a != "fsdp"))  # fsdp blocks
+        self.tokens = axis_group(mesh, token_axes)  # the loss
+        self.norm_groups = {axes: axis_group(mesh, axes) for axes in sorted(set(self.split_axes.values()))}
 
     def active(self) -> Any:
         return activation_mesh(self.mesh)
 
     def check_state(self, state: TrainState) -> None:
         """Refuse a full (unsharded) state: a mesh step takes blocks."""
-        for path in list(self.fsdp_dims)[:1]:
+        for path in list(self.split_axes)[:1]:
             if tuple(_get(state["params"], path).shape) == tuple(_get(self.full_shapes, path)):
                 raise ValueError(
                     f"params/{'/'.join(path)} is the full leaf; a mesh step takes "
@@ -380,8 +390,9 @@ class MeshPlan:
         return _GatherShard.apply(leaf, dim, self.fsdp.group, self.fsdp.size)
 
     def gather(self, leaves: Any) -> Any:
-        """The differentiable full parameters from ``_grad_leaves``' tree
-        (its blocks entry a per-layer list)."""
+        """The differentiable parameters from ``_grad_leaves``' tree (its
+        blocks entry a per-layer list): fsdp blocks gathered, tensor and
+        expert blocks as they are."""
         out = {}
         for k, v in leaves.items():
             if k == "blocks":
@@ -397,7 +408,7 @@ class MeshPlan:
         return tree if dim is None else self._gather_leaf(tree, dim + shift)
 
     def gather_full(self, params: Any) -> Any:
-        """Full parameters (no gradient), for eval."""
+        """The parameters with fsdp blocks gathered (no gradient), for eval."""
         def walk(tree: Any, path: Tuple[str, ...]) -> Any:
             if isinstance(tree, dict):
                 return {k: walk(v, path + (k,)) for k, v in tree.items()}
@@ -409,36 +420,37 @@ class MeshPlan:
     def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
         if self.tokens.group is None:
             return loss
-        loss = loss.detach().clone()
-        dist.all_reduce(loss, group=self.tokens.group)
-        return loss
+        return all_reduce(loss.detach().clone(), self.tokens.group)
 
     @torch.no_grad()
     def reduce_grads(self, grads: Any) -> Any:
-        """Sum the partial gradients: fsdp blocks over the data (and seq)
-        ranks, replicated leaves over every rank that split the tokens."""
+        """Sum the partial gradients over each leaf's group."""
         for path, g in opt.tree_leaves(grads):
-            grp = self.rest if path in self.fsdp_dims else self.tokens
+            grp = self.grad_groups[path]
             if grp.group is not None:
-                dist.all_reduce(g, group=grp.group)
+                all_reduce(g, grp.group)
         return grads
 
     @torch.no_grad()
     def global_norm(self, grads: Any) -> torch.Tensor:
         """sqrt of the sum of squares of the global gradient: a block's
-        squares summed over the fsdp ranks once, replicated leaves once."""
+        squares summed over the ranks of the axes that split its leaf,
+        replicated leaves once."""
         device = opt.tree_leaves(grads)[0][1].device
+        parts = {axes: torch.zeros((), dtype=torch.float32, device=device) for axes in self.norm_groups}
         rep = torch.zeros((), dtype=torch.float32, device=device)
-        sharded = torch.zeros((), dtype=torch.float32, device=device)
         for path, g in opt.tree_leaves(grads):
             sq = g.float().square().sum()
-            if path in self.fsdp_dims:
-                sharded = sharded + sq
-            else:
+            axes = self.split_axes.get(path)
+            if axes is None:
                 rep = rep + sq
-        if self.fsdp_dims and self.fsdp.group is not None:
-            dist.all_reduce(sharded, group=self.fsdp.group)
-        return torch.sqrt(rep + sharded)
+            else:
+                parts[axes] = parts[axes] + sq
+        total = rep
+        for axes, part in parts.items():
+            grp = self.norm_groups[axes]
+            total = total + (part if grp.group is None else all_reduce(part, grp.group))
+        return torch.sqrt(total)
 
 
 def _meta(shapes: Any) -> Any:

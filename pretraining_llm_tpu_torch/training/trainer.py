@@ -136,10 +136,10 @@ class Trainer:
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None and pmesh.world_size() > 1:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if pmesh.world_size() > 1 and pmesh.mesh_device_type() != self.device.type:
+        if pmesh.backend() == "nccl" and self.device.type != "cuda":
             raise RuntimeError(
-                f"the process group's backend ({pmesh.mesh_device_type()} collectives) does not "
-                f"match the device {self.device}: NCCL drives the cards, gloo the CPU")
+                f"the process group's backend (cuda collectives) does not match the device "
+                f"{self.device}: NCCL drives the cards; run CPU ranks over gloo")
         self.mesh = mesh if mesh is not None else (
             pmesh.build_mesh(config.mesh, self.device.type) if pmesh.needs_mesh(config.mesh) else None)
         self.is_host0 = pmesh.rank() == 0
@@ -255,7 +255,7 @@ class Trainer:
         if pmesh.node_count() > 1:
             raise NotImplementedError(
                 "file data on several nodes (each node's shard of the token stream) is not ported "
-                "to PyTorch yet; use --data synthetic")
+                "to PyTorch yet (ROADMAP Queue A, parallelism slice 20); use --data synthetic")
         dcfg, mcfg = self.config.data, self.config.model
         batch = self._node_batch
         if dcfg.use_native_batcher and not data_loader.is_mixture(path):

@@ -51,19 +51,49 @@ def attention(impl, q, k, v, do, sizes, causal=True, layout="contiguous", block_
 
 
 def attention_error(impl, sizes, h, g, t=16):
-    """The message of the error ``impl`` raises on these heads, or None."""
+    """The message of the error ``impl`` raises on these (global) heads,
+    the rank holding its tensor shard of them, or None."""
     from pretraining_llm_tpu_torch.parallel.ring_attention import ring_attention
     from pretraining_llm_tpu_torch.parallel.ulysses import ulysses_attention
 
     mesh = get_mesh(sizes)
-    n = pmesh.axis_size(mesh, "seq")
-    q = torch.zeros(1, t // n, h, 8)
-    kv = torch.zeros(1, t // n, g, 8)
+    n, tp = pmesh.axis_size(mesh, "seq"), pmesh.axis_size(mesh, "tensor")
+    q = torch.zeros(1, t // n, h // tp, 8)
+    kv = torch.zeros(1, t // n, g // tp, 8)
     fn = ring_attention if impl == "ring" else ulysses_attention
     try:
         fn(q, kv, kv, mesh)
     except ValueError as e:
         return str(e)
+    return None
+
+
+def train_steps_warned(cfg_dict, params_np, x, y, sizes, steps=1):
+    """``train_steps`` with the warnings it raised, as (category, message)
+    pairs."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = train_steps(cfg_dict, params_np, x, y, sizes, steps)
+    out["warnings"] = [(w.category.__name__, str(w.message)) for w in caught]
+    return out
+
+
+def train_error(cfg_dict, sizes):
+    """The (type, message) of the error the port's mesh train step raises
+    for this config on this mesh, or None."""
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    cfg = Config.from_dict(cfg_dict)
+    mesh = get_mesh(sizes)
+    try:
+        state = ts.init_train_state(cfg, 0, device="cpu", mesh=mesh)
+        ts.build_train_step(cfg, mesh)
+        del state
+    except (NotImplementedError, ValueError) as e:
+        return type(e).__name__, str(e)
     return None
 
 
@@ -102,7 +132,7 @@ def train_steps(cfg_dict, params_np, x, y, sizes, steps=2):
     params = bridge.params_from_numpy(params_np, cfg.model, device="cpu")
     full = {"params": params, "opt": opt.optimizer_init(params, cfg.train),
             "step": torch.zeros((), dtype=torch.int32)}
-    specs = ts.state_pspec_tree(full)
+    specs = ts.state_pspec_tree(full, tensor_size=pmesh.axis_size(mesh, "tensor"))
     shapes = {"/".join(p): tuple(t.shape) for p, t in opt.tree_leaves(full)}
     state = ts.shard_train_state(full, mesh)
     step = ts.build_train_step(cfg, mesh)
@@ -160,3 +190,131 @@ def compile_only_sizes(cfg_dict, sizes):
     from pretraining_llm_tpu_torch.config import Config
 
     return train_cli.shape_bytes(Config.from_dict(cfg_dict), get_mesh(sizes))
+
+
+def moe_layer(cfg_dict, mlp_np, h, sizes):
+    """One MoE MLP (``models.moe.moe_mlp``) on this rank's rows of the
+    global (B, T, D) input h, with its blocks of the layer's parameters
+    under the mesh: the rank's output rows and the aux loss."""
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.models import moe
+    from pretraining_llm_tpu_torch.parallel.sharding import activation_mesh, param_pspec_tree, shard_tree
+
+    cfg = Config.from_dict(cfg_dict)
+    mesh = get_mesh(sizes)
+    tree = {"mlp": {"router": torch.from_numpy(mlp_np["router"]),
+                    "experts": {k: torch.from_numpy(v) for k, v in mlp_np["experts"].items()}}}
+    local = shard_tree(tree, param_pspec_tree(tree, tensor_size=pmesh.axis_size(mesh, "tensor")), mesh)
+    rows = rank_rows(sizes, h.shape[0])
+    with activation_mesh(mesh):
+        y, aux = moe.moe_mlp(local["mlp"], torch.from_numpy(h[rows]), cfg.model)
+    return {"y": y.numpy(), "aux": float(aux), "rows": [rows.start, rows.stop]}
+
+
+def inference_blocks(cfg_dict, params_np, sizes, quantize=False):
+    """``shard_params_for_inference``'s blocks of the full parameters (int8
+    quantized first, with ``quantize``), and, for the quantized tree, the
+    blocks that quantizing the rank's own float blocks gives (what the
+    serving engine does on a mesh)."""
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.generation.generate import mesh_params, shard_params_for_inference
+    from pretraining_llm_tpu_torch.models import bridge
+    from pretraining_llm_tpu_torch.models import quantize as tq
+    from pretraining_llm_tpu_torch.parallel.tensor import tensor_group
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    cfg = Config.from_dict(cfg_dict)
+    mesh = get_mesh(sizes)
+    params = bridge.params_from_numpy(params_np, cfg.model, device="cpu")
+    full = tq.quantize_params_for_serving(params, cfg.model) if quantize else params
+    out = {"blocks": {"/".join(p): t.numpy() for p, t in opt.tree_leaves(shard_params_for_inference(full, mesh))}}
+    if quantize:
+        local = mesh_params(shard_params_for_inference(params, mesh), cfg.model, mesh)
+        q = tq.quantize_params_for_serving(local, cfg.model, tensor_group(mesh))
+        out["local_quantized"] = {"/".join(p): t.numpy() for p, t in opt.tree_leaves(q)}
+        out["local_full"] = {"/".join(p): t.numpy()
+                             for p, t in opt.tree_leaves(mesh_params(full, cfg.model, mesh))}
+    return out
+
+
+def generate_on_mesh(cfg_dict, params_np, prompt, n_new, sizes, prompt_lengths=None):
+    """Greedy ``generate(..., mesh=)`` from ``shard_params_for_inference``'s
+    blocks: the tokens every rank returns."""
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.generation.generate import generate, shard_params_for_inference
+    from pretraining_llm_tpu_torch.models import bridge
+
+    cfg = Config.from_dict(cfg_dict)
+    mesh = get_mesh(sizes)
+    params = bridge.params_from_numpy(params_np, cfg.model, device="cpu")
+    toks = generate(shard_params_for_inference(params, mesh), cfg.model, prompt, n_new, 7, temperature=0.0,
+                    mesh=mesh, prompt_lengths=prompt_lengths)
+    return toks.numpy()
+
+
+def serve_on_mesh(cfg_dict, params_np, prompts, n_new, sizes, engine_kw, pipeline=True, spec_k=0):
+    """``ServingEngine(mesh=)`` from ``shard_params_for_inference``'s blocks
+    over ``prompts`` (greedy): each request's tokens, the pools' head
+    count and the warnings the constructor raised. ``spec_k`` serves
+    speculatively with the model as its own draft."""
+    import warnings
+
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.generation.generate import shard_params_for_inference
+    from pretraining_llm_tpu_torch.generation.serving import ServingEngine
+    from pretraining_llm_tpu_torch.models import bridge
+
+    cfg = Config.from_dict(cfg_dict)
+    mesh = get_mesh(sizes)
+    params = bridge.params_from_numpy(params_np, cfg.model, device="cpu")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sharded = shard_params_for_inference(params, mesh)
+        if spec_k:
+            engine_kw = dict(engine_kw, draft_params=sharded, draft_cfg=cfg.model, spec_k=spec_k)
+        eng = ServingEngine(sharded, cfg.model, temperature=0.0, mesh=mesh, device="cpu", **engine_kw)
+    rids = [eng.submit(list(p), n_new) for p in prompts]
+    out = eng.run(pipeline=pipeline)
+    return {"tokens": [out[r] for r in rids], "pool_heads": int(eng.pools["layers"][0]["k_pool"].shape[2]),
+            "warnings": [str(w.message) for w in caught],
+            "cached_tokens": sum(eng.req_timing[r].get("cached_tokens", 0) for r in rids)}
+
+
+def plan_layout(cfg_dict, sizes):
+    """The train step's plan on this mesh: {leaf: (the axes that split
+    it, the axes its gradient is summed over)}."""
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    mesh = get_mesh(sizes)
+    plan = ts.MeshPlan(Config.from_dict(cfg_dict), mesh)
+    names = mesh.mesh_dim_names
+    out = {}
+    for path, grp in plan.grad_groups.items():
+        summed = tuple(a for a in names if a in _group_axes(mesh, grp))
+        out["/".join(path)] = (list(plan.split_axes.get(path, ())), list(summed))
+    return out
+
+
+def _group_axes(mesh, grp):
+    """The axes along which a group's ranks differ from this rank."""
+    coords = {r: dict(zip(mesh.mesh_dim_names, [int(i) for i in (mesh.mesh == r).nonzero()[0]]))
+              for r in grp.ranks}
+    me = coords[grp.ranks[grp.index]]
+    return {a for c in coords.values() for a in c if c[a] != me[a]}
+
+
+def collectives_on_tensors():
+    """Where a gloo world of CPU ranks says its tensors live, and where its
+    collectives leave their results."""
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.parallel import tensor as ptensor
+
+    x = torch.full((2,), float(dist.get_rank()))
+    ptensor.all_reduce(x, dist.group.WORLD)
+    out = torch.empty(2 * dist.get_world_size())
+    ptensor.all_gather_into(out, torch.full((2,), float(dist.get_rank())), dist.group.WORLD)
+    return {"type": pmesh.mesh_device_type(), "device": str(pmesh.collective_device()),
+            "sum": x.tolist(), "sum_device": str(x.device), "gathered": out.tolist(),
+            "gathered_device": str(out.device), "agree": pmesh.all_ranks_agree(True)}

@@ -235,15 +235,15 @@ def test_sequence_parallel_backstops_match_jax(impl, option):
 
 
 def test_unported_axes_and_pipeline_raise():
-    """The tensor, expert and pipe axes above 1 and pipeline stages are
-    the next parallelism slice's: each raises NotImplementedError naming
-    it."""
-    for axis in ("tensor", "expert", "pipe"):
-        with pytest.raises(NotImplementedError, match=f"{axis}=2.*slice 19"):
-            pmesh.check_ported_axes({"data": 1, axis: 2})
-    pmesh.check_ported_axes({"data": 4, "fsdp": 2, "seq": 4, "tensor": 1})
+    """The pipe axis above 1 and pipeline stages are the next parallelism
+    slice's: each raises NotImplementedError naming it. The tensor and
+    expert axes are ported: ``UNPORTED_AXES`` is the pipe axis alone."""
+    assert pmesh.UNPORTED_AXES == ("pipe",)
+    with pytest.raises(NotImplementedError, match="pipe=2.*slice 20"):
+        pmesh.check_ported_axes({"data": 1, "pipe": 2})
+    pmesh.check_ported_axes({"data": 4, "fsdp": 2, "seq": 4, "tensor": 2, "expert": 2})
     cfg = tcfg.ModelConfig(**dict(SMALL, pos_embed="learned"), pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="pipeline_stages > 1.*slice 19"):
+    with pytest.raises(NotImplementedError, match="pipeline_stages > 1.*slice 20"):
         ttf.init_params(cfg, 0, device="cpu")
 
 

@@ -102,8 +102,11 @@ def test_indivisible_heads_are_rejected(ranks, impl, h, g, match):
 
 
 def test_unported_axes_raise_on_ranks(ranks):
-    """A tensor, expert or pipe axis above 1 on real ranks raises
-    ``NotImplementedError`` naming the next slice, on every rank."""
-    for axis in ("tensor", "expert", "pipe"):
+    """A pipe axis above 1 on real ranks raises ``NotImplementedError``
+    naming the next slice, on every rank; the tensor and expert axes are
+    ported and build."""
+    for axis in ("tensor", "expert"):
         got = ranks.run("_torch_parallel_cases:build_mesh_error", **{axis: 2, "data": 2})
-        assert all(m is not None and f"{axis}=2" in m and "slice 19" in m for m in got), got
+        assert all(m is None for m in got), got
+    got = ranks.run("_torch_parallel_cases:build_mesh_error", pipe=2, data=2)
+    assert all(m is not None and "pipe=2" in m and "slice 20" in m for m in got), got

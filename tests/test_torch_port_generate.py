@@ -272,16 +272,30 @@ def test_generate_validation_raises_jax_types(models):
 
 
 def test_unported_generate_options_raise(models, jax_ckpt, capsys):
-    """Sharded decode still raises, and so do ragged rows of a MoE model
-    (JAX's ``ValueError``: MoE itself runs since it was ported). Speculative
-    decoding, refused before it was ported, now runs: a greedy ``generate_text_speculative``
-    (self-draft, k 3) and the CLI's ``--draft_model_path`` mode give
-    ``generate_text``'s string, and JAX's."""
+    """Ragged rows of a MoE model raise (JAX's ``ValueError``: MoE itself
+    runs since it was ported). Sharded decode, refused before it was
+    ported, now runs: on a mesh of one rank ``shard_params_for_inference``
+    keeps every leaf and ``generate(mesh=)`` gives the tokens of no mesh
+    (meshes of several ranks: ``test_torch_parallel_inference.py``).
+    Speculative decoding, refused before it was ported, now runs: a greedy
+    ``generate_text_speculative`` (self-draft, k 3) and the CLI's
+    ``--draft_model_path`` mode give ``generate_text``'s string, and
+    JAX's."""
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+    from pretraining_llm_tpu_torch.training import optimizer as topt
+
     _, tc, _, tp = models["learned-mha"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tgen.generate(tp, tc, np.zeros((1, 4), np.int64), 2, 0, mesh=object())
-    with pytest.raises(NotImplementedError, match="shard_params_for_inference"):
-        tgen.shard_params_for_inference(tp, object())
+    prompt = np.arange(8, dtype=np.int64).reshape(2, 4)
+    want_toks = tgen.generate(tp, tc, prompt, 3, 0, temperature=0.0)
+    mesh = pmesh.single_device_mesh("cpu")
+    try:
+        sharded = tgen.shard_params_for_inference(tp, mesh)
+        assert all(a is b for (_, a), (_, b) in zip(topt.tree_leaves(sharded), topt.tree_leaves(tp)))
+        assert torch.equal(tgen.generate(sharded, tc, prompt, 3, 0, temperature=0.0, mesh=mesh), want_toks)
+    finally:
+        dist.destroy_process_group()
     path = jax_ckpt["plain"]
     want = tgen.generate_text(path, "Hello", 10, temperature=0.0, device="cpu")
     assert tgen.generate_text_speculative(path, path, "Hello", 10, k=3, device="cpu") == want

@@ -188,21 +188,34 @@ def test_engine_refuses_params_on_another_device():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec_k=2), dict(mesh=object()), dict(pipeline_depth=2), dict(admit_batch=4),
+    dict(spec_k=2), dict(mesh=None), dict(pipeline_depth=2), dict(admit_batch=4),
     dict(fused_sampling=False), dict(kv_checksum=True),
 ])
 def test_unported_engine_options_raise(kw):
-    """Sharded serving (``mesh``) still raises. The other five options were
-    refused before they were ported; now each constructs, serves one tiny
-    request (the pipelined scheduler, and the synchronous one for the
-    unfused lane) to the greedy tokens of the default engine, and raises
-    the JAX engine's ``ValueError`` on a bad value."""
+    """All six options were refused before they were ported; now each
+    constructs, serves one tiny request (the pipelined scheduler, and the
+    synchronous one for the unfused lane) to the greedy tokens of the
+    default engine, and (but ``mesh``) raises the JAX engine's
+    ``ValueError`` on a bad value. Sharded serving runs here on a mesh of
+    one rank (meshes of several ranks:
+    ``test_torch_parallel_inference.py``)."""
     params = transformer.init_params(TINY, 0, device="cpu")
     base = dict(n_blocks=8, block_size=8, device="cpu")
     name = next(iter(kw))
     if name == "mesh":
-        with pytest.raises(NotImplementedError, match="mesh"):
-            ServingEngine(params, TINY, **base, **kw)
+        import torch.distributed as dist
+
+        from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+
+        want = ServingEngine(params, TINY, **base)
+        want.submit([3, 1, 4, 1, 5], 4)
+        mesh = pmesh.single_device_mesh("cpu")
+        try:
+            eng = ServingEngine(params, TINY, **base, mesh=mesh)
+            assert eng.submit([3, 1, 4, 1, 5], 4) == 0
+            assert eng.run() == want.run(pipeline=False)
+        finally:
+            dist.destroy_process_group()
         return
     extra = {"spec_k": dict(draft_params=params, draft_cfg=TINY), "kv_checksum": dict(prefix_cache=True),
              "admit_batch": dict(max_batch=2)}.get(name, {})
@@ -477,14 +490,19 @@ def test_fleet_and_tool_modules_are_scanned():
 
 
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "parallel/zigzag.py",
-                    "parallel/ring_attention.py", "parallel/ulysses.py")
+                    "parallel/ring_attention.py", "parallel/ulysses.py", "parallel/tensor.py")
 
 
-@pytest.mark.parametrize("helper", ["_torch_ranks.py", "_torch_parallel_cases.py"])
+@pytest.mark.parametrize("helper", ["_torch_ranks.py", "_torch_parallel_cases.py", "_torch_threads.py"])
 def test_parallel_modules_and_rank_helpers_are_scanned(helper):
-    """The parallelism modules are among the sources that
-    ``test_port_imports_nothing_of_jax`` scans; the gloo ranks of the
-    multi-rank tests run modules that import nothing of JAX either."""
+    """The parallelism modules (``parallel/tensor.py`` among them) are
+    among the sources that ``test_port_imports_nothing_of_jax`` scans; the
+    gloo ranks of the multi-rank tests run modules that import nothing of
+    JAX either (the cases of the tensor, expert, inference and checkpoint
+    tests included). Only the pipe axis is left unported."""
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+
     scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(PARALLEL_MODULES) <= scanned
+    assert pmesh.UNPORTED_AXES == ("pipe",)
     test_port_imports_nothing_of_jax(ROOT / "tests" / helper)
