@@ -179,6 +179,23 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           on the shared-prefix requests with 256-token chunks, the prefix
           cache and int8-kv pools (K3): both ranks' streams equal, each
           row the world of one's up to its first near tie;
+  X3      in the training lane, its ranks started with X2's before X1 and
+          held against a world of one after X2: the pipe axis, two ranks
+          sharing the card over gloo (``--x3-child``; the hop and the
+          all-to-all probed on CUDA tensors, staged through host memory
+          by the port's wrappers). gpt2-124m at full width and depth at
+          pipe 2 (6 layers a rank), 4 microbatches of 8 x 1024, V 1 and
+          V 2: the first step's loss and every gradient leaf against the
+          world of one at T3's bar; 3 AdamW steps at V 1 with K1 and the
+          one pass launched exactly 3 x 6 x 4 times a rank; V 2's
+          checkpoint, loaded here, the ranks' state de-interleaved bit
+          for bit; Adafactor and Muon at tensor 2, 3 steps each: the
+          first update against the optimizer on one device fed the
+          ranks' gradient, every loss against the world of one's;
+          moe-8x350m's widths at 2
+          layers with Ulysses at seq 2, the first loss against seq 1's;
+          each rank its own node on ``data/parity``, its batches the
+          numpy sampler's shard;
   F1      after H1 and D1, on T1's step-30 weights (H1's): (b) in the
           training lane after T4, ``train --compile-only`` as child
           processes for gpt2-124m and reference-3b (T4's microbatches and
@@ -236,7 +253,7 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
 
 The phases run in two lanes. After the CE checks, a child process
 (``python3 chip_smoke.py --lane DIR T_START``, ``TrainingLane``) runs the
-training phases that need nothing of the serving ones (D1, X1, X2, T4,
+training phases that need nothing of the serving ones (D1, X1, X2, X3, T4,
 F1's compile-only, M1, R, O and the parity run), while this process runs the
 other checks, paths 1-5, T1, G1, H1, F1's fleet, T2 and T3. Each process keeps
 its own scratch dir, and the lane's output is printed when it is joined.
@@ -5441,16 +5458,30 @@ def x1_child(argv: list) -> int:
     rank), each run's peak memory, wall seconds and kernel launches, the
     process group's backend and size, written to OUT (``OUT.<rank>`` when
     N > 1); rank 0 also writes each run's first-step loss and gradients,
-    as the train step computed them before the clip, to ``OUT.first<i>.pt``."""
+    as the train step computed them before the clip, to ``OUT.first<i>.pt``.
+    On a pipe mesh each run also reports its hops (``parallel.pipeline``):
+    their count and the seconds this rank spent in them, waits for the
+    neighbouring stage included."""
     import torch.distributed as dist
 
     from pretraining_llm_tpu_torch import train
+    from pretraining_llm_tpu_torch.parallel import pipeline
     from pretraining_llm_tpu_torch.parallel.mesh import initialize_distributed
     from pretraining_llm_tpu_torch.training import optimizer as opt
     from pretraining_llm_tpu_torch.training import train_step as ts
 
     compute_grads = ts.compute_grads
     first: dict = {}
+    hops = {"calls": 0, "s": 0.0}
+    p2p = pipeline._p2p
+
+    def timed_p2p(*args):
+        t0 = time.perf_counter()
+        p2p(*args)
+        hops["calls"] += 1
+        hops["s"] += time.perf_counter() - t0
+
+    pipeline._p2p = timed_p2p
 
     def recording(*args, **kwargs):
         loss, grads = compute_grads(*args, **kwargs)
@@ -5475,10 +5506,11 @@ def x1_child(argv: list) -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_kernel_counts()
         first.clear()
+        hops.update(calls=0, s=0.0)
         t0 = time.perf_counter()
         final = train.main(args)
         torch.cuda.synchronize()
-        results.append({"final": final, "wall_s": time.perf_counter() - t0,
+        results.append({"final": final, "wall_s": time.perf_counter() - t0, "hops": dict(hops),
                         "peak_bytes": torch.cuda.max_memory_allocated(), "launches": kernel_counts()})
         if first:
             torch.save(first, f"{out_path}.first{i}.pt")
@@ -5511,8 +5543,8 @@ def x1_reshard(argv: list) -> int:
     template = ts.state_template(cfg)
     state, extra = ckpt.load_checkpoint(src, template)
     local = {"data_rng": extra.pop("data_rng")} if "data_rng" in extra else None
-    ckpt.save_checkpoint(dst, int(extra["step"]), ts.shard_train_state(state, mesh), extra=extra,
-                         local_extra=local, layout=ts.checkpoint_layout(template, mesh))
+    ckpt.save_checkpoint(dst, int(extra["step"]), ts.shard_train_state(state, mesh, cfg), extra=extra,
+                         local_extra=local, layout=ts.checkpoint_layout(template, mesh, cfg))
     dist.destroy_process_group()
     return assert_no_jax_modules("X1 reshard")
 
@@ -6275,6 +6307,494 @@ def run_x2() -> dict:
             "X2_serve": mono["launches"], "X2_serve_int8": q8["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# X3: the pipe axis on the card, two ranks sharing it over gloo
+# ---------------------------------------------------------------------------
+
+X3_DIR = SCRATCH / "x3"
+X3_CHILD = "--x3-child"
+X3_STEPS = 3
+X3_BATCH = 8  # gpt2-124m rows of 1024 tokens a step, in X3_MICRO pipeline microbatches
+X3_MICRO = 4
+X3_OPT_STEPS = 3
+X3_OPT_LOSS_TOL = 0.01  # (c)'s losses at tensor 2 against the world of one's, bf16 (read: 0.0014 at most)
+X3_OPT_UPDATE_RTOL = 1e-3  # (c)'s first update against one device's on the same gradient, fp32
+X3_MOE_LAYERS = 2
+X3_TIMEOUT_S = 420
+
+
+def x3_pipe_config(interleave: int):
+    """X3's pipeline runs: gpt2-124m at full width and depth (12 layers, 6
+    a rank), pipe 2, ``interleave`` virtual stages, X3_MICRO microbatches
+    of X3_BATCH x 1024 synthetic tokens."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    return get_preset("gpt2-124m").with_overrides({
+        "mesh.pipe": 2, "model.pipeline_stages": 2, "model.pipeline_interleave": interleave,
+        "model.pipeline_microbatches": X3_MICRO, "train.batch_size": X3_BATCH})
+
+
+def x3_optimizer_config(name: str):
+    """X2's tensor-2 gpt2-124m under ``name`` for X3_OPT_STEPS steps (a
+    one-step warmup, so every step takes the full lr)."""
+    return x2_train_config().with_overrides({"train.optimizer": name, "train.train_steps": X3_OPT_STEPS})
+
+
+def x3_moe_config():
+    """moe-8x350m's widths at X3_MOE_LAYERS layers with Ulysses attention
+    over seq 2 (its preset's expert axis set to 1), X2_MOE_BATCH x 1024."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    return get_preset("moe-8x350m").with_overrides({
+        "mesh.expert": 1, "mesh.seq": 2, "model.n_layers": X3_MOE_LAYERS, "model.attention_impl": "ulysses",
+        "model.sequence_parallel": True, "train.batch_size": X2_MOE_BATCH})
+
+
+def x3_data_config(out_dir: Path):
+    """gpt2-124m on ``data/parity/train.bin`` at data 2, each rank its own
+    node, through the numpy sampler (checkpoints, none written, under
+    ``out_dir``)."""
+    from pretraining_llm_tpu_torch.config import get_preset
+
+    return get_preset("gpt2-124m").with_overrides({
+        "data.train_path": str(ROOT / "data" / "parity" / "train.bin"),
+        "data.val_path": str(ROOT / "data" / "parity" / "val.bin"), "data.use_native_batcher": False,
+        "train.batch_size": X3_BATCH, "train.checkpoint_dir": str(out_dir / "data_ck")})
+
+
+def _x3_pieces(tree, cfg, mesh) -> dict:
+    """{leaf: [(a piece of this rank's block on the CPU, its global [start,
+    stop) per dim)]} of a params-shaped tree: a pipe-split leaf's
+    rank-major block cut into its depth-major chunks
+    (``train_step.checkpoint_layout``'s pieces)."""
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    layout = ts.checkpoint_layout(ts.state_template(cfg), mesh, cfg) or {}
+    out = {}
+    for path, t in opt.tree_leaves(tree):
+        info = layout.get("__".join(("params",) + path))
+        t = t.detach().float().cpu()
+        if info is None:
+            out["/".join(path)] = [(t, [(0, s) for s in t.shape])]
+        else:
+            out["/".join(path)] = [(t[rows].clone(), [(s.start, s.stop) for s in index])
+                                   for index, rows in info.pieces]
+    return out
+
+
+def _x3_stats(state) -> dict:
+    """Adafactor's statistics of a state (replicated: every rank holds
+    them whole) by name, on the CPU; {} for another optimizer."""
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+
+    return {"/".join(p): t.detach().cpu() for p, t in opt.tree_leaves(state["opt"].get("v", {}))}
+
+
+def _x3_first_and_steps(cfg, mesh, batch, steps: int):
+    """The first step's loss and gradient pieces, then ``steps`` steps of
+    the mesh train step: losses, step ms, launches, peak bytes."""
+    from pretraining_llm_tpu_torch.training import train_step as ts
+
+    state = ts.init_train_state(cfg, cfg.train.seed, device=DEVICE, mesh=mesh)
+    plan = ts.MeshPlan(cfg, mesh)
+    with plan.active():
+        loss, grads = ts.compute_grads(state, batch, cfg, plan)
+    first = {"loss": float(loss), "grads": _x3_pieces(grads, cfg, mesh)}
+    del grads
+    step = ts.build_train_step(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    run = {"losses": losses, "step_ms": step_ms, "launches": kernel_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "tokens_per_sec": [cfg.train.batch_size * cfg.model.context_length / (ms / 1e3) for ms in step_ms],
+           "layers_held": int(state["params"]["blocks"]["attn"]["wqkv"].shape[0])}
+    return first, run, state
+
+
+def _x3_probe() -> dict:
+    """X2's probe, and the pipeline's hop and Ulysses' all-to-all on CUDA
+    tensors through the port's wrappers (staged through host memory under
+    gloo)."""
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.parallel import pipeline
+    from pretraining_llm_tpu_torch.parallel.tensor import all_to_all_single
+
+    me, n = dist.get_rank(), dist.get_world_size()
+    out = _x2_probe()
+    x = torch.full((2,), float(me), device=DEVICE)
+    buf = torch.empty(2, device=DEVICE)
+    pipeline._p2p((x, (me + 1) % n), (buf, (me - 1) % n), None)
+    out["hop"] = "ok" if buf.cpu().tolist() == [float((me - 1) % n)] * 2 else f"wrong result {buf.tolist()}"
+    a2a = torch.empty(2 * n, device=DEVICE)
+    all_to_all_single(a2a, torch.arange(2 * n, device=DEVICE, dtype=torch.float32) + 10 * me, None)
+    want = [float(10 * r + 2 * me + i) for r in range(n) for i in range(2)]
+    out["all_to_all_single"] = "ok" if a2a.cpu().tolist() == want else f"wrong result {a2a.tolist()}"
+    return out
+
+
+def x3_child(argv: list) -> int:
+    """``python3 chip_smoke.py --x3-child DIR RANK PORT``: one of X3's two
+    ranks on a gloo group of two it joins itself, its tensors on the one
+    card. (a) gpt2-124m at pipe 2, V 1, X3_MICRO microbatches: the first
+    step's loss and gradient pieces, then X3_STEPS AdamW steps with their
+    launches; (b) the same at V 2 (3 layers a chunk): the first step, one
+    step, a checkpoint (depth-major) and the rank's live state; (c) Adafactor
+    and Muon at tensor 2, X3_OPT_STEPS steps each; (d) moe-8x350m's widths
+    with Ulysses at seq 2: the first loss; (e) the rank as its own node
+    on file data: the trainer's first two batches. Its results go to
+    DIR/rank<RANK>.json and DIR/*<RANK>.pt."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from pretraining_llm_tpu_torch.parallel import mesh as pmesh
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    out_dir, rank, port = Path(argv[0]), int(argv[1]), int(argv[2])
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=X3_TIMEOUT_S))
+    res: dict = {"probe": _x3_probe(), "backend": dist.get_backend()}
+
+    # (a) pipe 2, V 1; (b) V 2 with its checkpoint.
+    for v, key in ((1, "pipe_v1"), (2, "pipe_v2")):
+        cfg = x3_pipe_config(v)
+        mesh = pmesh.build_mesh(cfg.mesh, DEVICE)
+        first, run, state = _x3_first_and_steps(cfg, mesh, x2_batch(cfg), X3_STEPS if v == 1 else 1)
+        torch.save(first, out_dir / f"{key}_first{rank}.pt")
+        res[key] = {**run, "mesh": pmesh.mesh_shape(mesh), "device_type": pmesh.mesh_device_type()}
+        if v == 2:
+            t0 = time.perf_counter()
+            ckpt.save_checkpoint(str(out_dir / "ck"), 1, ts.save_view(state, cfg, mesh),
+                                 layout=ts.checkpoint_layout(ts.state_template(cfg), mesh, cfg),
+                                 extra={"step": 1, "block_layout": "depth_major"})
+            res[key]["save_s"] = time.perf_counter() - t0
+            torch.save({"/".join(p): t.detach().cpu() for p, t in opt.tree_leaves(state)},
+                       out_dir / f"{key}_state{rank}.pt")
+        del state, first
+        _free_card()
+
+    # (c) Adafactor and Muon at tensor 2.
+    for name in ("adafactor", "muon"):
+        cfg = x3_optimizer_config(name)
+        mesh = pmesh.build_mesh(cfg.mesh, DEVICE)
+        state = ts.init_train_state(cfg, cfg.train.seed, device=DEVICE, mesh=mesh)
+        batch = x2_batch(cfg)
+        # The first step, its optimizer's gradient (clipped, summed over the
+        # ranks) and lr taken on the way in.
+        plan, step1 = ts.MeshPlan(cfg, mesh), {}
+
+        def capture(grads, opt_state, params, lr, tcfg, update=plan.optimizer_update, step1=step1):
+            step1.update(grads=_x3_pieces(grads, cfg, mesh), lr=float(lr))
+            return update(grads, opt_state, params, lr, tcfg)
+
+        plan.optimizer_update = capture
+        with plan.active():
+            state, metrics = ts.train_step(state, batch, cfg, plan)
+        step1.update(params=_x3_pieces(state["params"], cfg, mesh), stats=_x3_stats(state))
+        torch.save(step1, out_dir / f"{name}_step1{rank}.pt")
+        losses = [float(metrics["loss"])]
+        step = ts.build_train_step(cfg, mesh)
+        for _ in range(X3_OPT_STEPS - 1):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+        res[name] = {"losses": losses}
+        del state, step, plan, step1
+        _free_card()
+
+    # (d) MoE with Ulysses at seq 2: the first loss.
+    mcfg = x3_moe_config()
+    mesh = pmesh.build_mesh(mcfg.mesh, DEVICE)
+    state = ts.init_train_state(mcfg, mcfg.train.seed, device=DEVICE, mesh=mesh)
+    plan = ts.MeshPlan(mcfg, mesh)
+    x, y = x2_batch(mcfg)
+    reset_kernel_counts()
+    with plan.active(), torch.no_grad():
+        from pretraining_llm_tpu_torch.models import transformer
+
+        loss = plan.reduce_loss(transformer.loss_fn(state["params"], x, y, mcfg.model))
+    res["moe_ulysses"] = {"loss": float(loss), "launches": kernel_counts()}
+    del state, plan
+    _free_card()
+
+    # (e) File data on two nodes.
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    dcfg = x3_data_config(out_dir)
+    trainer = Trainer(dcfg, resume=False, device=DEVICE, logger=MetricsLogger("", stream=open(os.devnull, "w")))
+    res["data"] = {"node": pmesh.node_index(), "nodes": pmesh.node_count(), "sampler": trainer.sampler,
+                   "rows": [trainer._rows.start, trainer._rows.stop],
+                   "batches": [[a.tolist() for a in next(trainer.train_iterator)] for _ in range(2)]}
+    del trainer
+    res["jax_modules"] = _jax_modules()
+    _write_json(str(out_dir / f"rank{rank}.json"), res)
+    dist.destroy_process_group()
+    return assert_no_jax_modules("X3 child")
+
+
+def _x3_worst(pairs: dict, rtol: float):
+    """(the largest use of ``rtol`` over {leaf: (got, want)}: max |got -
+    want| over rtol x max |want|, and its leaf)."""
+    worst, worst_leaf = 0.0, ""
+    for leaf, (got, want) in pairs.items():
+        want = want.float()
+        use = (got.float() - want).abs().max().item() / (rtol * want.abs().max().item())
+        if not use <= worst:
+            worst, worst_leaf = use, leaf
+    return worst, worst_leaf
+
+
+def _x3_tree(flat: dict) -> dict:
+    """A nested tree from {"a/b/c": leaf}."""
+    tree: dict = {}
+    for name, leaf in flat.items():
+        *outer, last = name.split("/")
+        node = tree
+        for k in outer:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
+
+
+def _x3_get(tree: dict, name: str):
+    for k in name.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _x3_assemble(ranks_pieces: list, name: str, shape) -> torch.Tensor:
+    """The whole leaf from the ranks' ``_x3_pieces``."""
+    full = torch.full(tuple(shape), float("nan"), device=DEVICE)
+    for pieces in ranks_pieces:
+        for piece, sl in pieces[name]:
+            full[tuple(slice(a, b) for a, b in sl)] = piece.to(DEVICE)
+    if torch.isnan(full).any():
+        raise AssertionError(f"X3: the ranks' pieces of {name} leave a hole")
+    return full
+
+
+_X3_RANKS: dict = {}  # the running ranks of X3, from start_x3 to run_x3
+
+
+def start_x3() -> None:
+    """Start X3's two ranks (``x3_child``), two torch threads each, so that
+    they run beside X1 (and X2's ranks) in the training lane; ``run_x3``
+    collects them."""
+    shutil.rmtree(X3_DIR, ignore_errors=True)
+    X3_DIR.mkdir(parents=True)
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    errs = [open(X3_DIR / f"rank{r}.err", "w") for r in range(2)]
+    _X3_RANKS.update(t0=time.perf_counter(), errs=errs, procs=[
+        subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), X3_CHILD, str(X3_DIR), str(r), str(port)],
+                         cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=errs[r]) for r in range(2)])
+
+
+def run_x3() -> dict:
+    """X3: the pipe axis on the card, two ranks sharing it over gloo
+    (``x3_child``, started by ``start_x3`` before X1 and run beside it),
+    each driving its stage with the flash kernels. (a)
+    gpt2-124m at full width and depth, pipe 2, V 1, X3_MICRO microbatches
+    of X3_BATCH x 1024: the first step's loss and every gradient leaf,
+    assembled from the ranks, against the world of one on the card at
+    ``trajectory.T3_GRAD_RTOL``; X3_STEPS AdamW steps with K1 and the one
+    pass launched exactly steps x (L / S) x n_micro times a rank (a rank
+    runs its chunk once per item; no bubble tick runs a chunk). (b) The
+    same at V 2, then its checkpoint loaded here (a world of one): every
+    leaf the ranks' state de-interleaved, bit for bit. (c) Adafactor and
+    Muon at tensor 2: the ranks' first update of every parameter, and
+    Adafactor's statistics after it, within X3_OPT_UPDATE_RTOL (of each
+    leaf's largest) of the optimizer's on one device fed the ranks'
+    gradient (clipped, assembled) at the same lr: the sharded optimizer
+    alone, free of the bf16 gradients' noise, which Adafactor scales up
+    in rows whose gradient is rounding; each step's loss within
+    X3_OPT_LOSS_TOL of the world of one's, falling. (d) moe-8x350m's widths at X3_MOE_LAYERS layers with
+    Ulysses at seq 2: the first loss within X2_MOE_LOSS_RTOL of the flash
+    model's at ``mesh.seq=1``. (e) Each rank its own node on ``data/parity``: its
+    batches the numpy sampler's shard of the file. Returns (a)'s launches
+    of rank 0."""
+    from pretraining_llm_tpu_torch.data import loader as data_loader
+    from pretraining_llm_tpu_torch.models import transformer
+    from pretraining_llm_tpu_torch.parallel import pipeline as pp
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
+    from pretraining_llm_tpu_torch.training import optimizer as opt
+    from pretraining_llm_tpu_torch.training import train_step as ts
+    from pretraining_llm_tpu_torch.utils import trajectory
+
+    if not _X3_RANKS:
+        start_x3()
+    t_phase, procs, errs = _X3_RANKS.pop("t0"), _X3_RANKS.pop("procs"), _X3_RANKS.pop("errs")
+    card = phase_card()
+    try:
+        # The world of one, while the ranks run.
+        ref: dict = {}
+        cfg = x3_pipe_config(1).with_overrides({"mesh.pipe": 1})
+        state = ts.init_train_state(cfg, cfg.train.seed, device=DEVICE)
+        loss, grads = ts.compute_grads(state, x2_batch(cfg), cfg)
+        ref["loss"], ref["grads"] = float(loss), {"/".join(p): g.detach() for p, g in opt.tree_leaves(grads)}
+        del state, grads
+        for name in ("adafactor", "muon"):
+            ocfg = x3_optimizer_config(name).with_overrides({"mesh.tensor": 1})
+            state = ts.init_train_state(ocfg, ocfg.train.seed, device=DEVICE)
+            ref[name + "_start"] = {"/".join(p): t.detach().clone() for p, t in opt.tree_leaves(state["params"])}
+            batch, losses = x2_batch(ocfg), []
+            for _ in range(X3_OPT_STEPS):
+                state, metrics = ts.train_step(state, batch, ocfg)
+                losses.append(float(metrics["loss"]))
+            ref[name] = losses
+            del state
+        mcfg = x3_moe_config().with_overrides({"mesh.seq": 1, "model.attention_impl": "flash",
+                                               "model.sequence_parallel": False})
+        state = ts.init_train_state(mcfg, mcfg.train.seed, device=DEVICE)
+        x, y = x2_batch(mcfg)
+        with torch.no_grad():
+            ref["moe_loss"] = float(transformer.loss_fn(state["params"], x, y, mcfg.model))
+        del state
+        _free_card()
+        dcfg = x3_data_config(X3_DIR)
+        ref["data"] = [data_loader.get_batch_iterator(
+            dcfg.data.train_path, X3_BATCH // 2, dcfg.model.context_length, seed=dcfg.data.sample_seed,
+            shard_index=r, shard_count=2) for r in range(2)]
+        t0 = time.perf_counter()
+        for r, proc in enumerate(procs):
+            try:
+                proc.wait(timeout=max(1.0, X3_TIMEOUT_S - (time.perf_counter() - t_phase)))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"X3 rank {r}: still running after {X3_TIMEOUT_S} s") from None
+            errs[r].close()
+            if proc.returncode != 0:
+                raise AssertionError(f"X3 rank {r}: exit {proc.returncode}: "
+                                     f"{(X3_DIR / f'rank{r}.err').read_text()[-4000:]}")
+        waited_s = time.perf_counter() - t0
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    ranks = [json.loads((X3_DIR / f"rank{r}.json").read_text()) for r in range(2)]
+    for r, res in enumerate(ranks):
+        if res["backend"] != "gloo" or res["jax_modules"] or res["pipe_v1"]["device_type"] != DEVICE:
+            raise AssertionError(f"X3 rank {r}: {res['backend']}, JAX {res['jax_modules']}")
+        if any(v != "ok" for v in res["probe"].values()):
+            raise AssertionError(f"X3 rank {r}: a collective or hop on CUDA tensors failed: {res['probe']}")
+
+    # (a), (b) The first steps against the world of one.
+    first = {}
+    for key in ("pipe_v1", "pipe_v2"):
+        firsts = [torch.load(X3_DIR / f"{key}_first{r}.pt") for r in range(2)]
+        worst, worst_leaf = _x3_worst({name: (_x3_assemble([f["grads"] for f in firsts], name, want.shape), want)
+                                       for name, want in ref["grads"].items()}, trajectory.T3_GRAD_RTOL)
+        first[key] = {"loss_ranks": [f["loss"] for f in firsts], "grad_tol_use": worst, "grad_worst_leaf": worst_leaf}
+        del firsts
+        if worst > 1.0 or any(abs(f - ref["loss"]) > NAIVE_LOSS_TOL for f in first[key]["loss_ranks"]):
+            raise AssertionError(f"X3 {key}: the first step disagrees with the world of one ({ref['loss']}): "
+                                 f"{first[key]}")
+    del ref["grads"]
+    _free_card()
+    # (a) The exact launches: a rank runs each of its layers once per
+    # microbatch and step (forward K1, backward one pass; remat none).
+    cfg = x3_pipe_config(1)
+    want_n = X3_STEPS * (cfg.model.n_layers // 2) * X3_MICRO
+    formula = f"{X3_STEPS} steps x {cfg.model.n_layers // 2} layers a rank x {X3_MICRO} microbatches = {want_n}"
+    runs = [res["pipe_v1"] for res in ranks]
+    for run in runs:
+        n = run["launches"]
+        if n["flash_fwd_tc"] != want_n or n["flash_bwd_fused_tc"] != want_n or n["flash_fwd_fp32"]:
+            raise AssertionError(f"X3 pipe_v1: K1 and the one pass must launch {formula} times a rank: {n}")
+        if run["layers_held"] != cfg.model.n_layers // 2 or run["losses"] != runs[0]["losses"]:
+            raise AssertionError(f"X3 pipe_v1: layers {run['layers_held']}, losses {run['losses']}")
+    # (b) The V 2 checkpoint at a world of one: the ranks' state de-interleaved.
+    vcfg = x3_pipe_config(2)
+    loaded, extra = ckpt.load_checkpoint(str(X3_DIR / "ck" / "step-1"), ts.state_template(vcfg))
+    states = [torch.load(X3_DIR / f"pipe_v2_state{r}.pt") for r in range(2)]
+    specs = dict((("/".join(p), s) for p, s in ts._spec_leaves(ts.state_pspec_tree(
+        ts.state_template(vcfg), True))))
+    differs = []
+    for path, got in opt.tree_leaves(loaded):
+        name = "/".join(path)
+        split = specs[name] and specs[name][0] == "pipe"
+        held = pp.deinterleave_layout(torch.cat([s[name] for s in states]), 2, 2) if split else states[0][name]
+        if held.dtype != got.dtype or not torch.equal(held, got):
+            differs.append(name)
+    del loaded, states
+    if differs or extra.get("block_layout") != "depth_major":
+        raise AssertionError(f"X3 pipe_v2: the checkpoint is not the de-interleaved state: {differs[:5]}")
+    # (c) Adafactor and Muon at tensor 2: the ranks' first update against
+    # the optimizer on one device fed the same gradient, then the losses.
+    opts = {}
+    for name in ("adafactor", "muon"):
+        ocfg = x3_optimizer_config(name)
+        step1 = [torch.load(X3_DIR / f"{name}_step1{r}.pt") for r in range(2)]
+        start = ref.pop(name + "_start")
+        grads = _x3_tree({leaf: _x3_assemble([s["grads"] for s in step1], leaf, t.shape)
+                          for leaf, t in start.items()})
+        params = _x3_tree({leaf: t.clone() for leaf, t in start.items()})
+        opt_state = opt.optimizer_init(params, ocfg.train)
+        opt.optimizer_update(grads, opt_state, params, torch.tensor(step1[0]["lr"], device=DEVICE), ocfg.train)
+        update_use, update_leaf = _x3_worst({
+            leaf: (_x3_assemble([s["params"] for s in step1], leaf, t.shape) - start[leaf],
+                   _x3_get(params, leaf) - start[leaf]) for leaf, t in start.items()}, X3_OPT_UPDATE_RTOL)
+        want_stats = _x3_stats({"opt": opt_state})
+        stats_use, stats_leaf = _x3_worst({leaf: (got, want_stats[leaf]) for leaf, got in step1[0]["stats"].items()},
+                                          X3_OPT_UPDATE_RTOL)
+        if step1[0]["stats"].keys() != want_stats.keys() or (name == "adafactor") != bool(want_stats):
+            raise AssertionError(f"X3 {name}: the statistics' leaves differ from one device's")
+        got = [res[name]["losses"] for res in ranks]
+        use = max(abs(a - b) for a, b in zip(got[0], ref[name])) / X3_OPT_LOSS_TOL
+        opts[name] = {"losses": got[0], "world_of_one": ref[name], "loss_tol": X3_OPT_LOSS_TOL, "loss_tol_use": use,
+                      "update_rtol": X3_OPT_UPDATE_RTOL, "update_leaves": len(start), "update_tol_use": update_use,
+                      "update_worst_leaf": update_leaf, "stats_leaves": len(want_stats),
+                      "stats_tol_use": stats_use, "stats_worst_leaf": stats_leaf}
+        del step1, start, grads, params, opt_state, want_stats
+        if got[0] != got[1] or not max(use, update_use, stats_use) <= 1.0 or not got[0][-1] < got[0][0]:
+            raise AssertionError(f"X3 {name} at tensor 2: {opts[name]} (ranks {got})")
+    # (d) MoE with Ulysses at seq 2.
+    moe = [res["moe_ulysses"] for res in ranks]
+    moe_use = abs(moe[0]["loss"] - ref["moe_loss"]) / (X2_MOE_LOSS_RTOL * abs(ref["moe_loss"]))
+    if moe_use > 1.0 or moe[0]["loss"] != moe[1]["loss"] or not moe[0]["launches"]["flash_fwd_tc"]:
+        raise AssertionError(f"X3 MoE with Ulysses: {moe} against {ref['moe_loss']} at seq 1")
+    # (e) Two nodes: each node's batches its shard's.
+    for r, res in enumerate(ranks):
+        d = res["data"]
+        if (d["node"], d["nodes"], d["sampler"], d["rows"]) != (r, 2, "numpy", [0, X3_BATCH // 2]):
+            raise AssertionError(f"X3 node {r}: {d['node']} of {d['nodes']}, {d['sampler']}, rows {d['rows']}")
+        for got in d["batches"]:
+            want = next(ref["data"][r])
+            if any(np.asarray(g).tolist() != w.tolist() for g, w in zip(got, want)):
+                raise AssertionError(f"X3 node {r}: a batch is not the numpy sampler's shard's")
+    bubble = {v: pp.bubble_fraction(X3_MICRO, 2, v) for v in (1, 2)}
+    log("X3", card=card, mesh="two ranks sharing the card over gloo (CUDA tensors)", probe=ranks[0]["probe"],
+        pipe={"preset": "gpt2-124m", "layers": 12, "stages": 2, "microbatches": X3_MICRO, "batch": X3_BATCH,
+              "T": 1024, "loss_world_of_one": ref["loss"], "first_step": first,
+              "bubble_predicted": bubble,
+              **{key: {k: [res[key][k] for res in ranks] for k in ("losses", "step_ms", "tokens_per_sec",
+                                                                   "peak_bytes")}
+                 for key in ("pipe_v1", "pipe_v2")},
+              "launches": [{k: v for k, v in res["pipe_v1"]["launches"].items() if v} for res in ranks],
+              "launch_formula": formula, "checkpoint_save_s": [res["pipe_v2"]["save_s"] for res in ranks]},
+        optimizers=opts, moe_ulysses={"preset": "moe-8x350m", "layers": X3_MOE_LAYERS, "mesh": "seq 2",
+                                      "loss": moe[0]["loss"], "loss_seq1": ref["moe_loss"],
+                                      "loss_tol_use": moe_use},
+        data={"nodes": 2, "sampler": "numpy", "batches_checked": 2}, waited_s=waited_s,
+        phase_s=time.perf_counter() - t_phase)
+    return {"X3_pipe": ranks[0]["pipe_v1"]["launches"]}
+
+
 
 def _h1_launches(serving_paths: dict, key: str) -> int:
     """A kernel's launches over H1's three servers (in-process loop, serve
@@ -7022,7 +7542,8 @@ def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
 # The training lane's phases, which need nothing of the serving phases, in
 # this order (D1 first: F1 reads its telemetry); each one's result is its
 # kernel launches (by path) or None.
-LANE_PHASES = (("D1", run_d1), ("X2_start", start_x2), ("X1", run_x1), ("X2", run_x2), ("T4", run_t4),
+LANE_PHASES = (("D1", run_d1), ("X2_start", start_x2), ("X3_start", start_x3), ("X1", run_x1), ("X2", run_x2),
+               ("X3", run_x3), ("T4", run_t4),
                ("F1_compile_only", run_f1_compile_only),
                ("M1", run_m1), ("R", run_remat_sweep), ("O", run_optimizers), ("O_options", run_trainer_options),
                ("parity", run_parity))
@@ -7150,7 +7671,7 @@ def main() -> int:
     serving_paths.update(X2_serve=lanes["X2"]["X2_serve"], X2_serve_int8=lanes["X2"]["X2_serve_int8"])
     train_paths = {"T1": launches_t1, "T2": launches_t2, "parity": lanes["parity"], "T3": launches_t3,
                    **lanes["T4"], **lanes["M1"], **lanes["R"], **lanes["O"], "D1": lanes["D1"], "X1": lanes["X1"],
-                   "X2": lanes["X2"]["X2_train"], "X2_moe": lanes["X2"]["X2_moe"]}
+                   "X2": lanes["X2"]["X2_train"], "X2_moe": lanes["X2"]["X2_moe"], "X3": lanes["X3"]["X3_pipe"]}
     shutil.rmtree(SCRATCH_ROOT, ignore_errors=True)
     kernels = time_kernels(launches1, prefill_shapes, errs, launches_g1, serving_paths)
     kernels += time_ragged((launches1, launches2, launches3), eng2, errs, serving_paths)
@@ -7179,6 +7700,8 @@ if __name__ == "__main__":
         sys.exit(x1_reshard(sys.argv[2:]))
     if sys.argv[1:2] == [X2_CHILD]:
         sys.exit(x2_child(sys.argv[2:]))
+    if sys.argv[1:2] == [X3_CHILD]:
+        sys.exit(x3_child(sys.argv[2:]))
     if sys.argv[1:2] == [XSERVE_CHILD]:
         sys.exit(xserve_child(sys.argv[2:]))
     if sys.argv[1:2] == [LANE]:

@@ -36,10 +36,9 @@ mixture spec, or a host without a C++ compiler, takes the numpy sampler.
 fault drills) and ``ObservabilityConfig`` (the run-event, span and
 Prometheus sinks) are the JAX package's, field for field, and so is
 ``FrontendConfig`` (the online gateway's knobs; its fleet fields are
-refused by ``serve --http`` until the fleet is ported). Options that change
-what is computed but are not ported yet are refused where they would be
-used (``models.transformer.check_ported``: ``pipeline_stages`` > 1; the
-mesh's tensor, expert and pipe axes above 1 in ``parallel/mesh.py``).
+refused by ``serve --http`` until the fleet is ported). Every model, mesh
+and train option computes in the port (``pipeline_stages`` over the
+mesh's pipe axis in ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -245,7 +244,9 @@ class ModelConfig:
                 )
             if self.pipeline_stages > 1:
                 raise ValueError(
-                    "doc_mask_token does not compose with pipeline parallelism"
+                    "doc_mask_token does not compose with pipeline "
+                    "parallelism (segments are not threaded through the "
+                    "pipelined block path)"
                 )
             if self.doc_mask_token >= self.vocab_size:
                 raise ValueError(

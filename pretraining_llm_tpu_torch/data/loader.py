@@ -22,13 +22,23 @@ import numpy as np
 
 
 class MemmapTokens:
-    """Read-only view of a uint16 token file."""
+    """Read-only view of a uint16 token file, or of one node's shard of it:
+    with ``shard_count`` > 1 node ``shard_index`` reads its contiguous block
+    of the stream plus ``context_length`` tokens of overlap, so every
+    window that crosses a block boundary belongs to exactly one node (the
+    JAX package's host shard)."""
 
-    def __init__(self, path: str, context_length: int) -> None:
+    def __init__(self, path: str, context_length: int, shard_index: int = 0, shard_count: int = 1) -> None:
         data = np.memmap(path, dtype=np.uint16, mode="r")
+        if shard_count > 1:
+            n = len(data)
+            lo = (n * shard_index) // shard_count
+            hi = min((n * (shard_index + 1)) // shard_count + context_length, n)
+            data = data[lo:hi]
         if len(data) < context_length + 1:
             raise ValueError(
-                f"{path}: has {len(data)} tokens < context_length+1={context_length + 1}"
+                f"{path}: {'shard has' if shard_count > 1 else 'has'} {len(data)} tokens < "
+                f"context_length+1={context_length + 1}"
             )
         self.data = data
         self.context_length = context_length
@@ -129,14 +139,18 @@ class MixtureIterator:
 
 def get_batch_iterator(
     data_path: str, batch_size: int, context_length: int, *, seed: int = 1337,
+    shard_index: int = 0, shard_count: int = 1,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Seeded numpy batches from one token file or a mixture spec
-    (``parse_mixture``): the JAX package's iterator for process 0 of 1."""
+    (``parse_mixture``): the JAX package's iterator. Node ``shard_index`` of
+    ``shard_count`` samples its shard of each file (``MemmapTokens``) with
+    the seed ``seed + 7919 * shard_index``, as a JAX process does."""
+    host_seed = seed + 7919 * shard_index
     if is_mixture(data_path):
         entries = parse_mixture(data_path)
-        sources = [MemmapTokens(p, context_length) for p, _ in entries]
-        return MixtureIterator(sources, [w for _, w in entries], batch_size, seed)
-    return BatchIterator(MemmapTokens(data_path, context_length), batch_size, seed)
+        sources = [MemmapTokens(p, context_length, shard_index, shard_count) for p, _ in entries]
+        return MixtureIterator(sources, [w for _, w in entries], batch_size, host_seed)
+    return BatchIterator(MemmapTokens(data_path, context_length, shard_index, shard_count), batch_size, host_seed)
 
 
 class SyntheticTokens:

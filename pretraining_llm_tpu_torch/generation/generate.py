@@ -115,7 +115,6 @@ def generate(
             return generate(local, cfg, prompt_tokens, max_new_tokens, seed, temperature=temperature,
                             top_k=top_k, top_p=top_p, min_p=min_p, prompt_lengths=prompt_lengths,
                             stop_token=stop_token, stats=stats, return_logits=return_logits)
-    transformer.check_ported(cfg)
     if cfg.doc_mask_token >= 0:
         # Document masking is a training structure; one generation is one
         # document, so the mask is vacuous (forward refuses it with a cache).

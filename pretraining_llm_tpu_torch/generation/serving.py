@@ -244,7 +244,6 @@ class ServingEngine:
             # A decode session is one document; forward() refuses document
             # masking with a cache (the JAX engine sanitizes it the same way).
             cfg = dataclasses.replace(cfg, doc_mask_token=-1)
-        transformer.check_ported(cfg)
         # Speculative serving: a draft model proposes spec_k tokens a
         # round, the target verifies them in one multi-token paged forward
         # (paged.paged_spec_round).
@@ -292,7 +291,6 @@ class ServingEngine:
                 )
             if draft_cfg.doc_mask_token >= 0:
                 draft_cfg = dataclasses.replace(draft_cfg, doc_mask_token=-1)
-            transformer.check_ported(draft_cfg)
             self.draft_cfg = draft_cfg
         if quantize not in ("none", "int8", "int8-kv"):
             raise ValueError(f"quantize must be 'none', 'int8' or 'int8-kv', got {quantize!r}")

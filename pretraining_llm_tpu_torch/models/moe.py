@@ -30,7 +30,10 @@ fsdp ranks split the rows (a train or eval step) the routing groups are
 the global batch's: the router's logits are all-gathered over those
 ranks, every rank routes the whole batch as the JAX module does, and
 keeps its tokens' decisions, so capacity drops and the load-balance loss
-are the global batch's. A rank's slots are its experts' over the groups
+are the global batch's. With ring or Ulysses attention over the seq axis a
+row's tokens are split over the seq ranks too: the logits are gathered
+over data x fsdp x seq and put in the global (B, T) token order, the JAX
+module's, before the groups are cut. A rank's slots are its experts' over the groups
 its tokens touch (a group that spans ranks leaves the other ranks' slots
 empty). With a tensor axis each expert FFN is column- then row-parallel
 over it, and ``b2`` is added on tensor rank 0 only (its gradient is then
@@ -52,7 +55,7 @@ from pretraining_llm_tpu_torch.config import ModelConfig
 from pretraining_llm_tpu_torch.models import layers
 from pretraining_llm_tpu_torch.ops import remat
 from pretraining_llm_tpu_torch.parallel.mesh import coordinate
-from pretraining_llm_tpu_torch.parallel.sharding import current_mesh, rows_split
+from pretraining_llm_tpu_torch.parallel.sharding import current_mesh, rows_split, sequence_shards
 from pretraining_llm_tpu_torch.parallel.tensor import copy_to_group, gather_rows, layer_group, sum_over_group
 
 Params = Dict[str, Any]
@@ -164,7 +167,9 @@ def moe_mlp(mlp: Params, h: torch.Tensor, cfg: ModelConfig, *, decode: bool = Fa
     n = b * t
     e, k = cfg.n_experts, cfg.experts_per_token
     mesh = current_mesh()
-    tokens = layer_group(mesh, ("data", "fsdp")) if rows_split() and not decode else None
+    split = rows_split() and not decode
+    n_seq = sequence_shards(cfg, mesh) if split else 1
+    tokens = layer_group(mesh, ("data", "fsdp", "seq") if n_seq > 1 else ("data", "fsdp")) if split else None
     ranks = layer_group(mesh, ("tensor", "expert"))  # partial outputs, summed
     n_all = n * (1 if tokens is None else tokens.size)
     g = 1 if decode else _group_count(n_all, cfg.moe_group_size)
@@ -172,10 +177,21 @@ def moe_mlp(mlp: Params, h: torch.Tensor, cfg: ModelConfig, *, decode: bool = Fa
     capacity = sg if decode else expert_capacity(cfg, sg)
     x = h.reshape(n, d)
     logits = gather_rows(x.float() @ mlp["router"].float(), tokens)
+    # The global token order of the JAX module: row-major over the global
+    # (B, T), whose columns the seq ranks split (each rank's T / n_seq, in
+    # the order the model sees them: zigzag's under its layout). The
+    # group's blocks arrive in rank order, (rows, seq) with seq fastest.
+    rb, j = (0, 0) if tokens is None else divmod(tokens.index, n_seq)
+    if n_seq > 1:
+        logits = logits.reshape(-1, n_seq, b, t, e).transpose(1, 2).reshape(n_all, e)
     r = route(logits.reshape(g, sg, e), cfg, capacity)
-    # This rank's tokens are rows [t0, t0 + n) of the routed batch.
-    t0 = 0 if tokens is None else tokens.index * n
-    idx, gate, pos, keep = (a.reshape(n_all, k)[t0:t0 + n] for a in (r.idx, r.gate, r.pos, r.keep))
+    # This rank's tokens in the routed order: row rb * b + i, columns
+    # j * t .. (j + 1) * t - 1 of the global (B, n_seq * t).
+    row_len = n_seq * t
+    t0 = rb * b * row_len + j * t
+    tok = (t0 + torch.arange(b, device=h.device)[:, None] * row_len
+           + torch.arange(t, device=h.device)[None, :]).reshape(n)
+    idx, gate, pos, keep = (a.reshape(n_all, k)[tok] for a in (r.idx, r.gate, r.pos, r.keep))
 
     # Slot m = expert * (G * C) + group * C + position: the JAX layout of
     # the (E, G * C, D) expert batch (token i = group * S + s), over this
@@ -184,9 +200,9 @@ def moe_mlp(mlp: Params, h: torch.Tensor, cfg: ModelConfig, *, decode: bool = Fa
     e_loc = ex["w2"].shape[0]
     e0 = coordinate(mesh)["expert"] * e_loc if e_loc < e else 0
     g_lo = t0 // sg
-    g_n = (t0 + n - 1) // sg - g_lo + 1
+    g_n = (t0 + (b - 1) * row_len + t - 1) // sg - g_lo + 1
     m_slots = e_loc * g_n * capacity
-    group = torch.div(t0 + torch.arange(n, device=h.device), sg, rounding_mode="floor") - g_lo
+    group = torch.div(tok, sg, rounding_mode="floor") - g_lo
     local = idx - e0
     mine = keep & (local >= 0) & (local < e_loc)
     slot = local * (g_n * capacity) + group[:, None] * capacity + pos

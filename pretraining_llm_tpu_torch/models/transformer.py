@@ -69,9 +69,11 @@ from pretraining_llm_tpu_torch.ops.flash_attention import blockwise_attention, f
 from pretraining_llm_tpu_torch.ops.fused_ce import fused_cross_entropy
 from pretraining_llm_tpu_torch.parallel.mesh import axis_size, coordinate
 from pretraining_llm_tpu_torch.parallel.ring_attention import ring_supports_grouped
-from pretraining_llm_tpu_torch.parallel.sharding import current_mesh
+from pretraining_llm_tpu_torch.parallel import pipeline
+from pretraining_llm_tpu_torch.parallel.sharding import current_mesh, rows_split, sequence_shards  # noqa: F401
 from pretraining_llm_tpu_torch.parallel.tensor import (
-    copy_to_group, gather_dim, gather_last, sum_over_group, tensor_group, vocab_embed, vocab_label, vocab_lse,
+    copy_to_group, gather_dim, gather_last, gather_rows, layer_group, sum_over_group, tensor_group, vocab_embed,
+    vocab_label, vocab_lse,
 )
 from pretraining_llm_tpu_torch.parallel.ulysses import ulysses_supports_grouped
 from pretraining_llm_tpu_torch.parallel.zigzag import zigzag_perm
@@ -104,25 +106,6 @@ class PagedInfo(NamedTuple):
     # padding. Only the kernel lane reads it: real queries' outputs are
     # the same with or without it.
     q_lens: Optional[torch.Tensor] = None
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Refuse the options that change what the model computes but are not
-    ported to PyTorch yet."""
-    if cfg.pipeline_stages > 1:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: pipeline_stages > 1 (ROADMAP Queue A, "
-            "parallelism slice 20: the pipe axis)"
-        )
-
-
-def sequence_shards(cfg: ModelConfig, mesh: Any) -> int:
-    """How many seq ranks split each row's tokens under ``mesh``: the seq
-    axis when the attention is ring or Ulysses over it, else 1 (the seq
-    ranks then compute the same full rows, as JAX's global view does)."""
-    if mesh is None or cfg.attention_impl not in ("ring", "ulysses"):
-        return 1
-    return axis_size(mesh, "seq")
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +184,6 @@ def init_params(
     Values are drawn on the generator's device (an int seeds a CPU
     generator, so one seed gives the same weights on every device) and
     moved to ``device``."""
-    check_ported(cfg)
     dev = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator().manual_seed(generator)
@@ -307,7 +289,6 @@ def make_paged_kv_pool(
         raise ValueError("need n_blocks >= 2 (block 0 is the idle scratch)")
     if block_size % 8:
         raise ValueError(f"block_size must be a multiple of 8, got {block_size}")
-    check_ported(cfg)
     shape = (n_blocks, block_size, rank_kv_heads(cfg), cfg.head_dim)
     fields = _kv_fields(
         cfg, shape, ("k_pool", "v_pool", "k_scale_pool", "v_scale_pool"), dtype, scale_dtype,
@@ -666,6 +647,75 @@ def _layer(tree: Union[Params, list], i: int) -> Params:
     return {k: _layer(s, i) if isinstance(s, dict) else s[i] for k, s in tree.items()}
 
 
+def _layer_count(tree: Union[Params, list]) -> int:
+    """The layers of a per-layer list or of stacked block tensors."""
+    if isinstance(tree, list):
+        return len(tree)
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+def use_pipeline(cfg: ModelConfig, mesh: Any, kv_cache: Optional[KVCache] = None) -> bool:
+    """JAX's rule for the pipelined layer path: an uncached call of a
+    ``pipeline_stages`` > 1 model under a mesh whose pipe axis is above 1."""
+    return kv_cache is None and cfg.pipeline_stages > 1 and mesh is not None and axis_size(mesh, "pipe") > 1
+
+
+def _stage_layers(blocks: Union[Params, list], cfg: ModelConfig, mesh: Any, baked: bool) -> list:
+    """This pipe rank's layers in the order its stage runs them: the
+    rank-major block of ``pipeline.interleave_layout``. ``blocks`` holds
+    the rank's ``L / S`` layers, or all L (depth-major, or rank-major when
+    ``baked``), of which the rank takes its own."""
+    n = _layer_count(blocks)
+    s, v, r = axis_size(mesh, "pipe"), cfg.pipeline_interleave, coordinate(mesh)["pipe"]
+    if n == cfg.n_layers:
+        if baked or v == 1:
+            idx = range(r * n // s, (r + 1) * n // s)
+        else:
+            idx = [i for lo, hi in pipeline.depth_chunks(r, n, s, v) for i in range(lo, hi)]
+    elif n * s == cfg.n_layers:
+        if v > 1 and not baked:
+            raise ValueError(
+                f"a pipe rank's {n} layers of an interleaved pipeline (pipeline_interleave={v}) must be in the "
+                "baked rank-major layout (blocks_baked=True; train_step.shard_train_state bakes it)")
+        idx = range(n)
+    else:
+        raise ValueError(f"params['blocks'] holds {n} layers: neither n_layers={cfg.n_layers} nor this pipe "
+                         f"rank's n_layers / {s}")
+    return [_layer(blocks, i) for i in idx]
+
+
+def _pipeline_row_map(b: int, cfg: ModelConfig, mesh: Any) -> Optional[Tuple[torch.Tensor, torch.Tensor, Any]]:
+    """(the global rows this rank holds inside the pipeline, where each of
+    its own rows lies among the group's pipeline rows, its data x fsdp
+    group) where a microbatch's rows matter (a MoE model: its routing
+    groups and capacity are the global microbatch's) and the ranks split
+    the rows of more than one microbatch; else None (each rank's
+    contiguous rows serve: a dense layer computes every row alone)."""
+    grp = layer_group(mesh, ("data", "fsdp"))
+    n = cfg.pipeline_microbatches
+    if not cfg.n_experts or grp is None or not rows_split() or n == 1:
+        return None
+    held = torch.cat([pipeline.microbatch_rows(b, n, grp.size, k) for k in range(grp.size)])
+    return held[grp.index * b:(grp.index + 1) * b], torch.argsort(held)[grp.index * b:(grp.index + 1) * b], grp
+
+
+def _take_rows(a: torch.Tensor, rows: Tuple[torch.Tensor, torch.Tensor, Any]) -> torch.Tensor:
+    """This rank's pipeline rows of a (B, ...) integer batch (the group's
+    rows gathered, then the rank's picked)."""
+    index, _, grp = rows
+    return gather_dim(a.contiguous(), 0, grp)[index.to(a.device)]
+
+
+def _restore_rows(out: torch.Tensor, rows: Tuple[torch.Tensor, torch.Tensor, Any]) -> torch.Tensor:
+    """The inverse of ``_take_rows`` on an output: the rank's own rows, from
+    the group's pipeline rows gathered (the backward sums the gradient over
+    the group and keeps the rank's pipeline rows)."""
+    _, inverse, grp = rows
+    return gather_rows(out, grp)[inverse.to(out.device)]
+
+
 def forward(
     params: Params,
     tokens: torch.Tensor,
@@ -679,6 +729,7 @@ def forward(
     pad_offsets: Optional[torch.Tensor] = None,
     return_aux: bool = False,
     zigzag: bool = False,
+    blocks_baked: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
     """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache), and with
     ``return_aux=True`` a third value: the MoE router's load-balance loss
@@ -704,9 +755,33 @@ def forward(
     Under a mesh with sequence-parallel attention (``loss_fn``), tokens are
     the rank's sequence chunk and ``positions`` (T,) their global
     positions; ``zigzag=True`` declares the chunk-pair layout of
-    ``parallel.zigzag``."""
-    check_ported(cfg)
+    ``parallel.zigzag``.
+
+    With ``pipeline_stages`` > 1 under a mesh whose pipe axis is above 1
+    (``use_pipeline``; uncached calls only, as in JAX) the layers run as
+    this rank's stage of ``parallel.pipeline``: ``params["blocks"]`` is the
+    rank's ``L / S`` layers (or the full stack, of which it takes them),
+    in the rank-major order of ``pipeline.interleave_layout`` when
+    ``blocks_baked`` (the train state's, required for V > 1 on the rank's
+    layers). The final norm then runs on the rank's T / S columns:
+    ``return_pre_logits`` returns them (B, T / S, D), for a MoE model
+    with split rows in the rows of ``pipeline.microbatch_rows``
+    (``pipeline_targets`` gives ``loss_fn`` the matching targets); the
+    logits are gathered back to the rank's rows, every column. Elsewhere
+    a ``pipeline_stages`` > 1 config runs the plain layer loop."""
     cdt = torch_dtype(cfg.compute_dtype)
+    mesh = current_mesh()
+    piped = use_pipeline(cfg, mesh, kv_cache)
+    if blocks_baked and not piped:
+        raise ValueError(
+            "blocks_baked=True but the pipelined path is inactive (no pipe "
+            "mesh installed, or pipeline_stages<=1): a rank-major baked "
+            "layer stack would be scanned in the wrong depth order. "
+            "De-interleave with parallel.pipeline.deinterleave_layout first."
+        )
+    rows = _pipeline_row_map(tokens.shape[0], cfg, mesh) if piped else None
+    if rows is not None:
+        tokens = _take_rows(tokens, rows)
     b, t = tokens.shape
     device = tokens.device
     if pad_offsets is not None and kv_cache is None:
@@ -761,11 +836,17 @@ def forward(
         x = _attention_block(blk, x, cfg, rope, positions, None, None, segments, zigzag=zigzag)
         return _mlp_block(blk, x, cfg)
 
+    aux_total = None
+    if piped:
+        batch_shards = axis_size(mesh, "data") * axis_size(mesh, "fsdp") if rows_split() else 1
+        x, aux_total = pipeline.pipeline_apply(
+            _stage_layers(params["blocks"], cfg, mesh, blocks_baked), x, mesh, lambda blk, h: layer_body(h, blk),
+            n_micro=cfg.pipeline_microbatches, remat=cfg.remat, interleave=cfg.pipeline_interleave,
+            batch_shards=batch_shards)
     # Training wraps each layer in the remat policy; cached and no-grad
     # calls (serving, generate, eval) run the layers as they are.
     body = remat.checkpoint_wrap(layer_body, cfg.remat) if torch.is_grad_enabled() else layer_body
-    aux_total = None
-    for i in range(cfg.n_layers):
+    for i in range(0 if piped else cfg.n_layers):
         blk = _layer(params["blocks"], i)
         if kv_cache is None:
             x, aux = body(x, blk)
@@ -784,6 +865,10 @@ def forward(
     else:
         w_out, bias = _lm_head_weights(params, cfg)
         out = gather_last(_head_logits32(copy_to_group(x, tp), w_out.to(cdt), bias, cdt), tp)
+        if piped:
+            out = pipeline.gather_columns(out, mesh)
+            if rows is not None:
+                out = _restore_rows(out, rows)
     if not return_aux:
         return out, kv_cache
     if aux_total is None:
@@ -982,7 +1067,7 @@ def _chunked_ce(
 
 def loss_fn(
     params: Params, tokens: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig, *,
-    include_aux: bool = True,
+    include_aux: bool = True, blocks_baked: bool = False,
 ) -> torch.Tensor:
     """Mean next-token cross-entropy in fp32 through the configured CE head
     (``_chunked_ce``). z-loss (``cfg.z_loss_coef``) and, for a MoE model,
@@ -1001,7 +1086,11 @@ def loss_fn(
     permutation invariant), or, when T is not divisible by 2n, kept
     contiguous with a warning, as the JAX package does. The tensor and
     expert ranks of a data group hold the same rows and compute the same
-    loss; nothing divides by their count."""
+    loss; nothing divides by their count. On the pipelined path
+    (``use_pipeline``; ``blocks_baked`` as in ``forward``) each pipe rank's
+    head and loss run on its T / S columns of its pipeline rows, and the
+    pipe ranks join the token axes; the aux loss is the pipeline's (summed
+    over the stages, averaged over microbatches), counted once over them."""
     mesh = current_mesh()
     n_seq = sequence_shards(cfg, mesh)
     positions = None
@@ -1027,8 +1116,15 @@ def loss_fn(
         positions = (perm if perm is not None else torch.arange(t, device=tokens.device))[lo:lo + tl]
         tokens = tokens[:, positions]
         targets = targets[:, positions]
+    n_pipe = 1
+    if use_pipeline(cfg, mesh):
+        n_pipe = axis_size(mesh, "pipe")
+        rows = _pipeline_row_map(tokens.shape[0], cfg, mesh)
+        if rows is not None:
+            targets = _take_rows(targets, rows)
+        targets = pipeline.rank_columns(targets, mesh)
     out = forward(params, tokens, cfg, positions=positions, zigzag=zigzag, return_pre_logits=True,
-                  return_aux=bool(cfg.n_experts))
+                  return_aux=bool(cfg.n_experts), blocks_baked=blocks_baked)
     w_out, bias = _lm_head_weights(params, cfg)
     loss = _chunked_ce(
         out[0], w_out, bias, targets.long(), cfg,
@@ -1037,5 +1133,5 @@ def loss_fn(
     if cfg.n_experts and include_aux:
         loss = loss + cfg.router_aux_coef * out[2]
     if mesh is not None:
-        loss = loss / (axis_size(mesh, "data") * axis_size(mesh, "fsdp") * n_seq)
+        loss = loss / (axis_size(mesh, "data") * axis_size(mesh, "fsdp") * n_seq * n_pipe)
     return loss

@@ -12,7 +12,7 @@ order (sized by ``MeshConfig``):
   tensor - Megatron-style tensor parallelism (``parallel/tensor.py``)
   seq    - sequence/context parallelism (ring attention, Ulysses)
   expert - expert parallelism (``models/moe.py``)
-  pipe   - pipeline parallelism                 (not ported yet)
+  pipe   - pipeline parallelism (``parallel/pipeline.py``)
 
 The bootstrap is the reference's own (``scripts/train_transformer.py``:
 ``RANK``/``WORLD_SIZE``/``LOCAL_RANK`` from the launcher, here
@@ -42,15 +42,17 @@ import torch.distributed as dist
 
 from pretraining_llm_tpu_torch.config import MeshConfig
 
-# Axes whose sharding the port does not implement yet.
-UNPORTED_AXES = ("pipe",)
-# Process groups the train step, the layers and sharded inference use,
-# created by ``build_mesh``: the token axes, the tensor and expert axes and
-# their combinations (a leaf's squares in the global norm are summed over
-# the axes that split it).
+# Process groups the train step, the layers, the pipeline and sharded
+# inference use, created by ``build_mesh``: the token axes (with pipe where
+# the pipe ranks split the columns of the loss), the tensor, expert and
+# pipe axes and their combinations (a leaf's squares in the global norm are
+# summed over the axes that split it).
 _STEP_GROUPS = (("fsdp",), ("seq",), ("data",), ("data", "fsdp"), ("data", "seq"),
                 ("data", "fsdp", "seq"), ("tensor",), ("expert",), ("tensor", "expert"),
-                ("fsdp", "tensor"), ("fsdp", "expert"), ("fsdp", "tensor", "expert"))
+                ("fsdp", "tensor"), ("fsdp", "expert"), ("fsdp", "tensor", "expert"),
+                ("pipe",), ("data", "pipe"), ("fsdp", "pipe"), ("data", "fsdp", "pipe"), ("tensor", "pipe"),
+                ("expert", "pipe"), ("fsdp", "tensor", "pipe"), ("fsdp", "expert", "pipe"),
+                ("tensor", "expert", "pipe"), ("fsdp", "tensor", "expert", "pipe"))
 # Where the ranks' tensors live under gloo: "cpu" unless ``build_mesh`` was
 # given a CUDA device.
 _GLOO_TENSORS = "cpu"
@@ -132,16 +134,6 @@ def needs_mesh(mesh_config: MeshConfig) -> bool:
     )
 
 
-def check_ported_axes(shape: Mapping[str, int]) -> None:
-    """Refuse a mesh that shards over an axis the port does not implement."""
-    over = [f"{a}={shape[a]}" for a in UNPORTED_AXES if shape.get(a, 1) > 1]
-    if over:
-        raise NotImplementedError(
-            "mesh axes " + ", ".join(over) + " are not ported to PyTorch yet "
-            "(ROADMAP Queue A, parallelism slice 20: the pipe axis)"
-        )
-
-
 def _world_of_one(device_type: str) -> None:
     """A process group of this process alone, for a mesh of one rank
     without a launcher (an in-process store, no port)."""
@@ -157,8 +149,7 @@ def build_mesh(mesh_config: MeshConfig, device_type: Optional[str] = None) -> An
     order and names. ``device_type`` defaults to the process group's
     ("cuda" under NCCL); a single process without a group gets a world of
     one. Sizes that do not multiply to the world raise ``ValueError`` as
-    ``MeshConfig.sizes`` does; a pipe axis above 1 raises
-    ``NotImplementedError``. Under gloo ``device_type`` "cuda" declares
+    ``MeshConfig.sizes`` does. Under gloo ``device_type`` "cuda" declares
     that the ranks' tensors live on a card (``mesh_device_type``); the
     ``DeviceMesh`` itself is then the CPU layout of the ranks, since the
     port's collectives run on its own groups (``axis_group``)."""
@@ -166,7 +157,6 @@ def build_mesh(mesh_config: MeshConfig, device_type: Optional[str] = None) -> An
     from torch.distributed.device_mesh import init_device_mesh
 
     sizes = mesh_config.sizes(world_size())
-    check_ported_axes(dict(zip(mesh_config.axis_names, sizes)))
     if not dist.is_initialized():
         _world_of_one(device_type or "cpu")
     if backend() == "gloo" and device_type is not None:

@@ -20,8 +20,8 @@ JAX mesh gives the device at the same coordinates, for a leaf split over
 one axis or over several at once (``wqkv`` is fsdp x tensor, an expert's
 ``w1`` expert x fsdp x tensor); it stands for JAX's
 ``named_sharding_tree``, which has no counterpart here. Where a dimension
-does not divide its axes, JAX pads the shards and the port raises
-``ValueError`` naming the leaf and the axes.
+does not divide its axes, the port raises ``ValueError`` naming the leaf
+and the axes, as JAX's ``device_put`` refuses the uneven shard.
 
 ``activation_mesh``/``current_mesh`` install the mesh the model reads
 (ring and Ulysses attention, the zigzag layout of ``loss_fn``). JAX's
@@ -297,6 +297,16 @@ def activation_mesh(mesh: Optional[Any], *, rows_split: bool = True) -> Iterator
 
 def current_mesh() -> Optional[Any]:
     return _CURRENT_MESH
+
+
+def sequence_shards(cfg: Any, mesh: Any) -> int:
+    """How many seq ranks split each row's tokens under ``mesh``: the seq
+    axis when the model's attention (``cfg.attention_impl``) is ring or
+    Ulysses over it, else 1 (the seq ranks then compute the same full rows,
+    as JAX's global view does)."""
+    if mesh is None or cfg.attention_impl not in ("ring", "ulysses"):
+        return 1
+    return mesh_shape(mesh).get("seq", 1)
 
 
 def rows_split() -> bool:

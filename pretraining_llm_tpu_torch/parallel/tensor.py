@@ -57,6 +57,18 @@ def reduce_scatter_into(out: torch.Tensor, x: torch.Tensor, group: Any) -> torch
     return out
 
 
+def all_to_all_single(out: torch.Tensor, x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``out``'s block j = rank j's block of dim 0 of ``x`` for this rank.
+    Under gloo a CUDA tensor is staged through host memory (gloo's
+    all-to-all takes CPU tensors)."""
+    if dist.get_backend(group) == "gloo" and x.is_cuda:
+        host = torch.empty(out.shape, dtype=out.dtype)
+        dist.all_to_all_single(host, x.contiguous().cpu(), group=group)
+        return out.copy_(host)
+    dist.all_to_all_single(out, x.contiguous(), group=group)
+    return out
+
+
 def gather_dim(x: torch.Tensor, dim: int, grp: AxisGroup) -> torch.Tensor:
     """The group's blocks of ``x`` concatenated along ``dim`` in rank order."""
     t = x.movedim(dim, 0).contiguous()

@@ -31,11 +31,11 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from pretraining_llm_tpu_torch.ops import remat
 from pretraining_llm_tpu_torch.ops.attention import naive_attention
 from pretraining_llm_tpu_torch.parallel.mesh import AxisGroup, axis_group, mesh_shape
+from pretraining_llm_tpu_torch.parallel.tensor import all_to_all_single
 
 
 def _exchange(x: torch.Tensor, grp: Optional[AxisGroup]) -> torch.Tensor:
@@ -45,7 +45,7 @@ def _exchange(x: torch.Tensor, grp: Optional[AxisGroup]) -> torch.Tensor:
         return x
     out = torch.empty_like(x)
     with remat.unrecorded():
-        dist.all_to_all_single(out, x.contiguous(), group=grp.group)
+        all_to_all_single(out, x, grp.group)
     return out
 
 

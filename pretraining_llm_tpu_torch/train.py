@@ -174,7 +174,7 @@ def shape_bytes(config: Any, mesh: Any = None) -> Dict[str, int]:
         from pretraining_llm_tpu_torch.parallel.mesh import axis_size
         from pretraining_llm_tpu_torch.training import train_step as ts
 
-        state = ts.shard_train_state(state, mesh)
+        state = ts.shard_train_state(state, mesh, config)
         b //= axis_size(mesh, "data") * axis_size(mesh, "fsdp")
     return {"state": _nbytes(state), "batch": 2 * b * t * 4, "metrics": 3 * 4}
 

@@ -139,19 +139,24 @@ def _save_leaf(tmp: str, name: str, leaf: Any) -> Dict[str, Any]:
 class ShardedLeaf:
     """How one rank holds a sharded leaf: the global ``shape``, its block
     (a slice per dimension) and whether it writes that block (the
-    replica-0 holder)."""
+    replica-0 holder). ``pieces``, when given, writes the block as several
+    files: (the piece's global index, its rows of the block along dim 0),
+    as a JAX process writes each of its shards (``p<rank>_<k>``)."""
 
-    def __init__(self, shape: Sequence[int], index: Sequence[slice], write: bool) -> None:
+    def __init__(self, shape: Sequence[int], index: Sequence[slice], write: bool,
+                 pieces: Optional[Sequence[Tuple[Sequence[slice], slice]]] = None) -> None:
         self.shape, self.index, self.write = tuple(int(s) for s in shape), tuple(index), bool(write)
+        self.pieces = list(pieces) if pieces else [(self.index, slice(None))]
 
 
 def _save_shard(tmp: str, name: str, leaf: Any, info: ShardedLeaf, rank: int) -> Dict[str, Any]:
     arr, dtype_name = _to_numpy(leaf)
     if info.write:
-        fname = f"{name}.p{rank}_0.npy"
-        _write_npy(os.path.join(tmp, fname), arr, dtype_name)
-        with open(os.path.join(tmp, fname + ".idx"), "w") as f:
-            json.dump([[int(sl.start), int(sl.stop)] for sl in info.index], f)
+        for k, (index, rows) in enumerate(info.pieces):
+            fname = f"{name}.p{rank}_{k}.npy"
+            _write_npy(os.path.join(tmp, fname), np.ascontiguousarray(arr[rows]), dtype_name)
+            with open(os.path.join(tmp, fname + ".idx"), "w") as f:
+                json.dump([[int(sl.start), int(sl.stop)] for sl in index], f)
     return {"name": name, "shape": list(info.shape), "dtype": dtype_name, "sharded": True}
 
 

@@ -20,7 +20,7 @@ second copy of the parameters or the moments.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -216,34 +216,98 @@ def adafactor_init(params: Tree) -> OptState:
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+# A mesh step's ``whole`` hook (Muon): (path, a rank's block of a leaf) ->
+# None when the rank holds the leaf whole, else (the whole leaf gathered
+# from the ranks' blocks, whole -> this rank's block).
+Whole = Callable[[Tuple[str, ...], torch.Tensor], Any]
+
+
+def _no_whole(path: Tuple[str, ...], t: torch.Tensor) -> None:
+    return None
+
+
+class LeafSplit:
+    """How a rank's block of one leaf lies in the whole leaf, for
+    Adafactor's statistics on a mesh (``train_step.MeshPlan`` makes it).
+    ``dims`` names, for each dim of a tensor, the leaf dim it stands for.
+    The default is a leaf the rank holds whole: every method is the
+    identity."""
+
+    def sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """``t``, a sum over the rank's part of leaf dim ``dim``, summed
+        over the ranks that split that dim."""
+        return t
+
+    def gather(self, t: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+        """The whole tensor from the ranks' blocks ``t``."""
+        return t
+
+    def block(self, t: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+        """This rank's block (a view) of the whole tensor ``t``."""
+        return t
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over every rank that holds a block of the leaf."""
+        return t
+
+    def numel(self, block: torch.Tensor) -> int:
+        """The whole leaf's element count, from the rank's block."""
+        return block.numel()
+
+
+# (path) -> the leaf's ``LeafSplit``.
+Splits = Callable[[Tuple[str, ...]], LeafSplit]
+
+
+def _whole_leaves(path: Tuple[str, ...]) -> LeafSplit:
+    return LeafSplit()
+
+
 @torch.no_grad()
 def adafactor_update(
     grads: Tree, state: OptState, params: Tree, lr: torch.Tensor, cfg: TrainConfig,
+    splits: Splits = _whole_leaves,
 ) -> Tuple[Tree, OptState]:
     """One Adafactor step, in place on the parameters and the second-moment
     statistics: v = b2t v + (1 - b2t)(g^2 + eps1) (factored: its row and
     column sums), u = g / sqrt(v_hat) with v_hat = (r / sum r) c floored at
-    1e-37, u /= max(1, rms(u) / 1), p -= lr (u + wd p). All fp32."""
+    1e-37, u /= max(1, rms(u) / 1), p -= lr (u + wd p). All fp32. On a mesh
+    (``splits``) the statistics are the whole leaf's, replicated as JAX's
+    spec has them, while the rank holds a block of the gradient: r and c
+    are the block's sums, summed over the ranks that split the summed dim,
+    each rank updates its block of the statistics and gathers the rest
+    (O(rows + cols) traffic), and rms(u) sums the squares over every rank
+    of the leaf, the stacked-layer dim included."""
     count = state["count"] + 1
     b2t = 1.0 - count.float() ** -0.8
     wd = cfg.weight_decay
 
+    def update_stat(split: LeafSplit, stat: torch.Tensor, part: torch.Tensor, dims: Sequence[int]) -> None:
+        mine = split.block(stat, dims)
+        mine.mul_(b2t).add_(part.mul_(1.0 - b2t))
+        whole = split.gather(mine, dims)
+        if whole is not mine:
+            stat.copy_(whole)
+
     def leaf_update(path: Tuple[str, ...], g: torch.Tensor, v: Dict[str, torch.Tensor], p: torch.Tensor,
                     decay: bool) -> None:
+        split = splits(path)
         g32 = g.float()
+        nd = g32.dim()
         g2 = torch.square(g32).add_(_ADAFACTOR_EPS1)
         if "full" in v:
-            v["full"].mul_(b2t).add_(g2.mul_(1.0 - b2t))
-            u = torch.rsqrt(v["full"]).mul_(g32)
+            update_stat(split, v["full"], g2, range(nd))
+            u = torch.rsqrt(split.block(v["full"], range(nd))).mul_(g32)
         else:
-            v["r"].mul_(b2t).add_(g2.sum(-1).mul_(1.0 - b2t))
-            v["c"].mul_(b2t).add_(g2.sum(-2).mul_(1.0 - b2t))
+            r_dims, c_dims = range(nd - 1), [*range(nd - 2), nd - 1]
+            update_stat(split, v["r"], split.sum(g2.sum(-1), nd - 1), r_dims)
+            update_stat(split, v["c"], split.sum(g2.sum(-2), nd - 2), c_dims)
             # Normalize r before the outer product: r and c are O(eps1) for
             # zero-gradient slices, and eps1^2 underflows fp32.
-            r_hat = v["r"] / v["r"].sum(-1, keepdim=True)
-            u = torch.mul(r_hat[..., :, None], v["c"][..., None, :], out=g2)
+            r_hat = split.block(v["r"] / v["r"].sum(-1, keepdim=True), r_dims)
+            u = torch.mul(r_hat[..., :, None], split.block(v["c"], c_dims)[..., None, :], out=g2)
             u.clamp_min_(1e-37).rsqrt_().mul_(g32)
-        rms_u = torch.sqrt(torch.mean(torch.square(u)))
+        rms_u = torch.sqrt(split.total(torch.square(u).sum()) / split.numel(u))
         u.div_(torch.clamp(rms_u / _ADAFACTOR_CLIP, min=1.0))
         p32 = p if p.dtype == torch.float32 else p.float()
         _apply(p32, u, lr, decay, wd, torch.empty_like(u) if decay and wd > 0 else u)
@@ -320,11 +384,14 @@ def muon_init(params: Tree) -> OptState:
 
 @torch.no_grad()
 def muon_update(
-    grads: Tree, state: OptState, params: Tree, lr: torch.Tensor, cfg: TrainConfig,
+    grads: Tree, state: OptState, params: Tree, lr: torch.Tensor, cfg: TrainConfig, whole: Whole = _no_whole,
 ) -> Tuple[Tree, OptState]:
     """One Muon step, in place: hidden matrices take m = mu m + g, u =
     NS(g + mu m) * 0.2 sqrt(max(rows, cols)); every other leaf AdamW's
-    math; then p -= lr (u + wd p) on decayed leaves. All fp32."""
+    math; then p -= lr (u + wd p) on decayed leaves. All fp32. On a mesh
+    (``whole``) a matrix cut over ranks is gathered after the momentum
+    (each rank's momentum is its block), orthogonalized whole and the
+    rank's block of the update kept."""
     count = state["count"] + 1
     bc1, bc2 = _bias_corrections(count, cfg)
     mu_m = cfg.muon_momentum
@@ -337,9 +404,13 @@ def muon_update(
         g32 = g.float()
         s["m"].mul_(mu_m).add_(g32)
         u_in = torch.add(g32, s["m"] * mu_m)  # nesterov
-        bsz, rows, cols = _matrix_view(path, p.shape)
-        u = newton_schulz_orthogonalize(u_in.reshape(bsz, rows, cols))
-        u = u.mul_(_MUON_RMS_MATCH * float(max(rows, cols)) ** 0.5).reshape(p.shape)
+        split = whole(path, u_in)
+        full = u_in if split is None else split[0]
+        bsz, rows, cols = _matrix_view(path, full.shape)
+        u = newton_schulz_orthogonalize(full.reshape(bsz, rows, cols))
+        u = u.mul_(_MUON_RMS_MATCH * float(max(rows, cols)) ** 0.5).reshape(full.shape)
+        if split is not None:
+            u = split[1](u).contiguous()
         p32 = p if p.dtype == torch.float32 else p.float()
         _apply(p32, u, lr, decay, cfg.weight_decay, u_in.view(p.shape))
         if p32 is not p:
@@ -360,12 +431,15 @@ def optimizer_init(params: Tree, cfg: TrainConfig) -> OptState:
 
 def optimizer_update(
     grads: Tree, state: OptState, params: Tree, lr: torch.Tensor, cfg: TrainConfig,
+    splits: Splits = _whole_leaves, whole: Whole = _no_whole,
 ) -> Tuple[Tree, OptState]:
-    """One in-place step of ``cfg.optimizer``; returns (params, state)."""
+    """One in-place step of ``cfg.optimizer``; returns (params, state).
+    ``splits`` (Adafactor) and ``whole`` (Muon) are a mesh step's hooks for
+    the optimizers that look across a leaf; AdamW is elementwise."""
     if cfg.optimizer == "adafactor":
-        return adafactor_update(grads, state, params, lr, cfg)
+        return adafactor_update(grads, state, params, lr, cfg, splits)
     if cfg.optimizer == "muon":
-        return muon_update(grads, state, params, lr, cfg)
+        return muon_update(grads, state, params, lr, cfg, whole)
     return adamw_update(grads, state, params, lr, cfg)
 
 

@@ -34,21 +34,43 @@ program gets its collectives from XLA, ``MeshPlan`` issues the rest:
     the world size;
   - the global norm sums each leaf's squares over the axes that split it,
     once (replicas hold the same block);
-  - AdamW and the EMA update each rank's blocks in place. Adafactor and
-    Muon run only on unsharded leaves (a data or seq mesh); on fsdp,
-    tensor or expert blocks they raise ``NotImplementedError``.
+  - AdamW and the EMA update each rank's blocks in place. Adafactor keeps
+    JAX's replicated statistics: for a split leaf the rank sums its block
+    of the gradient's squares into row and column sums, sums those over
+    the ranks that split the summed dim, updates its block of the
+    statistics and gathers the rest (``MeshPlan.split``); the update's RMS
+    sums the squares over every rank of the leaf, stacked layers
+    included. Muon's momentum is
+    sharded like its parameter; the momentum-corrected matrix is gathered
+    over the fsdp and tensor ranks that cut each (layer, expert) matrix,
+    orthogonalized on every rank, and the rank keeps its block (pipe and
+    expert splits cut the batch of matrices and stay local).
+
+With ``pipeline_stages`` > 1 on a mesh whose pipe axis is above 1
+(``_is_pipelined``, JAX's rule) the block leaves' layer dim is split over
+'pipe' (``param_pspec_tree(..., pipeline=True)``) and the layers run as
+``parallel/pipeline.py``'s stages. With V = ``pipeline_interleave`` > 1 the
+state keeps its block leaves in the rank-major order of
+``pipeline.interleave_layout`` (``bake_state_layout``, once, in
+``shard_train_state``), as JAX bakes it; checkpoints stay depth-major
+(``checkpoint_layout`` writes each rank's V chunks where they lie in depth
+order, ``save_view`` de-interleaves the replicated leaves). Every leaf
+outside ``blocks`` is replicated over 'pipe' and its gradient summed there
+(the input's gradient reaches rank 0 only, each rank's head sees its own
+columns); the block leaves' gradients are not.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from pretraining_llm_tpu_torch.config import Config
 from pretraining_llm_tpu_torch.models import transformer
-from pretraining_llm_tpu_torch.parallel.mesh import axis_group, axis_size, check_ported_axes, coordinate, mesh_shape
+from pretraining_llm_tpu_torch.parallel import pipeline as pp
+from pretraining_llm_tpu_torch.parallel.mesh import AxisGroup, axis_group, axis_size, coordinate, mesh_shape
 from pretraining_llm_tpu_torch.parallel.sharding import (
     _entry_axes, activation_mesh, is_sharded, local_slices, param_pspec_tree, shard_tree,
 )
@@ -70,15 +92,21 @@ def init_train_state(
     default ``cfg.train.seed``), the zero state of ``train.optimizer``, step
     0, and an fp32 EMA copy of the params when ``train.ema_decay`` > 0. On
     a ``mesh`` every rank draws the same full parameters and keeps its
-    blocks; the optimizer state is made from the blocks."""
+    blocks (in the baked layout of an interleaved pipeline); the optimizer
+    state is made from the blocks, except Adafactor's statistics, which are
+    replicated (JAX's spec) and so made whole."""
     dev = resolve_device(device)
     seed = cfg.train.seed if generator is None else generator
     params = transformer.init_params(cfg.model, seed, device=dev)
+    opt_state = opt.optimizer_init(params, cfg.train) if cfg.train.optimizer == "adafactor" else None
     if mesh is not None:
-        params = shard_tree(params, param_pspec_tree(params, tensor_size=axis_size(mesh, "tensor")), mesh)
+        if uses_baked_layout(cfg, mesh):
+            params = dict(params, blocks=_bake(params["blocks"], cfg, True))
+        specs = param_pspec_tree(params, _is_pipelined(cfg, mesh), tensor_size=axis_size(mesh, "tensor"))
+        params = shard_tree(params, specs, mesh)
     state: TrainState = {
         "params": params,
-        "opt": opt.optimizer_init(params, cfg.train),
+        "opt": opt_state if opt_state is not None else opt.optimizer_init(params, cfg.train),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
     if cfg.train.ema_decay > 0:
@@ -116,12 +144,63 @@ def _mirror(spec_tree: Any, state_tree: Any) -> Any:
     return {k: spec_tree for k in state_tree}
 
 
-def shard_train_state(state: TrainState, mesh: Any, cfg: Optional[Config] = None) -> TrainState:
-    """Each leaf of a full train state replaced by this rank's block under
-    ``state_pspec_tree`` at the mesh's tensor size (leaves that are not
-    split stay as they are)."""
-    del cfg  # the pipeline's baked layout is not ported
-    return shard_tree(state, state_pspec_tree(state, tensor_size=axis_size(mesh, "tensor")), mesh)
+def shard_train_state(state: TrainState, mesh: Any, cfg: Config) -> TrainState:
+    """Each leaf of a full (depth-major) train state replaced by this
+    rank's block under ``state_pspec_tree`` at the mesh's tensor size
+    (leaves that are not split stay as they are). When ``cfg`` pipelines
+    on ``mesh`` the block leaves split over 'pipe', in the baked rank-major
+    layout for an interleaved pipeline, as JAX's ``shard_train_state``
+    does."""
+    pipelined = _is_pipelined(cfg, mesh)
+    if pipelined and uses_baked_layout(cfg, mesh):
+        state = bake_state_layout(state, cfg, forward=True)
+    return shard_tree(state, state_pspec_tree(state, pipelined, tensor_size=axis_size(mesh, "tensor")), mesh)
+
+
+def _is_pipelined(cfg: Config, mesh: Any) -> bool:
+    """JAX's rule: ``pipeline_stages`` > 1 on a mesh whose pipe axis is
+    above 1."""
+    return transformer.use_pipeline(cfg.model, mesh)
+
+
+def uses_baked_layout(cfg: Config, mesh: Any) -> bool:
+    """Whether the train state keeps its block leaves in the rank-major
+    layout of an interleaved pipeline (baked once by ``shard_train_state``
+    instead of permuted every step)."""
+    return _is_pipelined(cfg, mesh) and cfg.model.pipeline_interleave > 1
+
+
+def _bake(blocks: Any, cfg: Config, forward: bool) -> Any:
+    s, v = cfg.model.pipeline_stages, cfg.model.pipeline_interleave
+    return (pp.interleave_layout if forward else pp.deinterleave_layout)(blocks, s, v)
+
+
+def bake_state_layout(state: TrainState, cfg: Config, forward: bool = True) -> TrainState:
+    """Block leaves between depth-major and the interleaved rank-major
+    layout (``forward=True``: depth -> rank-major), for the params, every
+    optimizer container that holds ``blocks`` (AdamW ``mu``/``nu``,
+    Adafactor ``v``, Muon ``s``) and the EMA. Whole leaves only."""
+    out = dict(state)
+    out["params"] = dict(state["params"], blocks=_bake(state["params"]["blocks"], cfg, forward))
+    if "opt" in state:
+        out["opt"] = {k: dict(sub, blocks=_bake(sub["blocks"], cfg, forward))
+                      if isinstance(sub, dict) and "blocks" in sub else sub for k, sub in state["opt"].items()}
+    if "ema" in state:
+        out["ema"] = dict(state["ema"], blocks=_bake(state["ema"]["blocks"], cfg, forward))
+    return out
+
+
+def save_view(state: TrainState, cfg: Config, mesh: Any) -> TrainState:
+    """The state as a checkpoint holds it: depth-major. In the baked layout
+    the leaves split over 'pipe' are written where their chunks lie
+    (``checkpoint_layout``); the replicated block leaves (Adafactor's
+    statistics) are de-interleaved here."""
+    if mesh is None or not uses_baked_layout(cfg, mesh):
+        return state
+    if "v" not in state["opt"]:
+        return state
+    return dict(state, opt=dict(state["opt"], v=dict(state["opt"]["v"], blocks=_bake(
+        state["opt"]["v"]["blocks"], cfg, False))))
 
 
 def state_template(cfg: Config) -> TrainState:
@@ -135,21 +214,33 @@ def state_template(cfg: Config) -> TrainState:
     return state
 
 
-def checkpoint_layout(template: TrainState, mesh: Any) -> Optional[Dict[str, Any]]:
+def checkpoint_layout(template: TrainState, mesh: Any, cfg: Config) -> Optional[Dict[str, Any]]:
     """{leaf name: ``checkpoint.ShardedLeaf``} of a state of ``template``'s
     global shapes on ``mesh``: this rank's block of each sharded leaf, which
     it writes when it holds the replica-0 copy (coordinate 0 on every axis
-    that does not split the leaf). None when nothing is sharded."""
+    that does not split the leaf). None when nothing is sharded. When
+    ``cfg`` pipelines on ``mesh`` the block leaves split over 'pipe'; in the baked
+    layout a rank's block is its V chunks, each written at its depth-major
+    place, so the file is depth-major."""
     coord = coordinate(mesh)
     layout = {}
-    specs = state_pspec_tree(template, tensor_size=axis_size(mesh, "tensor"))
+    pipelined = _is_pipelined(cfg, mesh)
+    specs = state_pspec_tree(template, pipelined, tensor_size=axis_size(mesh, "tensor"))
+    baked = pipelined and uses_baked_layout(cfg, mesh)
     for (path, leaf), (_, spec) in zip(opt.tree_leaves(template), _spec_leaves(specs)):
         if not is_sharded(spec, mesh):
             continue
         used = {a for e in spec for a in _entry_axes(e)}
         write = all(c == 0 for a, c in coord.items() if a not in used)
         name = "__".join(path)
-        layout[name] = ShardedLeaf(leaf.shape, local_slices(spec, tuple(leaf.shape), mesh, name=name), write)
+        index = local_slices(spec, tuple(leaf.shape), mesh, name=name)
+        pieces = None
+        if baked and spec and spec[0] == "pipe":
+            m = cfg.model
+            lpc = m.n_layers // (m.pipeline_stages * m.pipeline_interleave)
+            pieces = [((slice(lo, hi),) + index[1:], slice(v * lpc, (v + 1) * lpc)) for v, (lo, hi) in enumerate(
+                pp.depth_chunks(coord["pipe"], m.n_layers, m.pipeline_stages, m.pipeline_interleave))]
+        layout[name] = ShardedLeaf(leaf.shape, index, write, pieces)
     return layout or None
 
 
@@ -183,7 +274,7 @@ def loss_and_grads(params: Any, x: torch.Tensor, y: torch.Tensor, cfg: Config,
     leaves = _grad_leaves(params, grads)
     if plan is not None:
         leaves = plan.gather(leaves)
-    loss = transformer.loss_fn(leaves, x, y, cfg.model)
+    loss = transformer.loss_fn(leaves, x, y, cfg.model, blocks_baked=plan is not None and plan.baked)
     loss.backward()
     if cfg.train.grad_dtype == "bfloat16":
         grads = opt.tree_map(lambda g: g.to(torch.bfloat16) if g.dtype == torch.float32 else g, grads)
@@ -247,7 +338,8 @@ def train_step(state: TrainState, batch: Batch, cfg: Config,
         else:
             grad_norm = norm_fn(grads)
         lr = opt.learning_rate(state["step"], tcfg)
-        new_params, new_opt = opt.optimizer_update(grads, state["opt"], state["params"], lr, tcfg)
+        update = opt.optimizer_update if plan is None else plan.optimizer_update
+        new_params, new_opt = update(grads, state["opt"], state["params"], lr, tcfg)
         new_state: TrainState = {"params": new_params, "opt": new_opt, "step": state["step"] + 1}
         if "ema" in state:
             d = tcfg.ema_decay
@@ -289,7 +381,8 @@ def build_eval_loop(cfg: Config, mesh: Any = None) -> Callable[[TrainState, Batc
         total = torch.zeros((), dtype=torch.float32, device=xs.device)
         with contextlib.nullcontext() if plan is None else plan.active():
             for x, y in zip(xs, ys):
-                total = total + transformer.loss_fn(params, x, y, cfg.model, include_aux=False)
+                total = total + transformer.loss_fn(params, x, y, cfg.model, include_aux=False,
+                                                    blocks_baked=plan is not None and plan.baked)
         if plan is not None:
             total = plan.reduce_loss(total)
         return total / xs.shape[0]
@@ -338,24 +431,24 @@ class MeshPlan:
     summed over (``parallel.mesh``)."""
 
     def __init__(self, cfg: Config, mesh: Any) -> None:
-        shape = mesh_shape(mesh)
-        check_ported_axes(shape)
+        shape = self.shape = mesh_shape(mesh)
         self.cfg, self.mesh = cfg, mesh
         self.n_seq = transformer.sequence_shards(cfg.model, mesh)
-        if cfg.model.n_experts and self.n_seq > 1:
-            raise NotImplementedError(
-                "a MoE model with sequence-sharded attention (the routing groups over the seq ranks' "
-                "columns) is not ported to PyTorch yet (ROADMAP Queue A, parallelism slice 20)")
+        self.pipelined = _is_pipelined(cfg, mesh)
+        self.baked = uses_baked_layout(cfg, mesh)
         shapes = self.full_shapes = transformer.param_shapes(cfg.model)
         tp = shape.get("tensor", 1)
-        specs = param_pspec_tree(_meta(shapes), tensor_size=tp)
-        token_axes = ("data", "fsdp") + (("seq",) if self.n_seq > 1 else ())
-        # {leaf path: the dim split over fsdp}, {leaf path: the axes that
-        # split it}, {leaf path: the group its gradient is summed over}.
+        specs = param_pspec_tree(_meta(shapes), self.pipelined, tensor_size=tp)
+        token_axes = ("data", "fsdp") + (("seq",) if self.n_seq > 1 else ()) + (("pipe",) if self.pipelined else ())
+        # {leaf path: its spec}, {leaf path: the dim split over fsdp},
+        # {leaf path: the axes that split it}, {leaf path: the group its
+        # gradient is summed over}.
+        self.specs: Dict[Tuple[str, ...], Any] = {}
         self.fsdp_dims: Dict[Tuple[str, ...], int] = {}
         self.split_axes: Dict[Tuple[str, ...], Tuple[str, ...]] = {}
         self.grad_groups: Dict[Tuple[str, ...], Any] = {}
         for path, spec in _spec_leaves(specs):
+            self.specs[path] = spec
             axes = tuple(a for e in spec for a in _entry_axes(e) if shape.get(a, 1) > 1)
             if axes:
                 self.split_axes[path] = axes
@@ -366,14 +459,45 @@ class MeshPlan:
                     path[-1] in ("wkv", "bkv") or ("experts" in path and path[-1] == "b2")):
                 summed += ("tensor",)  # partial on each tensor rank
             self.grad_groups[path] = axis_group(mesh, summed)
-        if self.split_axes and cfg.train.optimizer != "adamw":
-            raise NotImplementedError(
-                f"train.optimizer={cfg.train.optimizer!r} on fsdp-, tensor- or expert-sharded leaves is not "
-                "ported to PyTorch yet (ROADMAP Queue A, parallelism slice 20); use adamw, or a data or "
-                "seq mesh")
         self.fsdp = axis_group(mesh, ("fsdp",))
         self.tokens = axis_group(mesh, token_axes)  # the loss
         self.norm_groups = {axes: axis_group(mesh, axes) for axes in sorted(set(self.split_axes.values()))}
+        # Each split leaf's dims for Adafactor (every split) and the dims
+        # Muon gathers (the fsdp and tensor splits), their groups made
+        # here, on every rank.
+        self._splits = {path: _LeafSplit(dict(self._gather_dims(path, None)), self.norm_groups[axes])
+                        for path, axes in self.split_axes.items()}
+        self._muon_dims = {path: self._gather_dims(path, ("fsdp", "tensor")) for path in self.split_axes}
+
+    def _gather_dims(self, path: Tuple[str, ...], keep: Optional[Tuple[str, ...]]) -> List[Tuple[int, AxisGroup]]:
+        """(dim, group) of each dim of a leaf split over axes all in
+        ``keep`` (None: any)."""
+        out = []
+        for d, e in enumerate(self.specs[path]):
+            axes = tuple(a for a in _entry_axes(e) if self.shape.get(a, 1) > 1)
+            if axes and (keep is None or all(a in keep for a in axes)):
+                out.append((d, axis_group(self.mesh, axes)))
+        return out
+
+    def split(self, path: Tuple[str, ...]) -> opt.LeafSplit:
+        """Adafactor's ``splits`` hook: how this rank's block of the leaf
+        lies in the whole."""
+        return self._splits.get(path) or opt.LeafSplit()
+
+    def whole(self, path: Tuple[str, ...], t: torch.Tensor) -> Any:
+        """Muon's ``whole`` hook: for a matrix cut over fsdp or tensor, (the
+        leaf gathered from the ranks' blocks along those dims, full -> this
+        rank's block); None for the rest."""
+        todo = self._muon_dims.get(path)
+        if not todo:
+            return None
+        full = t
+        for d, grp in todo:
+            full = _all_gather(full, d, grp.group, grp.size)
+        return full, lambda u: _block(u, todo)
+
+    def optimizer_update(self, grads: Any, state: Any, params: Any, lr: torch.Tensor, tcfg: Any) -> Any:
+        return opt.optimizer_update(grads, state, params, lr, tcfg, splits=self.split, whole=self.whole)
 
     def active(self) -> Any:
         return activation_mesh(self.mesh)
@@ -451,6 +575,44 @@ class MeshPlan:
             grp = self.norm_groups[axes]
             total = total + (part if grp.group is None else all_reduce(part, grp.group))
         return torch.sqrt(total)
+
+
+def _block(t: torch.Tensor, dims: List[Tuple[int, AxisGroup]]) -> torch.Tensor:
+    """This rank's block (a view) of ``t`` along each (dim, group)."""
+    idx = [slice(None)] * t.dim()
+    for d, grp in dims:
+        n = t.shape[d] // grp.size
+        idx[d] = slice(grp.index * n, (grp.index + 1) * n)
+    return t[tuple(idx)]
+
+
+class _LeafSplit(opt.LeafSplit):
+    """A split leaf's ``optimizer.LeafSplit`` on a mesh: {leaf dim: the
+    group of the axes that split it}, and the group of all of them."""
+
+    def __init__(self, dims: Dict[int, AxisGroup], every: AxisGroup) -> None:
+        self.dims, self.every = dims, every
+
+    def _along(self, dims: Sequence[int]) -> List[Tuple[int, AxisGroup]]:
+        return [(i, self.dims[d]) for i, d in enumerate(dims) if d in self.dims]
+
+    def sum(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        grp = self.dims.get(dim)
+        return t if grp is None else all_reduce(t, grp.group)
+
+    def gather(self, t: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+        for i, grp in self._along(dims):
+            t = _all_gather(t, i, grp.group, grp.size)
+        return t
+
+    def block(self, t: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+        return _block(t, self._along(dims))
+
+    def total(self, t: torch.Tensor) -> torch.Tensor:
+        return all_reduce(t, self.every.group)
+
+    def numel(self, block: torch.Tensor) -> int:
+        return block.numel() * self.every.size
 
 
 def _meta(shapes: Any) -> Any:

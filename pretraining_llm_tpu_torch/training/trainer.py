@@ -250,29 +250,27 @@ class Trainer:
         """File batches: the native gatherer for a single file when
         ``data.use_native_batcher`` (and the library builds), else the numpy
         sampler (mixtures, no compiler), as the JAX trainer chooses. The
-        node's rows only; several nodes would each read a shard of the
-        token stream, which the port's samplers do not cut yet."""
-        if pmesh.node_count() > 1:
-            raise NotImplementedError(
-                "file data on several nodes (each node's shard of the token stream) is not ported "
-                "to PyTorch yet (ROADMAP Queue A, parallelism slice 20); use --data synthetic")
+        node's rows only, sampled from the node's contiguous shard of the
+        token stream (JAX's process shard: ``shard_index`` = the node,
+        ``shard_count`` = the nodes)."""
         dcfg, mcfg = self.config.data, self.config.model
         batch = self._node_batch
+        shard = dict(shard_index=pmesh.node_index(), shard_count=pmesh.node_count())
         if dcfg.use_native_batcher and not data_loader.is_mixture(path):
             from pretraining_llm_tpu_torch.data.native_batcher import NativeBatchIterator
 
             try:
-                return NativeBatchIterator(path, batch, mcfg.context_length, seed=seed)
+                return NativeBatchIterator(path, batch, mcfg.context_length, seed=seed, **shard)
             except (RuntimeError, ValueError):
                 pass  # no compiler, or a file it cannot map: the numpy sampler says why
-        return data_loader.get_batch_iterator(path, batch, mcfg.context_length, seed=seed)
+        return data_loader.get_batch_iterator(path, batch, mcfg.context_length, seed=seed, **shard)
 
     def _checkpoint_layout(self) -> Optional[Dict[str, Any]]:
         """The sharded leaves' layout of this rank's checkpoint writes
         (``train_step.checkpoint_layout``; None without a mesh)."""
         if self.mesh is None:
             return None
-        return ts.checkpoint_layout(self._state_template(), self.mesh)
+        return ts.checkpoint_layout(self._state_template(), self.mesh, self.config)
 
     # --- restore / rollback plumbing ----------------------------------
     def _state_template(self) -> Dict[str, Any]:
@@ -299,9 +297,13 @@ class Trainer:
         """Install a loaded checkpoint as the live state and the sampler's
         frontier; returns the restored step. A live state of the same tree
         is overwritten in place, so every reference to its tensors sees the
-        restored values."""
+        restored values. A file whose blocks are in the interleaved
+        rank-major layout (``block_layout``: "interleaved") is read back to
+        depth-major first, as the JAX trainer reads it."""
+        if extra.get("block_layout", "depth_major") == "interleaved":
+            state = ts.bake_state_layout(state, self.config, forward=False)
         if self.mesh is not None:
-            state = ts.shard_train_state(state, self.mesh)
+            state = ts.shard_train_state(state, self.mesh, self.config)
         live = getattr(self, "state", None)
         new = dict(opt.tree_leaves(state))
         old = dict(opt.tree_leaves(live)) if live is not None else {}
@@ -440,7 +442,8 @@ class Trainer:
             self._writer.save(directory, step, self.state, **kwargs)
             return None
         self.join_pending_save()  # never two writes into the directory at once
-        return ckpt.save_checkpoint(directory, step, self.state, layout=self._ckpt_layout, **kwargs)
+        state = ts.save_view(self.state, self.config, self.mesh)  # depth-major
+        return ckpt.save_checkpoint(directory, step, state, layout=self._ckpt_layout, **kwargs)
 
     def join_pending_save(self) -> None:
         """Wait for an async checkpoint write in flight; raise

@@ -92,18 +92,19 @@ def train_error(cfg_dict, sizes):
         state = ts.init_train_state(cfg, 0, device="cpu", mesh=mesh)
         ts.build_train_step(cfg, mesh)
         del state
-    except (NotImplementedError, ValueError) as e:
+    except ValueError as e:
         return type(e).__name__, str(e)
     return None
 
 
 def build_mesh_error(**axes):
-    """The message of the NotImplementedError ``build_mesh`` raises for a
-    mesh of these axes, or None."""
+    """The message of the error ``build_mesh`` raises for a mesh of these
+    axes, or None (then the mesh's shape)."""
     try:
-        pmesh.build_mesh(MeshConfig(**axes), "cpu")
-    except NotImplementedError as e:
+        mesh = pmesh.build_mesh(MeshConfig(**axes), "cpu")
+    except (ValueError, NotImplementedError) as e:
         return str(e)
+    assert pmesh.mesh_shape(mesh) == {a: axes.get(a, 1) for a in mesh.mesh_dim_names}
     return None
 
 
@@ -116,14 +117,18 @@ def rank_rows(sizes, batch):
     return slice(k * rows, (k + 1) * rows)
 
 
-def train_steps(cfg_dict, params_np, x, y, sizes, steps=2):
+def train_steps(cfg_dict, params_np, x, y, sizes, steps=2, save_dir=None):
     """``steps`` steps of the port's mesh train step from the given full
     parameters on this rank's rows of the global batch (x, y). Returns the
-    metrics and this rank's blocks of the parameters and AdamW's moments,
-    each with its [start, stop) per dimension in the global leaf."""
+    metrics and this rank's blocks of the parameters and the optimizer's
+    state, each with its [start, stop) per dimension in the global leaf
+    (in the baked layout of an interleaved pipeline, as JAX's state holds
+    it). ``save_dir``: then write a checkpoint of the state there, as the
+    trainer writes it (depth-major)."""
     from pretraining_llm_tpu_torch.config import Config
     from pretraining_llm_tpu_torch.models import bridge
     from pretraining_llm_tpu_torch.parallel.sharding import local_slices
+    from pretraining_llm_tpu_torch.training import checkpoint as ckpt
     from pretraining_llm_tpu_torch.training import optimizer as opt
     from pretraining_llm_tpu_torch.training import train_step as ts
 
@@ -132,15 +137,19 @@ def train_steps(cfg_dict, params_np, x, y, sizes, steps=2):
     params = bridge.params_from_numpy(params_np, cfg.model, device="cpu")
     full = {"params": params, "opt": opt.optimizer_init(params, cfg.train),
             "step": torch.zeros((), dtype=torch.int32)}
-    specs = ts.state_pspec_tree(full, tensor_size=pmesh.axis_size(mesh, "tensor"))
+    specs = ts.state_pspec_tree(full, ts._is_pipelined(cfg, mesh), tensor_size=pmesh.axis_size(mesh, "tensor"))
     shapes = {"/".join(p): tuple(t.shape) for p, t in opt.tree_leaves(full)}
-    state = ts.shard_train_state(full, mesh)
+    state = ts.shard_train_state(full, mesh, cfg)
     step = ts.build_train_step(cfg, mesh)
     rows = rank_rows(sizes, x.shape[0])
     metrics = []
     for _ in range(steps):
         state, m = step(state, (torch.from_numpy(x[rows]), torch.from_numpy(y[rows])))
         metrics.append({k: float(v) for k, v in m.items()})
+    if save_dir is not None:
+        ckpt.save_checkpoint(save_dir, steps, ts.save_view(state, cfg, mesh),
+                             layout=ts.checkpoint_layout(ts.state_template(cfg), mesh, cfg),
+                             extra={"step": steps, "block_layout": "depth_major"})
     blocks = {}
     for (path, t), (_, spec) in zip(opt.tree_leaves(state), ts._spec_leaves(specs)):
         name = "/".join(path)
@@ -160,8 +169,10 @@ def trainer_run(cfg_dict, overrides, steps=None, resume=True, faults_on_rank=Non
     """Train the port's ``Trainer`` (synthetic data, CPU) on this rank's
     mesh from ``config.mesh``; ``faults_on_rank`` = (rank, spec) sets
     ``resilience.faults`` on that rank only. Returns the start step, the
-    last logged metrics, the exit reason and the state's leaves (this
-    rank's blocks), and with ``eval_iters`` the trainer's ``evaluate``."""
+    last logged metrics, the exit reason, the state's leaves (this rank's
+    blocks) as the trainer started (``restored``) and as it ended, the
+    rank's mesh coordinate, and with ``eval_iters`` the trainer's
+    ``evaluate``."""
     import torch.distributed as dist
 
     from pretraining_llm_tpu_torch.config import Config
@@ -176,12 +187,13 @@ def trainer_run(cfg_dict, overrides, steps=None, resume=True, faults_on_rank=Non
 
     trainer = Trainer(cfg, synthetic_data=True, resume=resume, device="cpu",
                       logger=MetricsLogger("", stream=io.StringIO()))
-    start = trainer.start_step
+    start, restored = trainer.start_step, _state_blocks(trainer.state)
     last = trainer.train(steps=steps)
     if eval_iters:
         last["eval"] = trainer.evaluate(eval_iters)
-    return {"start": start, "last": last, "exit_reason": trainer.exit_reason,
-            "state": _state_blocks(trainer.state), "rows": [trainer._rows.start, trainer._rows.stop]}
+    return {"start": start, "last": last, "exit_reason": trainer.exit_reason, "restored": restored,
+            "state": _state_blocks(trainer.state), "rows": [trainer._rows.start, trainer._rows.stop],
+            "coord": None if trainer.mesh is None else pmesh.coordinate(trainer.mesh)}
 
 
 def compile_only_sizes(cfg_dict, sizes):
@@ -198,7 +210,9 @@ def moe_layer(cfg_dict, mlp_np, h, sizes):
     under the mesh: the rank's output rows and the aux loss."""
     from pretraining_llm_tpu_torch.config import Config
     from pretraining_llm_tpu_torch.models import moe
-    from pretraining_llm_tpu_torch.parallel.sharding import activation_mesh, param_pspec_tree, shard_tree
+    from pretraining_llm_tpu_torch.parallel.sharding import (
+        activation_mesh, param_pspec_tree, sequence_shards, shard_tree,
+    )
 
     cfg = Config.from_dict(cfg_dict)
     mesh = get_mesh(sizes)
@@ -206,9 +220,12 @@ def moe_layer(cfg_dict, mlp_np, h, sizes):
                     "experts": {k: torch.from_numpy(v) for k, v in mlp_np["experts"].items()}}}
     local = shard_tree(tree, param_pspec_tree(tree, tensor_size=pmesh.axis_size(mesh, "tensor")), mesh)
     rows = rank_rows(sizes, h.shape[0])
+    n_seq = sequence_shards(cfg.model, mesh)
+    tl = h.shape[1] // n_seq
+    cols = slice(pmesh.coordinate(mesh)["seq"] * tl, (pmesh.coordinate(mesh)["seq"] + 1) * tl)
     with activation_mesh(mesh):
-        y, aux = moe.moe_mlp(local["mlp"], torch.from_numpy(h[rows]), cfg.model)
-    return {"y": y.numpy(), "aux": float(aux), "rows": [rows.start, rows.stop]}
+        y, aux = moe.moe_mlp(local["mlp"], torch.from_numpy(np.ascontiguousarray(h[rows, cols])), cfg.model)
+    return {"y": y.numpy(), "aux": float(aux), "rows": [rows.start, rows.stop], "cols": [cols.start, cols.stop]}
 
 
 def inference_blocks(cfg_dict, params_np, sizes, quantize=False):
@@ -318,3 +335,30 @@ def collectives_on_tensors():
     return {"type": pmesh.mesh_device_type(), "device": str(pmesh.collective_device()),
             "sum": x.tolist(), "sum_device": str(x.device), "gathered": out.tolist(),
             "gathered_device": str(out.device), "agree": pmesh.all_ranks_agree(True)}
+
+
+def node_batches(cfg_dict, overrides, n_batches=2):
+    """This rank as its own node (``LOCAL_WORLD_SIZE=1``): the port's
+    ``Trainer`` on file data, its node's first train batches, its first
+    eval batch, the sampler's name and the node's index and count."""
+    import io
+    import os
+
+    from pretraining_llm_tpu_torch.config import Config
+    from pretraining_llm_tpu_torch.training.metrics import MetricsLogger
+    from pretraining_llm_tpu_torch.training.trainer import Trainer
+
+    cfg = Config.from_dict(cfg_dict).with_overrides(overrides)
+    before = os.environ.get("LOCAL_WORLD_SIZE")
+    os.environ["LOCAL_WORLD_SIZE"] = "1"
+    try:
+        trainer = Trainer(cfg, resume=False, device="cpu", logger=MetricsLogger("", stream=io.StringIO()))
+        train = [next(trainer.train_iterator) for _ in range(n_batches)]
+        val = next(trainer._fresh_val_iterator())
+        return {"node": pmesh.node_index(), "nodes": pmesh.node_count(), "sampler": trainer.sampler,
+                "train": train, "val": val, "rows": [trainer._rows.start, trainer._rows.stop]}
+    finally:
+        if before is None:
+            del os.environ["LOCAL_WORLD_SIZE"]
+        else:
+            os.environ["LOCAL_WORLD_SIZE"] = before

@@ -7,7 +7,7 @@ device at the same coordinates; ``MeshConfig.sizes`` and its errors, the
 zigzag permutation, the grouped-KV predicates of ring and Ulysses, the
 config round trip with the mesh section; with no seq axis (or a world of
 one rank) ring and Ulysses are JAX's naive attention; the tensor, expert
-and pipe axes and ``pipeline_stages`` > 1 are refused; shard files in
+and pipe axes are ported (no axis is refused); shard files in
 JAX's checkpoint layout reassemble. The multi-rank cases are in
 ``test_torch_parallel_{attention,train,train_ring,checkpoint}.py``.
 """
@@ -235,16 +235,19 @@ def test_sequence_parallel_backstops_match_jax(impl, option):
 
 
 def test_unported_axes_and_pipeline_raise():
-    """The pipe axis above 1 and pipeline stages are the next parallelism
-    slice's: each raises NotImplementedError naming it. The tensor and
-    expert axes are ported: ``UNPORTED_AXES`` is the pipe axis alone."""
-    assert pmesh.UNPORTED_AXES == ("pipe",)
-    with pytest.raises(NotImplementedError, match="pipe=2.*slice 20"):
-        pmesh.check_ported_axes({"data": 1, "pipe": 2})
-    pmesh.check_ported_axes({"data": 4, "fsdp": 2, "seq": 4, "tensor": 2, "expert": 2})
+    """Every axis is ported: the mesh module keeps no list of unported
+    axes, and a ``pipeline_stages`` = 2 model (refused before) builds its
+    parameters as JAX's init does and, off a pipe mesh, runs the plain
+    layer loop: JAX's plain scan's logits."""
+    assert not hasattr(pmesh, "UNPORTED_AXES") and not hasattr(pmesh, "check_ported_axes")
     cfg = tcfg.ModelConfig(**dict(SMALL, pos_embed="learned"), pipeline_stages=2)
-    with pytest.raises(NotImplementedError, match="pipeline_stages > 1.*slice 20"):
-        ttf.init_params(cfg, 0, device="cpu")
+    params = ttf.init_params(cfg, 0, device="cpu")
+    jcfg_model = jcfg.ModelConfig(**dict(SMALL, pos_embed="learned"), pipeline_stages=2)
+    jparams = jax.tree.map(lambda a: jax.numpy.asarray(a.numpy()), params)
+    tokens = np.arange(16, dtype=np.int32)[None] % cfg.vocab_size
+    want, _ = jtf.forward(jparams, tokens, jcfg_model)
+    got, _ = ttf.forward(params, torch.from_numpy(tokens).long(), cfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

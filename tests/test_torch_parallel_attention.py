@@ -102,11 +102,9 @@ def test_indivisible_heads_are_rejected(ranks, impl, h, g, match):
 
 
 def test_unported_axes_raise_on_ranks(ranks):
-    """A pipe axis above 1 on real ranks raises ``NotImplementedError``
-    naming the next slice, on every rank; the tensor and expert axes are
-    ported and build."""
-    for axis in ("tensor", "expert"):
+    """No axis is refused any more: on real ranks the tensor, expert and
+    pipe axes (the last refused until the pipeline was ported) build, each
+    mesh with its sizes."""
+    for axis in ("tensor", "expert", "pipe"):
         got = ranks.run("_torch_parallel_cases:build_mesh_error", **{axis: 2, "data": 2})
         assert all(m is None for m in got), got
-    got = ranks.run("_torch_parallel_cases:build_mesh_error", pipe=2, data=2)
-    assert all(m is not None and "pipe=2" in m and "slice 20" in m for m in got), got

@@ -10,7 +10,8 @@ blocks rtol 1e-3 / atol 1e-4 (``test_training.py``'s tensor-mesh cases
 hold JAX's own mesh step to its single-device one). Each tensor rank holds
 1/tp of every tensor-sharded leaf; ``ce_impl="fused"`` on a tensor mesh
 gives JAX's warning and its chunked head's numbers; Adafactor and Muon on
-tensor blocks, and a head count that does not split, raise; the train
+fsdp x tensor blocks match JAX's step; a head count that does not split
+raises ``ValueError`` in both packages; the train
 step's plan takes JAX's ``wkv`` rule at the mesh's tensor size; gloo ranks
 on the CPU keep their collectives there."""
 
@@ -80,18 +81,41 @@ def test_fused_ce_on_a_tensor_mesh_warns_as_jax(ranks):
 
 
 @pytest.mark.parametrize("train,model,error", [
-    (dict(optimizer="adafactor"), {}, ("NotImplementedError", "adafactor.*slice 20")),
-    (dict(optimizer="muon"), {}, ("NotImplementedError", "muon.*slice 20")),
+    (dict(optimizer="adafactor"), dict(qkv_bias=False), None),
+    (dict(optimizer="muon"), {}, None),
     ({}, dict(n_heads=3, d_model=48), ("ValueError", "blocks/attn/wqkv: dimension 3 of size 3 does not split "
                                                      "evenly over mesh axis tensor")),
 ], ids=["adafactor", "muon", "uneven-heads"])
 def test_tensor_mesh_refusals(ranks, train, model, error):
+    """Adafactor and Muon on fsdp x tensor blocks (refused until they were
+    ported) now match JAX's mesh step; a head count that does not split
+    over 'tensor' is refused with ``ValueError`` by both packages (JAX's
+    ``shard_train_state`` in ``jax.device_put``). Adafactor runs without
+    the qkv bias: the key bias's gradient is zero up to rounding, and
+    Adafactor (eps1 1e-30) scales that rounding to full-size updates, so
+    even JAX's own mesh step and its one-device step part there by 3e-3."""
     import re
 
     cfg = tiny_config(**model)
     cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train))
+    if error is None:
+        params_np, x, y, metrics, flat = jax_run(cfg, FSDP_TP)
+        assert any(k.startswith("opt/v/" if train["optimizer"] == "adafactor" else "opt/s/") for k in flat)
+        results = ranks.run("_torch_parallel_cases:train_steps", cfg_dict=dataclasses.asdict(cfg),
+                            params_np=params_np, x=x, y=y, sizes=FSDP_TP)
+        check_against_jax(results, metrics, flat)
+        return
     for got in ranks.run("_torch_parallel_cases:train_error", cfg_dict=dataclasses.asdict(cfg), sizes=FSDP_TP):
         assert got is not None and got[0] == error[0] and re.search(error[1], got[1]), got
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from pretraining_llm_tpu.training import train_step as jts
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(FSDP_TP), ("data", "fsdp", "tensor", "seq", "expert", "pipe"))
+    with pytest.raises(ValueError, match="should be divisible by 2, but it is equal to 3"):
+        jts.shard_train_state(jts.init_train_state(cfg, jax.random.key(0)), mesh, cfg)
 
 
 @pytest.mark.parametrize("g", [4, 3])

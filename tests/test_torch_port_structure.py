@@ -4,9 +4,8 @@
   imports JAX or anything of the JAX package.
 - Entry points run on the GPU unless the caller passes ``device="cpu"``:
   with no GPU they raise instead of falling back to the CPU.
-- Options the port does not implement yet raise ``NotImplementedError``;
-  options ported since run and raise the JAX package's ``ValueError`` on a
-  bad value.
+- Options once refused as not yet ported run now, and raise the JAX
+  package's ``ValueError`` on a bad value.
 - Every kernel family has its CUDA source, built by ``ops/_build.py``; the
   host BPE encoder's C++ source is the port's own copy, built under
   ``build/``.
@@ -241,18 +240,20 @@ def test_unported_engine_options_raise(kw):
     (dict(attention_impl="ulysses"), "ulysses"),
 ])
 def test_unported_model_options_raise(kw, name):
-    """Ring and Ulysses attention and sequence parallelism are ported
-    (``parallel/``): on one process, with no seq axis, the model takes them
-    and computes JAX's degenerate form, the naive model, bit for bit. Only
-    pipeline stages still raise."""
+    """Ring and Ulysses attention, sequence parallelism and pipeline stages
+    are ported (``parallel/``): on one process, with no seq or pipe axis,
+    the model takes them and computes JAX's degenerate form, the plain
+    model, bit for bit (a ``pipeline_stages`` = 2 config runs the plain
+    layer loop, as JAX's scan does off a pipe mesh)."""
     cfg = dataclasses.replace(TINY, **kw)
     params = transformer.init_params(cfg, 0, device="cpu")
     tokens = torch.arange(8, dtype=torch.long)[None]
     got, _ = transformer.forward(params, tokens, cfg)
     want, _ = transformer.forward(params, tokens, dataclasses.replace(TINY, attention_impl="naive"))
     assert torch.equal(got, want), name
-    with pytest.raises(NotImplementedError, match="pipeline_stages"):
-        transformer.forward(params, tokens, dataclasses.replace(TINY, pipeline_stages=2))
+    piped, _ = transformer.forward(params, tokens, dataclasses.replace(TINY, pipeline_stages=2))
+    plain, _ = transformer.forward(params, tokens, TINY)
+    assert torch.equal(piped, plain)
 
 
 @pytest.mark.parametrize("key,value,name", [
@@ -285,8 +286,10 @@ def test_unported_training_options_raise(key, value, name):
 
 def test_unported_forward_paths_raise():
     """A dense cache at a nonzero cache_index is ported: a chunk there
-    gives the uncached forward's logits. The forward options still
-    unported raise."""
+    gives the uncached forward's logits. A cached call of a
+    ``pipeline_stages`` = 2 config (once refused) takes the plain layer
+    loop, as JAX does with a cache: the cached plain model's logits and
+    cache, bit for bit."""
     params = transformer.init_params(TINY, 0, device="cpu")
     cache = transformer.make_kv_cache(TINY, 1, 16, device="cpu")
     tokens = torch.arange(8, dtype=torch.long)[None]
@@ -298,9 +301,12 @@ def test_unported_forward_paths_raise():
     ring, _ = transformer.forward(params, tokens[:, 4:], dataclasses.replace(TINY, attention_impl="ring"),
                                   kv_cache=cache, cache_index=4)
     torch.testing.assert_close(ring, full[:, 4:], rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="pipeline_stages"):
-        transformer.forward(params, tokens, dataclasses.replace(TINY, pipeline_stages=2), kv_cache=cache,
-                            cache_index=4)
+    piped_cache = {k: v.clone() for k, v in cache.items()}
+    piped, piped_cache = transformer.forward(params, tokens[:, 4:], dataclasses.replace(TINY, pipeline_stages=2),
+                                             kv_cache=piped_cache, cache_index=4)
+    plain, cache = transformer.forward(params, tokens[:, 4:], TINY, kv_cache=cache, cache_index=4)
+    assert torch.equal(piped, plain)
+    assert all(torch.equal(piped_cache[k], cache[k]) for k in cache)
 
 
 SAMPLE_EVAL_PREPROCESS_MODULES = (
@@ -415,13 +421,17 @@ def test_presets_and_config_validation():
 def test_moe_module_is_scanned():
     """``models/moe.py`` is among the sources that
     ``test_port_imports_nothing_of_jax`` scans and names no module of the
-    JAX package; the model takes MoE configs (``check_ported`` no longer
-    refuses ``n_experts``)."""
+    JAX package; the model takes MoE configs (a MoE preset's forward
+    runs)."""
     scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert "models/moe.py" in scanned
     text = (ROOT / "pretraining_llm_tpu_torch" / "models" / "moe.py").read_text()
     assert "pretraining_llm_tpu." not in text.replace("pretraining_llm_tpu_torch.", "")
-    transformer.check_ported(get_preset("moe-8x350m").model)
+    cfg = dataclasses.replace(get_preset("moe-8x350m").model, n_layers=1, d_model=32, n_heads=2, mlp_ratio=1.0,
+                              vocab_size=64, context_length=16, compute_dtype="float32")
+    logits, _ = transformer.forward(transformer.init_params(cfg, 0, device="cpu"),
+                                    torch.zeros((1, 8), dtype=torch.long), cfg)
+    assert logits.shape == (1, 8, 64) and torch.isfinite(logits).all()
 
 
 RESILIENCE_OBSERVABILITY_MODULES = (
@@ -490,19 +500,21 @@ def test_fleet_and_tool_modules_are_scanned():
 
 
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharding.py", "parallel/zigzag.py",
-                    "parallel/ring_attention.py", "parallel/ulysses.py", "parallel/tensor.py")
+                    "parallel/ring_attention.py", "parallel/ulysses.py", "parallel/tensor.py", "parallel/pipeline.py")
 
 
-@pytest.mark.parametrize("helper", ["_torch_ranks.py", "_torch_parallel_cases.py", "_torch_threads.py"])
+@pytest.mark.parametrize("helper", ["_torch_ranks.py", "_torch_parallel_cases.py", "_torch_threads.py",
+                                    "_torch_pipeline_cases.py"])
 def test_parallel_modules_and_rank_helpers_are_scanned(helper):
     """The parallelism modules (``parallel/tensor.py`` among them) are
     among the sources that ``test_port_imports_nothing_of_jax`` scans; the
     gloo ranks of the multi-rank tests run modules that import nothing of
     JAX either (the cases of the tensor, expert, inference and checkpoint
-    tests included). Only the pipe axis is left unported."""
+    tests included, and the pipeline's). No axis is left unported: the
+    mesh module has no list of unported axes any more."""
     from pretraining_llm_tpu_torch.parallel import mesh as pmesh
 
     scanned = {p.relative_to(ROOT / "pretraining_llm_tpu_torch").as_posix() for p in _port_sources()[:-1]}
     assert set(PARALLEL_MODULES) <= scanned
-    assert pmesh.UNPORTED_AXES == ("pipe",)
+    assert not hasattr(pmesh, "UNPORTED_AXES") and not hasattr(pmesh, "check_ported_axes")
     test_port_imports_nothing_of_jax(ROOT / "tests" / helper)
