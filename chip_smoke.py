@@ -250,11 +250,27 @@ sample/evaluate/preprocess path, counting each kernel's launches on each:
           a ``--recover`` restart that re-attaches and serves; (f) the
           port's ``obs_report --fleet --fleet-trace --strict`` over its
           files. Every stream is held against the offline engine's.
+  BENCH   last in the training lane, the port's bench entry
+          (``pretraining_llm_tpu_torch.bench``) in this process at
+          ``--quick`` on full-width gpt2-124m: train, decode, trainer,
+          serving (also with 256-token chunks and the prefix cache),
+          serving-slo, serving-fleet ``kill`` and kernel, the serving
+          modes at their default kernel route, the kernel counts
+          zeroed before each mode and read after it (train: K1 and the one
+          pass on the tensor cores; decode: K1; serving: K1 and K2 on the
+          split route; chunked serving: K3 on the tensor cores; kernel: K3's
+          one pass and split on the fp32 route); every record without an
+          error, on the card, a finite loss where it trains, a positive
+          value, but the fleet's held to its scenario instead (every
+          request done or shed by admission, none lost or in error, a
+          redrive and a relaunch; its goodput recorded); then the bench's
+          wrapper as a child (``--mode kernel --quick``): one JSON line,
+          exit 0.
 
 The phases run in two lanes. After the CE checks, a child process
 (``python3 chip_smoke.py --lane DIR T_START``, ``TrainingLane``) runs the
 training phases that need nothing of the serving ones (D1, X1, X2, X3, T4,
-F1's compile-only, M1, R, O and the parity run), while this process runs the
+F1's compile-only, M1, R, O, the parity run and BENCH), while this process runs the
 other checks, paths 1-5, T1, G1, H1, F1's fleet, T2 and T3. Each process keeps
 its own scratch dir, and the lane's output is printed when it is joined.
 P1, which reads the card's used memory, and every timing of the kernels
@@ -330,6 +346,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2118,9 +2135,16 @@ def assert_no_jax_modules(where: str) -> int:
 
 
 def _write_json(path: str, obj) -> None:
-    """Write ``obj`` to ``path`` whole: another process polls for the file."""
-    Path(path + ".tmp").write_text(json.dumps(obj))
-    os.replace(path + ".tmp", path)
+    """Write ``obj`` to ``path`` whole: another process polls for the file.
+    Each call writes a temporary file of its own: two threads of one worker
+    can write the same record at once (its SIGTERM drain and its main loop
+    both leave through ``os._exit``), and a shared name would let one
+    truncate the file the other has just renamed into place."""
+    fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".", prefix=os.path.basename(path) + ".",
+                               suffix=".tmp")
+    with os.fdopen(fd, "w") as f:
+        f.write(json.dumps(obj))
+    os.replace(tmp, path)
 
 
 def h1_child(argv: list) -> int:
@@ -7529,6 +7553,106 @@ def ce_bwd_sweep(name, shape, kind, s, v, d, fn, flush) -> None:
     split_sweep(f"{name}_sweep", shape, "plan", tuple(plans), call, flush)
 
 
+BENCH_MODES = (  # (name, the bench's flags after --quick); the serving modes at their default kernel route
+    ("train", []),
+    ("decode", ["--mode", "decode"]),
+    ("trainer", ["--mode", "trainer"]),
+    ("serving", ["--mode", "serving"]),
+    ("serving_chunked", ["--mode", "serving", "--prefill-chunk-tokens", "256", "--prefix-cache"]),
+    ("serving-slo", ["--mode", "serving-slo"]),
+    ("serving-fleet", ["--mode", "serving-fleet", "--fleet-scenario", "kill"]),
+    ("kernel", ["--mode", "kernel"]),
+)
+BENCH_WRAPPER_TIMEOUT_S = 300
+
+
+def _bench_record_check(name: str, rec: dict, card: str) -> None:
+    """What a bench mode's record must hold. The fleet's `kill` is held to
+    what the scenario promises: every request ends done or shed by
+    admission (a full queue's 429), none lost, none in error, a redrive and
+    a relaunch. Its goodput under the default SLO is recorded, not gated.
+    The other modes' value is positive."""
+    ok = "error" not in rec and rec["device"] == card
+    if name == "serving-fleet":
+        router, counts = rec["router"], rec["counts"]
+        ok = ok and sum(counts.values()) == rec["n_requests"] and rec["lost_requests"] == 0
+        ok = ok and set(counts) <= {"done", "rejected_busy"} and counts.get("done", 0) > 0
+        ok = ok and router["redrives"] >= 1 and router["relaunches"] >= 1 and router["errors"] == 0
+    else:
+        value = rec["value"]
+        ok = ok and isinstance(value, (int, float)) and value > 0
+    if name in ("train", "trainer"):
+        ok = ok and rec["loss_finite"] is True
+    if name.startswith("serving"):
+        ok = ok and rec["paged_attention_impl"] == "kernel"
+    if not ok:
+        raise AssertionError(f"BENCH {name}: a bad record on {card}: {rec}")
+
+
+def _bench_launch_check(name: str, n: dict) -> None:
+    """The kernels a bench mode must have launched on the card."""
+    need = {
+        "train": n["flash_fwd_tc"] > 0 and n["flash_bwd_fused_tc"] > 0,
+        "decode": n["flash_fwd"] > 0,
+        "trainer": n["flash_fwd_tc"] > 0 and n["flash_bwd_fused_tc"] > 0,
+        "serving": n["flash_fwd"] > 0 and n["paged_split"] > 0,
+        "serving_chunked": n["ragged_wgmma"] > 0,
+        "serving-slo": n["flash_fwd"] > 0 and n["paged_split"] > 0,
+        "serving-fleet": n["flash_fwd"] > 0 and n["paged_split"] > 0,
+        "kernel": n["ragged"] > 0 and n["ragged_split"] > 0 and n["ragged_fp32"] == n["ragged"] + n["ragged_split"],
+    }[name]
+    if not need:
+        raise AssertionError(f"BENCH {name}: a kernel of the mode was not launched on its route: {n}")
+    if name.startswith("serving"):
+        _assert_paged_split(f"BENCH {name}", n)
+    if name == "serving_chunked":
+        _assert_ragged_tensor_cores(f"BENCH {name}", n)
+
+
+def run_bench_phase() -> dict:
+    """BENCH: each mode of the port's bench entry in this process, with its
+    wrapper as a child started first and read last (the child's canary
+    and fresh processes overlap the modes; its launches are its own).
+    Returns each mode's record and launches."""
+    from pretraining_llm_tpu_torch import bench
+
+    card = torch.cuda.get_device_name(0)
+    out = {}
+    t_child = time.perf_counter()
+    err_file = tempfile.TemporaryFile(mode="w+")  # unread until the end: a pipe could fill and stall the child
+    child = subprocess.Popen([sys.executable, "-m", "pretraining_llm_tpu_torch.bench", "--mode", "kernel", "--quick"],
+                             cwd=ROOT, stdout=subprocess.PIPE, stderr=err_file, text=True,
+                             start_new_session=True)
+    try:
+        for name, argv in BENCH_MODES:
+            reset_kernel_counts()
+            t0 = time.perf_counter()
+            rec = bench.run_bench(bench.parse_args(["--quick", *argv]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_counts()
+            log(f"BENCH {name}", wall_s=wall, launches={k: v for k, v in launches.items() if v}, record=rec)
+            _bench_record_check(name, rec, card)
+            _bench_launch_check(name, launches)
+            out[name] = {"record": rec, "launches": launches, "wall_s": wall}
+        stdout, _ = child.communicate(timeout=max(BENCH_WRAPPER_TIMEOUT_S - (time.perf_counter() - t_child), 1))
+    finally:
+        if child.poll() is None:  # a failed mode or a timeout: the wrapper and its attempts go
+            os.killpg(child.pid, signal.SIGKILL)
+            child.wait()
+        err_file.seek(0)
+        stderr = err_file.read()
+        err_file.close()
+    lines = stdout.splitlines()
+    rec = json.loads(lines[-1]) if lines else {}
+    log("BENCH wrapper", wall_s=time.perf_counter() - t_child, rc=child.returncode, lines=len(lines), record=rec)
+    if child.returncode != 0 or len(lines) != 1 or rec.get("environment_error") or rec.get("device") != card:
+        raise AssertionError(f"BENCH wrapper: exit {child.returncode}, stdout {stdout[-2000:]!r}, "
+                             f"stderr {stderr[-2000:]!r}")
+    out["wrapper"] = rec
+    return out
+
+
 def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> dict:
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -7546,7 +7670,7 @@ LANE_PHASES = (("D1", run_d1), ("X2_start", start_x2), ("X3_start", start_x3), (
                ("X3", run_x3), ("T4", run_t4),
                ("F1_compile_only", run_f1_compile_only),
                ("M1", run_m1), ("R", run_remat_sweep), ("O", run_optimizers), ("O_options", run_trainer_options),
-               ("parity", run_parity))
+               ("parity", run_parity), ("BENCH", run_bench_phase))
 LANE_DIR = SCRATCH_ROOT / "lane_results"
 LANE_TIMEOUT_S = 900
 

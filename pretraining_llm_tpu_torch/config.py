@@ -4,7 +4,8 @@ Copies of the JAX package's ``ModelConfig``, ``DataConfig``,
 ``TrainConfig``, ``ResilienceConfig``, ``ObservabilityConfig``,
 ``ServingConfig``, ``FrontendConfig`` and ``MeshConfig`` (same field names, defaults and validation), so that one
 kwargs dict builds the config of either package, and ``Config`` with those
-sections and ``with_overrides``, plus every preset of the JAX package with
+sections, ``replace``, ``with_overrides`` and the JSON form
+(``to_json``/``from_json``, the JAX package's text byte for byte), plus every preset of the JAX package with
 its model, mesh and train sections field for field. A preset's
 ``batch_size`` is its global batch: its rows go over the mesh's data and
 fsdp ranks (``parallel/``), and one rank runs it whole, in
@@ -44,6 +45,7 @@ mesh's pipe axis in ``parallel/pipeline.py``).
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -887,6 +889,9 @@ class Config:
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     name: str = "custom"
 
+    def replace(self, **sections: Any) -> "Config":
+        return dataclasses.replace(self, **sections)
+
     def with_overrides(self, overrides: Dict[str, Any]) -> "Config":
         """Apply dotted-path overrides, e.g. {"model.n_layers": 4}. Unknown
         keys raise ``KeyError``."""
@@ -931,6 +936,14 @@ class Config:
             frontend=FrontendConfig(**raw.get("frontend", {})),
             name=raw.get("name", "custom"),
         )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, sort_keys=True)
+
+    @staticmethod
+    def from_json(text: str) -> "Config":
+        """The inverse of ``to_json``, of either package's text."""
+        return Config.from_dict(json.loads(text))
 
 
 def _gpt2_model(**kw: Any) -> ModelConfig:

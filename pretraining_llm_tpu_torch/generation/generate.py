@@ -57,7 +57,7 @@ from pretraining_llm_tpu_torch.training import checkpoint as ckpt
 from pretraining_llm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 __all__ = [
-    "cast_params_for_inference", "generate", "generate_text", "generate_text_batch",
+    "cast_params_for_inference", "decode_bench_workload", "generate", "generate_text", "generate_text_batch",
     "generate_text_speculative", "load_model_for_inference", "shard_params_for_inference",
 ]
 
@@ -75,6 +75,23 @@ def _bucket_len(prompt_len: int, ctx: int, max_new_tokens: int) -> int:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def decode_bench_workload(cfg: ModelConfig, batch: int, *, quick: bool = False,
+                          device: DeviceLike = None) -> Tuple[ModelConfig, Any, torch.Tensor, int]:
+    """The decode measurement's workload, the JAX package's: (cfg, params,
+    prompt, new_tokens). Ring and Ulysses attention fall back to the cached
+    naive path; the params are ``init_params`` from seed 0, cast for
+    inference; the prompt is (batch, prompt_len) tokens from a generator
+    seeded with 1, prompt_len = min(64, ctx - new_tokens)."""
+    dev = resolve_device(device)
+    if cfg.attention_impl in ("ring", "ulysses"):
+        cfg = dataclasses.replace(cfg, attention_impl="naive", sequence_parallel=False)
+    new_tokens = min(64 if quick else 256, cfg.context_length // 2)
+    prompt_len = min(64, cfg.context_length - new_tokens)
+    params = cast_params_for_inference(transformer.init_params(cfg, 0, device=dev), cfg)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=torch.Generator().manual_seed(1))
+    return cfg, params, prompt.to(dev), new_tokens
 
 
 def generate(

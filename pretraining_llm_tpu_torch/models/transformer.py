@@ -727,13 +727,17 @@ def forward(
     paged: Optional[PagedInfo] = None,
     return_pre_logits: bool = False,
     pad_offsets: Optional[torch.Tensor] = None,
+    return_hidden: bool = False,
     return_aux: bool = False,
     zigzag: bool = False,
     blocks_baked: bool = False,
 ) -> Tuple[torch.Tensor, ...]:
-    """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache), and with
-    ``return_aux=True`` a third value: the MoE router's load-balance loss
-    summed over layers (fp32 scalar; 0 for a dense model).
+    """tokens (B, T) -> (logits (B, T, V) fp32, kv_cache), then, in this
+    order, the extra values asked for: with ``return_hidden=True`` the
+    intermediate activations ``{"block_outputs": (L, B, T, D), one layer's
+    output each (None in a cached call), "final_hidden": (B, T, D), the
+    final norm's output}``; with ``return_aux=True`` the MoE router's
+    load-balance loss summed over layers (fp32 scalar; 0 for a dense model).
 
     ``return_pre_logits=True`` returns the final-norm hidden states (B, T,
     D) in place of the logits: the loss path's CE head computes logits
@@ -772,6 +776,8 @@ def forward(
     cdt = torch_dtype(cfg.compute_dtype)
     mesh = current_mesh()
     piped = use_pipeline(cfg, mesh, kv_cache)
+    if piped and return_hidden:
+        raise ValueError("return_hidden is not supported with pipeline parallelism")
     if blocks_baked and not piped:
         raise ValueError(
             "blocks_baked=True but the pipelined path is inactive (no pipe "
@@ -846,6 +852,7 @@ def forward(
     # Training wraps each layer in the remat policy; cached and no-grad
     # calls (serving, generate, eval) run the layers as they are.
     body = remat.checkpoint_wrap(layer_body, cfg.remat) if torch.is_grad_enabled() else layer_body
+    block_outputs: Optional[list] = [] if return_hidden and kv_cache is None else None
     for i in range(0 if piped else cfg.n_layers):
         blk = _layer(params["blocks"], i)
         if kv_cache is None:
@@ -858,6 +865,8 @@ def forward(
             x, aux = _mlp_block(blk, x, cfg, decode=t == 1)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
+        if block_outputs is not None:
+            block_outputs.append(x)
 
     x = layers.apply_norm(cfg.norm, params["final_norm"], x, cfg.norm_eps)
     if return_pre_logits:
@@ -869,11 +878,15 @@ def forward(
             out = pipeline.gather_columns(out, mesh)
             if rows is not None:
                 out = _restore_rows(out, rows)
-    if not return_aux:
-        return out, kv_cache
-    if aux_total is None:
-        aux_total = torch.zeros((), dtype=torch.float32, device=device)
-    return out, kv_cache, aux_total
+    extras: Tuple[Any, ...] = ()
+    if return_hidden:
+        stacked = None if block_outputs is None else torch.stack(block_outputs)
+        extras += ({"block_outputs": stacked, "final_hidden": x},)
+    if return_aux:
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=device)
+        extras += (aux_total,)
+    return (out, kv_cache) + extras
 
 
 def _lm_head_weights(params: Params, cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
